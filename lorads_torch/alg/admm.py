@@ -1,0 +1,246 @@
+"""Phase II -- ADMM splitting on X = U V^T, closed-form subset.
+
+Port of lorads_tpu/alg/admm.py for diag-identity cones (Max-Cut), where
+each side's subproblem is row-decoupled and solved exactly by
+Sherman-Morrison (no CG).  Per iteration (LORADSADMMOptimize,
+lorads_admm.c:33-157): U-update, V-update, objective + DIMACS at
+X_bar = (U+V)/2 (which also REPLACES the constraint-value caches with
+A(X_bar X_bar^T), as the reference does), dual ascent at X_bar, rho
+schedule with the stagnation escape, divergence and bad_pd guards.
+
+lorads_tpu runs up to ``n_steps`` iterations per device dispatch; here
+``admm_chunk`` runs them as a Python loop and reads the four DIMACS
+scalars of each iteration to the host (one counted read), where the
+status, rho schedule and stall detectors run on Python floats.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from lorads_torch import device as dev
+from lorads_torch.alg import aop
+from lorads_torch.alg.aop import ProblemData
+from lorads_torch.alg.state import FactorVec
+from lorads_torch.ops import pattern as pat
+
+# exit codes of a chunk
+RUNNING, CONVERGED, NUM_ERR, BAD_PD, EARLY_STOP, STALLED = 0, 1, 2, 3, 4, 5
+
+# Phase-II pinf exit margin: converge to 0.95*tol instead of 1.00*tol so
+# the reported pinf never rides the acceptance band's edge.
+EXIT_MARGIN = 0.95
+
+
+@dataclasses.dataclass
+class ADMMStats:
+    """Host mirror of lorads_admm_state (def_lorads_solver.h)."""
+
+    rho: float
+    iter: int = 0
+    cg_iter: int = 0
+    pobj: float = 1e30
+    dobj: float = 1e30
+    pinf_l1: float = 1e30
+    pinf_inf: float = 1e30
+    gap: float = 1e30
+    dinf_l1: float = 1e30
+    dinf_inf: float = 1e30
+
+
+def _admm_cache(bk: pat.BucketData, x) -> aop.CRCache:
+    """ADMM cache of one factor: C @ X (the closed-form update's W @ X
+    is C @ X + (a .* w) .* X)."""
+    return aop.CRCache(pat.cmul(bk, x))
+
+
+def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
+                        fixed_var, local_vals, constr_sum, dual, rho,
+                        fcache=None):
+    """One side of the splitting for one bucket (LORADSUpdateSDPVarOne,
+    lorads_admm.c:428-480): solve for U with V fixed.
+
+    Diag-identity cones make the normal system row-decoupled,
+    N(x)_i = a_i^2 (x_i . v_i) v_i, so each row solves
+    (I + a_i^2 v_i v_i^T) x_i = rhs_i exactly by Sherman-Morrison.
+    Returns (new_var, new_local_vals, new_constr_sum, new_cache)."""
+    base = rho * (constr_sum - pd.rhs) - dual
+    w_loc = pat.gather_w(bk, base) - rho * local_vals
+    if fcache is None:
+        fcache = _admm_cache(bk, fixed_var)
+    M2 = (fcache.cr + (bk.a_val_d * w_loc)[:, :, None] * fixed_var
+          - rho * fixed_var)
+    rhs = -M2 / rho
+    a2 = bk.a_val_d * bk.a_val_d
+    vr = torch.sum(fixed_var * rhs, -1)
+    vv = torch.sum(fixed_var * fixed_var, -1)
+    coef = a2 * vr / (1.0 + a2 * vv)
+    new_var = rhs - coef[..., None] * fixed_var
+    new_cache = _admm_cache(bk, new_var)
+    new_local = bk.a_val_d * torch.sum(new_var * fixed_var, -1)
+    new_sum = constr_sum + pat.scatter_constr(bk, new_local - local_vals)
+    return new_var, new_local, new_sum, new_cache
+
+
+def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
+                    constr_sum, dual, rho, u_caches=None, v_caches=None):
+    """One sweep over the buckets, U then V each (LORADSUpdateSDPVar,
+    lorads_alg_common.c:187-248).  Every accepted bucket holds one
+    block, so the sweep is the reference's Gauss-Seidel order.
+    Returns (U, V, locals, constr_sum, u_caches, v_caches)."""
+    nb = len(pd.buckets)
+    u_cones, v_cones = list(U.cones), list(V.cones)
+    locals_ = list(locals_)
+    u_caches = list(u_caches) if u_caches is not None else [None] * nb
+    v_caches = list(v_caches) if v_caches is not None else [None] * nb
+    for j, bk in enumerate(pd.buckets):
+        u_new, loc, constr_sum, uc = _update_sdp_var_one(
+            pd, bk, u_cones[j], v_cones[j], locals_[j], constr_sum, dual,
+            rho, fcache=v_caches[j])
+        v_new, loc, constr_sum, vc = _update_sdp_var_one(
+            pd, bk, v_cones[j], u_new, loc, constr_sum, dual, rho,
+            fcache=uc)
+        u_cones[j], v_cones[j] = u_new, v_new
+        u_caches[j], v_caches[j] = uc, vc
+        locals_[j] = loc
+    return (FactorVec(tuple(u_cones), U.lp), FactorVec(tuple(v_cones), V.lp),
+            tuple(locals_), constr_sum, tuple(u_caches), tuple(v_caches))
+
+
+def _obj_dimacs_xbar(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
+                     scale, u_caches=None, v_caches=None):
+    """pObj/dObj/pinf/gap at X_bar = (U+V)/2 as device scalars, plus the
+    refreshed locals and total (calObj_admm + updateDimacsADMM,
+    lorads_admm.c:79-81).  With U's and V's caches, X_bar's is their
+    mean (C @ . is linear); otherwise the values come from sym(RR^T)
+    on the pattern (kernel K3)."""
+    R = U.average(V)
+    if u_caches is not None and v_caches is not None:
+        xcaches = tuple(aop.CRCache(0.5 * (uc.cr + vc.cr))
+                        for uc, vc in zip(u_caches, v_caches))
+        pobj, locals_, total = aop.obj_and_auv_cached(pd, R, xcaches)
+    else:
+        pobj, locals_, total = aop.obj_and_auv(pd, R, R)
+    pobj = pobj / scale
+    dobj = torch.dot(pd.rhs, dual) / scale
+    pinf = aop.primal_infeas_l1(pd, total)
+    gap = torch.abs(pobj - dobj) / (1.0 + torch.abs(pobj) + torch.abs(dobj))
+    return pobj, dobj, pinf, gap, locals_, total
+
+
+def admm_init_eval(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
+                   scale):
+    """Entry evaluation (lorads_admm.c:47-58): (locals, total,
+    [pObj, dObj, pinf_l1, gap] host floats)."""
+    pobj, dobj, pinf, gap, locals_, total = _obj_dimacs_xbar(
+        pd, U, V, dual, scale)
+    return locals_, total, dev.host_read(torch.stack([pobj, dobj, pinf,
+                                                      gap]))
+
+
+def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
+               iter_celling: int, n_steps: int, reopt: bool = False,
+               gap_stop: bool = False) -> dict:
+    """Up to ``n_steps`` ADMM iterations (lorads_tpu's _make_admm_chunk
+    body).  ``c`` carries the device tensors U, V, locals, constr_sum,
+    dual and the host state rho, cur_rho_max, pinf_buf (10 floats),
+    old_pinf_mean, bad_pd, it, pinf_l1, gap, pobj, dobj, best_gap,
+    since_best, best_pinf, since_pinf; returns the updated carry with
+    ``status`` and ``pinf_inf``.
+
+    ``reopt`` tightens the bad_pd limit, shifts the rho schedule and
+    converges on pinf_l1; ``gap_stop`` is the gap-continuation variant
+    (convergence also needs gap <= tol, the stall detector watches the
+    gap alone)."""
+    tol2, tol1 = params.phase2_tol, params.phase1_tol
+    rho_freq, rho_factor = params.rho_freq, params.rho_factor
+    escape_pow = float(rho_factor ** round(
+        math.log(rho_freq * 100) / math.log(rho_freq)))
+    bad_pd_limit = 200 if reopt else 800
+    pinf_scale = (1.0 + pd.b_nrm1) / (1.0 + pd.b_nrm_inf)
+    c = dict(c)
+    c["u_caches"] = tuple(_admm_cache(bk, x)
+                          for bk, x in zip(pd.buckets, c["U"].cones))
+    c["v_caches"] = tuple(_admm_cache(bk, x)
+                          for bk, x in zip(pd.buckets, c["V"].cones))
+    c["pinf_inf"] = c["pinf_l1"] * pinf_scale
+    status, count = RUNNING, 0
+    while status == RUNNING and count < n_steps and c["it"] < iter_celling:
+        U, V, locals_, csum, ucs, vcs = admm_update_all(
+            pd, c["U"], c["V"], c["locals"], c["constr_sum"], c["dual"],
+            c["rho"], c["u_caches"], c["v_caches"])
+        pobj, dobj, pinf, gap, locals_, csum = _obj_dimacs_xbar(
+            pd, U, V, c["dual"], scale, ucs, vcs)
+        pobj, dobj, pinf, gap = dev.host_read(
+            torch.stack([pobj, dobj, pinf, gap]))
+        pinf_inf = pinf * pinf_scale
+
+        status = (NUM_ERR if (pinf_inf >= 1e10 or gap >= 1 - 1e-8)
+                  else RUNNING)
+        bad_pd = c["bad_pd"]
+        if gap <= tol2 * 5:
+            bad_pd = max(0, bad_pd - 5)
+        if gap >= tol1 * 1e2:
+            bad_pd = bad_pd + 2
+        if status == RUNNING and bad_pd >= bad_pd_limit:
+            status = BAD_PD
+        buf = list(c["pinf_buf"])
+        buf[count % 10] = pinf_inf
+        conv_now = ((pinf <= EXIT_MARGIN * tol2) if reopt
+                    else (pinf_inf <= EXIT_MARGIN * tol2))
+        if gap_stop:
+            conv_now = conv_now and gap <= tol2
+        if status == RUNNING and conv_now:
+            status = CONVERGED
+
+        # dual ascent at X_bar (lorads_admm.c:120)
+        rho = c["rho"]
+        dual = c["dual"]
+        if status != CONVERGED:
+            dual = dual + rho * (pd.rhs - csum)
+
+        # rho schedule (lorads_admm.c:121-138)
+        it_off = c["it"] + (0 if reopt else 1)
+        rho_n, cur_rho_max = rho, c["cur_rho_max"]
+        old_mean = c["old_pinf_mean"]
+        if it_off % rho_freq == 0:
+            rho_n = rho * rho_factor
+            if rho_n >= cur_rho_max:
+                rho_n = cur_rho_max
+                if it_off % (rho_freq * 100) == 0:
+                    pinf_mean = sum(abs(x) for x in buf) / 10.0
+                    if pinf_mean / old_mean >= 0.65 and pinf_inf > tol2:
+                        rho_n = rho_n * escape_pow
+                        cur_rho_max = rho_n
+                    old_mean = pinf_mean
+        rho_n = min(rho_n, params.rho_celling_admm)
+
+        if (status == RUNNING and gap <= tol2 * 1e-3
+                and pinf <= tol2 * 1e-3):
+            status = EARLY_STOP
+
+        # no-progress detectors: gap (main phase: with pinf deep under
+        # tol) and, in the gap continuation, gap alone
+        since_best = 0 if gap < c["best_gap"] * 0.9 else c["since_best"] + 1
+        since_pinf = (0 if pinf < c["best_pinf"] * 0.9
+                      else c["since_pinf"] + 1)
+        stalled = (since_best >= 75 if gap_stop
+                   else since_best >= 50 and pinf <= tol2 * 0.1)
+        if status == RUNNING and stalled:
+            status = STALLED
+
+        c.update(U=U, V=V, locals=tuple(locals_), u_caches=ucs,
+                 v_caches=vcs, constr_sum=csum, dual=dual, rho=rho_n,
+                 cur_rho_max=cur_rho_max, pinf_buf=buf,
+                 old_pinf_mean=old_mean, bad_pd=bad_pd, it=c["it"] + 1,
+                 pinf_l1=pinf, pinf_inf=pinf_inf, gap=gap, pobj=pobj,
+                 dobj=dobj, best_gap=min(gap, c["best_gap"]),
+                 since_best=since_best,
+                 best_pinf=min(pinf, c["best_pinf"]),
+                 since_pinf=since_pinf)
+        count += 1
+    c["status"] = status
+    return c

@@ -1,0 +1,201 @@
+"""Whole-problem operators over the buckets (diag-identity fast path).
+
+Port of the diag-fast subset of lorads_tpu/alg/aop.py (132-419).  Every
+bucket the port accepts is split and diag-identity, so A(.) and A^*(.)
+are elementwise, the per-factor cache is CR = C @ R (``CRCache``), and
+the only sparse work per ALM step is one C @ D product (kernel K2).
+
+* ``auv``:   A(sym(U V^T)) -> per-bucket locals + global m-vector
+* ``grad``:  2 (C + A^*(w)) R for an m-vector w (ALMSetGrad,
+             lorads_alm.c:9-38)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from lorads_torch.alg.state import FactorVec, fv_norm2sq
+from lorads_torch.core.presolve import Presolved
+from lorads_torch.ops import pattern as pat
+
+
+@dataclasses.dataclass(frozen=True)
+class ProblemData:
+    """Device-resident instance data."""
+
+    m: int
+    buckets: Tuple[pat.BucketData, ...]
+    rhs: torch.Tensor                # [m]
+    # scalar norm constants (cal_sdp_const, lorads_solver.c:1054-1073)
+    c_nrm1: float = 0.0
+    c_nrm2: float = 0.0
+    c_nrm_inf: float = 0.0
+    b_nrm1: float = 0.0
+    b_nrm2: float = 0.0
+    b_nrm_inf: float = 0.0
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.buckets)
+
+
+def build_problem_data(ps: Presolved, dtype, device) -> ProblemData:
+    if ps.problem.lp is not None:
+        raise NotImplementedError("LP blocks not yet ported to lorads_torch")
+    buckets = tuple(pat.build_bucket_data(bp, ps.m, dtype, device)
+                    for bp in ps.buckets)
+    return ProblemData(
+        m=ps.m, buckets=buckets,
+        rhs=torch.as_tensor(ps.problem.rhs, dtype=dtype, device=device),
+        c_nrm1=ps.c_nrm1, c_nrm2=ps.c_nrm2, c_nrm_inf=ps.c_nrm_inf,
+        b_nrm1=ps.b_nrm1, b_nrm2=ps.b_nrm2, b_nrm_inf=ps.b_nrm_inf)
+
+
+def scale_objective(pd: ProblemData, s: float) -> ProblemData:
+    """Scale C by s in every block (reopt objScale_dualvar,
+    lorads_solver.c:1040-1052); norm constants keep their init values."""
+    return dataclasses.replace(
+        pd, buckets=tuple(pat.scale_bucket(bk, s) for bk in pd.buckets))
+
+
+def _diag_fast(bk) -> bool:
+    """Static gate of the diag-identity fast path (every accepted
+    bucket passes it; kept so the gate reads as in lorads_tpu)."""
+    return bk.split and bk.diag_ident
+
+
+@dataclasses.dataclass(frozen=True)
+class CRCache:
+    """Diag-fast cache of a factor R: CR = C @ R."""
+
+    cr: torch.Tensor
+
+
+def _zero(pd: ProblemData) -> torch.Tensor:
+    return torch.zeros((), dtype=pd.rhs.dtype, device=pd.rhs.device)
+
+
+def auv(pd: ProblemData, X: FactorVec, Y: FactorVec):
+    """A(sym(X Y^T)): (per-bucket locals [B, m_loc], global total [m])
+    (LORADSInitConstrValAll + InitConstrValSum)."""
+    locals_ = []
+    total = torch.zeros_like(pd.rhs)
+    for bk, U, V in zip(pd.buckets, X.cones, Y.cones):
+        vals = pat.constr_vals(bk, pat.uvt(bk, U, V))
+        locals_.append(vals)
+        total = total + pat.scatter_constr(bk, vals)
+    return tuple(locals_), total
+
+
+def obj_and_auv(pd: ProblemData, X: FactorVec, Y: FactorVec):
+    """(<C, sym(XY^T)>, locals, total) in one pass sharing UV^T
+    (LORADSObjConstrValAll)."""
+    locals_ = []
+    total = torch.zeros_like(pd.rhs)
+    obj = _zero(pd)
+    for bk, U, V in zip(pd.buckets, X.cones, Y.cones):
+        uvt_val = pat.uvt(bk, U, V)
+        obj = obj + torch.sum(pat.obj_inner(bk, uvt_val))
+        vals = pat.constr_vals(bk, uvt_val)
+        locals_.append(vals)
+        total = total + pat.scatter_constr(bk, vals)
+    return obj, tuple(locals_), total
+
+
+def obj_only(pd: ProblemData, X: FactorVec, Y: FactorVec) -> torch.Tensor:
+    """<C, sym(XY^T)> (LORADSCalObjRR_ALM, lorads_alm.c:1259)."""
+    obj = _zero(pd)
+    for bk, U, V in zip(pd.buckets, X.cones, Y.cones):
+        obj = obj + torch.sum(pat.obj_inner(bk, pat.uvt(bk, U, V)))
+    return obj
+
+
+def gather_caches(pd: ProblemData, R: FactorVec):
+    """Per-bucket CR = C @ R caches."""
+    return tuple(CRCache(pat.cmul(bk, Rb))
+                 for bk, Rb in zip(pd.buckets, R.cones))
+
+
+def axpy_caches(caches, t, dcaches):
+    """caches + t * dcaches (C @ . is linear)."""
+    return tuple(CRCache(c.cr + t * d.cr) for c, d in zip(caches, dcaches))
+
+
+def obj_and_auv_pair_cached(pd: ProblemData, R: FactorVec, D: FactorVec,
+                            caches):
+    """Objective and constraint values at sym(RD^T) and sym(DD^T) from
+    R's caches -> (p1, t1, p2, t2, D's caches):
+    <C, sym(RD^T)> = (<R, CD> + <D, CR>)/2, <C, DD^T> = <D, CD>."""
+    p1, p2 = _zero(pd), _zero(pd)
+    t1 = torch.zeros_like(pd.rhs)
+    t2 = torch.zeros_like(pd.rhs)
+    dcaches = []
+    for bk, Rb, Db, cache in zip(pd.buckets, R.cones, D.cones, caches):
+        cd = pat.cmul(bk, Db)
+        dcaches.append(CRCache(cd))
+        p1 = p1 + 0.5 * (torch.sum(Rb * cd) + torch.sum(Db * cache.cr))
+        p2 = p2 + torch.sum(Db * cd)
+        t1 = t1 + pat.scatter_constr(bk, bk.a_val_d * torch.sum(Rb * Db, -1))
+        t2 = t2 + pat.scatter_constr(bk, bk.a_val_d * torch.sum(Db * Db, -1))
+    return p1, t1, p2, t2, tuple(dcaches)
+
+
+def auv_cached(pd: ProblemData, R: FactorVec, caches) -> torch.Tensor:
+    """A(sym(RR^T)) global sum (diagonal: no pattern work)."""
+    total = torch.zeros_like(pd.rhs)
+    for bk, Rb in zip(pd.buckets, R.cones):
+        total = total + pat.scatter_constr(
+            bk, bk.a_val_d * torch.sum(Rb * Rb, -1))
+    return total
+
+
+def obj_and_auv_cached(pd: ProblemData, R: FactorVec, caches):
+    """obj_and_auv from R's caches: obj = <R, CR>."""
+    locals_ = []
+    total = torch.zeros_like(pd.rhs)
+    obj = _zero(pd)
+    for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
+        obj = obj + torch.sum(Rb * cache.cr)
+        vals = bk.a_val_d * torch.sum(Rb * Rb, -1)
+        locals_.append(vals)
+        total = total + pat.scatter_constr(bk, vals)
+    return obj, tuple(locals_), total
+
+
+def obj_cached(pd: ProblemData, R: FactorVec, caches) -> torch.Tensor:
+    """<C, sym(RR^T)> = <R, CR> from the caches."""
+    obj = _zero(pd)
+    for Rb, cache in zip(R.cones, caches):
+        obj = obj + torch.sum(Rb * cache.cr)
+    return obj
+
+
+def grad_cached(pd: ProblemData, R: FactorVec, w: torch.Tensor,
+                caches) -> FactorVec:
+    """2 (CR + (a .* w) .* R): A^*(w) is diagonal."""
+    cones = []
+    for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
+        w_loc = pat.gather_w(bk, w)
+        cones.append(2.0 * (cache.cr
+                            + (bk.a_val_d * w_loc)[:, :, None] * Rb))
+    return FactorVec(tuple(cones), torch.zeros_like(R.lp))
+
+
+def grad(pd: ProblemData, R: FactorVec, w: torch.Tensor) -> FactorVec:
+    """2 (C + A^*(w)) R over all blocks (ALMCalGrad, lorads_alm.c:9-100)
+    with w = rho (A(RR^T) - b) - lambda computed by the caller."""
+    return grad_cached(pd, R, w, gather_caches(pd, R))
+
+
+def cert_value(pd: ProblemData, g: FactorVec) -> torch.Tensor:
+    """The ALM certificate ||g|| / (1 + ||C||_inf)."""
+    return torch.sqrt(fv_norm2sq(g)) / (1.0 + pd.c_nrm_inf)
+
+
+def primal_infeas_l1(pd: ProblemData, total: torch.Tensor) -> torch.Tensor:
+    """||b - A(X)||_2 / (1 + ||b||_1) (primalInfeasibility,
+    lorads_alg_common.c:250-258: a 2-norm despite the "L1" label)."""
+    return torch.linalg.vector_norm(pd.rhs - total) / (1.0 + pd.b_nrm1)

@@ -1,0 +1,846 @@
+"""Solver orchestration (port of lorads_tpu/alg/solver.py).
+
+Pipeline (reference main.c:263-520):
+
+  presolve -> rank policy -> random init -> Phase I (ALM) ->
+  handoff -> Phase II (ADMM) -> reopt level 1 -> dual infeasibility ->
+  reopt level 2 (x2) -> status classification -> report.
+
+The port covers the Max-Cut slice: one split, diag-identity bucket, no
+LP block, f64, one device.  Everything else raises NotImplementedError
+at construction (or, for the dual-refine branch, where the solve would
+take it) rather than taking another path.  Initial factors and
+certificate start vectors come from the same ``np.random.default_rng``
+stream, in the same order, as in lorads_tpu, so both packages start
+from the same point.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from lorads_torch import device as dev
+from lorads_torch.alg import admm as admm_mod
+from lorads_torch.alg import alm as alm_mod
+from lorads_torch.alg import aop
+from lorads_torch.alg.admm import ADMMStats
+from lorads_torch.alg.alm import ALMStats
+from lorads_torch.alg.lanczos import lanczos_min_eig_device
+from lorads_torch.alg.state import FactorVec, make_history
+from lorads_torch.config import LoradsParams, SolverStatus
+from lorads_torch.core.presolve import Presolved, presolve
+from lorads_torch.core.problem import SDPProblem
+from lorads_torch.ops import pattern as pat
+
+
+@dataclasses.dataclass
+class SolveResult:
+    status: SolverStatus
+    pobj: float
+    dobj: float
+    pinf_l1: float
+    pinf_inf: float
+    dinf_l1: float
+    dinf_inf: float
+    gap: float
+    alm_stats: ALMStats
+    admm_stats: ADMMStats
+    solve_time: float
+    dual_infeas_time: float
+    ranks: List[int]
+    R: FactorVec                       # X = R R^T (averaged factors)
+    dual: np.ndarray
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} not yet ported to lorads_torch")
+
+
+def _check_params(p: LoradsParams) -> None:
+    if p.shard != "off":
+        raise _not_ported(f"shard={p.shard!r}")
+    if p.dual_uv:
+        raise _not_ported("the DUAL_U_V ADMM variant (dual_uv)")
+    if p.fix_init_point:
+        raise _not_ported("fix_init_point")
+    if p.checkpoint_path:
+        raise _not_ported("checkpoints")
+    if p.trace_dir:
+        raise _not_ported("device traces (trace_dir)")
+
+
+class LoradsSolver:
+    """Two-phase low-rank SDP solver, PyTorch port (Max-Cut slice)."""
+
+    def __init__(self, problem: SDPProblem,
+                 params: Optional[LoradsParams] = None,
+                 device="cuda"):
+        self.params = params or LoradsParams()
+        _check_params(self.params)
+        self.problem = problem
+        if problem.lp is not None:
+            raise _not_ported("LP blocks")
+        self.device = dev.resolve_device(device)
+        self.dtype = dev.resolve_dtype(self.params.dtype)
+        dev.assert_full_precision()
+        self.ps: Presolved = presolve(problem, self.params)
+        self.pd = aop.build_problem_data(self.ps, self.dtype, self.device)
+        self.m = problem.m
+        if self.params.alm_rho_factor is None:
+            # structure-based auto: every accepted bucket is pure
+            # diag-identity, so the Max-Cut value applies
+            self.params = dataclasses.replace(self.params,
+                                              alm_rho_factor=3.0)
+        self.scale_obj_his = 1.0
+        self.max_alm_sub_iter = 5000          # reference global, alm.c:7
+        # last objective / DIMACS values, written by both phases
+        # (main.c:459-465 + lorads_solver.c:960-965)
+        self.pobj = 1e30
+        self.dobj = 1e30
+        self.gap = 1e30
+        self.pinf_l1 = 1e30
+        self.rho_max = self.params.rho_max
+        self.ranks = [bp.rank for bp in self.ps.buckets]
+        self.rank_maxes = [bp.rank_max for bp in self.ps.buckets]
+        self.lbfgs_len = self.params.lbfgs_list_length
+        self._lbfgs_auto = self.lbfgs_len is None
+        if self.lbfgs_len is None:
+            self.lbfgs_len = 3       # pure sparse-pattern problems
+        self.log = print if self.params.verbose else (lambda *a, **k: None)
+        total_rows = sum(bp.B * bp.n for bp in self.ps.buckets)
+        small = total_rows <= 4096
+        self.device_chunk_iters = self.params.device_chunk_iters
+        if self.device_chunk_iters is None:
+            self.device_chunk_iters = 200 if small else 50
+        # ADMM iterations per chunk: 10 at first, doubling up to
+        # device_chunk_iters and kept across phases -- lorads_tpu's
+        # dispatch sizes whenever its per-iteration wall is small.  The
+        # chunk sets the log cadence and the pinf ring buffer's index.
+        self._admm_n_dev = min(self.device_chunk_iters, 10)
+        self._rng = np.random.default_rng(self.params.seed)
+        self._ident_dirs = None
+        self._gap_push_stalled = False
+        self._init_vars()
+
+    # ------------------------------------------------------------------
+    # Variables.
+    # ------------------------------------------------------------------
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.float64),
+                               device=self.device).to(self.dtype)
+
+    def _rand_factor(self, B, n, r, dims) -> torch.Tensor:
+        """U(-1,1) triangular-distribution init (difference of two
+        uniforms, LORADS_RANDOM_rk_MAT, lorads_solver.c:361-371);
+        padded rows zeroed."""
+        x = self._rng.random((B, n, r)) - self._rng.random((B, n, r))
+        for b, d in enumerate(dims):
+            x[b, d:, :] = 0.0
+        return self._tensor(x)
+
+    def _rand_fv(self) -> FactorVec:
+        cones = tuple(self._rand_factor(bp.B, bp.n, r, bp.dims)
+                      for bp, r in zip(self.ps.buckets, self.ranks))
+        n_lp = self.problem.n_lp_cols
+        lp = self._tensor(self._rng.random(n_lp) - self._rng.random(n_lp))
+        return FactorVec(cones, lp)
+
+    def _init_vars(self):
+        self.R = self._rand_fv()
+        # U/V start as aliases of R (the handoff overwrites them before
+        # ADMM reads them, LORADS_ALMtoADMM, lorads_solver.c:968-1004)
+        self.U = self.R
+        self.V = self.R
+        # the DUAL_U_V consensus draw, kept so the rng stream matches
+        n_lp = self.problem.n_lp_cols
+        self._rng.random(n_lp)
+        self._rng.random(n_lp)
+        self.dual = torch.zeros((self.m,), dtype=self.dtype,
+                                device=self.device)
+        self.hist = make_history(self.R, self.lbfgs_len)
+
+    # ------------------------------------------------------------------
+    # Dynamic rank augmentation (AUG_RANK, lorads_solver.c:806-906).
+    # ------------------------------------------------------------------
+
+    def is_rank_max(self) -> bool:
+        """CheckAllRankMax (lorads_solver.c:758-774)."""
+        return all(min(math.ceil(r), rm) >= rm
+                   for r, rm in zip(self.ranks, self.rank_maxes))
+
+    def _pad_cols(self, x: torch.Tensor, new_r: int) -> torch.Tensor:
+        """Append scaled-identity columns (lpRandomDiag,
+        lorads_solver.c:776-786)."""
+        B, n, r = x.shape
+        aug = new_r - r
+        if aug <= 0:
+            return x
+        rr = min(n, aug)
+        diag = torch.eye(n, aug, dtype=x.dtype, device=x.device) \
+            / math.sqrt(max(rr, 1))
+        return torch.cat([x, diag.expand(B, n, aug)], dim=2)
+
+    def aug_rank(self, factor: float = 1.5) -> bool:
+        """Grow every bucket's rank by ``factor`` (capped at rank_max);
+        returns whether every bucket is now at its cap."""
+        new_ranks = [min(math.ceil(r * factor), rm)
+                     for r, rm in zip(self.ranks, self.rank_maxes)]
+        for i, r_new in enumerate(new_ranks):
+            if r_new >= self.rank_maxes[i]:
+                self.log(f"**Rank truncated to sqrt(2m) cap on bucket {i}.")
+
+        def pad(fv):
+            return FactorVec(tuple(self._pad_cols(x, nr) for x, nr
+                                   in zip(fv.cones, new_ranks)), fv.lp)
+
+        self.R, self.U, self.V = pad(self.R), pad(self.U), pad(self.V)
+        self.ranks = new_ranks
+        self.hist = make_history(self.R, self.lbfgs_len)
+        return self.is_rank_max()
+
+    # ------------------------------------------------------------------
+    # Phase I.
+    # ------------------------------------------------------------------
+
+    def alm_phase(self, stats: ALMStats, time_solve_start: float,
+                  reopt: bool = False, early_stop: bool = True,
+                  rho_update_factor: Optional[float] = None,
+                  max_alm_iter: Optional[int] = None) -> str:
+        factor = (rho_update_factor if rho_update_factor is not None
+                  else self.params.alm_rho_factor)
+        while True:
+            res = alm_mod.alm_optimize(
+                self.pd, self.params, self.R, self.dual, self.hist, stats,
+                self.scale_obj_his, self.is_rank_max(), factor,
+                time_solve_start, self, reopt=reopt, early_stop=early_stop,
+                max_alm_iter=max_alm_iter, log=self.log)
+            self.R, self.dual, self.hist = res.R, res.dual, res.hist
+            self.pobj, self.dobj = stats.pobj, stats.dobj
+            self.gap, self.pinf_l1 = stats.gap, stats.pinf_l1
+            if res.action == "aug_rank":
+                if (self._lbfgs_auto and self.lbfgs_len < 4
+                        and res.super_outer):
+                    self.lbfgs_len = 4
+                    self.log("ALM grind outer detected: escalating "
+                             "L-BFGS history to 4 with the rank growth")
+                self.log(f"increase the rank, factor:1.5 "
+                         f"(ranks {self.ranks} -> caps {self.rank_maxes})")
+                self.aug_rank(1.5)
+                continue
+            if res.action == "regrind":
+                self.lbfgs_len = 4
+                self.hist = make_history(self.R, self.lbfgs_len)
+                self.log("ALM grind detected (>=6000 inner "
+                         "iterations): escalating L-BFGS history to "
+                         "4 and continuing from the current iterate")
+                continue
+            return res.action
+
+    # ------------------------------------------------------------------
+    # Handoff (LORADS_ALMtoADMM, lorads_solver.c:968-1004).
+    # ------------------------------------------------------------------
+
+    def alm_to_admm(self, alm_stats: ALMStats, admm_stats: ADMMStats):
+        self.V = self.R
+        self.U = self.R
+        admm_stats.pinf_l1 = alm_stats.pinf_l1
+        admm_stats.pinf_inf = alm_stats.pinf_inf
+        admm_stats.gap = alm_stats.gap
+        admm_stats.rho = alm_stats.rho * self.params.heuristic_factor
+        if alm_stats.rho > self.rho_max:
+            admm_stats.rho = min(
+                math.sqrt(max(self.rho_max, alm_stats.rho) / self.rho_max)
+                * self.rho_max, alm_stats.rho)
+            self.rho_max = admm_stats.rho
+
+    # ------------------------------------------------------------------
+    # Phase II.
+    # ------------------------------------------------------------------
+
+    def _set_admm_stats(self, stats: ADMMStats, vals) -> None:
+        stats.pobj, stats.dobj, stats.pinf_l1, stats.gap = vals
+        stats.pinf_inf = stats.pinf_l1 * (1 + self.pd.b_nrm1) / (
+            1 + self.pd.b_nrm_inf)
+
+    def admm_phase(self, stats: ADMMStats, iter_celling: int,
+                   time_solve_start: float, reopt: bool = False) -> str:
+        """One ADMM phase with divergence recovery: on NUM_ERR restore
+        the entry state and retry at 5x rho (up to twice)."""
+        p = self.params
+        if stats.gap <= p.phase2_tol and stats.pinf_l1 <= p.phase2_tol:
+            return "ok"
+        stats.rho = min(stats.rho, self.rho_max)
+        entry = (self.U, self.V, self.dual, stats.rho)
+        for attempt in range(3):
+            st = self._admm_phase_once(stats, iter_celling,
+                                       time_solve_start, reopt)
+            if st == "stalled":
+                # f64 gap plateau: hand off to reopt
+                return "ok"
+            if st != "num_err":
+                return st
+            self.U, self.V, self.dual, entry_rho = entry
+            if attempt == 2:
+                break
+            stats.rho = min(entry_rho * 5.0, p.rho_celling_admm)
+            entry = (self.U, self.V, self.dual, stats.rho)
+            self.log(f"ADMM diverged; restored entry state, retrying "
+                     f"at rho {stats.rho:.3f}")
+        _, _, vals = admm_mod.admm_init_eval(
+            self.pd, self.U, self.V, self.dual, self.scale_obj_his)
+        self._set_admm_stats(stats, vals)
+        self.pobj, self.dobj = stats.pobj, stats.dobj
+        self.gap, self.pinf_l1 = stats.gap, stats.pinf_l1
+        return "num_err"
+
+    def _admm_phase_once(self, stats: ADMMStats, iter_celling: int,
+                         time_solve_start: float, reopt: bool) -> str:
+        p = self.params
+        t0 = time.time()
+        locals_, total, vals = admm_mod.admm_init_eval(
+            self.pd, self.U, self.V, self.dual, self.scale_obj_his)
+        self._set_admm_stats(stats, vals)
+        if reopt:
+            self.log("enter admm reopt")
+        celling = iter_celling
+        gap_stop = False     # in the gap continuation
+        c = dict(U=self.U, V=self.V, locals=locals_, constr_sum=total,
+                 dual=self.dual, rho=stats.rho, cur_rho_max=self.rho_max,
+                 pinf_buf=[0.0] * 10, old_pinf_mean=1e30, bad_pd=0,
+                 it=stats.iter, pinf_l1=stats.pinf_l1, gap=stats.gap,
+                 pobj=stats.pobj, dobj=stats.dobj, best_gap=stats.gap,
+                 since_best=0, best_pinf=stats.pinf_l1, since_pinf=0)
+        status = "ok"
+        while True:
+            c = admm_mod.admm_chunk(p, self.pd, c, self.scale_obj_his,
+                                    celling, self._admm_n_dev, reopt=reopt,
+                                    gap_stop=gap_stop)
+            self._admm_n_dev = min(self.device_chunk_iters,
+                                   2 * self._admm_n_dev)
+            stats.iter = c["it"]
+            stats.rho = c["rho"]
+            stats.pobj, stats.dobj = c["pobj"], c["dobj"]
+            stats.pinf_l1, stats.pinf_inf = c["pinf_l1"], c["pinf_inf"]
+            stats.gap = c["gap"]
+            code = c["status"]
+            self.log(
+                f"ADMM Iter:{stats.iter} pObj:{stats.pobj:5.5e} "
+                f"dObj:{stats.dobj:5.5e} pInf(1):{stats.pinf_l1:5.5e} "
+                f"pInf(Inf):{stats.pinf_inf:5.5e} pdGap:{stats.gap:5.5e} "
+                f"rho:{stats.rho:3.2f} cgIter:0 "
+                f"Time:{time.time() - t0:3.2f}")
+            if code == admm_mod.NUM_ERR:
+                status = "num_err"
+                break
+            if code == admm_mod.STALLED:
+                self.log("ADMM gap plateau"
+                         + (" in the gap continuation" if gap_stop else ""))
+                if gap_stop:
+                    # the gap's empirical floor under continued f64
+                    # iteration: solve() may skip the level-1 reopt
+                    self._gap_push_stalled = True
+                status = "stalled"
+                break
+            if code in (admm_mod.CONVERGED, admm_mod.EARLY_STOP,
+                        admm_mod.BAD_PD):
+                # gap continuation: pinf converged but the gap is
+                # within 10 tol of the strict tol -- keep splitting with
+                # gap-inclusive convergence before conceding to reopt
+                if (code == admm_mod.CONVERGED and not reopt
+                        and not gap_stop
+                        and p.admm_gap_continue
+                        and p.phase2_tol < stats.gap <= 10 * p.phase2_tol
+                        and stats.pinf_l1 <= p.phase2_tol
+                        and stats.iter < iter_celling):
+                    gap_stop = True
+                    celling = min(iter_celling, stats.iter + 2000)
+                    c["best_gap"], c["since_best"] = stats.gap, 0
+                    self.log("ADMM gap continuation: pinf converged, "
+                             f"pushing gap {stats.gap:.2e} -> "
+                             f"{p.phase2_tol:.0e} before conceding to "
+                             "reopt")
+                    continue
+                status = "ok"
+                break
+            if stats.iter >= celling:
+                status = "ok"
+                break
+            if time.time() - time_solve_start >= p.time_sec_limit:
+                status = "time_out"
+                break
+        self.U, self.V, self.dual = c["U"], c["V"], c["dual"]
+        self.rho_max = c["cur_rho_max"]
+        self.pobj, self.dobj = stats.pobj, stats.dobj
+        self.gap, self.pinf_l1 = stats.gap, stats.pinf_l1
+        return status
+
+    def prob_info(self) -> str:
+        """Problem dump mirroring the reference's printfProbInfo
+        (lorads_solver.c:1173-1231)."""
+        lines = ["-" * 71, "Problem Information:",
+                 f"\t 1.Number of SDP Cones:         : "
+                 f"{len(self.ps.plans):10d}",
+                 f"\t 2.Number of LP Cones:          : "
+                 f"{self.problem.n_lp_cols:10d}",
+                 f"\t 3.Number of Constraints:       : "
+                 f"{self.problem.m:10d}",
+                 "\t 4.sdp block dims:              : "
+                 + ",".join(f"{pl.dim:3d}" for pl in self.ps.plans) + ","]
+        for bp in self.ps.buckets:
+            for pl in bp.plans:
+                tri = pl.dim * (pl.dim + 1) // 2
+                lines.append(f"iCone:{pl.index}")
+                lines.append(
+                    f"\t dim:{pl.dim} nConstr:{pl.m_loc} "
+                    f"unionNnz:{pl.K} density:{pl.K / max(tri, 1):.4f} "
+                    f"mode:sparse(diag-identity fast path) "
+                    f"rank:{bp.rank}")
+        lines.append("Initial rank:")
+        for bp in self.ps.buckets:
+            for pl in bp.plans:
+                lines.append(f"iCone:{pl.index}, rank:{bp.rank}")
+        lines.append("-" * 71)
+        return "\n".join(lines)
+
+    # ------------------------------------------------------------------
+    # Dual infeasibility certificate.
+    # ------------------------------------------------------------------
+
+    def _dual_infeas_pass(self):
+        """One certificate pass: (lp_part, per-bucket min-eig arrays).
+
+        Re-certifications seed each block's Krylov space from the
+        previous certificate's lowest Ritz vector plus a small random
+        admixture; first passes start from a random vector."""
+        prev = getattr(self, "last_cert_vecs", None)
+        v0s = []
+        for j, (bk, bp) in enumerate(zip(self.pd.buckets,
+                                         self.ps.buckets)):
+            pv = prev[j] if prev is not None else None
+            mask = (np.arange(bk.n)[None, :]
+                    < np.asarray(bp.dims)[:bk.B, None])
+            if (pv is not None and pv.shape[0] == bk.B
+                    and pv.shape[-1] == bk.n):
+                noise = 1e-3 * self._rng.standard_normal((bk.B, bk.n)) \
+                    * mask
+                v0s.append(pv[:, 0, :].to(self.dtype) + self._tensor(noise))
+                continue
+            v0 = self._rng.standard_normal((bk.B, bk.n))
+            v0 *= mask
+            v0s.append(self._tensor(v0))
+        lams, restarts, vecs, lams_k = _dual_infeas_device(
+            self.pd, self.dual, v0s)
+        self.last_cert_restarts = [int(r) for r in restarts]
+        self.last_cert_vecs = vecs
+        self.last_cert_lams_k = lams_k
+        out = []
+        for lam in lams:
+            lam = np.asarray(dev.host_read(lam), dtype=np.float64)
+            if np.any(np.isnan(lam)):
+                # a NaN sweep must not let the status claim optimality
+                self.log("warning: Lanczos returned NaN on a block; "
+                         "treating its dual slack as infeasible")
+                lam = np.where(np.isnan(lam), -1.0, lam)
+            out.append(lam)
+        return 0.0, out
+
+    def _identity_directions(self):
+        """Per ORIGINAL block: (constraint slots, coefficients) such
+        that adding ``t * coefs`` to ``dual[slots]`` adds ``-t * I`` to
+        that block's slack S = C - A*(dual) -- or None.  Slots must be
+        exclusive to the block (see LoradsParams.dual_repair)."""
+        if self._ident_dirs is not None:
+            return self._ident_dirs
+        owners = np.zeros(self.problem.m, dtype=np.int32)
+        for b in self.problem.blocks:
+            owners[np.unique(b.a_con)] += 1
+        shared = owners > 1
+        self._ident_dirs = [_find_identity_direction(blk, shared)
+                            for blk in self.problem.blocks]
+        return self._ident_dirs
+
+    def dual_infeasibility(self, stats=None, repair=None) -> float:
+        """calculate_dual_infeasibility_solver (lorads_solver.c:1007-1037)
+        with the identity-direction dual repair (see _repair_plan)."""
+        lp_part, lams = self._dual_infeas_pass()
+        if self.params.dual_repair if repair is None else repair:
+            delta = self._repair_plan(lp_part, lams)
+            if delta is not None:
+                self.dual = self.dual + self._tensor(delta)
+                lp_part, lams = self._dual_infeas_pass()
+                dobj = dev.host_read(torch.dot(self.pd.rhs, self.dual))
+                dobj /= self.scale_obj_his
+                self.dobj = dobj
+                self.gap = abs(self.pobj - dobj) / (
+                    1.0 + abs(self.pobj) + abs(dobj))
+                if stats is not None:
+                    stats.dobj = dobj
+                    stats.gap = self.gap
+                self.log(f"dual repair: shifted dual along identity "
+                         f"directions; dObj {dobj:.6e} "
+                         f"gap {self.gap:.2e}")
+        dinf = lp_part
+        for lam in lams:
+            dinf += float(np.sum(np.abs(np.minimum(lam, 0.0))))
+        dinf /= self.scale_obj_his
+        dinf /= (self.pd.c_nrm1 + 1.0)
+        return dinf
+
+    def _repair_plan(self, lp_part, lams):
+        """The dual-repair shift, or None when repairing cannot improve
+        the acceptance outcome: dinf must fail its band, the repairable
+        violation must be what fails it, and the predicted gap must stay
+        acceptable.  Ritz values only under-estimate |lam_min|, so the
+        shift carries a 5% margin; dinf is re-measured post-shift."""
+        p = self.params
+        band = p.phase2_tol if p.high_acc_mode else 5 * p.phase2_tol
+        norm = self.scale_obj_his * (self.pd.c_nrm1 + 1.0)
+        lams = [np.nan_to_num(np.asarray(lam), nan=-1.0) for lam in lams]
+        pre = float(lp_part)
+        for lam in lams:
+            pre += float(np.sum(np.abs(np.minimum(lam, 0.0))))
+        if pre / norm <= band:
+            return None
+        dirs = self._identity_directions()
+        delta = np.zeros(self.pd.m, dtype=np.float64)
+        repairable = 0.0
+        floor = -1e-14 * max(1.0, float(self.pd.c_nrm_inf))
+        for bk, bp, lam in zip(self.pd.buckets, self.ps.buckets, lams):
+            for b in range(bk.B):
+                d = dirs[bp.plans[b].index]
+                lam_b = float(lam[b])
+                if d is None or lam_b >= floor:
+                    continue
+                slots, coefs = d
+                delta[slots] += 1.05 * lam_b * coefs
+                repairable += -lam_b
+        if repairable == 0.0 or (pre - repairable) / norm > band:
+            return None
+        rhs = self.problem.rhs.astype(np.float64)
+        dobj_cur = dev.host_read(torch.dot(self.pd.rhs, self.dual))
+        dobj_new = (dobj_cur + float(np.dot(rhs, delta))) \
+            / self.scale_obj_his
+        gap_new = abs(self.pobj - dobj_new) / (
+            1.0 + abs(self.pobj) + abs(dobj_new))
+        gap_now = abs(self.pobj - dobj_cur / self.scale_obj_his) / (
+            1.0 + abs(self.pobj) + abs(dobj_cur / self.scale_obj_his))
+        # never move the gap OUT of the classification band (5 tol)
+        cls_band = 5 * p.phase2_tol
+        if (gap_new <= band
+                or (gap_new <= cls_band and gap_now > band)
+                or gap_now > cls_band):
+            return delta
+        return None
+
+    # ------------------------------------------------------------------
+    # Reopt (lorads_solver.c:1075-1117).
+    # ------------------------------------------------------------------
+
+    def reopt(self, alm_stats: ALMStats, admm_stats: ADMMStats,
+              reopt_param: float, reopt_alm_iter: int, reopt_admm_iter: int,
+              time_solve_start: float, admm_bad_iter_flag: int,
+              reopt_level: int) -> int:
+        p = self.params
+        max_alm = reopt_alm_iter - 1 + alm_stats.outer_iter
+        old_rho_max = self.rho_max
+        # scale objective & dual by reopt_param
+        self.scale_obj_his *= reopt_param
+        self.pd = aop.scale_objective(self.pd, reopt_param)
+        self.dual = self.dual * reopt_param
+        if admm_stats.rho <= self.rho_max:
+            alm_stats.rho = max(admm_stats.rho, alm_stats.rho)
+        self.alm_phase(alm_stats, time_solve_start, reopt=True,
+                       early_stop=True,
+                       rho_update_factor=math.sqrt(p.alm_rho_factor),
+                       max_alm_iter=max_alm)
+        self.rho_max = max(
+            math.sqrt(max(admm_stats.rho, alm_stats.rho) / admm_stats.rho)
+            * admm_stats.rho, self.rho_max)
+        self.alm_to_admm(alm_stats, admm_stats)
+        if admm_bad_iter_flag == 0 or reopt_level < 2:
+            # reference: min(iter*4, iter + ORIGINAL maxADMMIter)
+            # (lorads_solver.c:1098)
+            celling = min(admm_stats.iter * 4,
+                          admm_stats.iter + p.max_admm_iter)
+            st = self.admm_phase(admm_stats, celling, time_solve_start,
+                                 reopt=True)
+            admm_bad_iter_flag = 1 if st == "bad_iter" else 0
+        self.rho_max = old_rho_max
+        return admm_bad_iter_flag
+
+    # ------------------------------------------------------------------
+    # Full solve (main.c:321-487).
+    # ------------------------------------------------------------------
+
+    def solve(self) -> SolveResult:
+        p = self.params
+        t_start = time.time()
+        alm_stats = ALMStats(rho=self.ps.rho0)
+        admm_stats = ADMMStats(rho=self.ps.rho0)
+        dual_infeas_time = 0.0
+        admm_bad_iter_flag = 0
+        status = SolverStatus.UNKNOWN
+
+        self.log("Start solving by ALM and ADMM")
+        self.log(dev.backend_report(self.device, self.dtype))
+        action = self.alm_phase(alm_stats, t_start)
+        if action == "time_out" or time.time() - t_start > p.time_sec_limit:
+            status = SolverStatus.TIME_LIMIT
+        else:
+            self.alm_to_admm(alm_stats, admm_stats)
+            st = self.admm_phase(admm_stats, p.max_admm_iter, t_start)
+            if st == "time_out":
+                status = SolverStatus.TIME_LIMIT
+
+        # reopt level 1 (main.c:376-398), skipped when the gap
+        # continuation already pushed the gap to its floor inside the
+        # classification band
+        skip_gap_reopt = (self._gap_push_stalled
+                          and not p.high_acc_mode
+                          and admm_stats.gap <= 5 * p.phase2_tol
+                          and admm_stats.pinf_l1 <= p.phase2_tol)
+        if skip_gap_reopt:
+            self.log("skipping level-1 reopt: gap plateaued at "
+                     f"{admm_stats.gap:.2e} (within the 5*tol band) "
+                     "under continued f64 ADMM")
+        if (status is SolverStatus.UNKNOWN and p.reopt_level >= 1
+                and not skip_gap_reopt):
+            if ((alm_stats.gap > p.phase2_tol
+                 or alm_stats.pinf_l1 > p.phase2_tol)
+                    and (admm_stats.gap > p.phase2_tol
+                         or admm_stats.pinf_l1 > p.phase2_tol)):
+                self.log("****** reopt parameter: 5.0")
+                admm_budget = 1000 if p.high_acc_mode else 50
+                admm_bad_iter_flag = self.reopt(
+                    alm_stats, admm_stats, 5.0, 3, admm_budget, t_start,
+                    admm_bad_iter_flag, 1)
+                if time.time() - t_start > p.time_sec_limit:
+                    status = SolverStatus.TIME_LIMIT
+
+        t_di = time.time()
+        dinf = self.dual_infeasibility(stats=admm_stats)
+        dual_infeas_time += time.time() - t_di
+        admm_stats.dinf_l1 = dinf
+        admm_stats.dinf_inf = dinf * (1 + self.pd.c_nrm1) / (
+            1 + self.pd.c_nrm_inf)
+        self.log(f"Dual infeasibility: l_1 = {dinf:.6f}, "
+                 f"l_inf = {admm_stats.dinf_inf:.6f}")
+
+        if (status is SolverStatus.UNKNOWN and p.dual_refine
+                and admm_stats.dinf_l1 > (
+                    p.phase2_tol if p.high_acc_mode
+                    else 5 * p.phase2_tol)):
+            raise _not_ported("the dual-refine / spectral-repair branch "
+                              f"(dinf {admm_stats.dinf_l1:.3e} after "
+                              "repair)")
+
+        # reopt level 2 (main.c:414-476)
+        if status is SolverStatus.UNKNOWN and p.reopt_level >= 2:
+            dual_cnt = 0
+            while (admm_stats.dinf_l1 > p.phase2_tol
+                   or admm_stats.gap > p.phase2_tol
+                   or admm_stats.pinf_l1 > p.phase2_tol):
+                if dual_cnt >= 2:
+                    break
+                if (not p.high_acc_mode
+                        and admm_stats.dinf_l1 <= 5 * p.phase2_tol
+                        and admm_stats.gap <= 5 * p.phase2_tol
+                        and admm_stats.pinf_l1 <= p.phase2_tol):
+                    break
+                self.log("****** reopt parameter: 5.0")
+                admm_bad_iter_flag = self.reopt(
+                    alm_stats, admm_stats, 5.0, 3, 50, t_start,
+                    admm_bad_iter_flag, 2)
+                # average U,V -> R; V <- R (main.c:438-448)
+                self.R = self.U.average(self.V)
+                self.V = self.R
+                t_di = time.time()
+                dinf = self.dual_infeasibility(stats=admm_stats)
+                dual_infeas_time += time.time() - t_di
+                admm_stats.dinf_l1 = dinf
+                admm_stats.dinf_inf = dinf * (1 + self.pd.c_nrm1) / (
+                    1 + self.pd.c_nrm_inf)
+                self.log(f"reopt {dual_cnt}: dual infeasibility l_1 = "
+                         f"{dinf:.6f}")
+                dual_cnt += 1
+                if time.time() - t_start > p.time_sec_limit:
+                    status = SolverStatus.TIME_LIMIT
+                    break
+
+        # status classification (main.c:478-487)
+        if status is SolverStatus.UNKNOWN:
+            if (admm_stats.dinf_l1 <= 5 * p.phase2_tol
+                    and admm_stats.gap <= 5 * p.phase2_tol
+                    and admm_stats.pinf_l1 <= p.phase2_tol):
+                status = SolverStatus.PRIMAL_DUAL_OPTIMAL
+            elif (admm_stats.gap <= 5 * p.phase2_tol
+                  and admm_stats.pinf_l1 <= p.phase2_tol):
+                status = SolverStatus.PRIMAL_OPTIMAL
+            else:
+                status = SolverStatus.MAXITER
+
+        # the certified DIMACS numbers are for X_bar = avg(U, V)
+        Rbar = self.U.average(self.V)
+        self.R = Rbar
+        pinf_inf = self.pinf_l1 * (1 + self.pd.b_nrm1) / (
+            1 + self.pd.b_nrm_inf)
+        dual = np.asarray(dev.host_read(self.dual), np.float64)
+        return SolveResult(
+            status=status, pobj=self.pobj, dobj=self.dobj,
+            pinf_l1=self.pinf_l1, pinf_inf=pinf_inf,
+            dinf_l1=admm_stats.dinf_l1, dinf_inf=admm_stats.dinf_inf,
+            gap=self.gap, alm_stats=alm_stats, admm_stats=admm_stats,
+            solve_time=time.time() - t_start,
+            dual_infeas_time=dual_infeas_time, ranks=list(self.ranks),
+            # export the user's (unscaled) dual
+            R=Rbar, dual=dual / self.scale_obj_his)
+
+
+def solve(problem: SDPProblem, params: Optional[LoradsParams] = None,
+          device="cuda", **kw) -> SolveResult:
+    """One-call API: solve a standard-form SDP instance."""
+    if params is None:
+        params = LoradsParams(**kw)
+    return LoradsSolver(problem, params, device=device).solve()
+
+
+def _find_identity_direction(blk, shared):
+    """Identity direction of one block for the dual repair: (slots,
+    coefs) with A*(coefs at slots) = I restricted to this block, or
+    None.  Recognizes a trace-style constraint and a block-exclusive
+    single-entry diagonal family covering every row (Max-Cut)."""
+    if blk.a_con.size == 0:
+        return None
+    diag = blk.a_row == blk.a_col
+    total_cnt = np.bincount(blk.a_con, minlength=blk.m)
+    diag_cnt = np.bincount(blk.a_con[diag], minlength=blk.m)
+
+    # (a) trace-style constraint
+    cand = np.nonzero((total_cnt == blk.dim) & (diag_cnt == blk.dim))[0]
+    if cand.size:
+        cand = cand[~shared[cand]]
+    for k in cand:
+        sel = blk.a_con == k
+        rows = blk.a_row[sel]
+        vals = blk.a_val[sel]
+        if (np.unique(rows).size == blk.dim and vals[0] != 0.0
+                and np.allclose(vals, vals[0])):
+            return (np.asarray([k], dtype=np.int64),
+                    np.asarray([1.0 / vals[0]]))
+
+    # (b) single-entry diagonal family covering every row
+    ks = np.nonzero((total_cnt == 1) & (diag_cnt == 1))[0]
+    if ks.size:
+        ks = ks[~shared[ks]]
+    if ks.size:
+        sel = np.isin(blk.a_con, ks)
+        rows = blk.a_row[sel]
+        cons = blk.a_con[sel]
+        vals = blk.a_val[sel]
+        ok = vals != 0.0
+        rows, cons, vals = rows[ok], cons[ok], vals[ok]
+        order = np.argsort(rows, kind="stable")
+        rows, cons, vals = rows[order], cons[order], vals[order]
+        first = np.concatenate([[True], rows[1:] != rows[:-1]])
+        rows, cons, vals = rows[first], cons[first], vals[first]
+        if rows.size == blk.dim and np.array_equal(
+                rows, np.arange(blk.dim)):
+            return (cons.astype(np.int64), 1.0 / vals)
+    return None
+
+
+# Slack blocks up to this dim get an exact eigh certificate instead of
+# the Lanczos sweep (see _dual_infeas_device)
+_DENSE_EIG_DIM = 1024
+# cap B * n^2 for the densified [B, n, n] slack (2^26 f64 = 512 MB)
+_DENSE_EIG_BUDGET = 2 ** 26
+# smallest eigenpairs kept per block from the exact eigh
+_EIG_K = 12
+
+
+def _exact_min_eig(Wn: torch.Tensor):
+    """Exact smallest eigenpairs of normalized slack blocks [B, n, n]
+    -> (lams [B, k], vecs [B, k, n]), k = min(_EIG_K, n), ascending.
+    Native f64 eigh (lorads_tpu's CPU branch, solver.py:1485-1487)."""
+    k = min(_EIG_K, Wn.shape[-1])
+    evals, vecs = torch.linalg.eigh(Wn)
+    return evals[:, :k], vecs[:, :, :k].transpose(1, 2)
+
+
+def _eig_rescue_ok(bk) -> bool:
+    """Small slack blocks get the exact eigh."""
+    return bk.n <= _DENSE_EIG_DIM and bk.B * bk.n * bk.n <= _DENSE_EIG_BUDGET
+
+
+def _slack_operator(bk, w_loc):
+    """Normalized slack operator S/ws = (C - A^*(lambda))/ws for one
+    bucket -> (kind, op, ws):
+      kind "eigh":    op is the normalized dense slack [B, n, n]
+      kind "lanczos": op is the [B, n] -> [B, n] matvec closure
+    ws rescales the normalized eigenvalues back."""
+    if not _eig_rescue_ok(bk):
+        # A^*(lambda) is diagonal, so the slack's off part is the static
+        # C pattern: mv = one cmul (kernel K2, r = 1) + a diagonal
+        W_d = bk.c_diag + bk.a_val_d * w_loc
+        ws = torch.clamp(torch.maximum(
+            torch.amax(torch.abs(W_d), dim=1),
+            torch.amax(torch.abs(bk.c_off), dim=1)), min=1e-30)
+        Wdn = W_d / ws[:, None]
+        inv = 1.0 / ws
+
+        def mv(x, bk=bk, Wdn=Wdn, inv=inv):
+            off = pat.cmul(bk, x[:, :, None], include_diag=False)[:, :, 0]
+            return off * inv[:, None] + Wdn * x
+
+        return "lanczos", mv, ws
+    W_d, W_o = pat.build_w(bk, w_loc)
+    ws = torch.clamp(torch.maximum(torch.amax(torch.abs(W_d), dim=1),
+                                   torch.amax(torch.abs(W_o), dim=1)),
+                     min=1e-30)
+    Wn = (W_d / ws[:, None], W_o / ws[:, None])
+    return "eigh", pat.densify_w(bk, Wn), ws
+
+
+def _dual_infeas_device(pd, dual, v0s):
+    """Slack assembly + normalized batched Lanczos (or exact eigh) for
+    every bucket (calculate_dual_infeasibility_solver + dual_infeasible,
+    lorads_solver.c:1007-1037, lorads_sdp_conic.c:1286-1349).
+
+    At f64 the Lanczos restart loop runs at f32 on an f32 cast of the
+    SAME normalized slack and the final eigenvalue is refined by one f64
+    Rayleigh quotient (solver.py:1621-1640).
+    Returns (lams, restarts, vecs, lams_k) per bucket; restarts is -1
+    for exact-eigh buckets."""
+    neg_l = -dual
+    lams, restarts, vecs, lams_k = [], [], [], []
+    for bk, v0 in zip(pd.buckets, v0s):
+        w_loc = pat.gather_w(bk, neg_l)
+        kind, op, ws = _slack_operator(bk, w_loc)
+        if kind == "eigh":
+            lk, vk = _exact_min_eig(op)
+            lk = lk.to(dual.dtype) * ws[:, None]
+            lams.append(torch.amin(lk, dim=1))
+            restarts.append(-1)
+            vecs.append(vk.to(dual.dtype))
+            lams_k.append(lk)
+            continue
+        if dual.dtype == torch.float64:
+            _, op32, _ = _slack_operator(pat.cast_floats(bk, torch.float32),
+                                         w_loc.to(torch.float32))
+            lam, its, vec = lanczos_min_eig_device(
+                op32, v0.to(torch.float32), matvec_hi=op, return_vec=True)
+        else:
+            lam, its, vec = lanczos_min_eig_device(op, v0, return_vec=True)
+        lam = lam * ws
+        lams.append(lam)
+        restarts.append(its)
+        vecs.append(vec.to(dual.dtype)[:, None, :])
+        lams_k.append(lam[:, None])
+    return lams, restarts, vecs, lams_k

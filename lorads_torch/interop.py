@@ -1,0 +1,68 @@
+"""State carried across from lorads_tpu (numpy arrays in, tensors out).
+
+Lets a test start the port from the exact state ``lorads_tpu`` holds at
+any point of a solve.  Callers pass ``np.asarray`` of the JAX arrays (or
+objects whose array attributes convert with ``np.asarray``); nothing
+here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lorads_torch.alg.state import FactorVec, LBFGSHistory
+from lorads_torch.ops import pattern as pat
+
+
+def bucket_from_numpy(bk, dtype=torch.float64,
+                      device="cpu") -> pat.BucketData:
+    """The port's BucketData from a lorads_tpu BucketData's fields
+    (split, diag-identity, B = 1, global constraint slots)."""
+    if not (bk.split and bk.diag_ident) or bk.dense or bk.B != 1 \
+            or not bk.glob_ident:
+        raise NotImplementedError(
+            "only split, diag-identity, single-block buckets with global "
+            "constraint slots are ported to lorads_torch")
+    meta = dict(n=bk.n, B=bk.B, K=bk.K, m_loc=bk.m_loc, m_glob=bk.m_glob,
+                Ko=bk.Ko, Ks=bk.Ks, has_off=bool(bk.has_off),
+                glob_ident=bool(bk.glob_ident))
+    arrays = {k: np.asarray(getattr(bk, k))
+              for k in pat.INT_FIELDS + pat.FLOAT_FIELDS}
+    return pat.bucket_from_arrays(meta, arrays, dtype, device)
+
+
+def _tensor(x, dtype, device):
+    return torch.as_tensor(np.array(x, dtype=np.float64),
+                           device=device).to(dtype)
+
+
+def factor_from_numpy(cones, lp, dtype=torch.float64,
+                      device="cpu") -> FactorVec:
+    """FactorVec from per-bucket [B, n, r] arrays and the LP columns."""
+    return FactorVec(tuple(_tensor(x, dtype, device) for x in cones),
+                     _tensor(lp, dtype, device))
+
+
+def state_from_numpy(R=None, U=None, V=None, dual=None, hist=None,
+                     dtype=torch.float64, device="cpu") -> dict:
+    """The port's tensors for lorads_tpu's solver state.
+
+    ``R``, ``U``, ``V``: FactorVec-likes (``.cones``, ``.lp``); ``dual``:
+    the m-vector; ``hist``: an LBFGSHistory-like (``.s``, ``.y``,
+    ``.beta``, ``.head``, ``.n_valid``).  Returns a dict with the same
+    keys, absent inputs left out."""
+    out = {}
+    for name, fv in (("R", R), ("U", U), ("V", V)):
+        if fv is not None:
+            out[name] = factor_from_numpy(fv.cones, fv.lp, dtype, device)
+    if dual is not None:
+        out["dual"] = _tensor(dual, dtype, device)
+    if hist is not None:
+        out["hist"] = LBFGSHistory(
+            s=factor_from_numpy(hist.s.cones, hist.s.lp, dtype, device),
+            y=factor_from_numpy(hist.y.cones, hist.y.lp, dtype, device),
+            beta=_tensor(hist.beta, dtype, device),
+            head=int(np.asarray(hist.head)),
+            n_valid=int(np.asarray(hist.n_valid)))
+    return out

@@ -1,0 +1,114 @@
+"""lorads_torch's CUDA kernels on the card (marker ``cuda``).
+
+Each kernel against its plain PyTorch version on CUDA tensors, and one
+Max-Cut solve on cuda.  Imports no JAX, so it also runs where JAX is
+not installed; without a GPU every test skips.  On a GPU machine:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -o addopts="" \
+        --noconftest -q
+
+Tolerances: both sides sum at most a few dozen terms per output in
+another order, so f64 outputs agree within 64 eps64 * sum|terms|; at
+f32 the kernels' compensated sums and the plain versions' f64
+accumulation agree within 4 eps32 * sum|terms|.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from lorads_torch import LoradsParams, LoradsSolver, SolverStatus
+from lorads_torch.core.presolve import presolve
+from lorads_torch.io import generators
+from lorads_torch.io.sdpa import read_sdpa
+from lorads_torch.ops import kernels
+from lorads_torch.ops import pattern as pat
+
+FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+
+
+def _bucket(dtype):
+    problem = read_sdpa(os.path.join(FIX, "maxcut2000.dat-s"))
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    return pat.build_bucket_data(bp, problem.m, dtype, "cuda"), bp
+
+
+def _tol(dtype):
+    return (64 if dtype == torch.float64 else 4) * torch.finfo(dtype).eps
+
+
+def _close(got, ref, l1, dtype):
+    return bool(((got - ref).abs() <= _tol(dtype) * l1 + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [1, 16, 40])
+def test_cmul_kernel_matches_plain(dtype, r):
+    _need_cuda()
+    bk, bp = _bucket(dtype)
+    rng = np.random.default_rng(r)
+    X = torch.as_tensor(rng.standard_normal((1, bp.n, r)), dtype=dtype,
+                        device="cuda")
+    for cd in (bk.c_diag, None):
+        args = (X, cd, bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
+        before = kernels.LAUNCHES["cmul_csr"]
+        got = kernels.cmul_csr(*args)
+        assert kernels.LAUNCHES["cmul_csr"] == before + 1
+        ref = kernels.cmul_csr_plain(*args)
+        l1 = kernels.cmul_csr_plain(
+            X.abs(), None if cd is None else cd.abs(), bk.sym_cols_rs,
+            bk.c_sym_rs.abs(), bk.bnd_sym_rows)
+        assert _close(got, ref, l1, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [1, 16, 40])
+def test_uvt_kernel_matches_plain(dtype, r):
+    _need_cuda()
+    bk, bp = _bucket(dtype)
+    rng = np.random.default_rng(r)
+    U, V = (torch.as_tensor(rng.standard_normal((1, bp.n, r)),
+                            dtype=dtype, device="cuda") for _ in range(2))
+    got = kernels.uvt_split(U, V, bk.off_rows, bk.off_cols)
+    ref = kernels.uvt_split_plain(U, V, bk.off_rows, bk.off_cols)
+    l1 = kernels.uvt_split_plain(U.abs(), V.abs(), bk.off_rows,
+                                 bk.off_cols)
+    for g, e, a in zip(got, ref, l1):
+        assert _close(g, e, a, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 1543), (2, 1543, 3), (2, 1543, 40)])
+def test_segment_sum_kernel_matches_plain(dtype, shape):
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    S = 97
+    ids = np.sort(rng.integers(0, S, shape[:2]), axis=1)
+    ids[1, shape[1] // 2:] = S             # padded block tail
+    bounds = torch.as_tensor(pat._bounds_np(ids, S), device="cuda")
+    data = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                           device="cuda")
+    got = kernels.segment_sum(data, bounds)
+    ref = kernels.segment_sum_plain(data, bounds)
+    l1 = kernels.segment_sum_plain(data.abs(), bounds)
+    assert _close(got, ref, l1, dtype)
+
+
+@pytest.mark.cuda
+def test_maxcut300_solve_on_cuda():
+    _need_cuda()
+    res = LoradsSolver(generators.maxcut(n=300, avg_degree=4, seed=3),
+                       LoradsParams(verbose=False), device="cuda").solve()
+    assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
+    # lorads_tpu on CPU at f64 gives -504.660555953274
+    assert abs(res.pobj + 504.660555953274) <= 1e-4 * 504.66
