@@ -1,4 +1,4 @@
-"""lorads_torch -- the PyTorch / CUDA port of lorads_tpu (Max-Cut slice).
+"""lorads_torch -- the PyTorch / CUDA port of lorads_tpu.
 
 A low-rank SDP solver for
 
@@ -9,11 +9,13 @@ Lagrangian method with L-BFGS and an exact quartic line search, Phase II
 an ADMM splitting X = U V^T, and a Lanczos (or exact eigh) certificate
 measures dual infeasibility.
 
-This slice runs the Max-Cut path of lorads_tpu on an NVIDIA GPU: one
-split, diag-identity sparse block at f64, with hand-written CUDA kernels
-for C @ X (``cmul``), sym(U V^T) on the pattern (``uvt``) and the sorted
-segment sum, built from ``csrc/`` with nvcc on first use.  Other
-configurations raise NotImplementedError.  Imports torch, never jax.
+The port runs one split, sparse block whose constraint slots are the
+global ones, at f64, on an NVIDIA GPU: the Max-Cut path (diag-identity
+constraints, closed-form ADMM) and the general sparse path of matrix
+completion (constraints on any pattern slots, ADMM with matrix-free CG).
+Hand-written CUDA kernels in ``csrc/``, built with nvcc on first use,
+carry the sparse work (ops/kernels.py lists them).  Other configurations
+raise NotImplementedError.  Imports torch, never jax.
 """
 
 from lorads_torch.alg.solver import LoradsSolver, SolveResult, solve

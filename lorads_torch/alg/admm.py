@@ -1,12 +1,23 @@
-"""Phase II -- ADMM splitting on X = U V^T, closed-form subset.
+"""Phase II -- ADMM splitting on X = U V^T.
 
-Port of lorads_tpu/alg/admm.py for diag-identity cones (Max-Cut), where
-each side's subproblem is row-decoupled and solved exactly by
-Sherman-Morrison (no CG).  Per iteration (LORADSADMMOptimize,
-lorads_admm.c:33-157): U-update, V-update, objective + DIMACS at
-X_bar = (U+V)/2 (which also REPLACES the constraint-value caches with
-A(X_bar X_bar^T), as the reference does), dual ascent at X_bar, rho
-schedule with the stagnation escape, divergence and bad_pd guards.
+Port of lorads_tpu/alg/admm.py for split, single-block buckets.  Per
+iteration (LORADSADMMOptimize, lorads_admm.c:33-157): U-update,
+V-update, objective + DIMACS at X_bar = (U+V)/2 (which also REPLACES the
+constraint-value caches with A(X_bar X_bar^T), as the reference does),
+dual ascent at X_bar, rho schedule with the stagnation escape,
+divergence and bad_pd guards.
+
+Each side's subproblem (I + N) x = rhs, N the normal operator of the
+fixed factor, is solved
+
+* on diag-identity cones (Max-Cut) in closed form: N is row-decoupled
+  and each row solves by Sherman-Morrison (no CG);
+* otherwise by matrix-free CG (alg/cg.py), mixed-precision by default
+  (``admm_mixed_cg``: f32 sweeps on the bucket's f32 cast, f64 true
+  residuals).  The operator is x + W(x) @ F with W(x) = A^*(A(sym(x F^T)))
+  -- kernel K6 when every off constraint owns a slot (a_off_unique),
+  else uvt (K3) -> constr_vals -> build_w (K4) -- and the product w_mul
+  (K5).
 
 lorads_tpu runs up to ``n_steps`` iterations per device dispatch; here
 ``admm_chunk`` runs them as a Python loop and reads the four DIMACS
@@ -24,6 +35,7 @@ import torch
 from lorads_torch import device as dev
 from lorads_torch.alg import aop
 from lorads_torch.alg.aop import ProblemData
+from lorads_torch.alg.cg import cg_solve, cg_solve_ir
 from lorads_torch.alg.state import FactorVec
 from lorads_torch.ops import pattern as pat
 
@@ -51,63 +63,110 @@ class ADMMStats:
     dinf_inf: float = 1e30
 
 
-def _admm_cache(bk: pat.BucketData, x) -> aop.CRCache:
-    """ADMM cache of one factor: C @ X (the closed-form update's W @ X
-    is C @ X + (a .* w) .* X)."""
-    return aop.CRCache(pat.cmul(bk, x))
+# Per-chunk CG budgets (admm.py:494-505): the chunk returns to the host
+# once its cumulative CG count crosses the budget
+CG_BUDGET_MIXED = 24000
+CG_BUDGET_F64 = 4000
+# the CG iteration cap of every solve (admm.py:519)
+CG_MAX_ITER = 800
+
+
+def _admm_cache(bk: pat.BucketData, x):
+    """ADMM cache of one factor: C @ X for diag-identity cones (the
+    closed-form update's W @ X is C @ X + (a .* w) .* X); None for every
+    other bucket (the port keeps no gathered-row caches)."""
+    if aop._diag_fast(bk):
+        return aop.CRCache(pat.cmul(bk, x))
+    return pat.gather_cache(bk, x)
+
+
+def _cg_operator(bk: pat.BucketData, F: torch.Tensor):
+    """x -> x + A^*(A(sym(x F^T))) @ F, the CG operator of one side
+    (linSysProduct, lorads_admm.c:376-391; admm.py:157-170)."""
+    def op(x):
+        if bk.a_off_unique:
+            Wop = pat.a_adj_a(bk, x, F)
+        else:
+            vals = pat.cone_total(bk, pat.constr_vals(bk, pat.uvt(bk, x, F)))
+            Wop = pat.build_w(bk, vals, include_obj=False)
+        return x + pat.w_mul(bk, Wop, F)
+    return op
 
 
 def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
                         fixed_var, local_vals, constr_sum, dual, rho,
-                        fcache=None):
+                        cg_tol=1e-8, fcache=None, bk_lo=None):
     """One side of the splitting for one bucket (LORADSUpdateSDPVarOne,
-    lorads_admm.c:428-480): solve for U with V fixed.
+    lorads_admm.c:428-480): solve (I + N) x = rhs for U with V fixed.
 
     Diag-identity cones make the normal system row-decoupled,
     N(x)_i = a_i^2 (x_i . v_i) v_i, so each row solves
-    (I + a_i^2 v_i v_i^T) x_i = rhs_i exactly by Sherman-Morrison.
-    Returns (new_var, new_local_vals, new_constr_sum, new_cache)."""
+    (I + a_i^2 v_i v_i^T) x_i = rhs_i exactly by Sherman-Morrison, with
+    W @ V = C @ V (``fcache``) + (a .* w) .* V.  Other cones form
+    W = C + A^*(w) (K4) and W @ V (K5), and solve by CG to ``cg_tol``
+    (at most CG_MAX_ITER iterations); with ``bk_lo`` (the bucket's f32
+    cast) the CG is the mixed-precision cg_solve_ir.
+    Returns (new_var, new_local_vals, new_constr_sum, cg_iters,
+    new_cache)."""
     base = rho * (constr_sum - pd.rhs) - dual
-    w_loc = pat.gather_w(bk, base) - rho * local_vals
-    if fcache is None:
-        fcache = _admm_cache(bk, fixed_var)
-    M2 = (fcache.cr + (bk.a_val_d * w_loc)[:, :, None] * fixed_var
-          - rho * fixed_var)
-    rhs = -M2 / rho
-    a2 = bk.a_val_d * bk.a_val_d
-    vr = torch.sum(fixed_var * rhs, -1)
-    vv = torch.sum(fixed_var * fixed_var, -1)
-    coef = a2 * vr / (1.0 + a2 * vv)
-    new_var = rhs - coef[..., None] * fixed_var
-    new_cache = _admm_cache(bk, new_var)
-    new_local = bk.a_val_d * torch.sum(new_var * fixed_var, -1)
+    w_loc = pat.gather_w(bk, base) - rho * pat.cone_total(bk, local_vals)
+    if aop._diag_fast(bk):
+        if fcache is None:
+            fcache = _admm_cache(bk, fixed_var)
+        rhs = -(fcache.cr + (bk.a_val_d * w_loc)[:, :, None] * fixed_var
+                - rho * fixed_var) / rho
+        a2 = bk.a_val_d * bk.a_val_d
+        vr = torch.sum(fixed_var * rhs, -1)
+        vv = torch.sum(fixed_var * fixed_var, -1)
+        coef = a2 * vr / (1.0 + a2 * vv)
+        new_var = rhs - coef[..., None] * fixed_var
+        iters = 0
+        new_local = bk.a_val_d * torch.sum(new_var * fixed_var, -1)
+    else:
+        W = pat.build_w(bk, w_loc)                        # C + A*(M1)
+        rhs = -(pat.w_mul(bk, W, fixed_var) - rho * fixed_var) / rho
+        op = _cg_operator(bk, fixed_var)
+        if bk_lo is not None:
+            op_lo = _cg_operator(bk_lo, fixed_var.to(torch.float32))
+            new_var, iters = cg_solve_ir(op, op_lo, update_var, rhs,
+                                         cg_tol, CG_MAX_ITER)
+        else:
+            new_var, iters = cg_solve(op, update_var, rhs, cg_tol,
+                                      CG_MAX_ITER)
+        new_local = pat.constr_vals(bk, pat.uvt(bk, new_var, fixed_var))
     new_sum = constr_sum + pat.scatter_constr(bk, new_local - local_vals)
-    return new_var, new_local, new_sum, new_cache
+    return new_var, new_local, new_sum, iters, _admm_cache(bk, new_var)
 
 
 def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
-                    constr_sum, dual, rho, u_caches=None, v_caches=None):
+                    constr_sum, dual, rho, u_caches=None, v_caches=None,
+                    cg_tol=1e-8, buckets_lo=None):
     """One sweep over the buckets, U then V each (LORADSUpdateSDPVar,
     lorads_alg_common.c:187-248).  Every accepted bucket holds one
     block, so the sweep is the reference's Gauss-Seidel order.
-    Returns (U, V, locals, constr_sum, u_caches, v_caches)."""
+    ``buckets_lo``: the buckets' f32 casts for the mixed-precision CG.
+    Returns (U, V, locals, constr_sum, u_caches, v_caches, cg_iters)."""
     nb = len(pd.buckets)
     u_cones, v_cones = list(U.cones), list(V.cones)
     locals_ = list(locals_)
     u_caches = list(u_caches) if u_caches is not None else [None] * nb
     v_caches = list(v_caches) if v_caches is not None else [None] * nb
+    lo = buckets_lo if buckets_lo is not None else [None] * nb
+    cg_total = 0
     for j, bk in enumerate(pd.buckets):
-        u_new, loc, constr_sum, uc = _update_sdp_var_one(
+        u_new, loc, constr_sum, it1, uc = _update_sdp_var_one(
             pd, bk, u_cones[j], v_cones[j], locals_[j], constr_sum, dual,
-            rho, fcache=v_caches[j])
-        v_new, loc, constr_sum, vc = _update_sdp_var_one(
-            pd, bk, v_cones[j], u_new, loc, constr_sum, dual, rho,
-            fcache=uc)
+            rho, cg_tol, fcache=v_caches[j], bk_lo=lo[j])
+        v_new, loc, constr_sum, it2, vc = _update_sdp_var_one(
+            pd, bk, v_cones[j], u_new, loc, constr_sum, dual, rho, cg_tol,
+            fcache=uc, bk_lo=lo[j])
         u_cones[j], v_cones[j] = u_new, v_new
         u_caches[j], v_caches[j] = uc, vc
         locals_[j] = loc
+        cg_total += it1 + it2
     return (FactorVec(tuple(u_cones), U.lp), FactorVec(tuple(v_cones), V.lp),
-            tuple(locals_), constr_sum, tuple(u_caches), tuple(v_caches))
+            tuple(locals_), constr_sum, tuple(u_caches), tuple(v_caches),
+            cg_total)
 
 
 def _obj_dimacs_xbar(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
@@ -115,12 +174,15 @@ def _obj_dimacs_xbar(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
     """pObj/dObj/pinf/gap at X_bar = (U+V)/2 as device scalars, plus the
     refreshed locals and total (calObj_admm + updateDimacsADMM,
     lorads_admm.c:79-81).  With U's and V's caches, X_bar's is their
-    mean (C @ . is linear); otherwise the values come from sym(RR^T)
-    on the pattern (kernel K3)."""
+    mean (C @ . is linear); buckets without caches take sym(RR^T) on
+    the pattern (kernel K3)."""
     R = U.average(V)
     if u_caches is not None and v_caches is not None:
-        xcaches = tuple(aop.CRCache(0.5 * (uc.cr + vc.cr))
-                        for uc, vc in zip(u_caches, v_caches))
+        xcaches = tuple(
+            _admm_cache(bk, Rb) if uc is None or vc is None
+            else aop.CRCache(0.5 * (uc.cr + vc.cr))
+            for bk, Rb, uc, vc in zip(pd.buckets, R.cones, u_caches,
+                                      v_caches))
         pobj, locals_, total = aop.obj_and_auv_cached(pd, R, xcaches)
     else:
         pobj, locals_, total = aop.obj_and_auv(pd, R, R)
@@ -149,7 +211,9 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
     dual and the host state rho, cur_rho_max, pinf_buf (10 floats),
     old_pinf_mean, bad_pd, it, pinf_l1, gap, pobj, dobj, best_gap,
     since_best, best_pinf, since_pinf; returns the updated carry with
-    ``status`` and ``pinf_inf``.
+    ``status``, ``pinf_inf`` and ``cg_iter`` (this chunk's CG
+    iterations).  The chunk also returns once its CG count crosses the
+    per-chunk budget.
 
     ``reopt`` tightens the bad_pd limit, shifts the rho schedule and
     converges on pinf_l1; ``gap_stop`` is the gap-continuation variant
@@ -161,17 +225,27 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
         math.log(rho_freq * 100) / math.log(rho_freq)))
     bad_pd_limit = 200 if reopt else 800
     pinf_scale = (1.0 + pd.b_nrm1) / (1.0 + pd.b_nrm_inf)
+    mixed = params.admm_mixed_cg and pd.rhs.dtype == torch.float64
+    cg_tol_mult = 1e-4 if reopt else 1e-2
+    cg_budget = CG_BUDGET_MIXED if mixed else CG_BUDGET_F64
+    buckets_lo = (tuple(None if aop._diag_fast(bk)
+                        else pat.cast_floats(bk, torch.float32)
+                        for bk in pd.buckets) if mixed else None)
     c = dict(c)
     c["u_caches"] = tuple(_admm_cache(bk, x)
                           for bk, x in zip(pd.buckets, c["U"].cones))
     c["v_caches"] = tuple(_admm_cache(bk, x)
                           for bk, x in zip(pd.buckets, c["V"].cones))
     c["pinf_inf"] = c["pinf_l1"] * pinf_scale
-    status, count = RUNNING, 0
-    while status == RUNNING and count < n_steps and c["it"] < iter_celling:
-        U, V, locals_, csum, ucs, vcs = admm_update_all(
+    status, count, cg_iter = RUNNING, 0, 0
+    while (status == RUNNING and count < n_steps and c["it"] < iter_celling
+           and cg_iter < cg_budget):
+        cg_tol = min(c["pinf_l1"] * cg_tol_mult, 1e-8)
+        U, V, locals_, csum, ucs, vcs, cg_it = admm_update_all(
             pd, c["U"], c["V"], c["locals"], c["constr_sum"], c["dual"],
-            c["rho"], c["u_caches"], c["v_caches"])
+            c["rho"], c["u_caches"], c["v_caches"], cg_tol=cg_tol,
+            buckets_lo=buckets_lo)
+        cg_iter += cg_it
         pobj, dobj, pinf, gap, locals_, csum = _obj_dimacs_xbar(
             pd, U, V, c["dual"], scale, ucs, vcs)
         pobj, dobj, pinf, gap = dev.host_read(
@@ -243,4 +317,5 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
                  since_pinf=since_pinf)
         count += 1
     c["status"] = status
+    c["cg_iter"] = cg_iter
     return c

@@ -1,9 +1,12 @@
-"""Whole-problem operators over the buckets (diag-identity fast path).
+"""Whole-problem operators over the buckets.
 
-Port of the diag-fast subset of lorads_tpu/alg/aop.py (132-419).  Every
-bucket the port accepts is split and diag-identity, so A(.) and A^*(.)
-are elementwise, the per-factor cache is CR = C @ R (``CRCache``), and
-the only sparse work per ALM step is one C @ D product (kernel K2).
+Port of lorads_tpu/alg/aop.py (132-419) for split buckets.  On
+diag-identity buckets (``_diag_fast``, Max-Cut) A(.) and A^*(.) are
+elementwise, the per-factor cache is CR = C @ R (``CRCache``), and the
+only sparse work per ALM step is one C @ D product (kernel K2).  Every
+other bucket has no cache (``None``; see pattern.gather_cache): the
+pattern values come from the factors through the SDDMM kernels (K3,
+K3p) and W @ R from build_w + w_mul (K4, K5).
 
 * ``auv``:   A(sym(U V^T)) -> per-bucket locals + global m-vector
 * ``grad``:  2 (C + A^*(w)) R for an m-vector w (ALMSetGrad,
@@ -62,8 +65,7 @@ def scale_objective(pd: ProblemData, s: float) -> ProblemData:
 
 
 def _diag_fast(bk) -> bool:
-    """Static gate of the diag-identity fast path (every accepted
-    bucket passes it; kept so the gate reads as in lorads_tpu)."""
+    """Static gate of the diag-identity fast path."""
     return bk.split and bk.diag_ident
 
 
@@ -114,73 +116,105 @@ def obj_only(pd: ProblemData, X: FactorVec, Y: FactorVec) -> torch.Tensor:
 
 
 def gather_caches(pd: ProblemData, R: FactorVec):
-    """Per-bucket CR = C @ R caches."""
-    return tuple(CRCache(pat.cmul(bk, Rb))
+    """Per-bucket caches of R: CR = C @ R for diag-identity buckets,
+    None otherwise (pattern.gather_cache)."""
+    return tuple(CRCache(pat.cmul(bk, Rb)) if _diag_fast(bk)
+                 else pat.gather_cache(bk, Rb)
                  for bk, Rb in zip(pd.buckets, R.cones))
 
 
 def axpy_caches(caches, t, dcaches):
-    """caches + t * dcaches (C @ . is linear)."""
-    return tuple(CRCache(c.cr + t * d.cr) for c, d in zip(caches, dcaches))
+    """caches + t * dcaches (C @ . is linear); None passes through."""
+    return tuple(c if c is None else CRCache(c.cr + t * d.cr)
+                 for c, d in zip(caches, dcaches))
 
 
 def obj_and_auv_pair_cached(pd: ProblemData, R: FactorVec, D: FactorVec,
                             caches):
     """Objective and constraint values at sym(RD^T) and sym(DD^T) from
-    R's caches -> (p1, t1, p2, t2, D's caches):
-    <C, sym(RD^T)> = (<R, CD> + <D, CR>)/2, <C, DD^T> = <D, CD>."""
+    R's caches -> (p1, t1, p2, t2, D's caches).  Diag-fast:
+    <C, sym(RD^T)> = (<R, CD> + <D, CR>)/2, <C, DD^T> = <D, CD>;
+    otherwise the pair SDDMM (kernel K3p) and A(.) (K4)."""
     p1, p2 = _zero(pd), _zero(pd)
     t1 = torch.zeros_like(pd.rhs)
     t2 = torch.zeros_like(pd.rhs)
     dcaches = []
     for bk, Rb, Db, cache in zip(pd.buckets, R.cones, D.cones, caches):
-        cd = pat.cmul(bk, Db)
-        dcaches.append(CRCache(cd))
-        p1 = p1 + 0.5 * (torch.sum(Rb * cd) + torch.sum(Db * cache.cr))
-        p2 = p2 + torch.sum(Db * cd)
-        t1 = t1 + pat.scatter_constr(bk, bk.a_val_d * torch.sum(Rb * Db, -1))
-        t2 = t2 + pat.scatter_constr(bk, bk.a_val_d * torch.sum(Db * Db, -1))
+        if isinstance(cache, CRCache):
+            cd = pat.cmul(bk, Db)
+            dcaches.append(CRCache(cd))
+            p1 = p1 + 0.5 * (torch.sum(Rb * cd) + torch.sum(Db * cache.cr))
+            p2 = p2 + torch.sum(Db * cd)
+            t1 = t1 + pat.scatter_constr(
+                bk, bk.a_val_d * torch.sum(Rb * Db, -1))
+            t2 = t2 + pat.scatter_constr(
+                bk, bk.a_val_d * torch.sum(Db * Db, -1))
+            continue
+        (uv_rd, uv_dd), dc = pat.uvt_pair_cached(bk, Rb, Db, cache)
+        dcaches.append(dc)
+        p1 = p1 + torch.sum(pat.obj_inner(bk, uv_rd))
+        p2 = p2 + torch.sum(pat.obj_inner(bk, uv_dd))
+        t1 = t1 + pat.scatter_constr(bk, pat.constr_vals(bk, uv_rd))
+        t2 = t2 + pat.scatter_constr(bk, pat.constr_vals(bk, uv_dd))
     return p1, t1, p2, t2, tuple(dcaches)
 
 
 def auv_cached(pd: ProblemData, R: FactorVec, caches) -> torch.Tensor:
-    """A(sym(RR^T)) global sum (diagonal: no pattern work)."""
+    """A(sym(RR^T)) global sum (diag-fast: no pattern work)."""
     total = torch.zeros_like(pd.rhs)
-    for bk, Rb in zip(pd.buckets, R.cones):
-        total = total + pat.scatter_constr(
-            bk, bk.a_val_d * torch.sum(Rb * Rb, -1))
+    for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
+        if isinstance(cache, CRCache):
+            vals = bk.a_val_d * torch.sum(Rb * Rb, -1)
+        else:
+            vals = pat.constr_vals(bk, pat.uvt_from_cache(bk, Rb, cache))
+        total = total + pat.scatter_constr(bk, vals)
     return total
 
 
 def obj_and_auv_cached(pd: ProblemData, R: FactorVec, caches):
-    """obj_and_auv from R's caches: obj = <R, CR>."""
+    """obj_and_auv from R's caches (diag-fast: obj = <R, CR>)."""
     locals_ = []
     total = torch.zeros_like(pd.rhs)
     obj = _zero(pd)
     for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
-        obj = obj + torch.sum(Rb * cache.cr)
-        vals = bk.a_val_d * torch.sum(Rb * Rb, -1)
+        if isinstance(cache, CRCache):
+            obj = obj + torch.sum(Rb * cache.cr)
+            vals = bk.a_val_d * torch.sum(Rb * Rb, -1)
+        else:
+            uv = pat.uvt_from_cache(bk, Rb, cache)
+            obj = obj + torch.sum(pat.obj_inner(bk, uv))
+            vals = pat.constr_vals(bk, uv)
         locals_.append(vals)
         total = total + pat.scatter_constr(bk, vals)
     return obj, tuple(locals_), total
 
 
 def obj_cached(pd: ProblemData, R: FactorVec, caches) -> torch.Tensor:
-    """<C, sym(RR^T)> = <R, CR> from the caches."""
+    """<C, sym(RR^T)> from the caches (diag-fast: <R, CR>)."""
     obj = _zero(pd)
-    for Rb, cache in zip(R.cones, caches):
-        obj = obj + torch.sum(Rb * cache.cr)
+    for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
+        if isinstance(cache, CRCache):
+            obj = obj + torch.sum(Rb * cache.cr)
+        else:
+            obj = obj + torch.sum(pat.obj_inner(
+                bk, pat.uvt_from_cache(bk, Rb, cache)))
     return obj
 
 
 def grad_cached(pd: ProblemData, R: FactorVec, w: torch.Tensor,
                 caches) -> FactorVec:
-    """2 (CR + (a .* w) .* R): A^*(w) is diagonal."""
+    """2 (C + A^*(w)) R from R's caches: diag-fast 2 (CR + (a .* w) .* R)
+    (A^*(w) is diagonal), otherwise 2 W @ R with W = build_w (K4) and
+    the product w_mul (K5)."""
     cones = []
     for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
         w_loc = pat.gather_w(bk, w)
-        cones.append(2.0 * (cache.cr
-                            + (bk.a_val_d * w_loc)[:, :, None] * Rb))
+        if isinstance(cache, CRCache):
+            cones.append(2.0 * (cache.cr
+                                + (bk.a_val_d * w_loc)[:, :, None] * Rb))
+            continue
+        W = pat.build_w(bk, w_loc)
+        cones.append(2.0 * pat.w_mul_cached(bk, W, Rb, cache))
     return FactorVec(tuple(cones), torch.zeros_like(R.lp))
 
 

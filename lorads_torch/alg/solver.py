@@ -6,8 +6,10 @@ Pipeline (reference main.c:263-520):
   handoff -> Phase II (ADMM) -> reopt level 1 -> dual infeasibility ->
   reopt level 2 (x2) -> status classification -> report.
 
-The port covers the Max-Cut slice: one split, diag-identity bucket, no
-LP block, f64, one device.  Everything else raises NotImplementedError
+The port covers one split, sparse, single-block bucket whose constraint
+slots are the global ones (Max-Cut's diag-identity cone and the general
+sparse path of matrix completion), no LP block, f64, one device.
+Everything else raises NotImplementedError
 at construction (or, for the dual-refine branch, where the solve would
 take it) rather than taking another path.  Initial factors and
 certificate start vectors come from the same ``np.random.default_rng``
@@ -76,7 +78,8 @@ def _check_params(p: LoradsParams) -> None:
 
 
 class LoradsSolver:
-    """Two-phase low-rank SDP solver, PyTorch port (Max-Cut slice)."""
+    """Two-phase low-rank SDP solver, PyTorch port (split sparse
+    single-block slice)."""
 
     def __init__(self, problem: SDPProblem,
                  params: Optional[LoradsParams] = None,
@@ -93,10 +96,10 @@ class LoradsSolver:
         self.pd = aop.build_problem_data(self.ps, self.dtype, self.device)
         self.m = problem.m
         if self.params.alm_rho_factor is None:
-            # structure-based auto: every accepted bucket is pure
-            # diag-identity, so the Max-Cut value applies
-            self.params = dataclasses.replace(self.params,
-                                              alm_rho_factor=3.0)
+            # structure-based auto (see LoradsParams.alm_rho_factor)
+            pure_diag = all(bk.diag_ident for bk in self.pd.buckets)
+            self.params = dataclasses.replace(
+                self.params, alm_rho_factor=3.0 if pure_diag else 2.0)
         self.scale_obj_his = 1.0
         self.max_alm_sub_iter = 5000          # reference global, alm.c:7
         # last objective / DIMACS values, written by both phases
@@ -325,6 +328,7 @@ class LoradsSolver:
             self._admm_n_dev = min(self.device_chunk_iters,
                                    2 * self._admm_n_dev)
             stats.iter = c["it"]
+            stats.cg_iter += c["cg_iter"]
             stats.rho = c["rho"]
             stats.pobj, stats.dobj = c["pobj"], c["dobj"]
             stats.pinf_l1, stats.pinf_inf = c["pinf_l1"], c["pinf_inf"]
@@ -334,7 +338,7 @@ class LoradsSolver:
                 f"ADMM Iter:{stats.iter} pObj:{stats.pobj:5.5e} "
                 f"dObj:{stats.dobj:5.5e} pInf(1):{stats.pinf_l1:5.5e} "
                 f"pInf(Inf):{stats.pinf_inf:5.5e} pdGap:{stats.gap:5.5e} "
-                f"rho:{stats.rho:3.2f} cgIter:0 "
+                f"rho:{stats.rho:3.2f} cgIter:{c['cg_iter']} "
                 f"Time:{time.time() - t0:3.2f}")
             if code == admm_mod.NUM_ERR:
                 status = "num_err"
@@ -393,15 +397,16 @@ class LoradsSolver:
                  f"{self.problem.m:10d}",
                  "\t 4.sdp block dims:              : "
                  + ",".join(f"{pl.dim:3d}" for pl in self.ps.plans) + ","]
-        for bp in self.ps.buckets:
+        for bp, bk in zip(self.ps.buckets, self.pd.buckets):
+            mode = ("sparse(diag-identity fast path)" if bk.diag_ident
+                    else "sparse(union pattern)")
             for pl in bp.plans:
                 tri = pl.dim * (pl.dim + 1) // 2
                 lines.append(f"iCone:{pl.index}")
                 lines.append(
                     f"\t dim:{pl.dim} nConstr:{pl.m_loc} "
                     f"unionNnz:{pl.K} density:{pl.K / max(tri, 1):.4f} "
-                    f"mode:sparse(diag-identity fast path) "
-                    f"rank:{bp.rank}")
+                    f"mode:{mode} rank:{bp.rank}")
         lines.append("Initial rank:")
         for bp in self.ps.buckets:
             for pl in bp.plans:
@@ -781,11 +786,11 @@ def _eig_rescue_ok(bk) -> bool:
 
 def _slack_operator(bk, w_loc):
     """Normalized slack operator S/ws = (C - A^*(lambda))/ws for one
-    bucket -> (kind, op, ws):
+    bucket (solver.py:1502-1584) -> (kind, op, ws):
       kind "eigh":    op is the normalized dense slack [B, n, n]
       kind "lanczos": op is the [B, n] -> [B, n] matvec closure
     ws rescales the normalized eigenvalues back."""
-    if not _eig_rescue_ok(bk):
+    if bk.diag_ident and not _eig_rescue_ok(bk):
         # A^*(lambda) is diagonal, so the slack's off part is the static
         # C pattern: mv = one cmul (kernel K2, r = 1) + a diagonal
         W_d = bk.c_diag + bk.a_val_d * w_loc
@@ -800,12 +805,22 @@ def _slack_operator(bk, w_loc):
             return off * inv[:, None] + Wdn * x
 
         return "lanczos", mv, ws
+    # W = C - A^*(lambda) on the pattern (kernel K4), normalized per
+    # block: |lambda| grows with rho, and an un-normalized f32 Lanczos
+    # sweep can overflow (eigenvalues rescale back exactly)
     W_d, W_o = pat.build_w(bk, w_loc)
     ws = torch.clamp(torch.maximum(torch.amax(torch.abs(W_d), dim=1),
                                    torch.amax(torch.abs(W_o), dim=1)),
                      min=1e-30)
     Wn = (W_d / ws[:, None], W_o / ws[:, None])
-    return "eigh", pat.densify_w(bk, Wn), ws
+    if _eig_rescue_ok(bk):
+        return "eigh", pat.densify_w(bk, Wn), ws
+
+    def mv(x, bk=bk, Wn=Wn):
+        # W @ x at r = 1 (kernel K5)
+        return pat.w_mul(bk, Wn, x[:, :, None])[:, :, 0]
+
+    return "lanczos", mv, ws
 
 
 def _dual_infeas_device(pd, dual, v0s):

@@ -18,17 +18,21 @@ from lorads_torch.ops import pattern as pat
 def bucket_from_numpy(bk, dtype=torch.float64,
                       device="cpu") -> pat.BucketData:
     """The port's BucketData from a lorads_tpu BucketData's fields
-    (split, diag-identity, B = 1, global constraint slots)."""
-    if not (bk.split and bk.diag_ident) or bk.dense or bk.B != 1 \
-            or not bk.glob_ident:
+    (split, B = 1, global constraint slots).  The port-only arrays
+    (pattern.port_fields) are built on the host from the same fields."""
+    if not bk.split or bk.dense or bk.B != 1 or not bk.glob_ident:
         raise NotImplementedError(
-            "only split, diag-identity, single-block buckets with global "
-            "constraint slots are ported to lorads_torch")
-    meta = dict(n=bk.n, B=bk.B, K=bk.K, m_loc=bk.m_loc, m_glob=bk.m_glob,
-                Ko=bk.Ko, Ks=bk.Ks, has_off=bool(bk.has_off),
-                glob_ident=bool(bk.glob_ident))
+            "only split, single-block buckets with global constraint "
+            "slots are ported to lorads_torch")
+    meta = {k: getattr(bk, k) for k in pat.META_FIELDS if k != "Ks"}
     arrays = {k: np.asarray(getattr(bk, k))
               for k in pat.INT_FIELDS + pat.FLOAT_FIELDS}
+    port = pat.port_fields(bk.n, bk.m_loc, arrays["off_rows"],
+                           arrays["off_cols"], arrays["c_off"],
+                           arrays["a_con_o"], arrays["a_pos_o"],
+                           arrays["a_val_o"])
+    meta["Ks"] = port.pop("Ks")
+    arrays.update(port)
     return pat.bucket_from_arrays(meta, arrays, dtype, device)
 
 

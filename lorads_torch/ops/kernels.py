@@ -1,10 +1,14 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-| wrapper        | CUDA source          | replaces (lorads_tpu/ops/pattern.py)       |
-|----------------|----------------------|--------------------------------------------|
-| segment_sum    | csrc/segment_sum.cu  | comp_segment_sum, single_segment_sum (K1)  |
-| cmul_csr       | csrc/cmul.cu         | cmul (K2)                                  |
-| uvt_split      | csrc/uvt.cu          | uvt, split branch (K3)                     |
+| wrapper        | CUDA source            | replaces (lorads_tpu/ops/pattern.py)      |
+|----------------|------------------------|-------------------------------------------|
+| segment_sum    | csrc/segment_sum.cu    | comp_segment_sum, single_segment_sum (K1) |
+| cmul_csr       | csrc/cmul.cu           | cmul (K2)                                 |
+| uvt_split      | csrc/uvt.cu            | uvt, split branch (K3)                    |
+| uvt_pair_split | csrc/uvt_pair.cu       | uvt_pair, uvt_pair_cached (K3p)           |
+| gather_segsum  | csrc/gather_segsum.cu  | constr_vals and build_w, split (K4)       |
+| wmul_csr       | csrc/wmul.cu           | w_mul, w_mul_cached, split (K5)           |
+| adj_a_offdiag  | csrc/adj_a.cu          | a_adj_a (K6)                              |
 
 Each wrapper checks its arguments, then takes the plain PyTorch version
 (written with ``index_select`` / ``index_add_``) for CPU tensors, and
@@ -12,16 +16,18 @@ for CUDA tensors launches the kernel on the current stream or raises;
 there is no fallback between the two.  ``LAUNCHES`` counts kernel
 launches per wrapper (plain-version calls are not counted).
 
-Plain-version precision: f64 sums directly; f32 accumulates in f64 and
-rounds once, which bounds its error by the compensated kernels' eps32
-contract.
+Plain-version precision: f64 sums directly.  At f32 the segment sums
+(K1, K2, K4, K5) accumulate in f64 and round once, which bounds their
+error by the compensated kernels' eps32 contract; the row dots of K3,
+K3p and K6 (r terms each) sum in f32, as lorads_tpu's do.
 """
 
 from __future__ import annotations
 
 import torch
 
-KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split")
+KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
+                "gather_segsum", "wmul_csr", "adj_a_offdiag")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 
 
@@ -31,6 +37,7 @@ def reset_launches() -> None:
 
 
 def _check(name, floats, ints):
+    floats = [t for t in floats if t is not None]
     dev = floats[0].device
     dt = floats[0].dtype
     if dt not in (torch.float32, torch.float64):
@@ -63,6 +70,16 @@ def _launch(name, fn, *args):
 
 def _is_f64(t):
     return int(t.dtype == torch.float64)
+
+
+def _take_rows(X, idx):
+    """X [B, n, ...] at rows idx [B, K] -> [B, K, ...]."""
+    return torch.stack([X[b].index_select(0, idx[b].long())
+                        for b in range(X.shape[0])])
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -114,9 +131,7 @@ def segment_sum(data: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def cmul_csr_plain(X, c_diag, cols, vals, bnd):
-    B, n, r = X.shape
-    Xg = torch.stack([X[b].index_select(0, cols[b].long())
-                      for b in range(B)])                      # [B, Ks, r]
+    Xg = _take_rows(X, cols)                                   # [B, Ks, r]
     off = segment_sum_plain(vals[:, :, None] * Xg, bnd)
     return off if c_diag is None else c_diag[:, :, None] * X + off
 
@@ -148,15 +163,9 @@ def cmul_csr(X: torch.Tensor, c_diag, cols: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def uvt_split_plain(U, V, rows, cols):
-    B = U.shape[0]
     d = torch.sum(U * V, -1)
-
-    def take(X, idx):
-        return torch.stack([X[b].index_select(0, idx[b].long())
-                            for b in range(B)])
-
-    ur, vc = take(U, rows), take(V, cols)
-    uc, vr = take(U, cols), take(V, rows)
+    ur, vc = _take_rows(U, rows), _take_rows(V, cols)
+    uc, vr = _take_rows(U, cols), _take_rows(V, rows)
     o = 0.5 * (torch.sum(ur * vc, -1) + torch.sum(uc * vr, -1))
     return d, o
 
@@ -178,3 +187,139 @@ def uvt_split(U: torch.Tensor, V: torch.Tensor, rows: torch.Tensor,
             V.data_ptr(), rows.data_ptr(), cols.data_ptr(), d.data_ptr(),
             o.data_ptr(), B, n, Ko, r)
     return d, o
+
+
+# ---------------------------------------------------------------------------
+# K3p: (sym(R D^T), sym(D D^T)) on the split pattern in one pass.
+# ---------------------------------------------------------------------------
+
+def uvt_pair_split_plain(R, D, rows, cols):
+    rd_d = torch.sum(R * D, -1)
+    dd_d = torch.sum(D * D, -1)
+    Rr, Rc = _take_rows(R, rows), _take_rows(R, cols)
+    Dr, Dc = _take_rows(D, rows), _take_rows(D, cols)
+    rd_o = 0.5 * (torch.sum(Rr * Dc, -1) + torch.sum(Rc * Dr, -1))
+    dd_o = torch.sum(Dr * Dc, -1)
+    return rd_d, rd_o, dd_d, dd_o
+
+
+def uvt_pair_split(R: torch.Tensor, D: torch.Tensor, rows: torch.Tensor,
+                   cols: torch.Tensor):
+    """K3p.  R, D [B, n, r]; rows, cols int32 [B, Ko] ->
+    (rd_d, rd_o, dd_d, dd_o): rowsum(R*D) and rowsum(D*D) [B, n],
+    sym(RD^T) and DD^T at (rows, cols) [B, Ko]."""
+    B, n, r = R.shape
+    Ko = rows.shape[1]
+    if D.shape != R.shape or cols.shape != rows.shape \
+            or rows.shape[0] != B:
+        raise ValueError("uvt_pair_split: inconsistent shapes")
+    if not _check("uvt_pair_split", [R, D], [rows, cols]):
+        return uvt_pair_split_plain(R, D, rows, cols)
+    rd_d, dd_d = (torch.empty((B, n), dtype=R.dtype, device=R.device)
+                  for _ in range(2))
+    rd_o, dd_o = (torch.empty((B, Ko), dtype=R.dtype, device=R.device)
+                  for _ in range(2))
+    _launch("uvt_pair_split", "lt_uvt_pair", _is_f64(R), R.data_ptr(),
+            D.data_ptr(), rows.data_ptr(), cols.data_ptr(), rd_d.data_ptr(),
+            rd_o.data_ptr(), dd_d.data_ptr(), dd_o.data_ptr(), B, n, Ko, r)
+    return rd_d, rd_o, dd_d, dd_o
+
+
+# ---------------------------------------------------------------------------
+# K4: gather x at the entries, scale, segment-sum over CSR bounds.
+# ---------------------------------------------------------------------------
+
+def gather_segsum_plain(x, idx, val, bnd, base=None, alpha=1.0):
+    g = _take_rows(x, idx)                                     # [B, N]
+    out = alpha * segment_sum_plain(val * g, bnd)
+    return out if base is None else base + out
+
+
+def gather_segsum(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                  bnd: torch.Tensor, base=None,
+                  alpha: float = 1.0) -> torch.Tensor:
+    """K4.  x [B, Nx]; idx int32 [B, N] into x; val [B, N]; bnd int32
+    [B, S+1] segment pointers into the entries; base [B, S] or None ->
+    out[b, s] = base[b, s] + alpha * sum_seg val * x[idx].  A one-entry
+    segment is exact."""
+    if x.dim() != 2 or idx.dim() != 2 or bnd.dim() != 2:
+        raise ValueError("gather_segsum: x, idx and bnd must be 2-D")
+    B, Nx = x.shape
+    N = idx.shape[1]
+    S = bnd.shape[1] - 1
+    if (val.shape != idx.shape or idx.shape[0] != B or bnd.shape[0] != B
+            or (base is not None and base.shape != (B, S))):
+        raise ValueError("gather_segsum: inconsistent shapes")
+    if not _check("gather_segsum", [x, val, base], [idx, bnd]):
+        return gather_segsum_plain(x, idx, val, bnd, base, alpha)
+    out = torch.empty((B, S), dtype=x.dtype, device=x.device)
+    _launch("gather_segsum", "lt_gather_segsum", _is_f64(x), x.data_ptr(),
+            idx.data_ptr(), val.data_ptr(), bnd.data_ptr(), _ptr(base),
+            out.data_ptr(), B, Nx, N, S, float(alpha))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5: W @ X over the full-symmetric row-sorted entry list, W's off values
+# read through each entry's slot.
+# ---------------------------------------------------------------------------
+
+def wmul_csr_plain(X, W_d, W_o, slots, cols, bnd):
+    vals = torch.stack([
+        torch.where(slots[b] >= 0,
+                    W_o[b].index_select(0, slots[b].clamp(min=0).long()),
+                    torch.zeros((), dtype=W_o.dtype, device=W_o.device))
+        for b in range(X.shape[0])])
+    return cmul_csr_plain(X, W_d, cols, vals, bnd)
+
+
+def wmul_csr(X: torch.Tensor, W_d: torch.Tensor, W_o: torch.Tensor,
+             slots: torch.Tensor, cols: torch.Tensor,
+             bnd: torch.Tensor) -> torch.Tensor:
+    """K5.  X [B, n, r]; W_d [B, n]; W_o [B, Ko]; slots (-1: padding)
+    and cols int32 [B, Ks] sorted by row; bnd int32 [B, n+1] row
+    pointers -> W @ X [B, n, r]."""
+    B, n, r = X.shape
+    Ko, Ks = W_o.shape[1], cols.shape[1]
+    if (slots.shape != cols.shape or cols.shape[0] != B
+            or W_d.shape != (B, n) or W_o.shape[0] != B
+            or bnd.shape != (B, n + 1)):
+        raise ValueError("wmul_csr: inconsistent shapes")
+    if not _check("wmul_csr", [X, W_d, W_o], [slots, cols, bnd]):
+        return wmul_csr_plain(X, W_d, W_o, slots, cols, bnd)
+    out = torch.empty_like(X)
+    _launch("wmul_csr", "lt_wmul", _is_f64(X), X.data_ptr(),
+            W_d.data_ptr(), W_o.data_ptr(), slots.data_ptr(),
+            cols.data_ptr(), bnd.data_ptr(), out.data_ptr(), B, n, Ko, Ks, r)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: a2 .* sym(X F^T) on the off pattern (+ the diagonal rowsum(X*F)).
+# ---------------------------------------------------------------------------
+
+def adj_a_offdiag_plain(X, F, rows, cols, a2, want_diag):
+    d, o = uvt_split_plain(X, F, rows, cols)
+    return (d if want_diag else None), a2 * o
+
+
+def adj_a_offdiag(X: torch.Tensor, F: torch.Tensor, rows: torch.Tensor,
+                  cols: torch.Tensor, a2: torch.Tensor,
+                  want_diag: bool = False):
+    """K6.  X, F [B, n, r]; rows, cols int32 [B, Ko]; a2 [B, Ko] ->
+    (rowsum(X*F) [B, n] or None, a2 * sym(XF^T) at (rows, cols)
+    [B, Ko])."""
+    B, n, r = X.shape
+    Ko = rows.shape[1]
+    if (F.shape != X.shape or cols.shape != rows.shape
+            or rows.shape[0] != B or a2.shape != rows.shape):
+        raise ValueError("adj_a_offdiag: inconsistent shapes")
+    if not _check("adj_a_offdiag", [X, F, a2], [rows, cols]):
+        return adj_a_offdiag_plain(X, F, rows, cols, a2, want_diag)
+    d = (torch.empty((B, n), dtype=X.dtype, device=X.device)
+         if want_diag else None)
+    W_o = torch.empty((B, Ko), dtype=X.dtype, device=X.device)
+    _launch("adj_a_offdiag", "lt_adj_a_offdiag", _is_f64(X), X.data_ptr(),
+            F.data_ptr(), rows.data_ptr(), cols.data_ptr(), a2.data_ptr(),
+            _ptr(d), W_o.data_ptr(), B, n, Ko, r)
+    return d, W_o

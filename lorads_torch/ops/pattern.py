@@ -1,16 +1,44 @@
-"""Pattern kernels for the split, diag-identity bucket (the Max-Cut shape).
+"""Pattern kernels for split, single-block sparse buckets.
 
-Port of the split / diag-identity subset of lorads_tpu/ops/pattern.py.
-A Max-Cut block presolves into ONE sparse bucket whose pattern is split
-into its diagonal (dense [B, n] vectors) and its strictly-lower entries,
-and whose constraints are the diagonal identities A_i = a_i e_i e_i^T
-(``diag_ident``).  A(.) and A^*(.) are then elementwise, and the sparse
-work is C @ X (``cmul``, kernel K2) and the off-pattern values of
-sym(U V^T) (``uvt``, kernel K3); K1 (``comp_segment_sum``) is the
-segment-sum primitive, fused inside K2 on this path.
+Port of the split subset of lorads_tpu/ops/pattern.py.  A sparse block
+presolves into ONE bucket whose pattern is split into its diagonal
+(dense [B, n] vectors) and its strictly-lower entries ("off slots").
+Constraints sit on any diagonal or off slots; their entries are kept in
+lorads_tpu's layout (``a_con_d``/``a_row_d``/``a_val_d`` on the
+diagonal, ``a_con_o``/``a_pos_o``/``a_val_o`` on the off slots, and
+their slot- and row-sorted copies ``a_*_s``).  Two shapes:
 
-Any other bucket (dense, split but not diag-identity, B > 1, constraint
-slots that are not the global ones) raises NotImplementedError.
+* diag-identity (``diag_ident``, Max-Cut): A_i = a_i e_i e_i^T, so A(.)
+  and A^*(.) are elementwise and the sparse work is C @ X (``cmul``,
+  kernel K2) and the off values of sym(U V^T) (``uvt``, K3);
+* general (matrix completion, ...): A(.) and A^*(.) are gathers and
+  segment sums (``constr_vals``, ``build_w``: K4), W @ X reads W's off
+  values through the entry list (``w_mul``: K5), the line search's pair
+  SDDMM is K3p (``uvt_pair``), and the ADMM CG operator's
+  A^*(A(.)) is K6 (``a_adj_a``) when every off constraint owns a slot.
+
+Layout decisions of the port (fields lorads_tpu has and this module does
+not build):
+
+* no column-order mirror of the off pattern (``off_col_perm``,
+  ``off_cols_sp``, ``off_rows_cp``, ``c_off_cp``, ``a2_off_cp``,
+  ``a_*_co_s``) and no row-sorted off copy (``off_row_perm``,
+  ``off_rows_s``, ``off_cols_rp``).  They exist because unsorted TPU
+  scatters run at random-access latency.  Instead every split bucket
+  carries the full-symmetric row-sorted entry list (``sym_rows_rs``,
+  ``sym_cols_rs``, ``bnd_sym_rows``, with ``c_sym_rs``) and, port-only,
+  ``sym_slot_rs``: the off slot each entry reads, so W @ X is one pass;
+* no gathered-row caches (``gather_cache`` gives None): the cached
+  forms compute from the factors directly, which a fused SDDMM reads
+  from L2;
+* a constraint-sorted copy of the off constraint entries with CSR
+  bounds (``a_con_o_cs``, ``a_pos_o_cs``, ``a_val_o_cs``,
+  ``bnd_a_con_o_cs``) that always exists (lorads_tpu has bounds only
+  when ``a_con_o`` happens to be sorted).  The diagonal entries are
+  constraint-sorted by construction (``a_con_d``, ``bnd_a_con_d``).
+
+Dense buckets, B > 1 and constraint slots that are not the global ones
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,9 +67,10 @@ def single_segment_sum(data: torch.Tensor, bounds: torch.Tensor):
 
 @dataclasses.dataclass(frozen=True)
 class BucketData:
-    """Device tensors of one split, diag-identity bucket ([B, ...], B=1).
+    """Device tensors of one split bucket ([B, ...], B=1).
 
-    Field names and layouts are those of lorads_tpu's BucketData."""
+    Field names and layouts are those of lorads_tpu's BucketData, plus
+    the port-only fields named in the module docstring."""
 
     n: int
     B: int
@@ -50,21 +79,54 @@ class BucketData:
     m_glob: int
     Ko: int
     Ks: int
+    nnz_d: int
+    nnz_o: int
     has_off: bool
+    has_diag_a: bool
+    has_off_a: bool
+    a_off_unique: bool
     glob_ident: bool
+    diag_ident: bool
     glob_idx: torch.Tensor      # int32 [B, m_loc]
     c_diag: torch.Tensor        # [B, n]
-    a_val_d: torch.Tensor       # [B, n] (constraint i == diagonal entry i)
     off_rows: torch.Tensor      # int32 [B, Ko] strictly-lower rows
     off_cols: torch.Tensor      # int32 [B, Ko]
     c_off: torch.Tensor         # [B, Ko]
     c_off2: torch.Tensor        # [B, Ko] = 2 * c_off
-    sym_rows_rs: torch.Tensor   # int32 [B, Ks] full-symmetric, row-sorted
+    # diagonal constraint entries, sorted by constraint (diag_ident:
+    # constraint i == diagonal entry i, so a_val_d is [B, n])
+    a_con_d: torch.Tensor       # int32 [B, nnz_d]
+    a_row_d: torch.Tensor       # int32 [B, nnz_d]
+    a_val_d: torch.Tensor       # [B, nnz_d]
+    bnd_a_con_d: torch.Tensor   # int32 [B, m_loc+1]
+    # ... and sorted by row (build_w's W_d)
+    a_row_d_s: torch.Tensor     # int32 [B, nnz_d]
+    a_con_d_s: torch.Tensor     # int32 [B, nnz_d]
+    a_val_d_s: torch.Tensor     # [B, nnz_d]
+    bnd_a_row_d_s: torch.Tensor  # int32 [B, n+1]
+    # off constraint entries (raw values; <A, X> doubles them)
+    a_con_o: torch.Tensor       # int32 [B, nnz_o]
+    a_pos_o: torch.Tensor       # int32 [B, nnz_o] off slot
+    a_val_o: torch.Tensor       # [B, nnz_o]
+    # ... sorted by slot (build_w's W_o)
+    a_pos_o_s: torch.Tensor     # int32 [B, nnz_o]
+    a_con_o_s: torch.Tensor     # int32 [B, nnz_o]
+    a_val_o_s: torch.Tensor     # [B, nnz_o]
+    bnd_a_pos_o_s: torch.Tensor  # int32 [B, Ko+1]
+    a2_off: torch.Tensor        # [B, Ko] sum of 2 a^2 per slot
+    # full-symmetric entries (lower + mirror), row-sorted
+    sym_rows_rs: torch.Tensor   # int32 [B, Ks]
     sym_cols_rs: torch.Tensor   # int32 [B, Ks]
     c_sym_rs: torch.Tensor      # [B, Ks]
     bnd_sym_rows: torch.Tensor  # int32 [B, n+1]
+    # port-only: the off slot of each sym entry (-1: padding) and the
+    # constraint-sorted off constraint entries
+    sym_slot_rs: torch.Tensor   # int32 [B, Ks]
+    a_con_o_cs: torch.Tensor    # int32 [B, nnz_o]
+    a_pos_o_cs: torch.Tensor    # int32 [B, nnz_o]
+    a_val_o_cs: torch.Tensor    # [B, nnz_o]
+    bnd_a_con_o_cs: torch.Tensor  # int32 [B, m_loc+1]
     split: bool = True
-    diag_ident: bool = True
     dense: bool = False
 
     @property
@@ -72,22 +134,39 @@ class BucketData:
         return self.c_diag.dtype
 
 
-# the arrays a BucketData is made of (names shared with lorads_tpu)
-INT_FIELDS = ("glob_idx", "off_rows", "off_cols", "sym_rows_rs",
-              "sym_cols_rs", "bnd_sym_rows")
-FLOAT_FIELDS = ("c_diag", "a_val_d", "c_off", "c_off2", "c_sym_rs")
+# the arrays a BucketData is made of.  INT_FIELDS and FLOAT_FIELDS are
+# shared with lorads_tpu's BucketData for every split bucket; SYM_*
+# exist in lorads_tpu for diag-identity buckets only; PORT_* are the
+# port's own.
+INT_FIELDS = ("glob_idx", "off_rows", "off_cols", "a_con_d", "a_row_d",
+              "bnd_a_con_d", "a_row_d_s", "a_con_d_s", "bnd_a_row_d_s",
+              "a_con_o", "a_pos_o", "a_pos_o_s", "a_con_o_s",
+              "bnd_a_pos_o_s")
+FLOAT_FIELDS = ("c_diag", "a_val_d", "c_off", "c_off2", "a_val_d_s",
+                "a_val_o", "a_val_o_s", "a2_off")
+SYM_INT_FIELDS = ("sym_rows_rs", "sym_cols_rs", "bnd_sym_rows")
+SYM_FLOAT_FIELDS = ("c_sym_rs",)
+PORT_INT_FIELDS = ("sym_slot_rs", "a_con_o_cs", "a_pos_o_cs",
+                   "bnd_a_con_o_cs")
+PORT_FLOAT_FIELDS = ("a_val_o_cs",)
+ALL_INT_FIELDS = INT_FIELDS + SYM_INT_FIELDS + PORT_INT_FIELDS
+ALL_FLOAT_FIELDS = FLOAT_FIELDS + SYM_FLOAT_FIELDS + PORT_FLOAT_FIELDS
+# the scalar layout (meta) of a BucketData
+META_FIELDS = ("n", "B", "K", "m_loc", "m_glob", "Ko", "Ks", "nnz_d",
+               "nnz_o", "has_off", "has_diag_a", "has_off_a",
+               "a_off_unique", "glob_ident", "diag_ident")
 
 
 def bucket_from_arrays(meta: dict, arrays: dict, dtype,
                        device) -> BucketData:
     """BucketData from numpy arrays (``arrays``) and the scalar layout
-    (``meta``: n, B, K, m_loc, m_glob, Ko, Ks, has_off, glob_ident)."""
+    (``meta``: META_FIELDS)."""
     t = {k: torch.as_tensor(np.array(arrays[k], dtype=np.int32),
                             device=device)
-         for k in INT_FIELDS}
+         for k in ALL_INT_FIELDS}
     t.update({k: torch.as_tensor(np.array(arrays[k], dtype=np.float64),
                                  device=device).to(dtype).contiguous()
-              for k in FLOAT_FIELDS})
+              for k in ALL_FLOAT_FIELDS})
     return BucketData(**meta, **t)
 
 
@@ -100,41 +179,62 @@ def _bounds_np(ids: np.ndarray, S: int) -> np.ndarray:
     return out
 
 
+def _pad(x, L, fill=0):
+    """[1, L] copy of the 1-D ``x`` padded with ``fill``."""
+    out = np.full((1, L), fill, dtype=np.asarray(x).dtype)
+    out[0, :x.size] = x
+    return out
+
+
+def port_fields(n: int, m_loc: int, off_rows, off_cols, c_off, a_con_o,
+                a_pos_o, a_val_o) -> dict:
+    """The port's host-built arrays of a B = 1 split bucket, from its
+    lorads_tpu-layout off pattern ([1, Ko] off_rows/off_cols/c_off) and
+    off constraint entries ([1, nnz_o] a_con_o/a_pos_o/a_val_o): the
+    full-symmetric row-sorted entry list with each entry's off slot,
+    and the constraint-sorted off constraint entries with CSR bounds.
+    Padding slots (value 0) are left out of the entry list; its own
+    padding carries (row 0, col 0, value 0, slot -1)."""
+    k = int(np.count_nonzero(off_rows[0] != off_cols[0]))
+    orow = off_rows[0, :k].astype(np.int64)
+    ocol = off_cols[0, :k].astype(np.int64)
+    oval = np.asarray(c_off[0, :k], np.float64)
+    Ks = max(2 * k, 1)
+    sr = np.concatenate([orow, ocol])
+    sc = np.concatenate([ocol, orow])
+    sv = np.concatenate([oval, oval])
+    ss = np.concatenate([np.arange(k), np.arange(k)])
+    o_rs = np.argsort(sr, kind="stable")
+    sym_rows = _pad(sr[o_rs], Ks)
+    sym_cols = _pad(sc[o_rs], Ks)
+    sym_vals = _pad(sv[o_rs], Ks)
+    sym_slot = _pad(ss[o_rs], Ks, fill=-1)
+    # padding (row 0) sorts to the front of row 0's segment
+    rs = np.argsort(sym_rows[0], kind="stable")
+    sym_rows, sym_cols = sym_rows[:, rs], sym_cols[:, rs]
+    sym_vals, sym_slot = sym_vals[:, rs], sym_slot[:, rs]
+    oc = np.argsort(a_con_o[0], kind="stable")
+    con_cs = np.asarray(a_con_o)[:, oc]
+    return dict(
+        Ks=Ks, sym_rows_rs=sym_rows, sym_cols_rs=sym_cols,
+        c_sym_rs=sym_vals, bnd_sym_rows=_bounds_np(sym_rows, n),
+        sym_slot_rs=sym_slot, a_con_o_cs=con_cs,
+        a_pos_o_cs=np.asarray(a_pos_o)[:, oc],
+        a_val_o_cs=np.asarray(a_val_o)[:, oc],
+        bnd_a_con_o_cs=_bounds_np(con_cs, m_loc))
+
+
 def build_bucket_data(bp: BucketPlan, m_glob: int, dtype,
                       device) -> BucketData:
-    """Host construction of the split, diag-identity fields of one
-    bucket, in lorads_tpu's layout (pattern.py:578-766, 909-930)."""
+    """Host construction of the split fields of one bucket, in
+    lorads_tpu's layout (pattern.py:578-766, 909-930), plus the port's
+    own (port_fields)."""
     if bp.dense:
         raise NotImplementedError(
             "dense-mode buckets not yet ported to lorads_torch")
     if bp.B != 1:
         raise NotImplementedError(
             "buckets of B > 1 blocks not yet ported to lorads_torch")
-    n = bp.n
-    pr = bp.pat_rows[0].astype(np.int64)
-    pc = bp.pat_cols[0].astype(np.int64)
-    cp = bp.c_pat[0]
-    is_d = pr == pc
-    off_idx = np.nonzero(~is_d)[0]
-    c_diag = np.zeros((1, n))
-    np.add.at(c_diag[0], pr[is_d], cp[is_d])
-    orow, ocol, oval = pr[off_idx], pc[off_idx], cp[off_idx]
-
-    ap = bp.a_pos[0].astype(np.int64)
-    ac = bp.a_con_loc[0].astype(np.int64)
-    ed = is_d[ap]
-    con_d, row_d, val_d = ac[ed], pr[ap[ed]], bp.a_val[0][ed]
-    od = np.argsort(con_d, kind="stable")
-    con_d, row_d, val_d = con_d[od], row_d[od], val_d[od]
-    p = bp.plans[0]
-    ident = (p.dim == n and p.m_loc == n and con_d.size == n
-             and int((~ed).sum()) == 0
-             and bool(np.all(con_d == np.arange(n)))
-             and bool(np.all(row_d == np.arange(n))))
-    if not ident:
-        raise NotImplementedError(
-            "split buckets whose constraints are not diagonal identities "
-            "not yet ported to lorads_torch")
     glob_ident = (bp.m_loc == m_glob
                   and bool(np.array_equal(bp.glob_idx[0],
                                           np.arange(m_glob))))
@@ -142,44 +242,85 @@ def build_bucket_data(bp: BucketPlan, m_glob: int, dtype,
         raise NotImplementedError(
             "buckets whose constraint slots are not the global ones not "
             "yet ported to lorads_torch")
+    n = bp.n
+    pr = bp.pat_rows[0].astype(np.int64)
+    pc = bp.pat_cols[0].astype(np.int64)
+    cp = bp.c_pat[0]
+    is_d = pr == pc
+    off_idx = np.nonzero(~is_d)[0]
+    off_of = np.zeros(pr.size, np.int64)
+    off_of[off_idx] = np.arange(off_idx.size)
+    c_diag = np.zeros((1, n))
+    np.add.at(c_diag[0], pr[is_d], cp[is_d])
+    orow, ocol, oval = pr[off_idx], pc[off_idx], cp[off_idx]
+
+    ap = bp.a_pos[0].astype(np.int64)
+    ac = bp.a_con_loc[0].astype(np.int64)
+    av = bp.a_val[0]
+    ed = is_d[ap]
+    con_d, row_d, val_d = ac[ed], pr[ap[ed]], av[ed]
+    # diagonal entries ordered by constraint slot
+    od = np.argsort(con_d, kind="stable")
+    con_d, row_d, val_d = con_d[od], row_d[od], val_d[od]
+    eo = ~ed
+    con_o, pos_o, val_o = ac[eo], off_of[ap[eo]], av[eo]
+    p = bp.plans[0]
+    # "identity" demands pure diagonal-entry constraints (pattern.py:620)
+    ident = (p.dim == n and p.m_loc == n and con_d.size == n
+             and con_o.size == 0
+             and bool(np.all(con_d == np.arange(n)))
+             and bool(np.all(row_d == np.arange(n))))
 
     Ko = max(orow.size, 1)
-    pad = lambda x, L, dt: np.concatenate(
-        [x, np.zeros(L - x.size, dt)])[None]
-    off_rows = pad(orow, Ko, np.int64)
-    off_cols = pad(ocol, Ko, np.int64)
-    c_off = pad(oval, Ko, np.float64)
+    nnz_d = max(con_d.size, 1)
+    nnz_o = max(con_o.size, 1)
+    off_rows, off_cols = _pad(orow, Ko), _pad(ocol, Ko)
+    c_off = _pad(oval.astype(np.float64), Ko)
+    a_con_d, a_row_d = _pad(con_d, nnz_d), _pad(row_d, nnz_d)
+    a_val_d = _pad(val_d.astype(np.float64), nnz_d)
+    a_con_o, a_pos_o = _pad(con_o, nnz_o), _pad(pos_o, nnz_o)
+    a_val_o = _pad(val_o.astype(np.float64), nnz_o)
+    po = np.argsort(a_pos_o[0], kind="stable")
+    rd = np.argsort(a_row_d[0], kind="stable")
 
-    # full-symmetric entries (lower + mirror) sorted by row; padding
-    # carries (row 0, col 0, value 0) and joins row 0's segment
-    Ks = max(2 * orow.size, 1)
-    sr = np.concatenate([orow, ocol])
-    sc = np.concatenate([ocol, orow])
-    sv = np.concatenate([oval, oval])
-    o_rs = np.argsort(sr, kind="stable")
-    sym_rows = pad(sr[o_rs], Ks, np.int64)[0]
-    sym_cols = pad(sc[o_rs], Ks, np.int64)[0]
-    sym_vals = pad(sv[o_rs], Ks, np.float64)[0]
-    row_sorted = np.argsort(sym_rows, kind="stable")
-    sym_rows = sym_rows[row_sorted][None]
-    sym_cols = sym_cols[row_sorted][None]
-    sym_vals = sym_vals[row_sorted][None]
+    # A^*(A(.)) is slot-diagonal on the off pattern when every off entry
+    # owns a distinct slot and a distinct constraint, disjoint from the
+    # diagonal constraints (pattern.py:671-683)
+    off_unique = (np.unique(pos_o).size == pos_o.size
+                  and np.unique(con_o).size == con_o.size
+                  and not np.intersect1d(con_o, con_d).size)
+    a2_off = np.zeros((1, Ko))
+    np.add.at(a2_off[0], pos_o, 2.0 * val_o ** 2)
 
     meta = dict(n=n, B=1, K=bp.K, m_loc=bp.m_loc, m_glob=m_glob, Ko=Ko,
-                Ks=Ks, has_off=bool(orow.size), glob_ident=glob_ident)
+                nnz_d=nnz_d, nnz_o=nnz_o, has_off=bool(orow.size),
+                has_diag_a=bool(con_d.size), has_off_a=bool(con_o.size),
+                a_off_unique=bool(off_unique and con_o.size),
+                glob_ident=glob_ident, diag_ident=bool(ident))
     arrays = dict(
-        glob_idx=bp.glob_idx, c_diag=c_diag, a_val_d=val_d[None],
-        off_rows=off_rows, off_cols=off_cols, c_off=c_off,
-        c_off2=2.0 * c_off, sym_rows_rs=sym_rows, sym_cols_rs=sym_cols,
-        c_sym_rs=sym_vals, bnd_sym_rows=_bounds_np(sym_rows, n))
+        glob_idx=bp.glob_idx, c_diag=c_diag, off_rows=off_rows,
+        off_cols=off_cols, c_off=c_off, c_off2=2.0 * c_off,
+        a_con_d=a_con_d, a_row_d=a_row_d, a_val_d=a_val_d,
+        bnd_a_con_d=_bounds_np(a_con_d, bp.m_loc),
+        a_row_d_s=a_row_d[:, rd], a_con_d_s=a_con_d[:, rd],
+        a_val_d_s=a_val_d[:, rd],
+        bnd_a_row_d_s=_bounds_np(a_row_d[:, rd], n),
+        a_con_o=a_con_o, a_pos_o=a_pos_o, a_val_o=a_val_o,
+        a_pos_o_s=a_pos_o[:, po], a_con_o_s=a_con_o[:, po],
+        a_val_o_s=a_val_o[:, po],
+        bnd_a_pos_o_s=_bounds_np(a_pos_o[:, po], Ko), a2_off=a2_off)
+    port = port_fields(n, bp.m_loc, off_rows, off_cols, c_off, a_con_o,
+                       a_pos_o, a_val_o)
+    meta["Ks"] = port.pop("Ks")
+    arrays.update(port)
     return bucket_from_arrays(meta, arrays, dtype, device)
 
 
 def cast_floats(bk: BucketData, dtype) -> BucketData:
     """The bucket with every float tensor cast to ``dtype`` (the f32 view
-    the Lanczos certificate sweeps on)."""
+    the Lanczos certificate and the mixed-precision CG sweep on)."""
     return dataclasses.replace(
-        bk, **{k: getattr(bk, k).to(dtype) for k in FLOAT_FIELDS})
+        bk, **{k: getattr(bk, k).to(dtype) for k in ALL_FLOAT_FIELDS})
 
 
 def scale_bucket(bk: BucketData, s: float) -> BucketData:
@@ -187,6 +328,12 @@ def scale_bucket(bk: BucketData, s: float) -> BucketData:
     return dataclasses.replace(
         bk, c_diag=bk.c_diag * s, c_off=bk.c_off * s, c_off2=bk.c_off2 * s,
         c_sym_rs=bk.c_sym_rs * s)
+
+
+def cone_total(bk: BucketData, vals: torch.Tensor) -> torch.Tensor:
+    """Per-cone constraint values: the identity (the port has no
+    sharded buckets)."""
+    return vals
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +347,33 @@ def uvt(bk: BucketData, U: torch.Tensor, V: torch.Tensor):
                              bk.off_cols)
 
 
+def uvt_pair(bk: BucketData, R: torch.Tensor, D: torch.Tensor):
+    """(sym(RD^T), sym(DD^T)) pattern values in one pass, for the ALM
+    line search -- kernel K3p (pattern.py:1110-1119)."""
+    rd_d, rd_o, dd_d, dd_o = kernels.uvt_pair_split(
+        R.contiguous(), D.contiguous(), bk.off_rows, bk.off_cols)
+    return (rd_d, rd_o), (dd_d, dd_o)
+
+
 def constr_vals(bk: BucketData, uvt_val) -> torch.Tensor:
-    """A(sym(UV^T)) -> [B, m_loc]; constraint i is diagonal entry i."""
-    d, _ = uvt_val
-    return bk.a_val_d * d
+    """A(sym(UV^T)) -> [B, m_loc] (pattern.py:1153-1173): elementwise for
+    diag-identity buckets, else kernel K4 over the diagonal entries and
+    over the off entries (whose <A, X> weight is 2 a)."""
+    d, o = uvt_val
+    if bk.diag_ident:
+        return bk.a_val_d * d            # constraint i == diag entry i
+    vals = None
+    if bk.has_diag_a:
+        vals = kernels.gather_segsum(d, bk.a_row_d, bk.a_val_d,
+                                     bk.bnd_a_con_d)
+    if bk.has_off_a:
+        vals = kernels.gather_segsum(o, bk.a_pos_o_cs, bk.a_val_o_cs,
+                                     bk.bnd_a_con_o_cs, base=vals,
+                                     alpha=2.0)
+    if vals is None:
+        vals = torch.zeros((d.shape[0], bk.m_loc), dtype=d.dtype,
+                           device=d.device)
+    return vals
 
 
 def obj_inner(bk: BucketData, uvt_val) -> torch.Tensor:
@@ -227,15 +397,40 @@ def gather_w(bk: BucketData, w: torch.Tensor) -> torch.Tensor:
 
 def build_w(bk: BucketData, w_loc: torch.Tensor, include_obj: bool = True):
     """W = [C +] sum_i w_i A_i on the split pattern: (W_d [B, n],
-    W_o [B, Ko]).  The constraints touch only the diagonal, so W's off
-    part is C's.  (lorads_tpu also returns a column-order mirror of W_o
-    for its sorted TPU scatters; nothing here reads it.)"""
-    W_d = bk.a_val_d * w_loc
-    W_o = torch.zeros((w_loc.shape[0], bk.Ko), dtype=w_loc.dtype,
-                      device=w_loc.device)
-    if include_obj:
-        return bk.c_diag + W_d, bk.c_off + W_o
+    W_o [B, Ko]) (pattern.py:1275-1304).  General buckets sum each
+    diagonal row and each off slot over its constraint entries with
+    kernel K4, the objective riding in as K4's base.  (lorads_tpu also
+    returns a column-order mirror of W_o; the port has none.)"""
+    z = lambda L: torch.zeros((w_loc.shape[0], L),  # noqa: E731
+                              dtype=w_loc.dtype, device=w_loc.device)
+    if bk.diag_ident:
+        W_d = bk.a_val_d * w_loc         # row i == constraint i
+        if include_obj:
+            return bk.c_diag + W_d, bk.c_off + z(bk.Ko)
+        return W_d, z(bk.Ko)
+    if bk.has_diag_a:
+        W_d = kernels.gather_segsum(
+            w_loc, bk.a_con_d_s, bk.a_val_d_s, bk.bnd_a_row_d_s,
+            base=bk.c_diag if include_obj else None)
+    else:
+        W_d = bk.c_diag + z(bk.n) if include_obj else z(bk.n)
+    if bk.has_off_a:
+        W_o = kernels.gather_segsum(
+            w_loc, bk.a_con_o_s, bk.a_val_o_s, bk.bnd_a_pos_o_s,
+            base=bk.c_off if include_obj else None)
+    else:
+        W_o = bk.c_off + z(bk.Ko) if include_obj else z(bk.Ko)
     return W_d, W_o
+
+
+def w_mul(bk: BucketData, W, X: torch.Tensor) -> torch.Tensor:
+    """W @ X [B, n, r] for a build_w output -- kernel K5
+    (pattern.py:1330-1347): one pass over the full-symmetric row-sorted
+    entry list, each entry reading its W_o slot."""
+    W_d, W_o = W
+    return kernels.wmul_csr(X.contiguous(), W_d.contiguous(),
+                            W_o.contiguous(), bk.sym_slot_rs,
+                            bk.sym_cols_rs, bk.bnd_sym_rows)
 
 
 def densify_w(bk: BucketData, W) -> torch.Tensor:
@@ -252,6 +447,25 @@ def densify_w(bk: BucketData, W) -> torch.Tensor:
     return out
 
 
+def a_adj_a(bk: BucketData, X: torch.Tensor, F: torch.Tensor):
+    """W = A^*(A(sym(X F^T))) for buckets whose off constraint entries
+    own distinct slots (bk.a_off_unique; pattern.py:1476-1506, which
+    takes sym(X F^T) from uvt_half_cached): the off plane is the static
+    scale a2_off of sym(X F^T)_o, one launch of kernel K6 from (X, F);
+    diagonal constraints compose through constraint space with two K4
+    launches.  Returns (W_d, W_o)."""
+    d, W_o = kernels.adj_a_offdiag(X.contiguous(), F.contiguous(),
+                                   bk.off_rows, bk.off_cols, bk.a2_off,
+                                   want_diag=bk.has_diag_a)
+    if not bk.has_diag_a:
+        return torch.zeros((X.shape[0], bk.n), dtype=X.dtype,
+                           device=X.device), W_o
+    vals = kernels.gather_segsum(d, bk.a_row_d, bk.a_val_d, bk.bnd_a_con_d)
+    W_d = kernels.gather_segsum(vals, bk.a_con_d_s, bk.a_val_d_s,
+                                bk.bnd_a_row_d_s)
+    return W_d, W_o
+
+
 def cmul(bk: BucketData, X: torch.Tensor,
          include_diag: bool = True) -> torch.Tensor:
     """C @ X [B, n, r] over the full-symmetric row-sorted entry list --
@@ -260,3 +474,38 @@ def cmul(bk: BucketData, X: torch.Tensor,
     return kernels.cmul_csr(X.contiguous(),
                             bk.c_diag if include_diag else None,
                             bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
+
+
+# ---------------------------------------------------------------------------
+# The cached forms.  lorads_tpu keeps gathered pattern rows of the ALM
+# and ADMM factors (X[off_rows], X[off_cols], a column-order mirror) and
+# advances them by tau * D, because its scatters at unsorted ids are
+# slow.  The port's fused SDDMM kernels read the rows from L2, so there
+# is no cache: the names stay and every form computes from the factors.
+# ---------------------------------------------------------------------------
+
+def gather_cache(bk: BucketData, X: torch.Tensor):
+    """No gathered-row cache (see above)."""
+    return None
+
+
+def uvt_from_cache(bk: BucketData, R: torch.Tensor, cache):
+    """sym(RR^T) pattern values (pattern.py:1417-1422)."""
+    return uvt(bk, R, R)
+
+
+def uvt_pair_cached(bk: BucketData, R: torch.Tensor, D: torch.Tensor,
+                    cache):
+    """uvt_pair and D's (absent) cache (pattern.py:1425-1440)."""
+    return uvt_pair(bk, R, D), None
+
+
+def uvt_half_cached(bk: BucketData, X: torch.Tensor, F: torch.Tensor,
+                    fcache):
+    """sym(X F^T) pattern values (pattern.py:1443-1455)."""
+    return uvt(bk, X, F)
+
+
+def w_mul_cached(bk: BucketData, W, X: torch.Tensor, cache):
+    """w_mul (pattern.py:1553-1573)."""
+    return w_mul(bk, W, X)

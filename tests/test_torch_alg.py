@@ -252,8 +252,9 @@ def test_admm_sweep_from_lorads_tpu_state():
                                            st["dual"], 1.0)
     np.testing.assert_allclose(ttot.numpy(), _np(jtot), rtol=1e-10,
                                atol=1e-12)
-    tU, tV, tl2, tcs, _, _ = t_admm.admm_update_all(
+    tU, tV, tl2, tcs, _, _, cg_iters = t_admm.admm_update_all(
         tpd, st["U"], st["V"], tl, ttot, st["dual"], rho)
+    assert cg_iters == 0                 # closed form: no CG
     for a, b in ((tU.cones[0], jU.cones[0]), (tV.cones[0], jV.cones[0]),
                  (tl2[0], jl2[0]), (tcs, jcs)):
         np.testing.assert_allclose(a.numpy(), _np(b), rtol=1e-10,

@@ -1,7 +1,7 @@
 """lorads_torch's CUDA kernels on the card (marker ``cuda``).
 
-Each kernel against its plain PyTorch version on CUDA tensors, and one
-Max-Cut solve on cuda.  Imports no JAX, so it also runs where JAX is
+Each kernel against its plain PyTorch version on CUDA tensors, one
+Max-Cut and one matrix-completion solve on cuda.  Imports no JAX, so it also runs where JAX is
 not installed; without a GPU every test skips.  On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -o addopts="" \
@@ -102,6 +102,124 @@ def test_segment_sum_kernel_matches_plain(dtype, shape):
     ref = kernels.segment_sum_plain(data, bounds)
     l1 = kernels.segment_sum_plain(data.abs(), bounds)
     assert _close(got, ref, l1, dtype)
+
+
+def _mc_bucket(dtype):
+    problem = read_sdpa(os.path.join(FIX, "matcomp500.dat-s"))
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    return pat.build_bucket_data(bp, problem.m, dtype, "cuda"), bp
+
+
+def _rand(rng, shape, dtype):
+    return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                           device="cuda")
+
+
+def _abs(bk):
+    return {f: getattr(bk, f).abs() for f in pat.ALL_FLOAT_FIELDS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [1, 14, 40])
+def test_uvt_pair_kernel_matches_plain(dtype, r):
+    _need_cuda()
+    bk, bp = _mc_bucket(dtype)
+    rng = np.random.default_rng(r)
+    R, D = _rand(rng, (1, bp.n, r), dtype), _rand(rng, (1, bp.n, r), dtype)
+    args = (bk.off_rows, bk.off_cols)
+    before = kernels.LAUNCHES["uvt_pair_split"]
+    got = kernels.uvt_pair_split(R, D, *args)
+    assert kernels.LAUNCHES["uvt_pair_split"] == before + 1
+    ref = kernels.uvt_pair_split_plain(R, D, *args)
+    l1 = kernels.uvt_pair_split_plain(R.abs(), D.abs(), *args)
+    for g, e, a in zip(got, ref, l1):
+        assert _close(g, e, a, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gather_segsum_kernel_matches_plain(dtype):
+    """A(.) (one entry per segment: exact), A^*(w) onto the slots with
+    the objective as base, and long segments (warp per segment)."""
+    _need_cuda()
+    bk, bp = _mc_bucket(dtype)
+    rng = np.random.default_rng(5)
+    o = _rand(rng, (1, bk.Ko), dtype)
+    w = _rand(rng, (1, bp.m_loc), dtype)
+    cases = [
+        ((o, bk.a_pos_o_cs, bk.a_val_o_cs, bk.bnd_a_con_o_cs), None, 2.0),
+        ((w, bk.a_con_o_s, bk.a_val_o_s, bk.bnd_a_pos_o_s), bk.c_off, 1.0),
+    ]
+    S, N = 97, 5000                      # ~52 entries per segment
+    ids = np.sort(rng.integers(0, S, (2, N)), axis=1)
+    ids[1, N // 2:] = S
+    x = _rand(rng, (2, 300), dtype)
+    idx = torch.as_tensor(rng.integers(0, 300, (2, N)), dtype=torch.int32,
+                          device="cuda")
+    bnd = torch.as_tensor(pat._bounds_np(ids, S), device="cuda")
+    cases.append(((x, idx, _rand(rng, (2, N), dtype), bnd),
+                  _rand(rng, (2, S), dtype), 0.5))
+    for k, (args, base, alpha) in enumerate(cases):
+        got = kernels.gather_segsum(*args, base=base, alpha=alpha)
+        ref = kernels.gather_segsum_plain(*args, base, alpha)
+        x_, i_, v_, b_ = args
+        l1 = kernels.gather_segsum_plain(
+            x_.abs(), i_, v_.abs(), b_,
+            None if base is None else base.abs(), alpha)
+        assert _close(got, ref, l1, dtype)
+        if k == 0:
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [1, 14, 40])
+def test_wmul_kernel_matches_plain(dtype, r):
+    _need_cuda()
+    bk, bp = _mc_bucket(dtype)
+    rng = np.random.default_rng(r)
+    X = _rand(rng, (1, bp.n, r), dtype)
+    W_d, W_o = _rand(rng, (1, bp.n), dtype), _rand(rng, (1, bk.Ko), dtype)
+    args = (bk.sym_slot_rs, bk.sym_cols_rs, bk.bnd_sym_rows)
+    got = kernels.wmul_csr(X, W_d, W_o, *args)
+    ref = kernels.wmul_csr_plain(X, W_d, W_o, *args)
+    l1 = kernels.wmul_csr_plain(X.abs(), W_d.abs(), W_o.abs(), *args)
+    assert _close(got, ref, l1, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("want_diag", [False, True])
+def test_adj_a_kernel_matches_plain(dtype, want_diag):
+    _need_cuda()
+    bk, bp = _mc_bucket(dtype)
+    rng = np.random.default_rng(6)
+    X, F = (_rand(rng, (1, bp.n, bp.rank), dtype) for _ in range(2))
+    args = (bk.off_rows, bk.off_cols)
+    got = kernels.adj_a_offdiag(X, F, *args, bk.a2_off, want_diag)
+    ref = kernels.adj_a_offdiag_plain(X, F, *args, bk.a2_off, want_diag)
+    l1 = kernels.adj_a_offdiag_plain(X.abs(), F.abs(), *args, bk.a2_off,
+                                     True)
+    assert (got[0] is None) == (not want_diag)
+    if want_diag:
+        assert _close(got[0], ref[0], l1[0], dtype)
+    assert _close(got[1], ref[1], l1[1], dtype)
+
+
+@pytest.mark.cuda
+def test_matcomp500_solve_on_cuda():
+    _need_cuda()
+    kernels.reset_launches()
+    res = LoradsSolver(read_sdpa(os.path.join(FIX, "matcomp500.dat-s")),
+                       LoradsParams(verbose=False), device="cuda").solve()
+    assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
+    assert res.admm_stats.cg_iter > 0
+    # lorads_tpu on CPU at f64 gives 3021.053389491232
+    assert abs(res.pobj - 3021.053389491232) <= 1e-4 * 3021.05
+    for k in ("uvt_pair_split", "gather_segsum", "wmul_csr",
+              "adj_a_offdiag"):
+        assert kernels.LAUNCHES[k] > 0, k
 
 
 @pytest.mark.cuda

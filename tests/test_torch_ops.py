@@ -240,21 +240,22 @@ def test_diag_ident_ops_match(name):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_bucket_data_fields_equal(name, dtype):
     jbk, tbk, bp = _buckets(name, dtype)
-    for f in t_pat.INT_FIELDS:
+    # diag-identity buckets share the full-symmetric entry list too
+    for f in t_pat.INT_FIELDS + t_pat.SYM_INT_FIELDS:
         np.testing.assert_array_equal(getattr(tbk, f).numpy(),
                                       np.asarray(getattr(jbk, f)))
         assert getattr(tbk, f).dtype == torch.int32
-    for f in t_pat.FLOAT_FIELDS:
+    for f in t_pat.FLOAT_FIELDS + t_pat.SYM_FLOAT_FIELDS:
         a = getattr(tbk, f).numpy()
         b = np.asarray(getattr(jbk, f))
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
-    for f in ("n", "B", "K", "m_loc", "m_glob", "Ko", "Ks", "has_off",
-              "glob_ident", "split", "diag_ident", "dense"):
+    for f in t_pat.META_FIELDS + ("split", "dense"):
         assert getattr(tbk, f) == getattr(jbk, f), f
+    assert tbk.diag_ident
     # interop builds the same bucket from lorads_tpu's arrays
     ibk = interop.bucket_from_numpy(jbk, dtype=tbk.dtype)
-    for f in t_pat.INT_FIELDS + t_pat.FLOAT_FIELDS:
+    for f in t_pat.ALL_INT_FIELDS + t_pat.ALL_FLOAT_FIELDS:
         assert torch.equal(getattr(ibk, f), getattr(tbk, f)), f
 
 

@@ -6,6 +6,7 @@ solutions agree on pObj within the width the acceptance bands leave
 them (gap <= 5 * phase2_tol each): 1e-4 relative.
 """
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -21,8 +22,10 @@ from lorads_tpu.io import generators as tpu_gen
 from lorads_tpu.io.sdpa import read_sdpa
 from lorads_torch.alg.solver import LoradsSolver as TorchSolver
 from lorads_torch.config import LoradsParams, SolverStatus
+from lorads_torch.core.presolve import presolve as t_presolve
 from lorads_torch.io import generators as t_gen
 from lorads_torch.io.sdpa import read_sdpa as t_read_sdpa
+from lorads_torch.ops import pattern as t_pat
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = os.path.join(REPO, "tests", "fixtures")
@@ -35,12 +38,58 @@ def _env():
     return env
 
 
+def _maxcut_with_offdiag(shared):
+    """maxcut(120, 4) plus constraints with right-hand side 0 on
+    off-diagonal slots, so X = I stays feasible: 40 single-entry
+    constraints X_ij = 0 (each slot owns its constraint, beside the
+    diagonal ones), or 8 two-entry constraints whose slots are shared
+    (a_off_unique False)."""
+    base = tpu_gen.maxcut(n=120, avg_degree=4, seed=3)
+    blk = base.blocks[0]
+    rng = np.random.default_rng(3)
+    rows = rng.integers(1, 120, 400)
+    cols = (rows * rng.random(400)).astype(np.int64)
+    pairs = np.unique(np.stack([rows, cols], 1), axis=0)[:40]
+    con, row, col, val = [], [], [], []
+    m = base.m
+    if shared:
+        for _ in range(8):
+            for s in rng.choice(len(pairs), 2, replace=False):
+                con.append(m), row.append(pairs[s][0])
+                col.append(pairs[s][1]), val.append(rng.standard_normal())
+            m += 1
+    else:
+        for i, j in pairs:
+            con.append(m), row.append(i), col.append(j), val.append(1.0)
+            m += 1
+    cat = lambda a, b, dt: np.concatenate(  # noqa: E731
+        [a, np.asarray(b)]).astype(dt)
+    blk = dataclasses.replace(
+        blk, m=m, a_con=cat(blk.a_con, con, np.int32),
+        a_row=cat(blk.a_row, row, np.int32),
+        a_col=cat(blk.a_col, col, np.int32),
+        a_val=cat(blk.a_val, val, np.float64))
+    return dataclasses.replace(
+        base, m=m, rhs=np.concatenate([base.rhs, np.zeros(m - base.m)]),
+        blocks=[blk])
+
+
 def _instance(name):
+    if name == "maxcut120_offdiag":
+        return _maxcut_with_offdiag(shared=False)
+    if name == "maxcut120_shared":
+        return _maxcut_with_offdiag(shared=True)
     if name == "maxcut300":
         return tpu_gen.maxcut(n=300, avg_degree=4, seed=3)
     if name == "gset_torus10000":
         return tpu_gen.maxcut_from_graph(
             os.path.join(FIX, "gset_torus10000.rudy"))
+    if name == "matcomp500":
+        return read_sdpa(os.path.join(FIX, "matcomp500.dat-s"))
+    if name.startswith("matcomp"):       # bench.py's recipe, n1 = n2
+        n = int(name[len("matcomp"):])
+        return tpu_gen.matrix_completion(n1=n, n2=n, true_rank=3,
+                                         frac_obs=0.12, seed=3)
     return read_sdpa(os.path.join(FIX, "maxcut2000.dat-s"))
 
 
@@ -64,16 +113,39 @@ def _assert_agree(jr, tr):
     assert bool(torch.isfinite(tr.R.cones[0]).all())
 
 
-@pytest.mark.parametrize("name", ["maxcut300", "maxcut2000"])
+# (diag_ident, has_diag_a, a_off_unique) of the general-path instances
+_GENERAL = {"matcomp500": (False, False, True),
+            "maxcut120_offdiag": (False, True, True),
+            "maxcut120_shared": (False, True, False)}
+
+
+@pytest.mark.parametrize("name", ["maxcut300", "maxcut2000", "matcomp500",
+                                  "maxcut120_offdiag", "maxcut120_shared"])
 def test_solve_matches_lorads_tpu(name):
     """maxcut300 takes ALM + closed-form ADMM + the exact-eigh
-    certificate; maxcut2000 the Lanczos certificate."""
+    certificate; maxcut2000 the Lanczos certificate; the general sparse
+    path takes ALM, ADMM with mixed-precision CG and exact eigh, with
+    off constraints alone (matcomp500), beside diagonal ones
+    (maxcut120_offdiag: the CG operator's diagonal composition) and
+    sharing slots (maxcut120_shared: the generic CG operator)."""
     jr, tr = _solve_both(name)
     _assert_agree(jr, tr)
     assert tr.admm_stats.iter == jr.admm_stats.iter
     assert tr.alm_stats.inner_iter == jr.alm_stats.inner_iter
-    if name == "maxcut300":
+    if name != "maxcut2000":
         assert tr.admm_stats.iter > 0
+    if name in _GENERAL:
+        problem = _instance(name)
+        bk = t_pat.build_bucket_data(
+            t_presolve(problem, LoradsParams()).buckets[0], problem.m,
+            torch.float64, "cpu")
+        assert (bk.diag_ident, bk.has_diag_a,
+                bk.a_off_unique) == _GENERAL[name]
+        # lorads_tpu reports the last ADMM dispatch's CG count, the
+        # port the phase's total
+        assert tr.admm_stats.cg_iter >= jr.admm_stats.cg_iter > 0
+    if name == "matcomp500":               # one ADMM dispatch
+        assert tr.admm_stats.cg_iter == jr.admm_stats.cg_iter
 
 
 @pytest.mark.slow
@@ -82,10 +154,27 @@ def test_gset_torus10000_matches_lorads_tpu():
     _assert_agree(jr, tr)
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["matcomp600", "matcomp2000"])
+def test_large_matcomp_solve_matches_lorads_tpu(name):
+    """matcomp600 and matcomp2000 (n > 1024) certify by Lanczos on the
+    W @ X matvec."""
+    jr, tr = _solve_both(name)
+    _assert_agree(jr, tr)
+
+
 def test_cli_prints_dimacs_report():
+    _check_cli_report("maxcut2000.dat-s")
+
+
+def test_cli_prints_dimacs_report_matcomp500():
+    _check_cli_report("matcomp500.dat-s")
+
+
+def _check_cli_report(fixture):
     out = subprocess.run(
         [sys.executable, "-m", "lorads_torch",
-         os.path.join(FIX, "maxcut2000.dat-s"), "--device", "cpu",
+         os.path.join(FIX, fixture), "--device", "cpu",
          "--quiet"], capture_output=True, text=True, timeout=300,
         env=_env(), cwd=REPO)
     assert out.returncode == 0, out.stderr
@@ -144,8 +233,22 @@ def test_device_cuda_without_gpu_raises():
                     LoradsParams(verbose=False))
 
 
+def _sparse_two_blocks():
+    """Two sparse matrix-completion blocks of different dims, each with
+    its own constraints (so neither block's slots are the global ones)."""
+    a = t_gen.matrix_completion(n1=60, n2=60, frac_obs=0.05, seed=1)
+    b = t_gen.matrix_completion(n1=40, n2=50, frac_obs=0.05, seed=2)
+    blk_b = dataclasses.replace(b.blocks[0], m=a.m + b.m,
+                                a_con=b.blocks[0].a_con + a.m)
+    blk_a = dataclasses.replace(a.blocks[0], m=a.m + b.m)
+    return dataclasses.replace(a, m=a.m + b.m,
+                               rhs=np.concatenate([a.rhs, b.rhs]),
+                               blocks=[blk_a, blk_b])
+
+
 @pytest.mark.parametrize("case", ["dense_bucket", "lp_block", "shard",
-                                  "f32", "multi_block"])
+                                  "f32", "multi_block",
+                                  "sparse_multi_block"])
 def test_out_of_slice_raises(case):
     params = LoradsParams(verbose=False)
     problem = t_gen.maxcut(n=300, avg_degree=4, seed=3)
@@ -157,8 +260,12 @@ def test_out_of_slice_raises(case):
         params = LoradsParams(verbose=False, shard="dp")
     elif case == "f32":
         params = LoradsParams(verbose=False, dtype="f32")
-    else:
+    elif case == "multi_block":       # a dense B = 3 bucket
         problem = t_gen.random_multiblock(n_blocks=3, dim=40, m=30,
                                           n_lp=0, seed=2)
+    else:
+        problem = _sparse_two_blocks()
+        assert not any(bp.dense
+                       for bp in t_presolve(problem, params).buckets)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TorchSolver(problem, params, device="cpu")
