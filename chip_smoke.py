@@ -8,14 +8,19 @@ Phases, each reported on its own lines:
 2. the build of the CUDA kernels from lorads_torch/csrc (one nvcc per
    source, in parallel, sm_90a);
 3. each kernel against its plain PyTorch version on the card, with the
-   tolerance stated and the kernel and plain times from CUDA events:
+   tolerance stated, the kernel and plain times from CUDA events, the
+   kernel's bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the card's peak for the type) and, where one PyTorch
+   call computes the same function, that call's time:
    K1-K3 at the shapes of the Max-Cut path (maxcut n=20000, deg 8:
    Ks=160000, r = the solve's rank at f64; r=1 at f32 and f64 for the
    certificate) plus the segment-sum edge cases; K3p, K4, K5 and K6 at
    the shapes of the matrix-completion path (matcomp2000: n=4000,
    Ko=478843, Ks=957686, r = the solve's rank at f64, the f32 copies the
    mixed-precision CG runs, and K5 at r=1 in f32 and f64 for the
-   certificate);
+   certificate); K7a and K4 on the dense layouts at the shapes of the
+   theta path (theta800: n=800, n^2=640000 slots, m=3201, nnz_a=4000)
+   at f64 and in f32 as the mixed-precision CG runs them;
 4. the main paths, each with the kernel launch counts reset just before
    it and read just after, through LoradsSolver(...).solve() on cuda at
    f64, each solve held to primal_dual_optimal and to lorads_tpu's CPU
@@ -28,7 +33,11 @@ Phases, each reported on its own lines:
      tests/fixtures/matcomp500.dat-s (ALM, ADMM with mixed-precision CG,
      exact-eigh certificate) and bench.py's matcomp2000,
      matrix_completion(n1=2000, n2=2000, true_rank=3, frac_obs=0.12,
-     seed=3) (ADMM with CG, Lanczos certificate on W @ X).
+     seed=3) (ADMM with CG, Lanczos certificate on W @ X);
+   - Lovász theta (dense buckets): tests/fixtures/theta_gtoy60.dat-s,
+     tests/fixtures/theta300.dat-s and bench.py's theta800,
+     lovasz_theta(n=800, avg_degree=8, seed=5) (ALM, ADMM with CG on the
+     K7a operator, exact-eigh certificate, spectral dual repair).
 
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.  Any failed phase raises and exits
@@ -42,7 +51,33 @@ import subprocess
 import sys
 import time
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                   "fixtures")
+
+
+def _gen():
+    from lorads_torch.io import generators
+    return generators
+
+
+def _sdpa(name):
+    from lorads_torch.io.sdpa import read_sdpa
+    return read_sdpa(os.path.join(FIX, name))
+
+
+# the main paths' instances, by name (profile_solve.py reads them too)
+INSTANCES = {
+    "maxcut300": lambda: _gen().maxcut(n=300, avg_degree=4, seed=3),
+    "maxcut20000": lambda: _gen().maxcut(n=20000, avg_degree=8, seed=7),
+    "gset_torus10000": lambda: _gen().maxcut_from_graph(
+        os.path.join(FIX, "gset_torus10000.rudy")),
+    "matcomp500": lambda: _sdpa("matcomp500.dat-s"),
+    "matcomp2000": lambda: _gen().matrix_completion(
+        n1=2000, n2=2000, true_rank=3, frac_obs=0.12, seed=3),
+    "theta_gtoy60": lambda: _sdpa("theta_gtoy60.dat-s"),
+    "theta300": lambda: _sdpa("theta300.dat-s"),
+    "theta800": lambda: _gen().lovasz_theta(n=800, avg_degree=8, seed=5),
+}
 
 # lorads_tpu on CPU at f64 (objective of each main-path instance)
 REFERENCE_POBJ = {
@@ -51,14 +86,22 @@ REFERENCE_POBJ = {
     "gset_torus10000": -7.762241872e+03,
     "matcomp500": 3.021053389e+03,
     "matcomp2000": 1.204995184e+04,
+    "theta_gtoy60": -24.209496946891917,
+    "theta300": -154.24257520621822,
+    "theta800": -426.5939149561383,
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
     "maxcut": ("cmul_csr", "uvt_split"),
     "matcomp": ("uvt_split", "uvt_pair_split", "gather_segsum", "wmul_csr",
                 "adj_a_offdiag"),
+    "theta": ("gather_segsum", "adj_a_dense"),
 }
 POBJ_RTOL = 1e-4
+# the card's device-memory rate and its peak rates outside the tensor
+# cores (NVIDIA H100 SXM data sheet: 67 TFLOP/s f32, 34 TFLOP/s f64)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {"f32": 67e12, "f64": 34e12}
 
 
 def card_line() -> str:
@@ -106,6 +149,103 @@ def check(name, got, ref, bound):
     return err
 
 
+def bound_of(nbytes, flops, sfx):
+    """(least ms the card could take, what bounds it): the bytes the
+    function must move over the memory rate, or its operations over the
+    peak rate for its type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[sfx] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Measure:
+    """Runs one kernel case: the kernel and its plain version on the same
+    inputs, the check against the stated tolerance (and bit equality
+    where asked), CUDA-event times of the kernel, the plain version and
+    the one-call library counterpart (if any), and the bound."""
+
+    def __init__(self, card):
+        self.card = card
+        self.results = {}
+
+    def __call__(self, kname, label, sfx, fn, plain, l1, nbytes, flops,
+                  library=None, exact=None, tol=None):
+        import numpy as np
+        import torch
+        got = fn()
+        ref = plain()
+        torch.cuda.synchronize()
+        if tol is None:
+            # f64: both sides sum the same terms directly in another
+            # order; f32: compensated kernel vs the plain version's f64
+            # accumulation (K1, K2, K4, K5) or f32 row dots of r terms
+            tol = (64 * float(np.finfo(np.float64).eps) if sfx == "f64"
+                   else 4 * float(np.finfo(np.float32).eps))
+        bound = tuple(tol * a.double() + 1e-300 for a in l1) \
+            if isinstance(l1, tuple) else tol * l1.double() + 1e-300
+        err = check(f"{kname} {label}", got, ref, bound)
+        exact_note = ""
+        if exact is not None:
+            for g, e in zip(got if isinstance(got, tuple) else (got,),
+                            ref if isinstance(ref, tuple) else (ref,)):
+                sel = (slice(None),) if exact is True else (slice(None),
+                                                            exact)
+                if not torch.equal(g[sel], e[sel]):
+                    raise AssertionError(f"{kname} {label}: not exact")
+            exact_note = (", exact" if exact is True else
+                          f", exact on {int(exact.sum())} single-entry "
+                          "segments")
+        ms = cuda_time_ms(fn)
+        pms = cuda_time_ms(plain)
+        lib_ms = None
+        if library is not None:
+            lib_ms = cuda_time_ms(library)
+        bms, by = bound_of(nbytes, flops, sfx)
+        print(f"{kname} [{label}]: max_abs_err {err:.3e} (tol {tol:.1e} x "
+              f"|terms|{exact_note}) kernel {ms:.4f} ms plain {pms:.4f} ms "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+              f"bound {bms:.6f} ms ({by}: {nbytes} B, {flops} flop)  "
+              f"[{self.card}]")
+        self.results.setdefault(kname, []).append(dict(
+            label=label, max_abs_err=err, ms=ms, plain_ms=pms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms))
+
+
+def _csr(rows, cols, vals, shape):
+    """A torch CSR tensor of the entries (duplicates summed), for the
+    library timings; shape (rows, cols), or n for n x n."""
+    import torch
+    if isinstance(shape, int):
+        shape = (shape, shape)
+    coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
+                                  vals, shape).coalesce()
+    return coo.to_sparse_csr()
+
+
+def _seg_csr(idx, val, bnd, ncols, alpha=1.0):
+    """K4's entry list (block 0) as the [S, ncols] CSR matrix whose row s
+    holds alpha * val at the columns idx of segment s, so that K4 is one
+    sparse product: out = base + M @ x (library timings only)."""
+    import torch
+    b = bnd[0].long()
+    lo, hi = int(b[0]), int(b[-1])
+    rows = torch.repeat_interleave(
+        torch.arange(b.numel() - 1, device=b.device), b.diff())
+    return _csr(rows, idx[0, lo:hi], alpha * val[0, lo:hi],
+                (b.numel() - 1, ncols))
+
+
+def _seg_library(M, x, base=None):
+    """The one-call counterpart of K4 on block 0: torch.sparse.mm, or
+    torch.addmm when there is a base."""
+    import torch
+    xc = x[0].reshape(-1, 1)
+    if base is None:
+        return lambda: torch.sparse.mm(M, xc)
+    bc = base[0].reshape(-1, 1)
+    return lambda: torch.addmm(bc, M, xc)
+
+
 def kernel_checks(card):
     """Phase 3: every kernel against its plain version on the card."""
     import numpy as np
@@ -118,10 +258,8 @@ def kernel_checks(card):
     from lorads_torch.ops import pattern as pat
 
     dev = torch.device("cuda")
-    eps64 = float(np.finfo(np.float64).eps)
-    eps32 = float(np.finfo(np.float32).eps)
     rng = np.random.default_rng(0)
-    results = {}
+    measure = Measure(card)
 
     problem = generators.maxcut(n=20000, avg_degree=8, seed=7)
     ps = presolve(problem, LoradsParams())
@@ -129,123 +267,123 @@ def kernel_checks(card):
     r = bp.rank
     bk64 = pat.build_bucket_data(bp, problem.m, torch.float64, dev)
     bk32 = pat.cast_floats(bk64, torch.float32)
-    n = bk64.n
-    print(f"main-path shapes: n={n} Ks={bk64.Ks} Ko={bk64.Ko} rank={r}")
+    n, Ks, Ko = bk64.n, bk64.Ks, bk64.Ko
+    print(f"main-path shapes: n={n} Ks={Ks} Ko={Ko} rank={r}")
+    diag = torch.arange(n, device=dev)
 
     def row_l1(bk, X, with_diag):
         """|C| @ |X| row sums: the sum of |terms| of each output."""
-        out = kernels.cmul_csr_plain(
+        return kernels.cmul_csr_plain(
             X.abs(), bk.c_diag.abs() if with_diag else None,
             bk.sym_cols_rs, bk.c_sym_rs.abs(), bk.bnd_sym_rows)
-        return out.double()
 
-    # ---- K2 cmul_csr ----
-    cases = [("f64 r=%d diag" % r, bk64, torch.float64, r, True),
-             ("f64 r=1 no-diag", bk64, torch.float64, 1, False),
-             ("f32 r=1 no-diag", bk32, torch.float32, 1, False)]
-    k2 = []
-    for label, bk, dt, rr, diag in cases:
+    # ---- K2 cmul_csr (library: torch.sparse.mm on C as a CSR tensor)
+    for label, bk, dt, rr, wd in (
+            ("f64 r=%d diag" % r, bk64, torch.float64, r, True),
+            ("f64 r=1 no-diag", bk64, torch.float64, 1, False),
+            ("f32 r=1 no-diag", bk32, torch.float32, 1, False)):
+        sfx = label[:3]
+        s = 8 if dt == torch.float64 else 4
         X = torch.as_tensor(rng.standard_normal((1, n, rr)), device=dev,
                             dtype=dt)
-        cd = bk.c_diag if diag else None
+        cd = bk.c_diag if wd else None
         args = (X, cd, bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
-        got = kernels.cmul_csr(*args)
-        ref = kernels.cmul_csr_plain(*args)
-        torch.cuda.synchronize()
-        eps = eps64 if dt == torch.float64 else eps32
-        # f64: both sum <= ~40 terms directly (different order);
-        # f32: compensated kernel vs f64-accumulated plain
-        tol = (64 if dt == torch.float64 else 4) * eps
-        err = check(f"cmul_csr {label}", got, ref,
-                    tol * row_l1(bk, X, diag) + 1e-300)
-        ms = cuda_time_ms(lambda: kernels.cmul_csr(*args))
-        pms = cuda_time_ms(lambda: kernels.cmul_csr_plain(*args))
-        print(f"K2 cmul_csr [{label}] X{tuple(X.shape)} Ks={bk.Ks}: "
-              f"max_abs_err {err:.3e} (tol {tol:.1e} x row |terms|) "
-              f"kernel {ms:.4f} ms plain {pms:.4f} ms  [{card}]")
-        k2.append((label, err, ms, pms))
-    results["cmul_csr"] = k2
+        rows = torch.cat([bk.sym_rows_rs[0]] + ([diag] if wd else []))
+        cols = torch.cat([bk.sym_cols_rs[0]] + ([diag] if wd else []))
+        vals = torch.cat([bk.c_sym_rs[0]] + ([bk.c_diag[0]] if wd else []))
+        C = _csr(rows, cols, vals, n)
+        X0 = X[0]
+        measure("cmul_csr", label, sfx, lambda: kernels.cmul_csr(*args),
+                lambda: kernels.cmul_csr_plain(*args), row_l1(bk, X, wd),
+                nbytes=2 * n * rr * s + Ks * (4 + s) + (n + 1) * 4
+                + (n * s if wd else 0),
+                flops=2 * Ks * rr + (2 * n * rr if wd else 0),
+                library=lambda: torch.sparse.mm(C, X0))
 
-    # ---- K3 uvt_split ----
+    # ---- K3 uvt_split (library: torch.sparse.sampled_addmm on the off
+    # pattern gives U V^T there; it leaves out the symmetrisation
+    # (U V^T + V U^T) / 2 and the diagonal rowsum)
     U = torch.as_tensor(rng.standard_normal((1, n, r)), device=dev)
     V = torch.as_tensor(rng.standard_normal((1, n, r)), device=dev)
     args = (U, V, bk64.off_rows, bk64.off_cols)
-    got = kernels.uvt_split(*args)
-    ref = kernels.uvt_split_plain(*args)
-    absd, abso = kernels.uvt_split_plain(U.abs(), V.abs(), bk64.off_rows,
-                                         bk64.off_cols)
-    torch.cuda.synchronize()
-    tol = 64 * eps64
-    err = check("uvt_split f64", got, ref, (tol * absd, tol * abso))
-    ms = cuda_time_ms(lambda: kernels.uvt_split(*args))
-    pms = cuda_time_ms(lambda: kernels.uvt_split_plain(*args))
-    print(f"K3 uvt_split [f64 r={r}] U{tuple(U.shape)} Ko={bk64.Ko}: "
-          f"max_abs_err {err:.3e} (tol {tol:.1e} x |products|) "
-          f"kernel {ms:.4f} ms plain {pms:.4f} ms  [{card}]")
-    results["uvt_split"] = [(f"f64 r={r}", err, ms, pms)]
+    Poff = _csr(bk64.off_rows[0], bk64.off_cols[0],
+                torch.ones(Ko, dtype=torch.float64, device=dev), n)
+    U0, Vt = U[0], V[0].T.contiguous()
+    measure("uvt_split", f"f64 r={r}", "f64",
+            lambda: kernels.uvt_split(*args),
+            lambda: kernels.uvt_split_plain(*args),
+            kernels.uvt_split_plain(U.abs(), V.abs(), bk64.off_rows,
+                                    bk64.off_cols),
+            nbytes=2 * n * r * 8 + 2 * Ko * 4 + (n + Ko) * 8,
+            flops=2 * n * r + 4 * Ko * r,
+            library=lambda: torch.sparse.sampled_addmm(Poff, U0, Vt,
+                                                       beta=0.0))
 
-    # ---- K1 segment_sum ----
-    def seg_case(label, data, bounds, timed=False):
-        got = kernels.segment_sum(data, bounds)
-        ref = kernels.segment_sum_plain(data, bounds)
-        l1 = kernels.segment_sum_plain(data.abs(), bounds).double()
-        torch.cuda.synchronize()
-        eps = eps64 if data.dtype == torch.float64 else eps32
-        tol = (64 if data.dtype == torch.float64 else 4) * eps
-        err = check(f"segment_sum {label}", got, ref, tol * l1 + 1e-300)
-        line = (f"K1 segment_sum [{label}] data{tuple(data.shape)} "
-                f"S={bounds.shape[1] - 1}: max_abs_err {err:.3e} "
-                f"(tol {tol:.1e} x segment |terms|)")
-        ms = pms = None
-        if timed:
-            ms = cuda_time_ms(lambda: kernels.segment_sum(data, bounds))
-            pms = cuda_time_ms(
-                lambda: kernels.segment_sum_plain(data, bounds))
-            line += f" kernel {ms:.4f} ms plain {pms:.4f} ms  [{card}]"
-        print(line)
-        return (label, err, ms, pms)
-
-    def bounds_of(ids, S):
-        return torch.as_tensor(pat._bounds_np(ids, S), device=dev)
-
-    k1 = []
-    # the segment sum cmul fuses, unfused: [1, Ks, r] products over the
-    # row pointers of the maxcut n=20000 entry list
+    # ---- K1 segment_sum: the segment sum cmul fuses, unfused: [1, Ks, r]
+    # products over the row pointers of the maxcut n=20000 entry list
+    # (library: torch.segment_reduce)
     contrib = (bk64.c_sym_rs[:, :, None]
                * U[0].index_select(0, bk64.sym_cols_rs[0].long())[None])
+    offs = bk64.bnd_sym_rows.long()
     for dt in (torch.float64, torch.float32):
-        k1.append(seg_case(f"main-path {str(dt)[6:]} r={r}",
-                           contrib.to(dt).contiguous(), bk64.bnd_sym_rows,
-                           timed=True))
-    # edge cases: empty segments, padded blocks (B=2, second block's
-    # entries end early), 2-D and 3-D data, single-entry segments
+        sfx = "f64" if dt == torch.float64 else "f32"
+        s = 8 if dt == torch.float64 else 4
+        data = contrib.to(dt).contiguous()
+        bnd = bk64.bnd_sym_rows
+        measure("segment_sum", f"main-path {sfx} r={r}", sfx,
+                lambda: kernels.segment_sum(data, bnd),
+                lambda: kernels.segment_sum_plain(data, bnd),
+                kernels.segment_sum_plain(data.abs(), bnd),
+                nbytes=Ks * r * s + (n + 1) * 4 + n * r * s,
+                flops=Ks * r,
+                library=lambda: torch.segment_reduce(
+                    data, "sum", offsets=offs, axis=1))
+    segment_sum_edges(rng, dev)
+    matcomp_kernel_checks(rng, measure)
+    theta_kernel_checks(rng, measure)
+    return measure.results
+
+
+def segment_sum_edges(rng, dev):
+    """K1 edge cases: empty segments, padded blocks (B=2, second block's
+    entries end early), 2-D and 3-D data, single-entry segments."""
+    import numpy as np
+    import torch
+
+    from lorads_torch.ops import kernels
+    from lorads_torch.ops import pattern as pat
+
     B, N, S = 2, 3 * 512 + 7, 97
     ids = np.sort(rng.integers(0, S, (B, N)), axis=1)
     ids[:, :5] = 0                      # a long first segment
     ids[1, N // 2:] = S                 # padded tail past the last bound
     ids = np.clip(ids, 0, S)
-    bnd = bounds_of(ids, S)
+    bnd = torch.as_tensor(pat._bounds_np(ids, S), device=dev)
     for shape in ((B, N), (B, N, 3), (B, N, 40)):
         for dt in (torch.float64, torch.float32):
             d = torch.as_tensor(rng.standard_normal(shape), device=dev,
                                 dtype=dt)
-            k1.append(seg_case(f"edges {str(dt)[6:]} {shape}", d, bnd))
+            got = kernels.segment_sum(d, bnd)
+            ref = kernels.segment_sum_plain(d, bnd)
+            l1 = kernels.segment_sum_plain(d.abs(), bnd).double()
+            torch.cuda.synchronize()
+            tol = (64 if dt == torch.float64 else 4) * torch.finfo(dt).eps
+            err = check(f"segment_sum edges {shape}", got, ref,
+                        tol * l1 + 1e-300)
+            print(f"segment_sum [edges {str(dt)[6:]} {shape}]: max_abs_err "
+                  f"{err:.3e} (tol {tol:.1e} x segment |terms|)")
     single = np.sort(rng.choice(S, size=40, replace=False))[None]
+    sb = torch.as_tensor(pat._bounds_np(single, S), device=dev)
     d = torch.as_tensor(rng.standard_normal((1, 40)), device=dev)
-    got = kernels.segment_sum(d, bounds_of(single, S))
-    ref = kernels.segment_sum_plain(d, bounds_of(single, S))
-    if not torch.equal(got, ref):
+    if not torch.equal(kernels.segment_sum(d, sb),
+                       kernels.segment_sum_plain(d, sb)):
         raise AssertionError("segment_sum single-entry: not exact")
-    print("K1 segment_sum [single-entry segments]: exact")
-    results["segment_sum"] = k1
-    results.update(matcomp_kernel_checks(card, rng))
-    return results
+    print("segment_sum [single-entry segments]: exact")
 
 
-def matcomp_kernel_checks(card, rng):
+def matcomp_kernel_checks(rng, measure):
     """Phase 3, matrix-completion path: K3p, K4, K5 and K6 against their
     plain versions at matcomp2000's shapes."""
-    import numpy as np
     import torch
 
     from lorads_torch.config import LoradsParams
@@ -261,91 +399,180 @@ def matcomp_kernel_checks(card, rng):
     r = bp.rank
     bk64 = pat.build_bucket_data(bp, problem.m, torch.float64, dev)
     bk32 = pat.cast_floats(bk64, torch.float32)
-    n, Ko = bk64.n, bk64.Ko
-    print(f"matcomp-path shapes: n={n} m={problem.m} Ko={Ko} Ks={bk64.Ks} "
+    n, Ko, Ks, m = bk64.n, bk64.Ko, bk64.Ks, problem.m
+    print(f"matcomp-path shapes: n={n} m={m} Ko={Ko} Ks={Ks} "
           f"rank={r} a_off_unique={bk64.a_off_unique}")
-    results = {}
 
     def rand(shape, dt):
         return torch.as_tensor(rng.standard_normal(shape), device=dev,
                                dtype=dt)
 
-    def tol_of(dt):
-        # f64: both sides sum the same terms directly in another order
-        # (at most a few hundred per output); f32: compensated kernel vs
-        # the plain version's f64 accumulation (K4, K5) or f32 row dots
-        # of r terms (K3p, K6)
-        return (64 * float(np.finfo(np.float64).eps) if dt == torch.float64
-                else 4 * float(np.finfo(np.float32).eps))
-
-    def run(kname, label, dt, fn, plain, l1, exact=False):
-        got = fn()
-        ref = plain()
-        torch.cuda.synchronize()
-        tol = tol_of(dt)
-        bound = tuple(tol * a.double() + 1e-300 for a in l1) \
-            if isinstance(l1, tuple) else tol * l1.double() + 1e-300
-        err = check(f"{kname} {label}", got, ref, bound)
-        if exact:
-            for g, e in zip(got if isinstance(got, tuple) else (got,),
-                            ref if isinstance(ref, tuple) else (ref,)):
-                if not torch.equal(g, e):
-                    raise AssertionError(f"{kname} {label}: not exact")
-        ms = cuda_time_ms(fn)
-        pms = cuda_time_ms(plain)
-        print(f"{kname} [{label}]: max_abs_err {err:.3e} (tol {tol:.1e} x "
-              f"|terms|{', exact' if exact else ''}) kernel {ms:.4f} ms "
-              f"plain {pms:.4f} ms  [{card}]")
-        results.setdefault(kname, []).append((label, err, ms, pms))
-
+    slot = bk64.sym_slot_rs[0].long()
     for dt, bk in ((torch.float64, bk64), (torch.float32, bk32)):
         sfx = "f64" if dt == torch.float64 else "f32"
+        s = 8 if dt == torch.float64 else 4
         # ---- K3p uvt_pair_split (ALM line search; f64 only on the path)
         if dt == torch.float64:
             R, D = rand((1, n, r), dt), rand((1, n, r), dt)
             a = (bk.off_rows, bk.off_cols)
-            label = f"{sfx} r={r}"
-            run("uvt_pair_split", label, dt,
-                lambda: kernels.uvt_pair_split(R, D, *a),
-                lambda: kernels.uvt_pair_split_plain(R, D, *a),
-                kernels.uvt_pair_split_plain(R.abs(), D.abs(), *a))
+            measure("uvt_pair_split", f"{sfx} r={r}", sfx,
+                    lambda: kernels.uvt_pair_split(R, D, *a),
+                    lambda: kernels.uvt_pair_split_plain(R, D, *a),
+                    kernels.uvt_pair_split_plain(R.abs(), D.abs(), *a),
+                    nbytes=2 * n * r * s + 2 * Ko * 4 + 2 * (n + Ko) * s,
+                    flops=4 * n * r + 6 * Ko * r)
         # ---- K4 gather_segsum: A(.) (one entry per constraint: exact)
+        # (library, here and below: K4's entry list as a CSR matrix,
+        # built once, times x by torch.sparse.mm, or torch.addmm with C)
         o = rand((1, Ko), dt)
         a4 = (o, bk.a_pos_o_cs, bk.a_val_o_cs, bk.bnd_a_con_o_cs)
-        label = f"{sfx} A(.) m={problem.m}"
-        run("gather_segsum", label, dt,
-            lambda: kernels.gather_segsum(*a4, alpha=2.0),
-            lambda: kernels.gather_segsum_plain(*a4, None, 2.0),
-            kernels.gather_segsum_plain(o.abs(), a4[1], a4[2].abs(), a4[3],
-                                        None, 2.0), exact=True)
+        N = bk.a_pos_o_cs.shape[1]
+        measure("gather_segsum", f"{sfx} A(.) m={m}", sfx,
+                lambda: kernels.gather_segsum(*a4, alpha=2.0),
+                lambda: kernels.gather_segsum_plain(*a4, None, 2.0),
+                kernels.gather_segsum_plain(o.abs(), a4[1], a4[2].abs(),
+                                            a4[3], None, 2.0),
+                nbytes=N * (2 * s + 4) + (m + 1) * 4 + m * s,
+                flops=3 * N, exact=True,
+                library=_seg_library(_seg_csr(*a4[1:], Ko, alpha=2.0), o))
         # ---- K4: C + A^*(w) onto the Ko slots
-        w = rand((1, problem.m), dt)
+        w = rand((1, m), dt)
         a4w = (w, bk.a_con_o_s, bk.a_val_o_s, bk.bnd_a_pos_o_s)
-        label = f"{sfx} A^*(w)+C Ko={Ko}"
-        run("gather_segsum", label, dt,
-            lambda: kernels.gather_segsum(*a4w, base=bk.c_off),
-            lambda: kernels.gather_segsum_plain(*a4w, bk.c_off),
-            kernels.gather_segsum_plain(w.abs(), a4w[1], a4w[2].abs(),
-                                        a4w[3], bk.c_off.abs()))
+        measure("gather_segsum", f"{sfx} A^*(w)+C Ko={Ko}", sfx,
+                lambda: kernels.gather_segsum(*a4w, base=bk.c_off),
+                lambda: kernels.gather_segsum_plain(*a4w, bk.c_off),
+                kernels.gather_segsum_plain(w.abs(), a4w[1], a4w[2].abs(),
+                                            a4w[3], bk.c_off.abs()),
+                nbytes=m * s + N * (4 + s) + (Ko + 1) * 4 + 2 * Ko * s,
+                flops=2 * N + Ko,
+                library=_seg_library(_seg_csr(*a4w[1:], m), w, bk.c_off))
         # ---- K5 wmul_csr at r = rank (gradient, CG) and r = 1 (Lanczos)
+        # (library: torch.sparse.mm on W as a CSR tensor)
         W_d, W_o = rand((1, n), dt), rand((1, Ko), dt)
         a5 = (bk.sym_slot_rs, bk.sym_cols_rs, bk.bnd_sym_rows)
+        diag = torch.arange(n, device=dev)
+        Wc = _csr(torch.cat([bk.sym_rows_rs[0], diag]),
+                  torch.cat([bk.sym_cols_rs[0], diag]),
+                  torch.cat([W_o[0][slot], W_d[0]]), n)
         for rr in (r, 1):
             X = rand((1, n, rr), dt)
-            label = f"{sfx} r={rr}"
-            run("wmul_csr", label, dt,
-                lambda: kernels.wmul_csr(X, W_d, W_o, *a5),
-                lambda: kernels.wmul_csr_plain(X, W_d, W_o, *a5),
-                kernels.wmul_csr_plain(X.abs(), W_d.abs(), W_o.abs(), *a5))
+            X0 = X[0]
+            measure("wmul_csr", f"{sfx} r={rr}", sfx,
+                    lambda: kernels.wmul_csr(X, W_d, W_o, *a5),
+                    lambda: kernels.wmul_csr_plain(X, W_d, W_o, *a5),
+                    kernels.wmul_csr_plain(X.abs(), W_d.abs(), W_o.abs(),
+                                           *a5),
+                    nbytes=2 * n * rr * s + (n + Ko) * s + Ks * 8
+                    + (n + 1) * 4,
+                    flops=2 * (Ks + n) * rr,
+                    library=lambda: torch.sparse.mm(Wc, X0))
         # ---- K6 adj_a_offdiag (every CG matvec)
         X, F = rand((1, n, r), dt), rand((1, n, r), dt)
         a6 = (bk.off_rows, bk.off_cols, bk.a2_off)
-        label = f"{sfx} r={r}"
-        run("adj_a_offdiag", label, dt,
-            lambda: kernels.adj_a_offdiag(X, F, *a6)[1],
-            lambda: kernels.adj_a_offdiag_plain(X, F, *a6, False)[1],
-            kernels.adj_a_offdiag_plain(X.abs(), F.abs(), *a6, False)[1])
-    return results
+        measure("adj_a_offdiag", f"{sfx} r={r}", sfx,
+                lambda: kernels.adj_a_offdiag(X, F, *a6)[1],
+                lambda: kernels.adj_a_offdiag_plain(X, F, *a6, False)[1],
+                kernels.adj_a_offdiag_plain(X.abs(), F.abs(), *a6,
+                                            False)[1],
+                nbytes=2 * n * r * s + 2 * Ko * 4 + 2 * Ko * s,
+                flops=4 * Ko * r + Ko)
+
+
+def theta_kernel_checks(rng, measure):
+    """Phase 3, theta path: K7a and K4 on the dense layouts at theta800's
+    shapes (bench.py's lovasz_theta(n=800, avg_degree=8, seed=5)), at f64
+    and in f32 as the mixed-precision CG runs them."""
+    import torch
+
+    from lorads_torch.config import LoradsParams
+    from lorads_torch.core.presolve import presolve
+    from lorads_torch.io import generators
+    from lorads_torch.ops import kernels
+    from lorads_torch.ops import pattern as pat
+
+    dev = torch.device("cuda")
+    problem = generators.lovasz_theta(n=800, avg_degree=8, seed=5)
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    r = bp.rank
+    bk64 = pat.build_bucket_data(bp, problem.m, torch.float64, dev)
+    bk32 = pat.cast_floats(bk64, torch.float32)
+    n, m = bk64.n, problem.m
+    N1, N2 = bk64.a_lin_cs.shape[1], bk64.a_con2_s.shape[1]
+    Ndd = bk64.dd_row_cs.shape[1]
+    print(f"theta-path shapes: n={n} n^2={n * n} m={m} nnz_a={bk64.nnz_a} "
+          f"rank={r} a_single_dense={bk64.a_single_dense} "
+          f"nnz_dd={bk64.nnz_dd} A(.) entries {N1}, A^*(w) entries {N2}")
+    if not (bk64.dense and bk64.a_single_dense):
+        raise AssertionError("theta800 did not build a single-entry "
+                             "dense bucket")
+    seg = bk64.bnd_a_con_cs[0, 1:] - bk64.bnd_a_con_cs[0, :-1]
+    single = seg == 1
+
+    def rand(shape, dt):
+        return torch.as_tensor(rng.standard_normal(shape), device=dev,
+                               dtype=dt)
+
+    for dt, bk in ((torch.float64, bk64), (torch.float32, bk32)):
+        sfx = "f64" if dt == torch.float64 else "f32"
+        s = 8 if dt == torch.float64 else 4
+        # ---- K7a adj_a_dense: the CG operator's A^*(A(X)) plane on
+        # X = sym(x F^T); product and diagonal sum rounded separately,
+        # so kernel and plain version agree bit for bit
+        X = pat._sym_product(rand((1, n, r), dt), rand((1, n, r), dt))
+        W_d = rand((1, n), dt)
+        measure("adj_a_dense", f"{sfx} n={n}", sfx,
+                lambda: kernels.adj_a_dense(X, bk.a2_full, W_d),
+                lambda: kernels.adj_a_dense_plain(X, bk.a2_full, W_d),
+                kernels.adj_a_dense_plain(X.abs(), bk.a2_full.abs(),
+                                          W_d.abs()),
+                nbytes=3 * n * n * s + n * s, flops=n * n + n, exact=True)
+        # ---- K4: dense A(.) over the flat [1, n^2] view (layout (i)):
+        # bit for bit on the single-entry constraints, the trace one
+        # segment of n entries walked by one thread
+        flat = rand((1, n * n), dt)
+        a4 = (flat, bk.a_lin_cs, bk.a_val_inner_cs, bk.bnd_a_con_cs)
+        measure("gather_segsum", f"{sfx} dense A(.) m={m}", sfx,
+                lambda: kernels.gather_segsum(*a4),
+                lambda: kernels.gather_segsum_plain(*a4),
+                kernels.gather_segsum_plain(flat.abs(), a4[1], a4[2].abs(),
+                                            a4[3]),
+                nbytes=N1 * (2 * s + 4) + (m + 1) * 4 + m * s,
+                flops=2 * N1, exact=single,
+                library=_seg_library(_seg_csr(*a4[1:], n * n), flat))
+        # ---- K4: C + A^*(w) onto the n^2 slots (layout (ii))
+        w = rand((1, m), dt)
+        base = bk.c_full.reshape(1, n * n)
+        a4w = (w, bk.a_con2_s, bk.a_val2_s, bk.bnd_a_lin2)
+        measure("gather_segsum", f"{sfx} dense C+A^*(w) S={n * n}", sfx,
+                lambda: kernels.gather_segsum(*a4w, base=base),
+                lambda: kernels.gather_segsum_plain(*a4w, base),
+                kernels.gather_segsum_plain(w.abs(), a4w[1], a4w[2].abs(),
+                                            a4w[3], base.abs()),
+                nbytes=m * s + N2 * (4 + s) + (n * n + 1) * 4
+                + 2 * n * n * s,
+                flops=2 * N2 + n * n,
+                library=_seg_library(_seg_csr(*a4w[1:], m), w, base))
+        # ---- K4: the two dd sums of the CG operator (layout (iii))
+        d = rand((1, n), dt)
+        add = (d, bk.dd_row_cs, bk.dd_val_cs, bk.bnd_dd_con)
+        measure("gather_segsum", f"{sfx} dense dd A(.) m={m}", sfx,
+                lambda: kernels.gather_segsum(*add),
+                lambda: kernels.gather_segsum_plain(*add),
+                kernels.gather_segsum_plain(d.abs(), add[1], add[2].abs(),
+                                            add[3]),
+                nbytes=n * s + Ndd * (4 + s) + (m + 1) * 4 + m * s,
+                flops=2 * Ndd,
+                library=_seg_library(_seg_csr(*add[1:], n), d))
+        v = rand((1, m), dt)
+        adr = (v, bk.dd_con_rs, bk.dd_val_rs, bk.bnd_dd_row)
+        measure("gather_segsum", f"{sfx} dense dd A^*(v) n={n}", sfx,
+                lambda: kernels.gather_segsum(*adr),
+                lambda: kernels.gather_segsum_plain(*adr),
+                kernels.gather_segsum_plain(v.abs(), adr[1], adr[2].abs(),
+                                            adr[3]),
+                nbytes=Ndd * (2 * s + 4) + (n + 1) * 4 + n * s,
+                flops=2 * Ndd,
+                library=_seg_library(_seg_csr(*adr[1:], m), v))
 
 
 def solve_path(card, path, instances):
@@ -374,14 +601,20 @@ def solve_path(card, path, instances):
                     for k in kernels.LAUNCHES}
         ref = REFERENCE_POBJ[name]
         rel = abs(res.pobj - ref) / abs(ref)
+        rep = getattr(solver, "spectral_repair_info", None)
+        repair = ("not run" if rep is None else
+                  f"{rep['rounds']} rounds, dinf {rep['dinf_before']:.3e} "
+                  f"-> {rep['dinf_after']:.3e}, "
+                  + ("accepted" if rep["accepted"] else "not accepted"))
         print(f"solve {name}: status {res.status.value} pObj "
-              f"{res.pobj!r} (lorads_tpu CPU f64 {ref:.9e}, rel "
+              f"{res.pobj!r} (lorads_tpu CPU f64 {ref!r}, rel "
               f"{rel:.2e}) pinf {res.pinf_l1:.3e} gap {res.gap:.3e} "
               f"dinf {res.dinf_l1:.3e} wall {wall:.3f} s (certificate "
               f"{res.dual_infeas_time:.3f} s) ALM outer "
               f"{res.alm_stats.outer_iter} inner {res.alm_stats.inner_iter}"
               f" ADMM {res.admm_stats.iter} CG {res.admm_stats.cg_iter} "
-              f"cert restarts {solver.last_cert_restarts} host syncs "
+              f"rank {res.ranks} cert restarts {solver.last_cert_restarts} "
+              f"spectral repair: {repair}; host syncs "
               f"{tdev.HOST_SYNCS - syncs0} launches {launches}  [{card}]")
         if res.status is not SolverStatus.PRIMAL_DUAL_OPTIMAL:
             raise AssertionError(f"{name}: status {res.status.value}")
@@ -393,7 +626,7 @@ def solve_path(card, path, instances):
             raise AssertionError(f"{name}: bad factor {tuple(R.shape)}")
         if name in ("maxcut300", "matcomp500") and res.admm_stats.iter == 0:
             raise AssertionError(f"{name} did not reach ADMM")
-        if path == "matcomp" and res.admm_stats.cg_iter <= 0:
+        if path in ("matcomp", "theta") and res.admm_stats.cg_iter <= 0:
             raise AssertionError(f"{name}: ADMM ran no CG iteration")
     counts = dict(kernels.LAUNCHES)
     print(f"main path {path}: kernel launches {counts}, host syncs "
@@ -405,33 +638,17 @@ def solve_path(card, path, instances):
 
 
 def main_path(card):
-    """Phase 4: the Max-Cut path and the matrix-completion path.
+    """Phase 4: the Max-Cut, matrix-completion and theta paths.
     Returns the launch counts summed over the paths."""
-    from lorads_torch.io import generators
-    from lorads_torch.io.sdpa import read_sdpa
     from lorads_torch.ops import kernels
 
-    fix = os.path.join(HERE, "tests", "fixtures")
-    paths = {
-        "maxcut": [
-            ("maxcut300", lambda: generators.maxcut(n=300, avg_degree=4,
-                                                    seed=3)),
-            ("maxcut20000", lambda: generators.maxcut(n=20000,
-                                                      avg_degree=8,
-                                                      seed=7)),
-            ("gset_torus10000", lambda: generators.maxcut_from_graph(
-                os.path.join(fix, "gset_torus10000.rudy"))),
-        ],
-        "matcomp": [
-            ("matcomp500", lambda: read_sdpa(
-                os.path.join(fix, "matcomp500.dat-s"))),
-            ("matcomp2000", lambda: generators.matrix_completion(
-                n1=2000, n2=2000, true_rank=3, frac_obs=0.12, seed=3)),
-        ],
-    }
+    paths = {"maxcut": ("maxcut300", "maxcut20000", "gset_torus10000"),
+             "matcomp": ("matcomp500", "matcomp2000"),
+             "theta": ("theta_gtoy60", "theta300", "theta800")}
     total = dict.fromkeys(kernels.KERNEL_NAMES, 0)
-    for path, instances in paths.items():
-        counts = solve_path(card, path, instances)
+    for path, names in paths.items():
+        counts = solve_path(card, path,
+                            [(name, INSTANCES[name]) for name in names])
         for k in total:
             total[k] += counts[k]
     return total
@@ -480,13 +697,19 @@ def main() -> int:
            "wmul_csr": ("lorads_torch/csrc/wmul.cu",
                         "lorads_tpu/ops/pattern.py:1312"),
            "adj_a_offdiag": ("lorads_torch/csrc/adj_a.cu",
-                             "lorads_tpu/ops/pattern.py:1476")}
+                             "lorads_tpu/ops/pattern.py:1476"),
+           "adj_a_dense": ("lorads_torch/csrc/adj_a_dense.cu",
+                           "lorads_tpu/ops/pattern.py:1458")}
     summary = []
     for name, (path, replaces) in src.items():
-        label, err, ms, pms = results[name][0]
+        first = results[name][0]
         summary.append({"name": name, "route": "cuda", "source": path,
                         "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                        "max_abs_err": first["max_abs_err"],
+                        "ms": first["ms"], "plain_ms": first["plain_ms"],
+                        "bound_ms": first["bound_ms"],
+                        "bound_by": first["bound_by"],
+                        "library_ms": first["library_ms"]})
     print(f"card: {card}")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

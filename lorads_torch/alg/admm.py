@@ -1,6 +1,6 @@
 """Phase II -- ADMM splitting on X = U V^T.
 
-Port of lorads_tpu/alg/admm.py for split, single-block buckets.  Per
+Port of lorads_tpu/alg/admm.py for single-block buckets.  Per
 iteration (LORADSADMMOptimize, lorads_admm.c:33-157): U-update,
 V-update, objective + DIMACS at X_bar = (U+V)/2 (which also REPLACES the
 constraint-value caches with A(X_bar X_bar^T), as the reference does),
@@ -16,8 +16,9 @@ fixed factor, is solved
   (``admm_mixed_cg``: f32 sweeps on the bucket's f32 cast, f64 true
   residuals).  The operator is x + W(x) @ F with W(x) = A^*(A(sym(x F^T)))
   -- kernel K6 when every off constraint owns a slot (a_off_unique),
-  else uvt (K3) -> constr_vals -> build_w (K4) -- and the product w_mul
-  (K5).
+  K7a on dense buckets with single-entry or diagonal-only constraints
+  (a_single_dense), else uvt -> constr_vals -> build_w (K4) -- and the
+  product w_mul (K5, or torch.matmul on dense buckets).
 
 lorads_tpu runs up to ``n_steps`` iterations per device dispatch; here
 ``admm_chunk`` runs them as a Python loop and reads the four DIMACS
@@ -80,11 +81,16 @@ def _admm_cache(bk: pat.BucketData, x):
     return pat.gather_cache(bk, x)
 
 
-def _cg_operator(bk: pat.BucketData, F: torch.Tensor):
+def _cg_operator(bk, F: torch.Tensor):
     """x -> x + A^*(A(sym(x F^T))) @ F, the CG operator of one side
-    (linSysProduct, lorads_admm.c:376-391; admm.py:157-170)."""
+    (linSysProduct, lorads_admm.c:376-391; admm.py:154-170): kernel K6
+    on split buckets whose off constraints own their slots, K7a on
+    dense buckets whose constraints are single-entry or diagonal-only,
+    else A(.) then A^*(.)."""
     def op(x):
-        if bk.a_off_unique:
+        if bk.dense and bk.a_single_dense:
+            Wop = pat.a_adj_a_dense(bk, pat.uvt_half_cached(bk, x, F, None))
+        elif bk.a_off_unique:
             Wop = pat.a_adj_a(bk, x, F)
         else:
             vals = pat.cone_total(bk, pat.constr_vals(bk, pat.uvt(bk, x, F)))

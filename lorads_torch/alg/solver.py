@@ -6,12 +6,13 @@ Pipeline (reference main.c:263-520):
   handoff -> Phase II (ADMM) -> reopt level 1 -> dual infeasibility ->
   reopt level 2 (x2) -> status classification -> report.
 
-The port covers one split, sparse, single-block bucket whose constraint
-slots are the global ones (Max-Cut's diag-identity cone and the general
-sparse path of matrix completion), no LP block, f64, one device.
-Everything else raises NotImplementedError
-at construction (or, for the dual-refine branch, where the solve would
-take it) rather than taking another path.  Initial factors and
+The port covers one single-block bucket whose constraint slots are the
+global ones -- split sparse (Max-Cut's diag-identity cone and the
+general sparse path of matrix completion) or dense (Lovász theta) --
+no LP block, f64, one device.  A failing dinf takes the spectral dual
+repair (alg/spectral_repair.py).  Everything else raises
+NotImplementedError at construction (or, for the CGNR dual refinement,
+where the solve would take it) rather than taking another path.  Initial factors and
 certificate start vectors come from the same ``np.random.default_rng``
 stream, in the same order, as in lorads_tpu, so both packages start
 from the same point.
@@ -34,6 +35,7 @@ from lorads_torch.alg import aop
 from lorads_torch.alg.admm import ADMMStats
 from lorads_torch.alg.alm import ALMStats
 from lorads_torch.alg.lanczos import lanczos_min_eig_device
+from lorads_torch.alg.spectral_repair import try_spectral_repair
 from lorads_torch.alg.state import FactorVec, make_history
 from lorads_torch.config import LoradsParams, SolverStatus
 from lorads_torch.core.presolve import Presolved, presolve
@@ -78,8 +80,8 @@ def _check_params(p: LoradsParams) -> None:
 
 
 class LoradsSolver:
-    """Two-phase low-rank SDP solver, PyTorch port (split sparse
-    single-block slice)."""
+    """Two-phase low-rank SDP solver, PyTorch port (single-block
+    slices: split sparse and dense)."""
 
     def __init__(self, problem: SDPProblem,
                  params: Optional[LoradsParams] = None,
@@ -111,10 +113,16 @@ class LoradsSolver:
         self.rho_max = self.params.rho_max
         self.ranks = [bp.rank for bp in self.ps.buckets]
         self.rank_maxes = [bp.rank_max for bp in self.ps.buckets]
+        # None -> structure-based auto (solver.py:122-133): large
+        # dense-mode blocks (the theta shape) take the longer history,
+        # pure sparse-pattern problems 3
         self.lbfgs_len = self.params.lbfgs_list_length
         self._lbfgs_auto = self.lbfgs_len is None
         if self.lbfgs_len is None:
-            self.lbfgs_len = 3       # pure sparse-pattern problems
+            big_dense = any(
+                bp.dense and bp.n > self.params.dense_dim_threshold
+                for bp in self.ps.buckets)
+            self.lbfgs_len = 4 if big_dense else 3
         self.log = print if self.params.verbose else (lambda *a, **k: None)
         total_rows = sum(bp.B * bp.n for bp in self.ps.buckets)
         small = total_rows <= 4096
@@ -399,6 +407,7 @@ class LoradsSolver:
                  + ",".join(f"{pl.dim:3d}" for pl in self.ps.plans) + ","]
         for bp, bk in zip(self.ps.buckets, self.pd.buckets):
             mode = ("sparse(diag-identity fast path)" if bk.diag_ident
+                    else "dense(full lower triangle)" if bk.dense
                     else "sparse(union pattern)")
             for pl in bp.plans:
                 tri = pl.dim * (pl.dim + 1) // 2
@@ -544,6 +553,19 @@ class LoradsSolver:
             return delta
         return None
 
+    def _try_dual_refine(self, admm_stats) -> bool:
+        """Dual refinement of a failing dinf (solver.py:1031-1101): the
+        spectral repair first (alg/spectral_repair.py); True iff it was
+        accepted (admm_stats' dinf/dObj/gap updated).  When it is not,
+        lorads_tpu fits the dual to complementarity by CGNR
+        (alg/dualrefine.py), which is not ported."""
+        if try_spectral_repair(self, admm_stats):
+            return True
+        raise _not_ported(
+            "the CGNR dual refinement (lorads_tpu/alg/dualrefine.py), "
+            "taken when the spectral repair is not accepted (dinf "
+            f"{admm_stats.dinf_l1:.3e})")
+
     # ------------------------------------------------------------------
     # Reopt (lorads_solver.c:1075-1117).
     # ------------------------------------------------------------------
@@ -638,13 +660,15 @@ class LoradsSolver:
         self.log(f"Dual infeasibility: l_1 = {dinf:.6f}, "
                  f"l_inf = {admm_stats.dinf_inf:.6f}")
 
+        # dual refinement of a failing dinf before the level-2 reopt
+        # grind (solver.py:1305-1317)
         if (status is SolverStatus.UNKNOWN and p.dual_refine
                 and admm_stats.dinf_l1 > (
                     p.phase2_tol if p.high_acc_mode
                     else 5 * p.phase2_tol)):
-            raise _not_ported("the dual-refine / spectral-repair branch "
-                              f"(dinf {admm_stats.dinf_l1:.3e} after "
-                              "repair)")
+            t_di = time.time()
+            self._try_dual_refine(admm_stats)
+            dual_infeas_time += time.time() - t_di
 
         # reopt level 2 (main.c:414-476)
         if status is SolverStatus.UNKNOWN and p.reopt_level >= 2:
@@ -805,19 +829,27 @@ def _slack_operator(bk, w_loc):
             return off * inv[:, None] + Wdn * x
 
         return "lanczos", mv, ws
-    # W = C - A^*(lambda) on the pattern (kernel K4), normalized per
-    # block: |lambda| grows with rho, and an un-normalized f32 Lanczos
-    # sweep can overflow (eigenvalues rescale back exactly)
-    W_d, W_o = pat.build_w(bk, w_loc)
-    ws = torch.clamp(torch.maximum(torch.amax(torch.abs(W_d), dim=1),
-                                   torch.amax(torch.abs(W_o), dim=1)),
-                     min=1e-30)
-    Wn = (W_d / ws[:, None], W_o / ws[:, None])
-    if _eig_rescue_ok(bk):
-        return "eigh", pat.densify_w(bk, Wn), ws
+    # W = C - A^*(lambda) (kernel K4), normalized per block: |lambda|
+    # grows with rho, and an un-normalized f32 Lanczos sweep can
+    # overflow (eigenvalues rescale back exactly)
+    if bk.dense:
+        # full [B, n, n] slack (solver.py:1547-1556)
+        W = pat.build_w(bk, w_loc)
+        ws = torch.clamp(torch.amax(torch.abs(W), dim=(1, 2)), min=1e-30)
+        Wn = W / ws[:, None, None]
+        if _eig_rescue_ok(bk):
+            return "eigh", Wn, ws
+    else:
+        W_d, W_o = pat.build_w(bk, w_loc)
+        ws = torch.clamp(torch.maximum(torch.amax(torch.abs(W_d), dim=1),
+                                       torch.amax(torch.abs(W_o), dim=1)),
+                         min=1e-30)
+        Wn = (W_d / ws[:, None], W_o / ws[:, None])
+        if _eig_rescue_ok(bk):
+            return "eigh", pat.densify_w(bk, Wn), ws
 
     def mv(x, bk=bk, Wn=Wn):
-        # W @ x at r = 1 (kernel K5)
+        # W @ x at r = 1 (kernel K5, or torch.matmul on dense buckets)
         return pat.w_mul(bk, Wn, x[:, :, None])[:, :, 0]
 
     return "lanczos", mv, ws

@@ -1,4 +1,4 @@
-"""State carried across from lorads_tpu (numpy arrays in, tensors out).
+"""State carried across: lorads_tpu numpy arrays in, tensors out.
 
 Lets a test start the port from the exact state ``lorads_tpu`` holds at
 any point of a solve.  Callers pass ``np.asarray`` of the JAX arrays (or
@@ -15,15 +15,18 @@ from lorads_torch.alg.state import FactorVec, LBFGSHistory
 from lorads_torch.ops import pattern as pat
 
 
-def bucket_from_numpy(bk, dtype=torch.float64,
-                      device="cpu") -> pat.BucketData:
-    """The port's BucketData from a lorads_tpu BucketData's fields
-    (split, B = 1, global constraint slots).  The port-only arrays
-    (pattern.port_fields) are built on the host from the same fields."""
-    if not bk.split or bk.dense or bk.B != 1 or not bk.glob_ident:
+def bucket_from_numpy(bk, dtype=torch.float64, device="cpu"):
+    """The port's bucket from a lorads_tpu BucketData's fields (B = 1,
+    global constraint slots): a DenseBucketData for a dense bucket,
+    else a split BucketData.  The port-only arrays
+    (pattern.dense_port_fields, pattern.port_fields) are built on the
+    host from the same fields."""
+    if bk.B != 1 or not bk.glob_ident or not (bk.dense or bk.split):
         raise NotImplementedError(
-            "only split, single-block buckets with global constraint "
-            "slots are ported to lorads_torch")
+            "only single-block buckets with global constraint slots, "
+            "dense or split, are ported to lorads_torch")
+    if bk.dense:
+        return _dense_bucket_from_numpy(bk, dtype, device)
     meta = {k: getattr(bk, k) for k in pat.META_FIELDS if k != "Ks"}
     arrays = {k: np.asarray(getattr(bk, k))
               for k in pat.INT_FIELDS + pat.FLOAT_FIELDS}
@@ -34,6 +37,20 @@ def bucket_from_numpy(bk, dtype=torch.float64,
     meta["Ks"] = port.pop("Ks")
     arrays.update(port)
     return pat.bucket_from_arrays(meta, arrays, dtype, device)
+
+
+def _dense_bucket_from_numpy(bk, dtype, device) -> pat.DenseBucketData:
+    meta = {k: getattr(bk, k) for k in pat.DENSE_META_FIELDS}
+    names = pat.DENSE_FIELDS + (pat.DENSE_DD_FIELDS if bk.a_single_dense
+                                else ())
+    arrays = {k: np.asarray(getattr(bk, k)) for k in names}
+    arrays.update(pat.dense_port_fields(
+        bk.n, bk.m_loc, *(arrays[k] for k in (
+            "a_lin", "a_lin_t", "a_con_loc", "a_val", "a_val_mirror",
+            "a_val_inner")),
+        *(arrays[k] for k in ("dd_con", "dd_row", "dd_val"))
+        if bk.a_single_dense else ()))
+    return pat.dense_bucket_from_arrays(meta, arrays, dtype, device)
 
 
 def _tensor(x, dtype, device):

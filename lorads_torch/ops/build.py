@@ -47,6 +47,7 @@ _SIGNATURES = {
                 _VP],
     "lt_adj_a_offdiag": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                          _I, _VP],
+    "lt_adj_a_dense": [_I, _VP, _VP, _VP, _VP, _I, _I, _VP],
 }
 
 _LIB = None

@@ -9,6 +9,7 @@
 | gather_segsum  | csrc/gather_segsum.cu  | constr_vals and build_w, split (K4)       |
 | wmul_csr       | csrc/wmul.cu           | w_mul, w_mul_cached, split (K5)           |
 | adj_a_offdiag  | csrc/adj_a.cu          | a_adj_a (K6)                              |
+| adj_a_dense    | csrc/adj_a_dense.cu    | a_adj_a_dense (K7a)                       |
 
 Each wrapper checks its arguments, then takes the plain PyTorch version
 (written with ``index_select`` / ``index_add_``) for CPU tensors, and
@@ -19,7 +20,9 @@ launches per wrapper (plain-version calls are not counted).
 Plain-version precision: f64 sums directly.  At f32 the segment sums
 (K1, K2, K4, K5) accumulate in f64 and round once, which bounds their
 error by the compensated kernels' eps32 contract; the row dots of K3,
-K3p and K6 (r terms each) sum in f32, as lorads_tpu's do.
+K3p and K6 (r terms each) sum in f32, as lorads_tpu's do.  K7a rounds
+its product and its diagonal sum separately, as its plain version
+does, so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from __future__ import annotations
 import torch
 
 KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
-                "gather_segsum", "wmul_csr", "adj_a_offdiag")
+                "gather_segsum", "wmul_csr", "adj_a_offdiag",
+                "adj_a_dense")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 
 
@@ -323,3 +327,29 @@ def adj_a_offdiag(X: torch.Tensor, F: torch.Tensor, rows: torch.Tensor,
             F.data_ptr(), rows.data_ptr(), cols.data_ptr(), a2.data_ptr(),
             _ptr(d), W_o.data_ptr(), B, n, Ko, r)
     return d, W_o
+
+
+# ---------------------------------------------------------------------------
+# K7a: a2 .* X + diag(W_d) on full [B, n, n] matrices.
+# ---------------------------------------------------------------------------
+
+def adj_a_dense_plain(X, a2, W_d):
+    out = a2 * X
+    return out if W_d is None else out + torch.diag_embed(W_d)
+
+
+def adj_a_dense(X: torch.Tensor, a2: torch.Tensor,
+                W_d=None) -> torch.Tensor:
+    """K7a.  X, a2 [B, n, n]; W_d [B, n] or None (no diagonal term) ->
+    a2 * X + diag(W_d) [B, n, n]."""
+    if X.dim() != 3 or X.shape[1] != X.shape[2]:
+        raise ValueError(f"adj_a_dense: X of shape {tuple(X.shape)}")
+    B, n, _ = X.shape
+    if a2.shape != X.shape or (W_d is not None and W_d.shape != (B, n)):
+        raise ValueError("adj_a_dense: inconsistent shapes")
+    if not _check("adj_a_dense", [X, a2, W_d], []):
+        return adj_a_dense_plain(X, a2, W_d)
+    out = torch.empty_like(X)
+    _launch("adj_a_dense", "lt_adj_a_dense", _is_f64(X), X.data_ptr(),
+            a2.data_ptr(), _ptr(W_d), out.data_ptr(), B, n)
+    return out

@@ -1,7 +1,7 @@
 """lorads_torch's CUDA kernels on the card (marker ``cuda``).
 
 Each kernel against its plain PyTorch version on CUDA tensors, one
-Max-Cut and one matrix-completion solve on cuda.  Imports no JAX, so it also runs where JAX is
+Max-Cut, one matrix-completion and one Lovász theta solve on cuda.  Imports no JAX, so it also runs where JAX is
 not installed; without a GPU every test skips.  On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -o addopts="" \
@@ -230,3 +230,77 @@ def test_maxcut300_solve_on_cuda():
     assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
     # lorads_tpu on CPU at f64 gives -504.660555953274
     assert abs(res.pobj + 504.660555953274) <= 1e-4 * 504.66
+
+
+def _theta_bucket(dtype):
+    problem = read_sdpa(os.path.join(FIX, "theta300.dat-s"))
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    return pat.build_bucket_data(bp, problem.m, dtype, "cuda"), bp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("with_diag", [False, True])
+def test_adj_a_dense_kernel_matches_plain(dtype, with_diag):
+    """K7a rounds its product and its diagonal sum separately, as the
+    plain version does: bit for bit."""
+    _need_cuda()
+    bk, bp = _theta_bucket(dtype)
+    rng = np.random.default_rng(7)
+    X = pat.uvt(bk, _rand(rng, (1, bp.n, bp.rank), dtype),
+                _rand(rng, (1, bp.n, bp.rank), dtype))
+    W_d = _rand(rng, (1, bp.n), dtype) if with_diag else None
+    before = kernels.LAUNCHES["adj_a_dense"]
+    got = kernels.adj_a_dense(X, bk.a2_full, W_d)
+    assert kernels.LAUNCHES["adj_a_dense"] == before + 1
+    assert torch.equal(got, kernels.adj_a_dense_plain(X, bk.a2_full, W_d))
+    # an odd n and a view that starts one element into its storage
+    Y = _rand(rng, (1, 37 * 37 + 1), dtype)[:, 1:].reshape(1, 37, 37)
+    a2 = _rand(rng, (1, 37, 37), dtype)
+    wd = _rand(rng, (1, 37), dtype) if with_diag else None
+    assert torch.equal(kernels.adj_a_dense(Y, a2, wd),
+                       kernels.adj_a_dense_plain(Y, a2, wd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gather_segsum_dense_layouts_match_plain(dtype):
+    """K4 on the dense layouts: A(.) over the flat n^2 view (exact on
+    the single-entry constraints), C + A^*(w) onto the n^2 slots, and
+    the two dd sums."""
+    _need_cuda()
+    bk, bp = _theta_bucket(dtype)
+    rng = np.random.default_rng(8)
+    n, m = bk.n, bp.m_loc
+    flat = _rand(rng, (1, n * n), dtype)
+    w = _rand(rng, (1, m), dtype)
+    d = _rand(rng, (1, n), dtype)
+    base = bk.c_full.reshape(1, n * n)
+    cases = [((flat, bk.a_lin_cs, bk.a_val_inner_cs, bk.bnd_a_con_cs), None),
+             ((w, bk.a_con2_s, bk.a_val2_s, bk.bnd_a_lin2), base),
+             ((d, bk.dd_row_cs, bk.dd_val_cs, bk.bnd_dd_con), None),
+             ((w, bk.dd_con_rs, bk.dd_val_rs, bk.bnd_dd_row), None)]
+    for k, (args, b) in enumerate(cases):
+        got = kernels.gather_segsum(*args, base=b)
+        ref = kernels.gather_segsum_plain(*args, b)
+        x_, i_, v_, s_ = args
+        l1 = kernels.gather_segsum_plain(
+            x_.abs(), i_, v_.abs(), s_, None if b is None else b.abs())
+        assert _close(got, ref, l1, dtype)
+        if k == 0:
+            single = (s_[0, 1:] - s_[0, :-1]) == 1
+            assert torch.equal(got[:, single], ref[:, single])
+
+
+@pytest.mark.cuda
+def test_theta_gtoy60_solve_on_cuda():
+    _need_cuda()
+    kernels.reset_launches()
+    res = LoradsSolver(read_sdpa(os.path.join(FIX, "theta_gtoy60.dat-s")),
+                       LoradsParams(verbose=False), device="cuda").solve()
+    assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
+    assert res.admm_stats.cg_iter > 0
+    # lorads_tpu on CPU at f64 gives -24.209496946891917
+    assert abs(res.pobj + 24.209496946891917) <= 1e-4 * 24.21
+    for k in ("gather_segsum", "adj_a_dense"):
+        assert kernels.LAUNCHES[k] > 0, k

@@ -246,14 +246,28 @@ def _sparse_two_blocks():
                                blocks=[blk_a, blk_b])
 
 
+def _dense_two_blocks():
+    """Two Lovász theta blocks of different dims, each with its own
+    constraints: two dense buckets, neither holding the global slots."""
+    a = t_gen.lovasz_theta(n=30, avg_degree=4, seed=1)
+    b = t_gen.lovasz_theta(n=90, avg_degree=4, seed=2)
+    blk_b = dataclasses.replace(b.blocks[0], m=a.m + b.m,
+                                a_con=b.blocks[0].a_con + a.m)
+    blk_a = dataclasses.replace(a.blocks[0], m=a.m + b.m)
+    return dataclasses.replace(a, m=a.m + b.m,
+                               rhs=np.concatenate([a.rhs, b.rhs]),
+                               blocks=[blk_a, blk_b])
+
+
 @pytest.mark.parametrize("case", ["dense_bucket", "lp_block", "shard",
                                   "f32", "multi_block",
                                   "sparse_multi_block"])
 def test_out_of_slice_raises(case):
     params = LoradsParams(verbose=False)
     problem = t_gen.maxcut(n=300, avg_degree=4, seed=3)
-    if case == "dense_bucket":        # n=60: union density > 0.1
-        problem = t_read_sdpa(os.path.join(FIX, "mc_gtoy60.dat-s"))
+    if case == "dense_bucket":        # dense buckets of several blocks
+        problem = _dense_two_blocks()
+        assert all(bp.dense for bp in t_presolve(problem, params).buckets)
     elif case == "lp_block":
         problem = t_read_sdpa(os.path.join(FIX, "hand_multiblock.dat-s"))
     elif case == "shard":
