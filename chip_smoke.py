@@ -37,7 +37,24 @@ Phases, each reported on its own lines:
    - Lovász theta (dense buckets): tests/fixtures/theta_gtoy60.dat-s,
      tests/fixtures/theta300.dat-s and bench.py's theta800,
      lovasz_theta(n=800, avg_degree=8, seed=5) (ALM, ADMM with CG on the
-     K7a operator, exact-eigh certificate, spectral dual repair).
+     K7a operator, exact-eigh certificate, spectral dual repair);
+   - multi-block and LP: tests/fixtures/hand_multiblock.dat-s (two dense
+     one-block buckets on local slots, an LP block of 2 columns), solved
+     with Jacobi and with Gauss-Seidel (K8c) LP sweeps;
+     random_multiblock(22 blocks of dim 12, m=40, seed 21) (one dense
+     bucket of 22 blocks sharing constraints: the bucket Gauss-Seidel
+     scan); random_multiblock(8 blocks of dim 40, m=120, 400 LP
+     columns, seed 5) with Gauss-Seidel LP sweeps;
+   - a batch: merge_problems of four maxcut(n=20000, deg 8, seeds 7-10)
+     (one split diag-identity bucket of 4 blocks on disjoint slots:
+     ADMM would sweep them at once; K2, K3 and the Lanczos certificate
+     at B = 4), the batch and each instance's objective held to
+     lorads_tpu's solve of that instance alone.
+   Phase 3 adds, at the shapes of that path: K8a / K8b (K4 on the LP's
+   constraint- and column-sorted entries) and K8c (the Gauss-Seidel LP
+   sweep, bit for bit) at random_multiblock(8, 40, 120, 400 LP
+   columns)'s LP block, K4's scatter of its 8 blocks' local constraint
+   values, and K2 / K3 at the maxcut batch's B = 4.
 
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.  Any failed phase raises and exits
@@ -77,7 +94,26 @@ INSTANCES = {
     "theta_gtoy60": lambda: _sdpa("theta_gtoy60.dat-s"),
     "theta300": lambda: _sdpa("theta300.dat-s"),
     "theta800": lambda: _gen().lovasz_theta(n=800, avg_degree=8, seed=5),
+    "hand_multiblock": lambda: _sdpa("hand_multiblock.dat-s"),
+    "hand_multiblock_gs": lambda: _sdpa("hand_multiblock.dat-s"),
+    "multiblock22": lambda: _gen().random_multiblock(
+        n_blocks=22, dim=12, m=40, density=0.3, seed=21),
+    "multiblock_lp": lambda: _gen().random_multiblock(
+        n_blocks=8, dim=40, m=120, density=0.05, n_lp=400, seed=5),
+    "maxcut20000x4": lambda: _merged([_gen().maxcut(
+        n=20000, avg_degree=8, seed=s) for s in (7, 8, 9, 10)]),
 }
+# solver options of an instance (default LoradsParams otherwise)
+PARAMS = {"hand_multiblock_gs": dict(lp_gauss_seidel=True),
+          "multiblock_lp": dict(lp_gauss_seidel=True)}
+
+
+def _merged(problems):
+    from lorads_torch.core.problem import merge_problems
+    merged = merge_problems(problems)
+    merged.parts = problems          # for the per-instance objectives
+    return merged
+
 
 # lorads_tpu on CPU at f64 (objective of each main-path instance)
 REFERENCE_POBJ = {
@@ -89,13 +125,29 @@ REFERENCE_POBJ = {
     "theta_gtoy60": -24.209496946891917,
     "theta300": -154.24257520621822,
     "theta800": -426.5939149561383,
+    "hand_multiblock": 0.21774877836010853,
+    "hand_multiblock_gs": 0.21774893891060546,
+    "multiblock22": 106.14210206550646,
+    "multiblock_lp": 191.50494359343332,
+    # the batch's optimum is the sum of its instances': lorads_tpu's
+    # single-instance solves below, summed
+    "maxcut20000x4": -248319.05656104838,
 }
+# lorads_tpu on CPU at f64, each instance of the merged maxcut batch
+# solved alone (seeds 7-10).  lorads_tpu's own merged solve of the batch
+# stops 2.4e-4 lower (-248378.72611070029, after growing the rank from 20
+# to 30): the two certified answers lie further apart than the 1e-4 band,
+# so the batch is held to the instances, as a batch must equal them.
+REFERENCE_SPLIT = {"maxcut20000x4": (-62097.25666, -62076.14471913608,
+                                     -62080.6703693886, -62064.98481252369)}
 # the kernels each main path must launch
 PATH_KERNELS = {
     "maxcut": ("cmul_csr", "uvt_split"),
     "matcomp": ("uvt_split", "uvt_pair_split", "gather_segsum", "wmul_csr",
                 "adj_a_offdiag"),
     "theta": ("gather_segsum", "adj_a_dense"),
+    "lp": ("gather_segsum", "lp_gs_sweep"),
+    "batch": ("cmul_csr", "uvt_split"),
 }
 POBJ_RTOL = 1e-4
 # the card's device-memory rate and its peak rates outside the tensor
@@ -169,7 +221,7 @@ class Measure:
         self.results = {}
 
     def __call__(self, kname, label, sfx, fn, plain, l1, nbytes, flops,
-                  library=None, exact=None, tol=None):
+                  library=None, exact=None, tol=None, steps=None):
         import numpy as np
         import torch
         got = fn()
@@ -201,10 +253,13 @@ class Measure:
         if library is not None:
             lib_ms = cuda_time_ms(library)
         bms, by = bound_of(nbytes, flops, sfx)
+        # a sequential kernel: its time per dependent step
+        step_note = ("" if steps is None else
+                     f" ({ms / steps * 1e3:.3f} us per dependent step)")
         print(f"{kname} [{label}]: max_abs_err {err:.3e} (tol {tol:.1e} x "
               f"|terms|{exact_note}) kernel {ms:.4f} ms plain {pms:.4f} ms "
               f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-              f"bound {bms:.6f} ms ({by}: {nbytes} B, {flops} flop)  "
+              f"bound {bms:.6f} ms{step_note} ({by}: {nbytes} B, {flops} flop)  "
               f"[{self.card}]")
         self.results.setdefault(kname, []).append(dict(
             label=label, max_abs_err=err, ms=ms, plain_ms=pms,
@@ -341,6 +396,7 @@ def kernel_checks(card):
     segment_sum_edges(rng, dev)
     matcomp_kernel_checks(rng, measure)
     theta_kernel_checks(rng, measure)
+    multiblock_kernel_checks(rng, measure)
     return measure.results
 
 
@@ -575,13 +631,136 @@ def theta_kernel_checks(rng, measure):
                 library=_seg_library(_seg_csr(*adr[1:], m), v))
 
 
+def multiblock_kernel_checks(rng, measure):
+    """Phase 3, multi-block / LP and batch paths: K8a and K8b (K4 on the
+    LP's sorted entries) and K8c at multiblock_lp's LP block (400
+    columns, m=120), K4's scatter of its 8 blocks' local constraint
+    values, and K2 / K3 at the maxcut batch's B = 4."""
+    import torch
+
+    from lorads_torch.config import LoradsParams
+    from lorads_torch.core.presolve import presolve
+    from lorads_torch.ops import kernels
+    from lorads_torch.ops import lp as lp_ops
+    from lorads_torch.ops import pattern as pat
+
+    dev = torch.device("cuda")
+    s = 8
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device=dev,
+                               dtype=torch.float64)
+
+    problem = INSTANCES["multiblock_lp"]()
+    lpd = lp_ops.build_lp_data(problem.lp, torch.float64, dev)
+    n, m, N, L = lpd.n_cols, lpd.m_glob, lpd.nnz, lpd.max_nnz_col
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    bk = pat.build_bucket_data(bp, problem.m, torch.float64, dev)
+    print(f"lp-path shapes: LP columns {n} m={m} entries {N} (at most {L} "
+          f"per column); bucket B={bk.B} n={bk.n} m_loc={bk.m_loc} "
+          f"scatter entries {bk.scat_idx.shape[1]}")
+    # ---- K8a: A_lp(uv) over the constraint-sorted entries
+    uv = rand(n)
+    a8 = (lpd.a_col_cs[None], lpd.a_val_cs[None], lpd.bnd_con[None])
+    measure("gather_segsum", f"f64 K8a LP A_lp(uv) m={m}", "f64",
+            lambda: lp_ops.constr_vals(lpd, uv),
+            lambda: kernels.gather_segsum_plain(uv[None], *a8)[0],
+            kernels.gather_segsum_plain(uv.abs()[None], a8[0],
+                                        a8[1].abs(), a8[2])[0],
+            nbytes=N * (4 + s) + n * s + (m + 1) * 4 + m * s, flops=2 * N,
+            library=_seg_library(_seg_csr(*a8, n), uv[None]))
+    # ---- K8b: c - A_lp^T lambda (certificate) over the column-sorted
+    # entries; the ALM gradient's c + A_lp^T w is the same launch
+    w = rand(m)
+    b8 = (lpd.a_con_ls[None], lpd.a_val_ls[None], lpd.bnd_col[None])
+    measure("gather_segsum", f"f64 K8b LP c - A_lp^T w n={n}", "f64",
+            lambda: lp_ops.adjoint_cols(lpd, w, base=lpd.obj, alpha=-1.0),
+            lambda: kernels.gather_segsum_plain(w[None], *b8, lpd.obj[None],
+                                                -1.0)[0],
+            kernels.gather_segsum_plain(w.abs()[None], b8[0], b8[1].abs(),
+                                        b8[2], lpd.obj.abs()[None])[0],
+            nbytes=N * (4 + s) + m * s + (n + 1) * 4 + 2 * n * s,
+            flops=2 * N + n,
+            library=_seg_library(_seg_csr(*b8, m, alpha=-1.0), w[None],
+                                 lpd.obj[None]))
+    # ---- K8c: the Gauss-Seidel LP sweep, bit for bit
+    u, v = rand(n), rand(n)
+    csum, dual = rand(m), rand(m)
+    a8c = (lpd.pc_con, lpd.pc_val, lpd.obj, lpd.col_nrm2sq, u, v, csum,
+           rand(m), dual, 5.0)
+    measure("lp_gs_sweep", f"f64 K8c n_lp={n} L={L} (dependent steps: {n})",
+            "f64", lambda: kernels.lp_gs_sweep(*a8c),
+            lambda: kernels.lp_gs_sweep_plain(*a8c),
+            (torch.ones(n, dtype=torch.float64, device=dev),
+             torch.ones(m, dtype=torch.float64, device=dev)),
+            nbytes=n * L * (4 + s) + 5 * n * s + 4 * m * s,
+            flops=9 * N + 12 * n, exact=True, tol=0.0, steps=n)
+    # ---- K4: scatter_constr of the bucket's local values into [m]
+    vals = rand(bk.B, bk.m_loc)
+    sc = (bk.scat_idx, bk.scat_val, bk.bnd_scat)
+    S = sc[0].shape[1]
+    measure("gather_segsum", f"f64 scatter_constr B={bk.B} m={m}", "f64",
+            lambda: pat.scatter_constr(bk, vals),
+            lambda: kernels.gather_segsum_plain(vals.reshape(1, -1),
+                                                *sc)[0],
+            kernels.gather_segsum_plain(vals.abs().reshape(1, -1), *sc)[0],
+            nbytes=S * (4 + s) + bk.B * bk.m_loc * s + (m + 1) * 4 + m * s,
+            flops=2 * S,
+            library=_seg_library(_seg_csr(*sc, bk.B * bk.m_loc),
+                                 vals.reshape(1, -1)))
+
+    # ---- K2 / K3 at the maxcut batch's B = 4 (library: the four blocks
+    # as one block-diagonal CSR matrix, one call)
+    problem = INSTANCES["maxcut20000x4"]()
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    bk = pat.build_bucket_data(bp, problem.m, torch.float64, dev)
+    B, nb, r, Ks, Ko = bk.B, bk.n, bp.rank, bk.Ks, bk.Ko
+    print(f"batch-path shapes: B={B} n={nb} Ks={Ks} Ko={Ko} rank={r} "
+          f"diag_ident={bk.diag_ident} glob_ident={bk.glob_ident}")
+    off = (torch.arange(B, device=dev) * nb)[:, None]
+    diag = torch.arange(B * nb, device=dev)
+    X = rand(B, nb, r)
+    args = (X, bk.c_diag, bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
+    C = _csr(torch.cat([(bk.sym_rows_rs + off).reshape(-1), diag]),
+             torch.cat([(bk.sym_cols_rs + off).reshape(-1), diag]),
+             torch.cat([bk.c_sym_rs.reshape(-1), bk.c_diag.reshape(-1)]),
+             B * nb)
+    Xf = X.reshape(B * nb, r)
+    measure("cmul_csr", f"f64 B={B} r={r} diag", "f64",
+            lambda: kernels.cmul_csr(*args),
+            lambda: kernels.cmul_csr_plain(*args),
+            kernels.cmul_csr_plain(X.abs(), bk.c_diag.abs(), bk.sym_cols_rs,
+                                   bk.c_sym_rs.abs(), bk.bnd_sym_rows),
+            nbytes=2 * B * nb * r * s + B * Ks * (4 + s)
+            + B * (nb + 1) * 4 + B * nb * s,
+            flops=2 * B * (Ks + nb) * r,
+            library=lambda: torch.sparse.mm(C, Xf))
+    U, V = rand(B, nb, r), rand(B, nb, r)
+    a3 = (U, V, bk.off_rows, bk.off_cols)
+    Poff = _csr((bk.off_rows + off).reshape(-1),
+                (bk.off_cols + off).reshape(-1),
+                torch.ones(B * Ko, dtype=torch.float64, device=dev), B * nb)
+    Uf, Vt = U.reshape(B * nb, r), V.reshape(B * nb, r).T.contiguous()
+    measure("uvt_split", f"f64 B={B} r={r}", "f64",
+            lambda: kernels.uvt_split(*a3),
+            lambda: kernels.uvt_split_plain(*a3),
+            kernels.uvt_split_plain(U.abs(), V.abs(), bk.off_rows,
+                                    bk.off_cols),
+            nbytes=2 * B * nb * r * s + 2 * B * Ko * 4 + B * (nb + Ko) * s,
+            flops=B * (2 * nb * r + 4 * Ko * r),
+            library=lambda: torch.sparse.sampled_addmm(Poff, Uf, Vt,
+                                                       beta=0.0))
+
+
 def solve_path(card, path, instances):
     """One main path: its solves through the public entry points, with
     the launch counts reset just before and read just after."""
+    import numpy as np
     import torch
 
     from lorads_torch import LoradsParams, LoradsSolver, SolverStatus
     from lorads_torch import device as tdev
+    from lorads_torch.core.problem import split_objectives_factors
     from lorads_torch.ops import kernels
 
     problems = [(name, make()) for name, make in instances]
@@ -592,7 +771,8 @@ def solve_path(card, path, instances):
         before = dict(kernels.LAUNCHES)
         syncs0 = tdev.HOST_SYNCS
         t0 = time.time()
-        solver = LoradsSolver(problem, LoradsParams(verbose=False),
+        solver = LoradsSolver(problem, LoradsParams(verbose=False,
+                                                    **PARAMS.get(name, {})),
                               device="cuda")
         res = solver.solve()
         torch.cuda.synchronize()
@@ -606,13 +786,17 @@ def solve_path(card, path, instances):
                   f"{rep['rounds']} rounds, dinf {rep['dinf_before']:.3e} "
                   f"-> {rep['dinf_after']:.3e}, "
                   + ("accepted" if rep["accepted"] else "not accepted"))
+        shapes = [f"{bk.B}x{bk.n}{'d' if bk.dense else 's'}"
+                  for bk in solver.pd.buckets]
         print(f"solve {name}: status {res.status.value} pObj "
               f"{res.pobj!r} (lorads_tpu CPU f64 {ref!r}, rel "
               f"{rel:.2e}) pinf {res.pinf_l1:.3e} gap {res.gap:.3e} "
               f"dinf {res.dinf_l1:.3e} wall {wall:.3f} s (certificate "
-              f"{res.dual_infeas_time:.3f} s) ALM outer "
+              f"{res.dual_infeas_time:.3f} s) buckets {shapes} LP columns "
+              f"{problem.n_lp_cols} ALM outer "
               f"{res.alm_stats.outer_iter} inner {res.alm_stats.inner_iter}"
               f" ADMM {res.admm_stats.iter} CG {res.admm_stats.cg_iter} "
+              f"divergence retries {solver.admm_retries} "
               f"rank {res.ranks} cert restarts {solver.last_cert_restarts} "
               f"spectral repair: {repair}; host syncs "
               f"{tdev.HOST_SYNCS - syncs0} launches {launches}  [{card}]")
@@ -620,13 +804,26 @@ def solve_path(card, path, instances):
             raise AssertionError(f"{name}: status {res.status.value}")
         if not (math.isfinite(res.pobj) and rel <= POBJ_RTOL):
             raise AssertionError(f"{name}: pObj {res.pobj} vs {ref}")
-        R = res.R.cones[0]
-        if R.shape[:2] != (1, problem.blocks[0].dim) \
-                or not bool(torch.isfinite(R).all()):
-            raise AssertionError(f"{name}: bad factor {tuple(R.shape)}")
+        fs, lp_vals = solver.factor_blocks()
+        for blk, F in zip(problem.blocks, fs):
+            if F.shape[0] != blk.dim or not np.all(np.isfinite(F)):
+                raise AssertionError(f"{name}: bad factor {F.shape}")
+        if lp_vals is not None and not (
+                lp_vals.shape == (problem.n_lp_cols,)
+                and np.all(np.isfinite(lp_vals)) and np.all(lp_vals >= 0)):
+            raise AssertionError(f"{name}: bad LP values")
+        if name in REFERENCE_SPLIT:
+            objs = split_objectives_factors(problem.parts, fs, lp_vals)
+            rels = [abs(a - b) / abs(b)
+                    for a, b in zip(objs, REFERENCE_SPLIT[name])]
+            print(f"solve {name}: per-instance objectives {objs} (rel to "
+                  f"lorads_tpu's single-instance solves "
+                  f"{['%.2e' % r for r in rels]})")
+            if max(rels) > POBJ_RTOL:
+                raise AssertionError(f"{name}: per-instance objectives")
         if name in ("maxcut300", "matcomp500") and res.admm_stats.iter == 0:
             raise AssertionError(f"{name} did not reach ADMM")
-        if path in ("matcomp", "theta") and res.admm_stats.cg_iter <= 0:
+        if path in ("matcomp", "theta", "lp") and res.admm_stats.cg_iter <= 0:
             raise AssertionError(f"{name}: ADMM ran no CG iteration")
     counts = dict(kernels.LAUNCHES)
     print(f"main path {path}: kernel launches {counts}, host syncs "
@@ -638,13 +835,17 @@ def solve_path(card, path, instances):
 
 
 def main_path(card):
-    """Phase 4: the Max-Cut, matrix-completion and theta paths.
+    """Phase 4: the Max-Cut, matrix-completion, theta, multi-block / LP
+    and batch paths.
     Returns the launch counts summed over the paths."""
     from lorads_torch.ops import kernels
 
     paths = {"maxcut": ("maxcut300", "maxcut20000", "gset_torus10000"),
              "matcomp": ("matcomp500", "matcomp2000"),
-             "theta": ("theta_gtoy60", "theta300", "theta800")}
+             "theta": ("theta_gtoy60", "theta300", "theta800"),
+             "lp": ("hand_multiblock", "hand_multiblock_gs", "multiblock22",
+                    "multiblock_lp"),
+             "batch": ("maxcut20000x4",)}
     total = dict.fromkeys(kernels.KERNEL_NAMES, 0)
     for path, names in paths.items():
         counts = solve_path(card, path,
@@ -699,7 +900,9 @@ def main() -> int:
            "adj_a_offdiag": ("lorads_torch/csrc/adj_a.cu",
                              "lorads_tpu/ops/pattern.py:1476"),
            "adj_a_dense": ("lorads_torch/csrc/adj_a_dense.cu",
-                           "lorads_tpu/ops/pattern.py:1458")}
+                           "lorads_tpu/ops/pattern.py:1458"),
+           "lp_gs_sweep": ("lorads_torch/csrc/lp_gs.cu",
+                           "lorads_tpu/alg/admm.py:238")}
     summary = []
     for name, (path, replaces) in src.items():
         first = results[name][0]

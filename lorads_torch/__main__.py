@@ -4,10 +4,12 @@ Usage:  python -m lorads_torch <file.dat-s> [--device cuda|cpu] [...]
 
 Flag names and defaults are lorads_tpu/__main__.py's (the reference
 binary's getopt table, main.c:19-80) plus ``--device`` (default cuda), the
-counterpart of JAX's platform choice.  Flags of configurations the port
-does not run yet -- several input files, --checkpoint, --resume,
---warmStart, --solOut, --traceDir, --shard, --dtype f32, --dualUV --
-raise NotImplementedError.
+counterpart of JAX's platform choice.  Several input files merge
+block-diagonally (``merge_problems``) into one batch solve, and each
+instance's objective is reported at the end.  Flags of configurations
+the port does not run yet -- --checkpoint, --resume, --warmStart,
+--solOut, --traceDir, --shard, --dtype f32, --dualUV -- raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ def build_parser() -> argparse.ArgumentParser:
         prog="lorads_torch",
         description="PyTorch/CUDA low-rank SDP solver (LoRADS port)")
     p.add_argument("fname", nargs="+",
-                   help="SDPA sparse-format .dat-s file (several "
-                        "files as one batch: not yet ported)")
+                   help="SDPA sparse-format .dat-s file(s); several "
+                        "files merge block-diagonally into ONE batch "
+                        "solve (per-instance objectives reported at "
+                        "the end)")
     # reference getopt_long table (main.c:57-80)
     p.add_argument("--initRho", type=float, default=0.0)
     p.add_argument("--rhoMax", type=float, default=5000.0)
@@ -58,8 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dualUV", type=int, default=0,
                    help="DUAL_U_V build variant (not yet ported)")
     p.add_argument("--lpGaussSeidel", type=int, default=0,
-                   help="sequential ADMM LP-column updates (no effect "
-                        "here: LP blocks are not yet ported)")
+                   help="update ADMM LP columns sequentially in the "
+                        "exact reference order (lorads_admm.c:595-628; "
+                        "kernel K8c) instead of the default vectorized "
+                        "Jacobi sweep")
     # extensions of lorads_tpu
     p.add_argument("--dtype", choices=["auto", "f64", "f32"],
                    default="auto")
@@ -107,8 +113,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _check_slice(args) -> None:
     def no(what):
         raise NotImplementedError(f"{what} not yet ported to lorads_torch")
-    if len(args.fname) > 1:
-        no("solving several input files as one batch")
     for flag, what in ((args.resume, "--resume"),
                        (args.warmStart, "--warmStart"),
                        (args.solOut, "--solOut")):
@@ -121,6 +125,8 @@ def main(argv=None) -> int:
     _check_slice(args)
 
     from lorads_torch.config import LoradsParams
+    from lorads_torch.core.problem import (merge_problems,
+                                           split_objectives_factors)
     from lorads_torch.io.sdpa import read_sdpa
     from lorads_torch.alg.solver import LoradsSolver
 
@@ -129,23 +135,31 @@ def main(argv=None) -> int:
     print("-" * 59)
 
     t0 = time.time()
-    fname = args.fname[0]
-    try:
-        problem = read_sdpa(fname)
-    except FileNotFoundError:
-        print(f"error: input file not found: {fname}", file=sys.stderr)
-        return 2
-    except (OSError, ValueError, IndexError, StopIteration,
-            UnicodeDecodeError) as e:
-        print(f"error: could not parse SDPA file {fname}: {e}",
-              file=sys.stderr)
-        return 2
+    problems = []
+    for fname in args.fname:
+        try:
+            problems.append(read_sdpa(fname))
+        except FileNotFoundError:
+            print(f"error: input file not found: {fname}", file=sys.stderr)
+            return 2
+        except (OSError, ValueError, IndexError, StopIteration,
+                UnicodeDecodeError) as e:
+            print(f"error: could not parse SDPA file {fname}: {e}",
+                  file=sys.stderr)
+            return 2
+    if len(problems) == 1:
+        problem = problems[0]
+    else:
+        # one block-diagonal batch: same-shape blocks share a bucket,
+        # whose disjoint constraint sets make ADMM sweep them at once
+        problem = merge_problems(problems)
+        print(f"merged {len(problems)} instances into one batch")
     print(f"Reading SDPA file in {time.time() - t0:.6f} seconds")
     print(f"nConstrs:{problem.m} nBlks:{problem.n_sdp_blocks} "
           f"nLpCols:{problem.n_lp_cols}")
 
     params = LoradsParams(
-        fname=fname, init_rho=args.initRho, rho_max=args.rhoMax,
+        fname=args.fname[0], init_rho=args.initRho, rho_max=args.rhoMax,
         rho_celling_alm=args.rhoCellingALM,
         max_alm_iter=args.maxALMIter, max_admm_iter=args.maxADMMIter,
         times_log_rank=args.timesLogRank, rho_freq=args.rhoFreq,
@@ -186,6 +200,12 @@ def main(argv=None) -> int:
     print("-" * 71)
     print(f"solve time (s): {res.solve_time:.6f}")
     print(f"dual infeasibility time (s): {res.dual_infeas_time:.6f}")
+    if len(problems) > 1:
+        fs, lp_vals = solver.factor_blocks()
+        objs = split_objectives_factors(problems, fs, lp_vals)
+        print("per-instance objectives:")
+        for fname, obj in zip(args.fname, objs):
+            print(f"\t{fname}: {obj:10.6e}")
     return 0
 
 

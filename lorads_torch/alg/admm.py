@@ -1,11 +1,19 @@
 """Phase II -- ADMM splitting on X = U V^T.
 
-Port of lorads_tpu/alg/admm.py for single-block buckets.  Per
-iteration (LORADSADMMOptimize, lorads_admm.c:33-157): U-update,
-V-update, objective + DIMACS at X_bar = (U+V)/2 (which also REPLACES the
-constraint-value caches with A(X_bar X_bar^T), as the reference does),
-dual ascent at X_bar, rho schedule with the stagnation escape,
-divergence and bad_pd guards.
+Port of lorads_tpu/alg/admm.py.  Per iteration (LORADSADMMOptimize,
+lorads_admm.c:33-157): for each bucket the U-update then the V-update,
+then the LP columns (U then V), objective + DIMACS at X_bar = (U+V)/2
+(which also REPLACES the constraint-value caches with
+A(X_bar X_bar^T), as the reference does), dual ascent at X_bar, rho
+schedule with the stagnation escape, divergence and bad_pd guards.
+
+Order of the sweep, as in lorads_tpu: buckets in sequence; the blocks
+of a bucket of several blocks one after another (the bucket
+Gauss-Seidel scan, ``_update_sdp_var_bucket_gs``, over
+``pattern.bucket_slice`` views) unless the solver marks the bucket
+Jacobi (its blocks touch disjoint constraints, so updating them at once
+is the same update); the LP columns in closed form, all at once
+(Jacobi) or in order with ``lp_gauss_seidel`` (kernel K8c).
 
 Each side's subproblem (I + N) x = rhs, N the normal operator of the
 fixed factor, is solved
@@ -38,6 +46,8 @@ from lorads_torch.alg import aop
 from lorads_torch.alg.aop import ProblemData
 from lorads_torch.alg.cg import cg_solve, cg_solve_ir
 from lorads_torch.alg.state import FactorVec
+from lorads_torch.ops import kernels
+from lorads_torch.ops import lp as lp_ops
 from lorads_torch.ops import pattern as pat
 
 # exit codes of a chunk
@@ -144,13 +154,94 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
     return new_var, new_local, new_sum, iters, _admm_cache(bk, new_var)
 
 
+def _update_lp_var(pd: ProblemData, upd, fixed, lp_contrib, constr_sum,
+                   dual, rho):
+    """Closed-form LP column updates, Jacobi over the columns
+    (LORADSUpdateLPVarOne, lorads_admm.c:595-628; admm.py:211-236):
+    wsum_j = c_j + a_j^T (rho (csum - b) - lambda) - rho ||a_j||^2 u_j v_j,
+    the last term removing column j's own contribution.  ``lp_contrib``
+    is the cached A_lp(uv).  Returns (new u, new A_lp(u v), new
+    constr_sum)."""
+    lpd = pd.lp
+    base_w = rho * (constr_sum - pd.rhs) - dual
+    base = lp_ops.adjoint_cols(lpd, base_w)
+    corr = rho * lpd.col_nrm2sq * upd * fixed
+    wsum = lpd.obj + base - corr
+    m2 = wsum * fixed - rho * fixed
+    new = (-m2 / rho) / (1.0 + lpd.col_nrm2sq * fixed * fixed)
+    new_contrib = lp_ops.constr_vals(lpd, new * fixed)
+    return new, new_contrib, constr_sum + new_contrib - lp_contrib
+
+
+def _update_lp_var_gs(pd: ProblemData, upd, fixed, lp_contrib, constr_sum,
+                      dual, rho):
+    """The same closed form swept over the columns in order, each
+    reading the constr_sum the previous columns updated
+    (lorads_admm.c:595-628 driven by lorads_alg_common.c:229-247;
+    admm.py:238-276): kernel K8c.  Returns as _update_lp_var."""
+    lpd = pd.lp
+    new, new_sum = kernels.lp_gs_sweep(
+        lpd.pc_con, lpd.pc_val, lpd.obj, lpd.col_nrm2sq, upd, fixed,
+        constr_sum, pd.rhs, dual, rho)
+    return new, lp_ops.constr_vals(lpd, new * fixed), new_sum
+
+
+def _update_sdp_var_bucket_gs(pd: ProblemData, slices, slices_lo, upd,
+                              fixed, local_vals, constr_sum, dual, rho,
+                              cg_tol):
+    """One side of the splitting over a bucket's blocks in sequence, each
+    block seeing the constr_sum the previous ones updated -- the
+    reference's sweep (lorads_alg_common.c:190-214; admm.py:279-299,
+    a lax.scan there, a host loop over ``slices`` here, the
+    bucket_slice views of each block).  Returns (new_var [B, n, r],
+    new_local_vals [B, m_loc], new_constr_sum, cg_iters, None)."""
+    new_var, new_local, iters = [], [], 0
+    for b, bk1 in enumerate(slices):
+        u1, loc1, constr_sum, it, _ = _update_sdp_var_one(
+            pd, bk1, upd[b:b + 1], fixed[b:b + 1], local_vals[b:b + 1],
+            constr_sum, dual, rho, cg_tol,
+            bk_lo=None if slices_lo is None else slices_lo[b])
+        new_var.append(u1)
+        new_local.append(loc1)
+        iters += it
+    return (torch.cat(new_var), torch.cat(new_local), constr_sum, iters,
+            None)
+
+
+def sweep_plan(pd: ProblemData, jacobi=(), mixed: bool = False):
+    """What a sweep needs per bucket, built once per ADMM phase:
+    (buckets_lo, slices, slices_lo).  ``jacobi``: per-bucket flags (a
+    missing flag is False); a bucket of several blocks that is not
+    Jacobi gets its block slices (bucket_slice) for the Gauss-Seidel
+    scan, and, with the mixed-precision CG, their f32 casts."""
+    lo = tuple(None if (not mixed or aop._diag_fast(bk))
+               else pat.cast_floats(bk, torch.float32)
+               for bk in pd.buckets)
+    slices, slices_lo = [], []
+    for j, bk in enumerate(pd.buckets):
+        jac = j < len(jacobi) and bool(jacobi[j])
+        if jac or bk.B == 1:
+            slices.append(None)
+            slices_lo.append(None)
+            continue
+        slices.append(tuple(pat.bucket_slice(bk, b) for b in range(bk.B)))
+        slices_lo.append(None if lo[j] is None else tuple(
+            pat.bucket_slice(lo[j], b) for b in range(bk.B)))
+    return (lo if mixed else None), tuple(slices), tuple(slices_lo)
+
+
 def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
                     constr_sum, dual, rho, u_caches=None, v_caches=None,
-                    cg_tol=1e-8, buckets_lo=None):
-    """One sweep over the buckets, U then V each (LORADSUpdateSDPVar,
-    lorads_alg_common.c:187-248).  Every accepted bucket holds one
-    block, so the sweep is the reference's Gauss-Seidel order.
-    ``buckets_lo``: the buckets' f32 casts for the mixed-precision CG.
+                    cg_tol=1e-8, buckets_lo=None, slices=None,
+                    slices_lo=None, lp_gs=False):
+    """One sweep: each bucket U then V, then the LP columns U then V
+    (LORADSUpdateSDPVar / LORADSUpdateSDPLPVar,
+    lorads_alg_common.c:187-248; admm.py:302-368).  ``locals_`` holds
+    one [B, m_loc] tensor per bucket and, with an LP block, its [m]
+    contribution A_lp(uv) last.  ``buckets_lo``: the buckets' f32 casts
+    for the mixed-precision CG; ``slices`` / ``slices_lo``: per bucket
+    its block slices (sweep_plan) for the Gauss-Seidel scan, None for
+    a bucket updated at once; ``lp_gs``: the LP columns in order (K8c).
     Returns (U, V, locals, constr_sum, u_caches, v_caches, cg_iters)."""
     nb = len(pd.buckets)
     u_cones, v_cones = list(U.cones), list(V.cones)
@@ -158,19 +249,37 @@ def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
     u_caches = list(u_caches) if u_caches is not None else [None] * nb
     v_caches = list(v_caches) if v_caches is not None else [None] * nb
     lo = buckets_lo if buckets_lo is not None else [None] * nb
+    slices = slices if slices is not None else [None] * nb
+    slices_lo = slices_lo if slices_lo is not None else [None] * nb
     cg_total = 0
     for j, bk in enumerate(pd.buckets):
-        u_new, loc, constr_sum, it1, uc = _update_sdp_var_one(
-            pd, bk, u_cones[j], v_cones[j], locals_[j], constr_sum, dual,
-            rho, cg_tol, fcache=v_caches[j], bk_lo=lo[j])
-        v_new, loc, constr_sum, it2, vc = _update_sdp_var_one(
-            pd, bk, v_cones[j], u_new, loc, constr_sum, dual, rho, cg_tol,
-            fcache=uc, bk_lo=lo[j])
+        if slices[j] is None:
+            u_new, loc, constr_sum, it1, uc = _update_sdp_var_one(
+                pd, bk, u_cones[j], v_cones[j], locals_[j], constr_sum,
+                dual, rho, cg_tol, fcache=v_caches[j], bk_lo=lo[j])
+            v_new, loc, constr_sum, it2, vc = _update_sdp_var_one(
+                pd, bk, v_cones[j], u_new, loc, constr_sum, dual, rho,
+                cg_tol, fcache=uc, bk_lo=lo[j])
+        else:
+            u_new, loc, constr_sum, it1, uc = _update_sdp_var_bucket_gs(
+                pd, slices[j], slices_lo[j], u_cones[j], v_cones[j],
+                locals_[j], constr_sum, dual, rho, cg_tol)
+            v_new, loc, constr_sum, it2, vc = _update_sdp_var_bucket_gs(
+                pd, slices[j], slices_lo[j], v_cones[j], u_new, loc,
+                constr_sum, dual, rho, cg_tol)
         u_cones[j], v_cones[j] = u_new, v_new
         u_caches[j], v_caches[j] = uc, vc
         locals_[j] = loc
         cg_total += it1 + it2
-    return (FactorVec(tuple(u_cones), U.lp), FactorVec(tuple(v_cones), V.lp),
+    lp_u, lp_v = U.lp, V.lp
+    if pd.lp is not None:
+        upd_fn = _update_lp_var_gs if lp_gs else _update_lp_var
+        lp_u, lpc, constr_sum = upd_fn(pd, lp_u, lp_v, locals_[nb],
+                                       constr_sum, dual, rho)
+        lp_v, lpc, constr_sum = upd_fn(pd, lp_v, lp_u, lpc, constr_sum,
+                                       dual, rho)
+        locals_[nb] = lpc
+    return (FactorVec(tuple(u_cones), lp_u), FactorVec(tuple(v_cones), lp_v),
             tuple(locals_), constr_sum, tuple(u_caches), tuple(v_caches),
             cg_total)
 
@@ -178,10 +287,10 @@ def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
 def _obj_dimacs_xbar(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
                      scale, u_caches=None, v_caches=None):
     """pObj/dObj/pinf/gap at X_bar = (U+V)/2 as device scalars, plus the
-    refreshed locals and total (calObj_admm + updateDimacsADMM,
-    lorads_admm.c:79-81).  With U's and V's caches, X_bar's is their
-    mean (C @ . is linear); buckets without caches take sym(RR^T) on
-    the pattern (kernel K3)."""
+    refreshed locals (with the LP's A_lp(uv) last) and total
+    (calObj_admm + updateDimacsADMM, lorads_admm.c:79-81).  With U's and
+    V's caches, X_bar's is their mean (C @ . is linear); buckets without
+    caches take sym(RR^T) on the pattern (kernel K3)."""
     R = U.average(V)
     if u_caches is not None and v_caches is not None:
         xcaches = tuple(
@@ -192,6 +301,8 @@ def _obj_dimacs_xbar(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
         pobj, locals_, total = aop.obj_and_auv_cached(pd, R, xcaches)
     else:
         pobj, locals_, total = aop.obj_and_auv(pd, R, R)
+    if pd.lp is not None:
+        locals_ = locals_ + (lp_ops.constr_vals(pd.lp, R.lp * R.lp),)
     pobj = pobj / scale
     dobj = torch.dot(pd.rhs, dual) / scale
     pinf = aop.primal_infeas_l1(pd, total)
@@ -211,15 +322,17 @@ def admm_init_eval(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
 
 def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
                iter_celling: int, n_steps: int, reopt: bool = False,
-               gap_stop: bool = False) -> dict:
+               gap_stop: bool = False, jacobi=()) -> dict:
     """Up to ``n_steps`` ADMM iterations (lorads_tpu's _make_admm_chunk
     body).  ``c`` carries the device tensors U, V, locals, constr_sum,
     dual and the host state rho, cur_rho_max, pinf_buf (10 floats),
     old_pinf_mean, bad_pd, it, pinf_l1, gap, pobj, dobj, best_gap,
     since_best, best_pinf, since_pinf; returns the updated carry with
-    ``status``, ``pinf_inf`` and ``cg_iter`` (this chunk's CG
-    iterations).  The chunk also returns once its CG count crosses the
-    per-chunk budget.
+    ``status``, ``pinf_inf``, ``cg_iter`` (this chunk's CG iterations)
+    and ``plan`` (sweep_plan, built on the phase's first chunk and kept).
+    ``jacobi``: per-bucket flags, True for a bucket whose blocks update
+    at once (LoradsParams.admm_jacobi sets them all).  The chunk also
+    returns once its CG count crosses the per-chunk budget.
 
     ``reopt`` tightens the bad_pd limit, shifts the rho schedule and
     converges on pinf_l1; ``gap_stop`` is the gap-continuation variant
@@ -234,14 +347,19 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
     mixed = params.admm_mixed_cg and pd.rhs.dtype == torch.float64
     cg_tol_mult = 1e-4 if reopt else 1e-2
     cg_budget = CG_BUDGET_MIXED if mixed else CG_BUDGET_F64
-    buckets_lo = (tuple(None if aop._diag_fast(bk)
-                        else pat.cast_floats(bk, torch.float32)
-                        for bk in pd.buckets) if mixed else None)
     c = dict(c)
-    c["u_caches"] = tuple(_admm_cache(bk, x)
-                          for bk, x in zip(pd.buckets, c["U"].cones))
-    c["v_caches"] = tuple(_admm_cache(bk, x)
-                          for bk, x in zip(pd.buckets, c["V"].cones))
+    if "plan" not in c:
+        if params.admm_jacobi:
+            jacobi = (True,) * len(pd.buckets)
+        c["plan"] = sweep_plan(pd, jacobi, mixed)
+    buckets_lo, slices, slices_lo = c["plan"]
+    # caches of the buckets updated at once; the scan makes its own
+    c["u_caches"] = tuple(None if sl is not None else _admm_cache(bk, x)
+                          for bk, x, sl in zip(pd.buckets, c["U"].cones,
+                                               slices))
+    c["v_caches"] = tuple(None if sl is not None else _admm_cache(bk, x)
+                          for bk, x, sl in zip(pd.buckets, c["V"].cones,
+                                               slices))
     c["pinf_inf"] = c["pinf_l1"] * pinf_scale
     status, count, cg_iter = RUNNING, 0, 0
     while (status == RUNNING and count < n_steps and c["it"] < iter_celling
@@ -250,7 +368,8 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
         U, V, locals_, csum, ucs, vcs, cg_it = admm_update_all(
             pd, c["U"], c["V"], c["locals"], c["constr_sum"], c["dual"],
             c["rho"], c["u_caches"], c["v_caches"], cg_tol=cg_tol,
-            buckets_lo=buckets_lo)
+            buckets_lo=buckets_lo, slices=slices, slices_lo=slices_lo,
+            lp_gs=params.lp_gauss_seidel)
         cg_iter += cg_it
         pobj, dobj, pinf, gap, locals_, csum = _obj_dimacs_xbar(
             pd, U, V, c["dual"], scale, ucs, vcs)

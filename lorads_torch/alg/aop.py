@@ -1,6 +1,6 @@
-"""Whole-problem operators over the buckets.
+"""Whole-problem operators over the buckets and the LP block.
 
-Port of lorads_tpu/alg/aop.py (132-419) for split buckets.  On
+Port of lorads_tpu/alg/aop.py (132-419).  On
 diag-identity buckets (``_diag_fast``, Max-Cut) A(.) and A^*(.) are
 elementwise, the per-factor cache is CR = C @ R (``CRCache``), and the
 only sparse work per ALM step is one C @ D product (kernel K2).  Every
@@ -10,18 +10,23 @@ K3p) and W @ R from build_w + w_mul (K4, K5).
 
 * ``auv``:   A(sym(U V^T)) -> per-bucket locals + global m-vector
 * ``grad``:  2 (C + A^*(w)) R for an m-vector w (ALMSetGrad,
-             lorads_alm.c:9-38)
+             lorads_alm.c:9-38); LP columns 2 (c_j + a_j^T w) r_j
+
+The LP block (ops/lp.py) adds its objective <c, uv> and its constraint
+values A_lp(uv) (kernel K4) to every product, and its columns'
+gradient to ``grad``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from lorads_torch.alg.state import FactorVec, fv_norm2sq
 from lorads_torch.core.presolve import Presolved
+from lorads_torch.ops import lp as lp_ops
 from lorads_torch.ops import pattern as pat
 
 
@@ -32,6 +37,7 @@ class ProblemData:
     m: int
     buckets: Tuple[pat.BucketData, ...]
     rhs: torch.Tensor                # [m]
+    lp: Optional[lp_ops.LPData] = None
     # scalar norm constants (cal_sdp_const, lorads_solver.c:1054-1073)
     c_nrm1: float = 0.0
     c_nrm2: float = 0.0
@@ -46,12 +52,12 @@ class ProblemData:
 
 
 def build_problem_data(ps: Presolved, dtype, device) -> ProblemData:
-    if ps.problem.lp is not None:
-        raise NotImplementedError("LP blocks not yet ported to lorads_torch")
     buckets = tuple(pat.build_bucket_data(bp, ps.m, dtype, device)
                     for bp in ps.buckets)
+    lpd = (lp_ops.build_lp_data(ps.problem.lp, dtype, device)
+           if ps.problem.lp is not None else None)
     return ProblemData(
-        m=ps.m, buckets=buckets,
+        m=ps.m, buckets=buckets, lp=lpd,
         rhs=torch.as_tensor(ps.problem.rhs, dtype=dtype, device=device),
         c_nrm1=ps.c_nrm1, c_nrm2=ps.c_nrm2, c_nrm_inf=ps.c_nrm_inf,
         b_nrm1=ps.b_nrm1, b_nrm2=ps.b_nrm2, b_nrm_inf=ps.b_nrm_inf)
@@ -61,7 +67,8 @@ def scale_objective(pd: ProblemData, s: float) -> ProblemData:
     """Scale C by s in every block (reopt objScale_dualvar,
     lorads_solver.c:1040-1052); norm constants keep their init values."""
     return dataclasses.replace(
-        pd, buckets=tuple(pat.scale_bucket(bk, s) for bk in pd.buckets))
+        pd, buckets=tuple(pat.scale_bucket(bk, s) for bk in pd.buckets),
+        lp=None if pd.lp is None else lp_ops.scale_lp(pd.lp, s))
 
 
 def _diag_fast(bk) -> bool:
@@ -89,6 +96,8 @@ def auv(pd: ProblemData, X: FactorVec, Y: FactorVec):
         vals = pat.constr_vals(bk, pat.uvt(bk, U, V))
         locals_.append(vals)
         total = total + pat.scatter_constr(bk, vals)
+    if pd.lp is not None:
+        total = total + lp_ops.constr_vals(pd.lp, X.lp * Y.lp)
     return tuple(locals_), total
 
 
@@ -104,6 +113,10 @@ def obj_and_auv(pd: ProblemData, X: FactorVec, Y: FactorVec):
         vals = pat.constr_vals(bk, uvt_val)
         locals_.append(vals)
         total = total + pat.scatter_constr(bk, vals)
+    if pd.lp is not None:
+        xy = X.lp * Y.lp
+        obj = obj + lp_ops.obj_inner(pd.lp, xy)
+        total = total + lp_ops.constr_vals(pd.lp, xy)
     return obj, tuple(locals_), total
 
 
@@ -112,6 +125,8 @@ def obj_only(pd: ProblemData, X: FactorVec, Y: FactorVec) -> torch.Tensor:
     obj = _zero(pd)
     for bk, U, V in zip(pd.buckets, X.cones, Y.cones):
         obj = obj + torch.sum(pat.obj_inner(bk, pat.uvt(bk, U, V)))
+    if pd.lp is not None:
+        obj = obj + lp_ops.obj_inner(pd.lp, X.lp * Y.lp)
     return obj
 
 
@@ -156,6 +171,13 @@ def obj_and_auv_pair_cached(pd: ProblemData, R: FactorVec, D: FactorVec,
         p2 = p2 + torch.sum(pat.obj_inner(bk, uv_dd))
         t1 = t1 + pat.scatter_constr(bk, pat.constr_vals(bk, uv_rd))
         t2 = t2 + pat.scatter_constr(bk, pat.constr_vals(bk, uv_dd))
+    if pd.lp is not None:
+        rd = R.lp * D.lp
+        dd = D.lp * D.lp
+        p1 = p1 + lp_ops.obj_inner(pd.lp, rd)
+        p2 = p2 + lp_ops.obj_inner(pd.lp, dd)
+        t1 = t1 + lp_ops.constr_vals(pd.lp, rd)
+        t2 = t2 + lp_ops.constr_vals(pd.lp, dd)
     return p1, t1, p2, t2, tuple(dcaches)
 
 
@@ -168,6 +190,8 @@ def auv_cached(pd: ProblemData, R: FactorVec, caches) -> torch.Tensor:
         else:
             vals = pat.constr_vals(bk, pat.uvt_from_cache(bk, Rb, cache))
         total = total + pat.scatter_constr(bk, vals)
+    if pd.lp is not None:
+        total = total + lp_ops.constr_vals(pd.lp, R.lp * R.lp)
     return total
 
 
@@ -186,6 +210,10 @@ def obj_and_auv_cached(pd: ProblemData, R: FactorVec, caches):
             vals = pat.constr_vals(bk, uv)
         locals_.append(vals)
         total = total + pat.scatter_constr(bk, vals)
+    if pd.lp is not None:
+        xy = R.lp * R.lp
+        obj = obj + lp_ops.obj_inner(pd.lp, xy)
+        total = total + lp_ops.constr_vals(pd.lp, xy)
     return obj, tuple(locals_), total
 
 
@@ -198,6 +226,8 @@ def obj_cached(pd: ProblemData, R: FactorVec, caches) -> torch.Tensor:
         else:
             obj = obj + torch.sum(pat.obj_inner(
                 bk, pat.uvt_from_cache(bk, Rb, cache)))
+    if pd.lp is not None:
+        obj = obj + lp_ops.obj_inner(pd.lp, R.lp * R.lp)
     return obj
 
 
@@ -205,7 +235,8 @@ def grad_cached(pd: ProblemData, R: FactorVec, w: torch.Tensor,
                 caches) -> FactorVec:
     """2 (C + A^*(w)) R from R's caches: diag-fast 2 (CR + (a .* w) .* R)
     (A^*(w) is diagonal), otherwise 2 W @ R with W = build_w (K4) and
-    the product w_mul (K5)."""
+    the product w_mul (K5); LP columns 2 (c + A_lp^T w) .* r, the sum
+    one K4 launch with c as its base."""
     cones = []
     for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
         w_loc = pat.gather_w(bk, w)
@@ -215,7 +246,11 @@ def grad_cached(pd: ProblemData, R: FactorVec, w: torch.Tensor,
             continue
         W = pat.build_w(bk, w_loc)
         cones.append(2.0 * pat.w_mul_cached(bk, W, Rb, cache))
-    return FactorVec(tuple(cones), torch.zeros_like(R.lp))
+    if pd.lp is not None:
+        lp_g = 2.0 * lp_ops.adjoint_cols(pd.lp, w, base=pd.lp.obj) * R.lp
+    else:
+        lp_g = torch.zeros_like(R.lp)
+    return FactorVec(tuple(cones), lp_g)
 
 
 def grad(pd: ProblemData, R: FactorVec, w: torch.Tensor) -> FactorVec:

@@ -6,10 +6,14 @@ Pipeline (reference main.c:263-520):
   handoff -> Phase II (ADMM) -> reopt level 1 -> dual infeasibility ->
   reopt level 2 (x2) -> status classification -> report.
 
-The port covers one single-block bucket whose constraint slots are the
-global ones -- split sparse (Max-Cut's diag-identity cone and the
-general sparse path of matrix completion) or dense (Lovász theta) --
-no LP block, f64, one device.  A failing dinf takes the spectral dual
+The port covers any number of buckets of any number of blocks -- split
+sparse (Max-Cut's diag-identity cone and the general sparse path of
+matrix completion) or dense (Lovász theta, general multi-block SDPs) --
+on local or global constraint slots, with or without an LP block, at
+f64 on one device; several instances merged by ``merge_problems`` solve
+as one batch.  Buckets whose blocks touch disjoint constraints sweep
+their blocks at once in ADMM (``_bucket_jacobi``), the others in
+sequence.  A failing dinf without an LP block takes the spectral dual
 repair (alg/spectral_repair.py).  Everything else raises
 NotImplementedError at construction (or, for the CGNR dual refinement,
 where the solve would take it) rather than taking another path.  Initial factors and
@@ -40,6 +44,7 @@ from lorads_torch.alg.state import FactorVec, make_history
 from lorads_torch.config import LoradsParams, SolverStatus
 from lorads_torch.core.presolve import Presolved, presolve
 from lorads_torch.core.problem import SDPProblem
+from lorads_torch.ops import lp as lp_ops
 from lorads_torch.ops import pattern as pat
 
 
@@ -89,8 +94,6 @@ class LoradsSolver:
         self.params = params or LoradsParams()
         _check_params(self.params)
         self.problem = problem
-        if problem.lp is not None:
-            raise _not_ported("LP blocks")
         self.device = dev.resolve_device(device)
         self.dtype = dev.resolve_dtype(self.params.dtype)
         dev.assert_full_precision()
@@ -99,7 +102,8 @@ class LoradsSolver:
         self.m = problem.m
         if self.params.alm_rho_factor is None:
             # structure-based auto (see LoradsParams.alm_rho_factor)
-            pure_diag = all(bk.diag_ident for bk in self.pd.buckets)
+            pure_diag = (self.pd.lp is None and bool(self.pd.buckets)
+                         and all(bk.diag_ident for bk in self.pd.buckets))
             self.params = dataclasses.replace(
                 self.params, alm_rho_factor=3.0 if pure_diag else 2.0)
         self.scale_obj_his = 1.0
@@ -137,7 +141,18 @@ class LoradsSolver:
         self._rng = np.random.default_rng(self.params.seed)
         self._ident_dirs = None
         self._gap_push_stalled = False
+        # ADMM divergence recoveries taken (admm_phase)
+        self.admm_retries = 0
         self._init_vars()
+        # buckets whose blocks touch pairwise-disjoint constraint sets
+        # (merged batches, block-diagonal problems) sweep their blocks
+        # at once in ADMM: exactly the Gauss-Seidel update there
+        # (solver.py:151-160)
+        self._bucket_jacobi = tuple(
+            len(bp.plans) > 1 and sum(p.m_loc for p in bp.plans)
+            == np.unique(np.concatenate(
+                [p.loc2glob for p in bp.plans])).size
+            for bp in self.ps.buckets)
 
     # ------------------------------------------------------------------
     # Variables.
@@ -302,6 +317,7 @@ class LoradsSolver:
                 break
             stats.rho = min(entry_rho * 5.0, p.rho_celling_admm)
             entry = (self.U, self.V, self.dual, stats.rho)
+            self.admm_retries += 1
             self.log(f"ADMM diverged; restored entry state, retrying "
                      f"at rho {stats.rho:.3f}")
         _, _, vals = admm_mod.admm_init_eval(
@@ -332,7 +348,8 @@ class LoradsSolver:
         while True:
             c = admm_mod.admm_chunk(p, self.pd, c, self.scale_obj_his,
                                     celling, self._admm_n_dev, reopt=reopt,
-                                    gap_stop=gap_stop)
+                                    gap_stop=gap_stop,
+                                    jacobi=self._bucket_jacobi)
             self._admm_n_dev = min(self.device_chunk_iters,
                                    2 * self._admm_n_dev)
             stats.iter = c["it"]
@@ -395,33 +412,57 @@ class LoradsSolver:
 
     def prob_info(self) -> str:
         """Problem dump mirroring the reference's printfProbInfo
-        (lorads_solver.c:1173-1231)."""
+        (lorads_solver.c:1173-1231; solver.py:739-782): cone counts,
+        block dims and each block's layout, in original block order."""
+        plans = sorted(((bp, bk, pl) for bp, bk in zip(self.ps.buckets,
+                                                      self.pd.buckets)
+                        for pl in bp.plans), key=lambda t: t[2].index)
         lines = ["-" * 71, "Problem Information:",
-                 f"\t 1.Number of SDP Cones:         : "
-                 f"{len(self.ps.plans):10d}",
+                 f"\t 1.Number of SDP Cones:         : {len(plans):10d}",
                  f"\t 2.Number of LP Cones:          : "
                  f"{self.problem.n_lp_cols:10d}",
                  f"\t 3.Number of Constraints:       : "
                  f"{self.problem.m:10d}",
                  "\t 4.sdp block dims:              : "
-                 + ",".join(f"{pl.dim:3d}" for pl in self.ps.plans) + ","]
-        for bp, bk in zip(self.ps.buckets, self.pd.buckets):
+                 + ",".join(f"{pl.dim:3d}" for _, _, pl in plans) + ","]
+        for bp, bk, pl in plans:
             mode = ("sparse(diag-identity fast path)" if bk.diag_ident
                     else "dense(full lower triangle)" if bk.dense
                     else "sparse(union pattern)")
-            for pl in bp.plans:
-                tri = pl.dim * (pl.dim + 1) // 2
-                lines.append(f"iCone:{pl.index}")
-                lines.append(
-                    f"\t dim:{pl.dim} nConstr:{pl.m_loc} "
-                    f"unionNnz:{pl.K} density:{pl.K / max(tri, 1):.4f} "
-                    f"mode:{mode} rank:{bp.rank}")
+            tri = pl.dim * (pl.dim + 1) // 2
+            lines.append(f"iCone:{pl.index}")
+            lines.append(
+                f"\t dim:{pl.dim} nConstr:{pl.m_loc} "
+                f"unionNnz:{pl.K} density:{pl.K / max(tri, 1):.4f} "
+                f"mode:{mode} rank:{bp.rank}")
         lines.append("Initial rank:")
-        for bp in self.ps.buckets:
-            for pl in bp.plans:
-                lines.append(f"iCone:{pl.index}, rank:{bp.rank}")
+        for bp, _, pl in plans:
+            lines.append(f"iCone:{pl.index}, rank:{bp.rank}")
         lines.append("-" * 71)
         return "\n".join(lines)
+
+    def factor_blocks(self, R: Optional[FactorVec] = None):
+        """Per-block solution factors F_i with X_i = F_i F_i^T, in
+        original block order, and the LP column values u .* u (or None)
+        (solver.py:807-825): float64 numpy arrays, one host read per
+        bucket."""
+        R = R if R is not None else self.R
+        out = [None] * len(self.ps.plans)
+        for bp, Rb in zip(self.ps.buckets, R.cones):
+            Rh = np.asarray(dev.host_read(Rb.double()), np.float64)
+            for b, plan in enumerate(bp.plans):
+                out[plan.index] = Rh[b, :plan.dim]
+        lp_vals = None
+        if self.pd.lp is not None:
+            u = np.asarray(dev.host_read(R.lp.double()), np.float64)
+            lp_vals = u * u
+        return out, lp_vals
+
+    def x_blocks(self, R: Optional[FactorVec] = None):
+        """Dense X_i = F_i F_i^T per block, in original block order, and
+        the LP column values (solver.py:784-805)."""
+        fs, lp_vals = self.factor_blocks(R)
+        return [F @ F.T for F in fs], lp_vals
 
     # ------------------------------------------------------------------
     # Dual infeasibility certificate.
@@ -451,6 +492,7 @@ class LoradsSolver:
             v0s.append(self._tensor(v0))
         lams, restarts, vecs, lams_k = _dual_infeas_device(
             self.pd, self.dual, v0s)
+        lp_part = _lp_dual_part(self.pd, self.dual)
         self.last_cert_restarts = [int(r) for r in restarts]
         self.last_cert_vecs = vecs
         self.last_cert_lams_k = lams_k
@@ -463,7 +505,7 @@ class LoradsSolver:
                          "treating its dual slack as infeasible")
                 lam = np.where(np.isnan(lam), -1.0, lam)
             out.append(lam)
-        return 0.0, out
+        return lp_part, out
 
     def _identity_directions(self):
         """Per ORIGINAL block: (constraint slots, coefficients) such
@@ -475,6 +517,8 @@ class LoradsSolver:
         owners = np.zeros(self.problem.m, dtype=np.int32)
         for b in self.problem.blocks:
             owners[np.unique(b.a_con)] += 1
+        if self.problem.lp is not None:
+            owners[np.unique(self.problem.lp.a_con)] += 1
         shared = owners > 1
         self._ident_dirs = [_find_identity_direction(blk, shared)
                             for blk in self.problem.blocks]
@@ -663,6 +707,7 @@ class LoradsSolver:
         # dual refinement of a failing dinf before the level-2 reopt
         # grind (solver.py:1305-1317)
         if (status is SolverStatus.UNKNOWN and p.dual_refine
+                and self.pd.lp is None
                 and admm_stats.dinf_l1 > (
                     p.phase2_tol if p.high_acc_mode
                     else 5 * p.phase2_tol)):
@@ -738,6 +783,17 @@ def solve(problem: SDPProblem, params: Optional[LoradsParams] = None,
     if params is None:
         params = LoradsParams(**kw)
     return LoradsSolver(problem, params, device=device).solve()
+
+
+def _lp_dual_part(pd, dual) -> float:
+    """The LP block's dual infeasibility sum |min(c - A_lp^T lambda, 0)|
+    (solver.py:1600-1605): one K4 launch with c as its base and alpha
+    -1; 0 without an LP block."""
+    if pd.lp is None:
+        return 0.0
+    vals = lp_ops.adjoint_cols(pd.lp, dual, base=pd.lp.obj, alpha=-1.0)
+    return float(dev.host_read(torch.sum(torch.abs(
+        torch.clamp(vals, max=0.0)))))
 
 
 def _find_identity_direction(blk, shared):

@@ -24,8 +24,12 @@ lorads_tpu runs the active-set loop as one device while_loop; here it
 is a Python loop over device tensors with one counted host read per
 iteration.  The regularized k x k solve stays at f32, as in lorads_tpu
 (spectral_repair.py:153-162), so both packages take the same steps.
-The multi-bucket host loop (spectral_repair.py:328-381) is not ported:
-the port builds one bucket.
+When the bases span several buckets, the round runs lorads_tpu's host
+active-set loop instead (``_host_active_set``,
+spectral_repair.py:328-381): per iteration each bucket's projected
+slack on the device (``_proj_slack``), its eigen-directions by a host
+eigh, their affine pieces on the device, and an f64 least-squares step
+on the host.
 """
 
 from __future__ import annotations
@@ -52,6 +56,76 @@ def _pieces(bk, u: torch.Tensor):
     uv = pat.uvt(bk, u, u)
     return (torch.sum(pat.obj_inner(bk, uv)),
             pat.scatter_constr(bk, pat.constr_vals(bk, uv)))
+
+
+def _proj_slack(bk, dual, Bmat: torch.Tensor) -> torch.Tensor:
+    """Projected slack P = B^T (C - A^*(dual)) B per block [b_eff, p, p]
+    for the direction bases Bmat [b_eff, n, p] (spectral_repair.py:42-53)."""
+    W = pat.build_w(bk, pat.gather_w(bk, -dual))
+    return torch.matmul(Bmat.transpose(1, 2), pat.w_mul(bk, W, Bmat))
+
+
+def _host_active_set(solver, bases: dict, delta: float, sigma: float):
+    """One repair round's active-set loop over several buckets
+    (spectral_repair.py:328-381) -> (dual step [m] on the host,
+    constraints collected).  ``bases``: (bucket j, block bi) ->
+    orthonormal [n, p] numpy basis."""
+    Bmats, p_real = {}, {}
+    for j, bk in enumerate(solver.pd.buckets):
+        blocks = [bi for (jj, bi) in bases if jj == j]
+        if not blocks:
+            continue
+        Bm = np.zeros((solver.last_cert_vecs[j].shape[0], bk.n, P_CAP))
+        for bi in blocks:
+            Bb = bases[(j, bi)]
+            Bm[bi, :, :Bb.shape[1]] = Bb
+            p_real[(j, bi)] = Bb.shape[1]
+        Bmats[j] = solver._tensor(Bm)
+    b = np.asarray(dev.host_read(solver.pd.rhs.double()), np.float64)
+    bb = float(b @ b)
+    lam = np.asarray(dev.host_read(solver.dual.double()), np.float64)
+    d_tot = np.zeros(solver.pd.m)
+    cons_c, cons_g = [], []
+    for _ in range(N_ITERS):
+        dual_cur = solver._tensor(lam + d_tot)
+        new_dirs = []          # (j, bi, u)
+        for j, Bm in Bmats.items():
+            P_all = np.asarray(dev.host_read(_proj_slack(
+                solver.pd.buckets[j], dual_cur, Bm).double()), np.float64)
+            for (jj, bi), pw in p_real.items():
+                if jj != j:
+                    continue
+                P = P_all[bi][:pw, :pw]
+                evals, W = np.linalg.eigh(0.5 * (P + P.T))
+                for ei in np.nonzero(evals < delta * (1 - 1e-9))[0][:CON_PAD]:
+                    new_dirs.append((j, bi, bases[(j, bi)] @ W[:pw, ei]))
+        if not new_dirs:
+            break               # lam_min(P) >= delta everywhere
+        # affine pieces of the new directions, bucket by bucket
+        for j in sorted({d[0] for d in new_dirs}):
+            bk = solver.pd.buckets[j]
+            dirs_j = [d for d in new_dirs if d[0] == j][:CON_PAD]
+            Vk = np.zeros((len(dirs_j), Bmats[j].shape[0], bk.n, 1))
+            for q, (_, bi, u) in enumerate(dirs_j):
+                Vk[q, bi, :, 0] = u
+            Vkd = solver._tensor(Vk)
+            pieces = [_pieces(bk, Vkd[q]) for q in range(len(dirs_j))]
+            got = np.asarray(dev.host_read(torch.stack(
+                [torch.cat([c[None], g]) for c, g in pieces]).double()),
+                np.float64)
+            cons_c.extend(got[:, 0])
+            cons_g.extend(got[:, 1:])
+        G = np.stack(cons_g)
+        cs = np.asarray(cons_c)
+        Gp = (G - (G @ b / max(bb, 1e-300))[:, None] * b[None]
+              if bb > 0 else G)
+        rq = cs - G @ (lam + d_tot)
+        t = rq - np.maximum(rq, delta)
+        M = Gp @ Gp.T
+        reg = sigma * max(np.trace(M) / max(len(M), 1), 1e-30)
+        alpha = np.linalg.solve(M + reg * np.eye(len(M)), t)
+        d_tot = d_tot + Gp.T @ alpha
+    return d_tot, len(cons_g)
 
 
 def _active_set(bk, Bmat: torch.Tensor, p_mask: torch.Tensor, dual0,
@@ -209,9 +283,9 @@ def try_spectral_repair(solver, admm_stats) -> bool:
             if bases[key].shape[1] > P_CAP:
                 bases[key] = bases[key][:, -P_CAP:]
         if len({j for j, _ in bases}) > 1:
-            raise NotImplementedError(
-                "the spectral repair over several buckets not yet ported "
-                "to lorads_torch")
+            d_tot, n_cons = _host_active_set(solver, bases, delta, sigma)
+            solver.dual = solver.dual + solver._tensor(d_tot)
+            continue
         j = next(iter(bases))[0]
         bk = solver.pd.buckets[j]
         b_eff = solver.last_cert_vecs[j].shape[0]

@@ -12,19 +12,19 @@ import numpy as np
 import torch
 
 from lorads_torch.alg.state import FactorVec, LBFGSHistory
+from lorads_torch.ops import lp as lp_ops
 from lorads_torch.ops import pattern as pat
 
 
 def bucket_from_numpy(bk, dtype=torch.float64, device="cpu"):
-    """The port's bucket from a lorads_tpu BucketData's fields (B = 1,
-    global constraint slots): a DenseBucketData for a dense bucket,
-    else a split BucketData.  The port-only arrays
-    (pattern.dense_port_fields, pattern.port_fields) are built on the
-    host from the same fields."""
-    if bk.B != 1 or not bk.glob_ident or not (bk.dense or bk.split):
+    """The port's bucket from a lorads_tpu BucketData's fields (any B,
+    any constraint slots): a DenseBucketData for a dense bucket, else a
+    split BucketData.  The port-only arrays (pattern.dense_port_fields,
+    pattern.port_fields, pattern.scatter_fields) are built on the host
+    from the same fields."""
+    if not (bk.dense or bk.split) or getattr(bk, "summed", False):
         raise NotImplementedError(
-            "only single-block buckets with global constraint slots, "
-            "dense or split, are ported to lorads_torch")
+            "only dense and split buckets are ported to lorads_torch")
     if bk.dense:
         return _dense_bucket_from_numpy(bk, dtype, device)
     meta = {k: getattr(bk, k) for k in pat.META_FIELDS if k != "Ks"}
@@ -36,6 +36,9 @@ def bucket_from_numpy(bk, dtype=torch.float64, device="cpu"):
                            arrays["a_val_o"])
     meta["Ks"] = port.pop("Ks")
     arrays.update(port)
+    arrays["bnd_a_con_d"] = pat.sorted_prefix_bounds(arrays["a_con_d"],
+                                                     bk.m_loc)
+    arrays.update(pat.scatter_fields(arrays["glob_idx"], bk.m_glob))
     return pat.bucket_from_arrays(meta, arrays, dtype, device)
 
 
@@ -50,7 +53,17 @@ def _dense_bucket_from_numpy(bk, dtype, device) -> pat.DenseBucketData:
             "a_val_inner")),
         *(arrays[k] for k in ("dd_con", "dd_row", "dd_val"))
         if bk.a_single_dense else ()))
+    arrays.update(pat.scatter_fields(arrays["glob_idx"], bk.m_glob))
     return pat.dense_bucket_from_arrays(meta, arrays, dtype, device)
+
+
+def lp_from_numpy(lpd, dtype=torch.float64, device="cpu") -> lp_ops.LPData:
+    """The port's LP block from a lorads_tpu LPData's fields."""
+    arrays = {k: getattr(lpd, k) for k in ("n_cols", "m_glob", "nnz",
+                                           "max_nnz_col")}
+    arrays.update({k: np.asarray(getattr(lpd, k))
+                   for k in lp_ops.LP_INT_FIELDS + lp_ops.LP_FLOAT_FIELDS})
+    return lp_ops.lp_from_arrays(arrays, dtype, device)
 
 
 def _tensor(x, dtype, device):

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "lt_adj_a_offdiag": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                          _I, _VP],
     "lt_adj_a_dense": [_I, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    "lt_lp_gs_sweep": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                       _I, _I, _I, ctypes.c_double, _VP],
 }
 
 _LIB = None

@@ -10,6 +10,7 @@
 | wmul_csr       | csrc/wmul.cu           | w_mul, w_mul_cached, split (K5)           |
 | adj_a_offdiag  | csrc/adj_a.cu          | a_adj_a (K6)                              |
 | adj_a_dense    | csrc/adj_a_dense.cu    | a_adj_a_dense (K7a)                       |
+| lp_gs_sweep    | csrc/lp_gs.cu          | alg/admm.py: _update_lp_var_gs (K8c)      |
 
 Each wrapper checks its arguments, then takes the plain PyTorch version
 (written with ``index_select`` / ``index_add_``) for CPU tensors, and
@@ -22,7 +23,9 @@ Plain-version precision: f64 sums directly.  At f32 the segment sums
 error by the compensated kernels' eps32 contract; the row dots of K3,
 K3p and K6 (r terms each) sum in f32, as lorads_tpu's do.  K7a rounds
 its product and its diagonal sum separately, as its plain version
-does, so the two agree bit for bit.
+does, so the two agree bit for bit.  K8c's plain version sums each
+column's terms in the kernel's lane order (32 partial sums, then the
+shuffle tree), so the two agree bit for bit too.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
                 "gather_segsum", "wmul_csr", "adj_a_offdiag",
-                "adj_a_dense")
+                "adj_a_dense", "lp_gs_sweep")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 
 
@@ -353,3 +356,71 @@ def adj_a_dense(X: torch.Tensor, a2: torch.Tensor,
     _launch("adj_a_dense", "lt_adj_a_dense", _is_f64(X), X.data_ptr(),
             a2.data_ptr(), _ptr(W_d), out.data_ptr(), B, n)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K8c: the Gauss-Seidel sweep over the LP columns.
+# ---------------------------------------------------------------------------
+
+def lp_gs_sweep_plain(pc_con, pc_val, obj, nrm2, upd, fixed, csum, rhs, dual,
+                      rho):
+    """A Python loop over the columns, in the kernel's order of
+    operations: each lane l of 32 sums the terms k = l, l+32, ... in
+    order, the partial sums combine as the shuffle tree does, and the
+    deltas are added one per constraint slot."""
+    n, L = pc_con.shape
+    m = csum.shape[0]
+    csum = csum.clone()
+    new = torch.empty_like(upd)
+    zero = torch.zeros((), dtype=csum.dtype, device=csum.device)
+    # rho as a tensor: a division by a Python scalar may be taken as a
+    # product with its reciprocal, which the kernel does not do
+    rho_t = torch.tensor(rho, dtype=csum.dtype, device=csum.device)
+    Lp = -(-L // 32) * 32
+    for j in range(n):
+        con = pc_con[j].long()
+        ok = con < m
+        c = torch.where(ok, con, 0)
+        t = torch.where(ok, pc_val[j] * (rho * (csum[c] - rhs[c]) - dual[c]),
+                        zero)
+        t = torch.cat([t, t.new_zeros(Lp - L)]).reshape(Lp // 32, 32)
+        acc = torch.zeros(32, dtype=csum.dtype, device=csum.device)
+        for row in t:
+            acc = acc + row
+        for off in (16, 8, 4, 2, 1):
+            acc = torch.cat([acc[:off] + acc[off:2 * off], acc[off:]])
+        u, v, nr = upd[j], fixed[j], nrm2[j]
+        wsum = (obj[j] + acc[0]) - rho * nr * u * v
+        m2 = wsum * v - rho * v
+        nj = (-m2 / rho_t) / (1.0 + nr * v * v)
+        new[j] = nj
+        csum.index_add_(0, con[ok], pc_val[j][ok] * (nj - u) * v)
+    return new, csum
+
+
+def lp_gs_sweep(pc_con: torch.Tensor, pc_val: torch.Tensor,
+                obj: torch.Tensor, nrm2: torch.Tensor, upd: torch.Tensor,
+                fixed: torch.Tensor, csum: torch.Tensor, rhs: torch.Tensor,
+                dual: torch.Tensor, rho: float):
+    """K8c.  pc_con int32 [n, L] (padding ids = m) and pc_val [n, L]: the
+    columns' padded entries; obj, nrm2 (||a_j||^2), upd (u), fixed (v)
+    [n]; csum, rhs, dual [m] -> (new u [n], csum after the sweep [m]).
+    ``csum`` itself is not modified."""
+    n, L = pc_con.shape
+    m = csum.shape[0]
+    if (pc_val.shape != pc_con.shape or rhs.shape != (m,)
+            or dual.shape != (m,)
+            or any(t.shape != (n,) for t in (obj, nrm2, upd, fixed))):
+        raise ValueError("lp_gs_sweep: inconsistent shapes")
+    if not _check("lp_gs_sweep", [csum, pc_val, obj, nrm2, upd, fixed, rhs,
+                                  dual], [pc_con]):
+        return lp_gs_sweep_plain(pc_con, pc_val, obj, nrm2, upd, fixed,
+                                 csum, rhs, dual, float(rho))
+    out_sum = csum.clone()
+    new = torch.empty_like(upd)
+    _launch("lp_gs_sweep", "lt_lp_gs_sweep", _is_f64(csum), pc_con.data_ptr(),
+            pc_val.data_ptr(), obj.data_ptr(), nrm2.data_ptr(),
+            upd.data_ptr(), fixed.data_ptr(), out_sum.data_ptr(),
+            rhs.data_ptr(), dual.data_ptr(), new.data_ptr(), n, L, m,
+            float(rho))
+    return new, out_sum

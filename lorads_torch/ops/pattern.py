@@ -1,9 +1,11 @@
-"""Pattern kernels for single-block buckets: split sparse and dense.
+"""Pattern kernels for buckets of blocks: split sparse and dense.
 
-Port of the split and dense subsets of lorads_tpu/ops/pattern.py.  A
-sparse block
-presolves into ONE bucket whose pattern is split into its diagonal
-(dense [B, n] vectors) and its strictly-lower entries ("off slots").
+Port of the split and dense subsets of lorads_tpu/ops/pattern.py.
+Presolve groups blocks of one mode and size class into a bucket of B
+blocks padded to the bucket's dim n (every tensor is [B, ...]; a padded
+block's extra rows carry no entries).  A sparse bucket's pattern is
+split into its diagonal (dense [B, n] vectors) and its strictly-lower
+entries ("off slots").
 Constraints sit on any diagonal or off slots; their entries are kept in
 lorads_tpu's layout (``a_con_d``/``a_row_d``/``a_val_d`` on the
 diagonal, ``a_con_o``/``a_pos_o``/``a_val_o`` on the off slots, and
@@ -65,8 +67,13 @@ the diagonal's zeroed mirrors) and any constraint id >= m_loc, so K4
 never reads outside x.  lorads_tpu's two-plane f32 scatter of f64 W
 (``a_lin2_exact``) is not ported: it exists because TPU f64 is emulated.
 
-B > 1 and constraint slots that are not the global ones raise
-NotImplementedError.
+Constraint slots are local to each block (``glob_idx`` [B, m_loc] maps
+them to global ones, padding to m).  One block on the global slots
+(``glob_ident``) scatters and gathers by identity; otherwise
+``scatter_constr`` is K4 over a port-only list of every (block, local
+slot) sorted by global slot (``scat_idx``, ``scat_val``, ``bnd_scat``),
+and ``gather_w`` an ``index_select``.  ``bucket_slice`` gives one block
+as a B = 1 bucket of views, for the ADMM's bucket Gauss-Seidel scan.
 """
 
 from __future__ import annotations
@@ -95,7 +102,7 @@ def single_segment_sum(data: torch.Tensor, bounds: torch.Tensor):
 
 @dataclasses.dataclass(frozen=True)
 class BucketData:
-    """Device tensors of one split bucket ([B, ...], B=1).
+    """Device tensors of one split bucket ([B, ...]).
 
     Field names and layouts are those of lorads_tpu's BucketData, plus
     the port-only fields named in the module docstring."""
@@ -154,6 +161,10 @@ class BucketData:
     a_pos_o_cs: torch.Tensor    # int32 [B, nnz_o]
     a_val_o_cs: torch.Tensor    # [B, nnz_o]
     bnd_a_con_o_cs: torch.Tensor  # int32 [B, m_loc+1]
+    # port-only: the scatter into the global m-vector (scatter_fields)
+    scat_idx: torch.Tensor      # int32 [1, L]
+    scat_val: torch.Tensor      # [1, L]
+    bnd_scat: torch.Tensor      # int32 [1, m_glob+1]
     split: bool = True
     dense: bool = False
 
@@ -175,8 +186,10 @@ FLOAT_FIELDS = ("c_diag", "a_val_d", "c_off", "c_off2", "a_val_d_s",
 SYM_INT_FIELDS = ("sym_rows_rs", "sym_cols_rs", "bnd_sym_rows")
 SYM_FLOAT_FIELDS = ("c_sym_rs",)
 PORT_INT_FIELDS = ("sym_slot_rs", "a_con_o_cs", "a_pos_o_cs",
-                   "bnd_a_con_o_cs")
-PORT_FLOAT_FIELDS = ("a_val_o_cs",)
+                   "bnd_a_con_o_cs", "scat_idx", "bnd_scat")
+PORT_FLOAT_FIELDS = ("a_val_o_cs", "scat_val")
+# the bucket-wide [1, ...] fields (every other tensor is per block)
+_SCATTER_FIELDS = ("scat_idx", "scat_val", "bnd_scat")
 ALL_INT_FIELDS = INT_FIELDS + SYM_INT_FIELDS + PORT_INT_FIELDS
 ALL_FLOAT_FIELDS = FLOAT_FIELDS + SYM_FLOAT_FIELDS + PORT_FLOAT_FIELDS
 # the scalar layout (meta) of a BucketData
@@ -207,6 +220,20 @@ def _bounds_np(ids: np.ndarray, S: int) -> np.ndarray:
     return out
 
 
+def sorted_prefix_bounds(ids, S: int) -> np.ndarray:
+    """CSR bounds of per-block ids [B, L] that are sorted up to a tail of
+    padding (zeros, after a block's last real entry; value 0): each
+    row's sorted prefix is bounded over [0, S) and its tail, sent past
+    the last bound, is left out.  lorads_tpu keeps no bounds for such
+    rows and scatters by id instead (pattern.py:749-750)."""
+    ids = np.array(ids, np.int64)
+    for row in ids:
+        down = np.nonzero(np.diff(row) < 0)[0]
+        if down.size:
+            row[down[0] + 1:] = S
+    return _bounds_np(ids, S)
+
+
 def _pad(x, L, fill=0):
     """[1, L] copy of the 1-D ``x`` padded with ``fill``."""
     out = np.full((1, L), fill, dtype=np.asarray(x).dtype)
@@ -214,47 +241,74 @@ def _pad(x, L, fill=0):
     return out
 
 
+def _stack(rows, L, dtype, fill=0):
+    """[B, L] array of the 1-D ``rows``, each padded with ``fill``."""
+    out = np.full((len(rows), L), fill, dtype=dtype)
+    for b, x in enumerate(rows):
+        out[b, :np.asarray(x).size] = x
+    return out
+
+
+def scatter_fields(glob_idx, m_glob: int) -> dict:
+    """The port's scatter of a bucket's local constraint values into the
+    global m-vector: every (block b, local slot j) whose global slot
+    glob_idx[b, j] is real (< m), as the flat index b * m_loc + j, stably
+    sorted by its global slot (so each slot sums its blocks in order),
+    with values 1 and CSR bounds over m -- one K4 launch
+    (scatter_constr)."""
+    g = np.asarray(glob_idx, np.int64).reshape(-1)
+    keep = np.nonzero(g < m_glob)[0]
+    flat = keep[np.argsort(g[keep], kind="stable")]
+    L = max(flat.size, 1)
+    return dict(scat_idx=_pad(flat, L), scat_val=_pad(np.ones(flat.size), L),
+                bnd_scat=_bounds_np(g[flat][None], m_glob))
+
+
 def port_fields(n: int, m_loc: int, off_rows, off_cols, c_off, a_con_o,
                 a_pos_o, a_val_o) -> dict:
-    """The port's host-built arrays of a B = 1 split bucket, from its
-    lorads_tpu-layout off pattern ([1, Ko] off_rows/off_cols/c_off) and
-    off constraint entries ([1, nnz_o] a_con_o/a_pos_o/a_val_o): the
-    full-symmetric row-sorted entry list with each entry's off slot,
-    and the constraint-sorted off constraint entries with CSR bounds.
-    Padding slots (value 0) are left out of the entry list; its own
-    padding carries (row 0, col 0, value 0, slot -1)."""
-    k = int(np.count_nonzero(off_rows[0] != off_cols[0]))
-    orow = off_rows[0, :k].astype(np.int64)
-    ocol = off_cols[0, :k].astype(np.int64)
-    oval = np.asarray(c_off[0, :k], np.float64)
-    Ks = max(2 * k, 1)
-    sr = np.concatenate([orow, ocol])
-    sc = np.concatenate([ocol, orow])
-    sv = np.concatenate([oval, oval])
-    ss = np.concatenate([np.arange(k), np.arange(k)])
-    o_rs = np.argsort(sr, kind="stable")
-    sym_rows = _pad(sr[o_rs], Ks)
-    sym_cols = _pad(sc[o_rs], Ks)
-    sym_vals = _pad(sv[o_rs], Ks)
-    sym_slot = _pad(ss[o_rs], Ks, fill=-1)
-    # padding (row 0) sorts to the front of row 0's segment
-    rs = np.argsort(sym_rows[0], kind="stable")
-    sym_rows, sym_cols = sym_rows[:, rs], sym_cols[:, rs]
-    sym_vals, sym_slot = sym_vals[:, rs], sym_slot[:, rs]
-    oc = np.argsort(a_con_o[0], kind="stable")
-    con_cs = np.asarray(a_con_o)[:, oc]
+    """The port's host-built arrays of a split bucket, from its
+    lorads_tpu-layout off pattern ([B, Ko] off_rows/off_cols/c_off, each
+    block's real entries first) and off constraint entries ([B, nnz_o]
+    a_con_o/a_pos_o/a_val_o): per block, the full-symmetric row-sorted
+    entry list with each entry's off slot, and the constraint-sorted off
+    constraint entries with CSR bounds.  Padding slots (value 0) are left
+    out of the entry list; its own padding carries (row 0, col 0, value
+    0, slot -1) and sorts to the front of row 0's segment."""
+    B = off_rows.shape[0]
+    ks = [int(np.count_nonzero(off_rows[b] != off_cols[b])) for b in range(B)]
+    Ks = max(2 * max(ks), 1)
+    sym_rows = np.zeros((B, Ks), np.int64)
+    sym_cols = np.zeros((B, Ks), np.int64)
+    sym_vals = np.zeros((B, Ks))
+    sym_slot = np.full((B, Ks), -1, np.int64)
+    for b, k in enumerate(ks):
+        orow = off_rows[b, :k].astype(np.int64)
+        ocol = off_cols[b, :k].astype(np.int64)
+        sr = np.concatenate([orow, ocol])
+        o_rs = np.argsort(sr, kind="stable")
+        sym_rows[b, :2 * k] = sr[o_rs]
+        sym_cols[b, :2 * k] = np.concatenate([ocol, orow])[o_rs]
+        sym_vals[b, :2 * k] = np.tile(np.asarray(c_off[b, :k],
+                                                 np.float64), 2)[o_rs]
+        sym_slot[b, :2 * k] = np.tile(np.arange(k), 2)[o_rs]
+        rs = np.argsort(sym_rows[b], kind="stable")
+        for a in (sym_rows, sym_cols, sym_vals, sym_slot):
+            a[b] = a[b][rs]
+    oc = np.argsort(a_con_o, axis=1, kind="stable")
+    ta = np.take_along_axis
+    con_cs = ta(np.asarray(a_con_o), oc, 1)
     return dict(
         Ks=Ks, sym_rows_rs=sym_rows, sym_cols_rs=sym_cols,
         c_sym_rs=sym_vals, bnd_sym_rows=_bounds_np(sym_rows, n),
         sym_slot_rs=sym_slot, a_con_o_cs=con_cs,
-        a_pos_o_cs=np.asarray(a_pos_o)[:, oc],
-        a_val_o_cs=np.asarray(a_val_o)[:, oc],
+        a_pos_o_cs=ta(np.asarray(a_pos_o), oc, 1),
+        a_val_o_cs=ta(np.asarray(a_val_o), oc, 1),
         bnd_a_con_o_cs=_bounds_np(con_cs, m_loc))
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseBucketData:
-    """Device tensors of one dense bucket ([B, ...], B=1).
+    """Device tensors of one dense bucket ([B, ...]).
 
     Field names and layouts are those of lorads_tpu's dense BucketData,
     plus the port-only sorted copies named in the module docstring.
@@ -285,6 +339,10 @@ class DenseBucketData:
     a_con2_s: torch.Tensor      # int32 [B, N2]
     a_val2_s: torch.Tensor      # [B, N2]
     bnd_a_lin2: torch.Tensor    # int32 [B, n*n+1]
+    # port-only: the scatter into the global m-vector (scatter_fields)
+    scat_idx: torch.Tensor      # int32 [1, L]
+    scat_val: torch.Tensor      # [1, L]
+    bnd_scat: torch.Tensor      # int32 [1, m_glob+1]
     # single-entry / diagonal-only constraints (a_single_dense)
     a2_full: torch.Tensor = None  # [B, n, n] static plane of A^*(A(.))
     dd_con: torch.Tensor = None   # int32 [B, max(nnz_dd, 1)]
@@ -318,30 +376,36 @@ DENSE_META_FIELDS = ("n", "B", "K", "m_loc", "m_glob", "nnz_a",
 _DENSE_INT_FIELDS = frozenset((
     "glob_idx", "a_lin", "a_lin_t", "a_con_loc", "a_lin_cs",
     "bnd_a_con_cs", "a_con2_s", "bnd_a_lin2", "dd_con", "dd_row",
-    "dd_row_cs", "bnd_dd_con", "dd_con_rs", "bnd_dd_row"))
+    "dd_row_cs", "bnd_dd_con", "dd_con_rs", "bnd_dd_row", "scat_idx",
+    "bnd_scat"))
 
 
 def _csr(key, idx, val, S: int):
-    """The entries (key, idx, val) of [1, N] arrays whose value is
-    nonzero and whose key lies in [0, S), stably sorted by key ->
-    ([1, L] idx, [1, L] val, [1, S+1] bounds), L = max(count, 1); the
-    padding entry, if any, lies past the last bound."""
-    key, idx, val = (np.asarray(a).reshape(-1) for a in (key, idx, val))
-    keep = (val != 0) & (key >= 0) & (key < S)
-    o = np.argsort(key[keep], kind="stable")
-    key, idx, val = key[keep][o], idx[keep][o], val[keep][o]
-    L = max(key.size, 1)
-    return (_pad(idx.astype(np.int64), L), _pad(val.astype(np.float64), L),
-            _bounds_np(key[None], S))
+    """Per block b, the entries (key, idx, val) of [B, N] arrays whose
+    value is nonzero and whose key lies in [0, S), stably sorted by key
+    -> ([B, L] idx, [B, L] val, [B, S+1] bounds), L = max(largest count,
+    1); each block's padding (idx 0, value 0) lies past its last bound."""
+    key, idx, val = (np.asarray(a) for a in (key, idx, val))
+    rows = []
+    for b in range(key.shape[0]):
+        keep = (val[b] != 0) & (key[b] >= 0) & (key[b] < S)
+        o = np.argsort(key[b][keep], kind="stable")
+        rows.append((key[b][keep][o], idx[b][keep][o], val[b][keep][o]))
+    L = max(max(r[0].size for r in rows), 1)
+    bnd = np.zeros((len(rows), S + 1), np.int32)
+    for b, (k, _, _) in enumerate(rows):
+        bnd[b] = np.searchsorted(k, np.arange(S + 1))
+    return (_stack([r[1] for r in rows], L, np.int64),
+            _stack([r[2] for r in rows], L, np.float64), bnd)
 
 
 def dense_port_fields(n: int, m_loc: int, a_lin, a_lin_t, a_con_loc,
                       a_val, a_val_mirror, a_val_inner, dd_con=None,
                       dd_row=None, dd_val=None) -> dict:
-    """The port's host-built sorted copies (i)-(iii) of a B = 1 dense
-    bucket from its lorads_tpu-layout [1, nnz_a] entry arrays (and the
-    dd entries when a_single_dense).  Entries of constraint id >= m_loc
-    are left out (their value is taken as 0)."""
+    """The port's host-built sorted copies (i)-(iii) of a dense bucket
+    from its lorads_tpu-layout [B, nnz_a] entry arrays (and the dd
+    entries when a_single_dense).  Entries of constraint id >= m_loc are
+    left out (their value is taken as 0)."""
     con = np.asarray(a_con_loc)
     ok = con < m_loc
     out = {}
@@ -378,12 +442,20 @@ def dense_bucket_from_arrays(meta: dict, arrays: dict, dtype,
     return DenseBucketData(**meta, **t)
 
 
+def _glob_ident(bp: BucketPlan, m_glob: int) -> bool:
+    """One block whose constraint slots are the global ones."""
+    return (bp.B == 1 and bp.m_loc == m_glob
+            and bool(np.array_equal(bp.glob_idx[0], np.arange(m_glob))))
+
+
 def build_dense_bucket_data(bp: BucketPlan, m_glob: int, dtype,
                             device) -> DenseBucketData:
-    """Host construction of a B = 1 dense bucket in lorads_tpu's layout
+    """Host construction of a dense bucket in lorads_tpu's layout
     (pattern.py:826-908), plus the port's sorted copies
-    (dense_port_fields)."""
-    n = bp.n
+    (dense_port_fields) and its scatter (scatter_fields).  Blocks of a
+    smaller dim are padded to n: their C, entries and factor rows are
+    zero there."""
+    B, n = bp.B, bp.n
     if n * n >= 2 ** 31:
         raise ValueError(f"dense bucket n={n}: n^2 slots overflow int32")
     rows = bp.pat_rows.astype(np.int64)
@@ -394,139 +466,175 @@ def build_dense_bucket_data(bp: BucketPlan, m_glob: int, dtype,
     is_diag = rows == cols
     a_val_inner = bp.a_val * np.where(a_rows == a_cols, 1.0, 2.0)
     a_val_mirror = np.where(a_rows == a_cols, 0.0, bp.a_val)
-    c_full = np.zeros((1, n, n))
-    np.add.at(c_full[0], (rows[0], cols[0]), bp.c_pat[0])
-    np.add.at(c_full[0], (cols[0], rows[0]),
-              np.where(is_diag[0], 0.0, bp.c_pat[0]))
+    c_full = np.zeros((B, n, n))
+    bidx = np.repeat(np.arange(B), bp.K)
+    np.add.at(c_full, (bidx, rows.ravel(), cols.ravel()), bp.c_pat.ravel())
+    np.add.at(c_full, (bidx, cols.ravel(), rows.ravel()),
+              np.where(is_diag, 0.0, bp.c_pat).ravel())
 
-    # every (real) constraint single-entry or diagonal-only
+    # every (real) constraint single-entry or diagonal-only, per block
     # (pattern.py:855-893)
-    real = bp.a_val[0] != 0.0
-    con = bp.a_con_loc[0][real].astype(np.int64)
-    r_, c_, v_ = a_rows[0][real], a_cols[0][real], bp.a_val[0][real]
-    d_ = r_ == c_
-    all_diag = np.ones(bp.m_loc, bool)
-    np.logical_and.at(all_diag, con, d_)
-    cnts = np.bincount(con, minlength=bp.m_loc)
-    single_ok = bool(np.all(all_diag[con] | (cnts[con] == 1)))
-    dsel = all_diag[con]
-    nnz_dd = int(np.count_nonzero(dsel))
-    meta = dict(n=n, B=1, K=bp.K, m_loc=bp.m_loc, m_glob=m_glob,
-                nnz_a=bp.nnz_a, glob_ident=True, a_single_dense=single_ok,
-                nnz_dd=nnz_dd)
+    single_ok = True
+    a2_full = np.zeros((B, n, n))
+    dd = []
+    for b in range(B):
+        real = bp.a_val[b] != 0.0
+        con = bp.a_con_loc[b][real].astype(np.int64)
+        r_, c_, v_ = a_rows[b][real], a_cols[b][real], bp.a_val[b][real]
+        d_ = r_ == c_
+        all_diag = np.ones(bp.m_loc, bool)
+        np.logical_and.at(all_diag, con, d_)
+        cnts = np.bincount(con, minlength=bp.m_loc)
+        single_ok &= bool(np.all(all_diag[con] | (cnts[con] == 1)))
+        dsel = all_diag[con]
+        dd.append((con[dsel], r_[dsel], v_[dsel]))
+        osel = ~dsel
+        w2 = np.where(d_[osel], 1.0, 2.0) * v_[osel] ** 2
+        np.add.at(a2_full[b], (r_[osel], c_[osel]), w2)
+        np.add.at(a2_full[b], (c_[osel], r_[osel]),
+                  np.where(d_[osel], 0.0, w2))
+    nnz_dd = max(d[0].size for d in dd)
+    meta = dict(n=n, B=B, K=bp.K, m_loc=bp.m_loc, m_glob=m_glob,
+                nnz_a=bp.nnz_a, glob_ident=_glob_ident(bp, m_glob),
+                a_single_dense=single_ok, nnz_dd=nnz_dd)
     arrays = dict(glob_idx=bp.glob_idx, c_full=c_full,
                   a_lin=a_rows * n + a_cols, a_lin_t=a_cols * n + a_rows,
                   a_con_loc=bp.a_con_loc, a_val=bp.a_val,
                   a_val_mirror=a_val_mirror, a_val_inner=a_val_inner)
     if single_ok:
-        osel = ~dsel
-        w2 = np.where(d_[osel], 1.0, 2.0) * v_[osel] ** 2
-        a2_full = np.zeros((1, n, n))
-        np.add.at(a2_full[0], (r_[osel], c_[osel]), w2)
-        np.add.at(a2_full[0], (c_[osel], r_[osel]),
-                  np.where(d_[osel], 0.0, w2))
         L = max(nnz_dd, 1)
-        arrays.update(a2_full=a2_full, dd_con=_pad(con[dsel], L),
-                      dd_row=_pad(r_[dsel], L),
-                      dd_val=_pad(v_[dsel].astype(np.float64), L))
-    port = dense_port_fields(
+        arrays.update(a2_full=a2_full,
+                      dd_con=_stack([d[0] for d in dd], L, np.int64),
+                      dd_row=_stack([d[1] for d in dd], L, np.int64),
+                      dd_val=_stack([d[2] for d in dd], L, np.float64))
+    arrays.update(dense_port_fields(
         n, bp.m_loc, arrays["a_lin"], arrays["a_lin_t"], bp.a_con_loc,
         bp.a_val, a_val_mirror, a_val_inner,
         *(arrays[k] for k in ("dd_con", "dd_row", "dd_val"))
-        if single_ok else ())
-    arrays.update(port)
+        if single_ok else ()))
+    arrays.update(scatter_fields(bp.glob_idx, m_glob))
     return dense_bucket_from_arrays(meta, arrays, dtype, device)
 
 
 def build_bucket_data(bp: BucketPlan, m_glob: int, dtype, device):
     """Host construction of one bucket: dense buckets in
     build_dense_bucket_data, split ones here in lorads_tpu's layout
-    (pattern.py:578-766, 909-930) plus the port's own fields
-    (port_fields)."""
-    if bp.B != 1:
-        raise NotImplementedError(
-            "buckets of B > 1 blocks not yet ported to lorads_torch")
-    glob_ident = (bp.m_loc == m_glob
-                  and bool(np.array_equal(bp.glob_idx[0],
-                                          np.arange(m_glob))))
-    if not glob_ident:
-        raise NotImplementedError(
-            "buckets whose constraint slots are not the global ones not "
-            "yet ported to lorads_torch")
+    (pattern.py:578-766, 909-930), block by block and padded to the
+    bucket's widths, plus the port's own fields (port_fields,
+    scatter_fields)."""
     if bp.dense:
         return build_dense_bucket_data(bp, m_glob, dtype, device)
-    n = bp.n
-    pr = bp.pat_rows[0].astype(np.int64)
-    pc = bp.pat_cols[0].astype(np.int64)
-    cp = bp.c_pat[0]
-    is_d = pr == pc
-    off_idx = np.nonzero(~is_d)[0]
-    off_of = np.zeros(pr.size, np.int64)
-    off_of[off_idx] = np.arange(off_idx.size)
-    c_diag = np.zeros((1, n))
-    np.add.at(c_diag[0], pr[is_d], cp[is_d])
-    orow, ocol, oval = pr[off_idx], pc[off_idx], cp[off_idx]
+    B, n = bp.B, bp.n
+    per_off, per_ad, per_ao = [], [], []
+    c_diag = np.zeros((B, n))
+    ident = True
+    for b in range(B):
+        pr = bp.pat_rows[b].astype(np.int64)
+        pc = bp.pat_cols[b].astype(np.int64)
+        cp = bp.c_pat[b]
+        is_d = pr == pc
+        off_idx = np.nonzero(~is_d)[0]
+        off_of = np.zeros(pr.size, np.int64)
+        off_of[off_idx] = np.arange(off_idx.size)
+        np.add.at(c_diag[b], pr[is_d], cp[is_d])
+        per_off.append((pr[off_idx], pc[off_idx], cp[off_idx]))
+        ap = bp.a_pos[b].astype(np.int64)
+        ac = bp.a_con_loc[b].astype(np.int64)
+        av = bp.a_val[b]
+        ed = is_d[ap]
+        # diagonal entries ordered by constraint slot
+        con_d, row_d, val_d = ac[ed], pr[ap[ed]], av[ed]
+        od = np.argsort(con_d, kind="stable")
+        per_ad.append((con_d[od], row_d[od], val_d[od]))
+        eo = ~ed
+        per_ao.append((ac[eo], off_of[ap[eo]], av[eo]))
+        p = bp.plans[b]
+        # "identity" demands pure diagonal-entry constraints
+        # (pattern.py:615-623)
+        ident &= (p.dim == n and p.m_loc == n and con_d.size == n
+                  and not np.any(eo)
+                  and bool(np.all(per_ad[-1][0] == np.arange(n)))
+                  and bool(np.all(per_ad[-1][1] == np.arange(n))))
+    Ko = max(max(o[0].size for o in per_off), 1)
+    nnz_d = max(max(a[0].size for a in per_ad), 1)
+    nnz_o = max(max(a[0].size for a in per_ao), 1)
+    ident = ident and all(a[0].size == nnz_d for a in per_ad)
+    off_rows, off_cols = (_stack([o[i] for o in per_off], Ko, np.int64)
+                          for i in (0, 1))
+    c_off = _stack([o[2] for o in per_off], Ko, np.float64)
+    a_con_d, a_row_d = (_stack([a[i] for a in per_ad], nnz_d, np.int64)
+                        for i in (0, 1))
+    a_val_d = _stack([a[2] for a in per_ad], nnz_d, np.float64)
+    a_con_o, a_pos_o = (_stack([a[i] for a in per_ao], nnz_o, np.int64)
+                        for i in (0, 1))
+    a_val_o = _stack([a[2] for a in per_ao], nnz_o, np.float64)
+    ta = np.take_along_axis
+    po = np.argsort(a_pos_o, axis=1, kind="stable")
+    rd = np.argsort(a_row_d, axis=1, kind="stable")
 
-    ap = bp.a_pos[0].astype(np.int64)
-    ac = bp.a_con_loc[0].astype(np.int64)
-    av = bp.a_val[0]
-    ed = is_d[ap]
-    con_d, row_d, val_d = ac[ed], pr[ap[ed]], av[ed]
-    # diagonal entries ordered by constraint slot
-    od = np.argsort(con_d, kind="stable")
-    con_d, row_d, val_d = con_d[od], row_d[od], val_d[od]
-    eo = ~ed
-    con_o, pos_o, val_o = ac[eo], off_of[ap[eo]], av[eo]
-    p = bp.plans[0]
-    # "identity" demands pure diagonal-entry constraints (pattern.py:620)
-    ident = (p.dim == n and p.m_loc == n and con_d.size == n
-             and con_o.size == 0
-             and bool(np.all(con_d == np.arange(n)))
-             and bool(np.all(row_d == np.arange(n))))
+    # A^*(A(.)) is slot-diagonal on the off pattern when, in every
+    # block, each off entry owns a distinct slot and a distinct
+    # constraint, disjoint from the diagonal constraints
+    # (pattern.py:671-683)
+    off_unique = True
+    a2_off = np.zeros((B, Ko))
+    for b, ((con_o, pos_o, val_o), (con_d, _, _)) in enumerate(
+            zip(per_ao, per_ad)):
+        off_unique &= (np.unique(pos_o).size == pos_o.size
+                       and np.unique(con_o).size == con_o.size
+                       and not np.intersect1d(con_o, con_d).size)
+        np.add.at(a2_off[b], pos_o, 2.0 * val_o ** 2)
 
-    Ko = max(orow.size, 1)
-    nnz_d = max(con_d.size, 1)
-    nnz_o = max(con_o.size, 1)
-    off_rows, off_cols = _pad(orow, Ko), _pad(ocol, Ko)
-    c_off = _pad(oval.astype(np.float64), Ko)
-    a_con_d, a_row_d = _pad(con_d, nnz_d), _pad(row_d, nnz_d)
-    a_val_d = _pad(val_d.astype(np.float64), nnz_d)
-    a_con_o, a_pos_o = _pad(con_o, nnz_o), _pad(pos_o, nnz_o)
-    a_val_o = _pad(val_o.astype(np.float64), nnz_o)
-    po = np.argsort(a_pos_o[0], kind="stable")
-    rd = np.argsort(a_row_d[0], kind="stable")
-
-    # A^*(A(.)) is slot-diagonal on the off pattern when every off entry
-    # owns a distinct slot and a distinct constraint, disjoint from the
-    # diagonal constraints (pattern.py:671-683)
-    off_unique = (np.unique(pos_o).size == pos_o.size
-                  and np.unique(con_o).size == con_o.size
-                  and not np.intersect1d(con_o, con_d).size)
-    a2_off = np.zeros((1, Ko))
-    np.add.at(a2_off[0], pos_o, 2.0 * val_o ** 2)
-
-    meta = dict(n=n, B=1, K=bp.K, m_loc=bp.m_loc, m_glob=m_glob, Ko=Ko,
-                nnz_d=nnz_d, nnz_o=nnz_o, has_off=bool(orow.size),
-                has_diag_a=bool(con_d.size), has_off_a=bool(con_o.size),
-                a_off_unique=bool(off_unique and con_o.size),
-                glob_ident=glob_ident, diag_ident=bool(ident))
+    has_off_a = any(a[0].size for a in per_ao)
+    meta = dict(n=n, B=B, K=bp.K, m_loc=bp.m_loc, m_glob=m_glob, Ko=Ko,
+                nnz_d=nnz_d, nnz_o=nnz_o,
+                has_off=any(o[0].size for o in per_off),
+                has_diag_a=any(a[0].size for a in per_ad),
+                has_off_a=has_off_a,
+                a_off_unique=bool(off_unique and has_off_a),
+                glob_ident=_glob_ident(bp, m_glob), diag_ident=bool(ident))
     arrays = dict(
         glob_idx=bp.glob_idx, c_diag=c_diag, off_rows=off_rows,
         off_cols=off_cols, c_off=c_off, c_off2=2.0 * c_off,
         a_con_d=a_con_d, a_row_d=a_row_d, a_val_d=a_val_d,
-        bnd_a_con_d=_bounds_np(a_con_d, bp.m_loc),
-        a_row_d_s=a_row_d[:, rd], a_con_d_s=a_con_d[:, rd],
-        a_val_d_s=a_val_d[:, rd],
-        bnd_a_row_d_s=_bounds_np(a_row_d[:, rd], n),
+        bnd_a_con_d=sorted_prefix_bounds(a_con_d, bp.m_loc),
+        a_row_d_s=ta(a_row_d, rd, 1), a_con_d_s=ta(a_con_d, rd, 1),
+        a_val_d_s=ta(a_val_d, rd, 1),
+        bnd_a_row_d_s=_bounds_np(ta(a_row_d, rd, 1), n),
         a_con_o=a_con_o, a_pos_o=a_pos_o, a_val_o=a_val_o,
-        a_pos_o_s=a_pos_o[:, po], a_con_o_s=a_con_o[:, po],
-        a_val_o_s=a_val_o[:, po],
-        bnd_a_pos_o_s=_bounds_np(a_pos_o[:, po], Ko), a2_off=a2_off)
+        a_pos_o_s=ta(a_pos_o, po, 1), a_con_o_s=ta(a_con_o, po, 1),
+        a_val_o_s=ta(a_val_o, po, 1),
+        bnd_a_pos_o_s=_bounds_np(ta(a_pos_o, po, 1), Ko), a2_off=a2_off)
     port = port_fields(n, bp.m_loc, off_rows, off_cols, c_off, a_con_o,
                        a_pos_o, a_val_o)
     meta["Ks"] = port.pop("Ks")
     arrays.update(port)
+    arrays.update(scatter_fields(bp.glob_idx, m_glob))
     return bucket_from_arrays(meta, arrays, dtype, device)
+
+
+def bucket_slice(bk, b: int):
+    """Block b of a bucket as a B = 1 bucket whose tensors are views of
+    the bucket's (the bucket Gauss-Seidel scan updates one block at a
+    time; lorads_tpu slices the same way inside its lax.scan,
+    admm.py:287-293).  Its scatter takes the block's own local slots,
+    which are sorted by global slot (presolve's loc2glob), with bounds
+    over m; padded slots (global id m) lie past the last bound."""
+    own = {}
+    for f in dataclasses.fields(bk):
+        v = getattr(bk, f.name)
+        if isinstance(v, torch.Tensor) and f.name not in _SCATTER_FIELDS:
+            own[f.name] = v[b:b + 1]
+    g = bk.glob_idx[b].contiguous()
+    dev = g.device
+    own.update(
+        B=1, glob_ident=False,
+        scat_idx=torch.arange(bk.m_loc, dtype=torch.int32, device=dev)[None],
+        scat_val=torch.ones((1, bk.m_loc), dtype=bk.dtype, device=dev),
+        bnd_scat=torch.searchsorted(
+            g, torch.arange(bk.m_glob + 1, dtype=torch.int32, device=dev),
+            out_int32=True)[None])
+    return dataclasses.replace(bk, **own)
 
 
 def cast_floats(bk, dtype):
@@ -627,14 +735,26 @@ def obj_inner(bk, uvt_val) -> torch.Tensor:
     return out
 
 
-def scatter_constr(bk: BucketData, vals: torch.Tensor) -> torch.Tensor:
-    """Local constraint values -> the global m-vector (identity map)."""
-    return vals[0]
+def scatter_constr(bk, vals: torch.Tensor) -> torch.Tensor:
+    """Local constraint values [B, m_loc] -> the global m-vector
+    (pattern.py:1189-1204): the identity for one block on the global
+    slots, else kernel K4 over the port's list of every (block, local
+    slot) sorted by global slot (scatter_fields)."""
+    if bk.glob_ident:
+        return vals[0]
+    return kernels.gather_segsum(vals.reshape(1, -1), bk.scat_idx,
+                                 bk.scat_val, bk.bnd_scat)[0]
 
 
-def gather_w(bk: BucketData, w: torch.Tensor) -> torch.Tensor:
-    """The global m-vector at this bucket's constraint slots."""
-    return w[None]
+def gather_w(bk, w: torch.Tensor) -> torch.Tensor:
+    """The global m-vector at this bucket's constraint slots -> [B, m_loc]
+    (pattern.py:1207-1212); padded slots (global id m) read 0.  A pure
+    gather, which lorads_tpu also leaves to XLA: ``index_select``."""
+    if bk.glob_ident:
+        return w[None]
+    w1 = torch.cat([w, w.new_zeros(1)])
+    return w1.index_select(0, bk.glob_idx.reshape(-1)).reshape(
+        bk.glob_idx.shape)
 
 
 def build_w(bk, w_loc: torch.Tensor, include_obj: bool = True):

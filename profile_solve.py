@@ -18,7 +18,8 @@ so the kernels are built and loaded):
   device items by name.  (A whole theta solve launches ~10^6 kernels,
   whose trace takes longer to process than the solve takes to run.)
 
-The instances are chip_smoke.py's main-path instances.  Run from the
+The instances are chip_smoke.py's main-path instances, solved with
+its options for each (``PARAMS``).  Run from the
 root of the repository; needs a GPU; prints one JSON line per instance
 and the card's name and power limit.
 """
@@ -32,7 +33,7 @@ import time
 
 import torch
 
-from chip_smoke import INSTANCES, card_line
+from chip_smoke import INSTANCES, PARAMS, card_line
 from lorads_torch import device as dev
 from lorads_torch.alg import admm as admm_mod
 from lorads_torch.alg import solver as solver_mod
@@ -40,10 +41,11 @@ from lorads_torch.alg.solver import LoradsSolver
 from lorads_torch.config import LoradsParams
 
 
-def _solve(problem):
+def _solve(problem, name=None):
     t0 = time.time()
     s0 = dev.HOST_SYNCS
-    solver = LoradsSolver(problem, LoradsParams(verbose=False),
+    solver = LoradsSolver(problem, LoradsParams(verbose=False,
+                                                **PARAMS.get(name, {})),
                           device="cuda")
     res = solver.solve()
     torch.cuda.synchronize()
@@ -100,7 +102,7 @@ def _summary(prof, wall, top):
                      for t, k, c in rows[:top]])
 
 
-def _device_share(problem, window, top=8):
+def _device_share(problem, name, window, top=8):
     """{phase: _summary} of one solve traced over the first ``window``
     host syncs of its first ALM phase and of its first ADMM phase."""
     from torch.profiler import ProfilerActivity, profile
@@ -143,7 +145,7 @@ def _device_share(problem, window, top=8):
     LoradsSolver.admm_phase = traced("admm", LoradsSolver.admm_phase)
     dev.host_read = counted
     try:
-        _solve(problem)
+        _solve(problem, name)
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
@@ -153,7 +155,7 @@ def _device_share(problem, window, top=8):
 def profile_instance(name, walls, window):
     problem = INSTANCES[name]()
     out = dict(instance=name)
-    runs = [_solve(problem) for _ in range(walls)]
+    runs = [_solve(problem, name) for _ in range(walls)]
     res = runs[-1][0]
     out.update(
         status=res.status.value, pobj=res.pobj, dinf=res.dinf_l1,
@@ -166,9 +168,9 @@ def profile_instance(name, walls, window):
                                 None))
     phases = {}
     with _timed(phases):
-        _, _, wall, _ = _solve(problem)
+        _, _, wall, _ = _solve(problem, name)
     out["phases"] = dict(phases, wall=wall)
-    out["device"] = _device_share(problem, window)
+    out["device"] = _device_share(problem, name, window)
     return out
 
 

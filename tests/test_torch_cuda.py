@@ -1,8 +1,10 @@
 """lorads_torch's CUDA kernels on the card (marker ``cuda``).
 
 Each kernel against its plain PyTorch version on CUDA tensors, one
-Max-Cut, one matrix-completion and one Lovász theta solve on cuda.  Imports no JAX, so it also runs where JAX is
-not installed; without a GPU every test skips.  On a GPU machine:
+Max-Cut, one matrix-completion, one Lovász theta and one multi-block
+LP solve (both LP sweeps) on cuda.  Imports no JAX, so it also runs
+where JAX is not installed; without a GPU every test skips.  On a GPU
+machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -o addopts="" \
         --noconftest -q
@@ -304,3 +306,87 @@ def test_theta_gtoy60_solve_on_cuda():
     assert abs(res.pobj + 24.209496946891917) <= 1e-4 * 24.21
     for k in ("gather_segsum", "adj_a_dense"):
         assert kernels.LAUNCHES[k] > 0, k
+
+
+def _lp_problem():
+    return generators.random_multiblock(n_blocks=3, dim=12, m=30,
+                                        density=0.1, n_lp=200, seed=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rho", [3.5, 0.25])
+def test_lp_gs_sweep_kernel_matches_plain_bit_for_bit(rho):
+    """K8c sums each column's terms in the plain version's lane order
+    with explicitly rounded operations: bit for bit at f64."""
+    _need_cuda()
+    from lorads_torch.ops import lp as lp_ops
+    problem = _lp_problem()
+    lpd = lp_ops.build_lp_data(problem.lp, torch.float64, "cuda")
+    rng = np.random.default_rng(11)
+    n, m = lpd.n_cols, lpd.m_glob
+    u, v = (_rand(rng, (n,), torch.float64) for _ in range(2))
+    csum, rhs, dual = (_rand(rng, (m,), torch.float64) for _ in range(3))
+    csum0 = csum.clone()
+    args = (lpd.pc_con, lpd.pc_val, lpd.obj, lpd.col_nrm2sq, u, v, csum,
+            rhs, dual, rho)
+    before = kernels.LAUNCHES["lp_gs_sweep"]
+    got = kernels.lp_gs_sweep(*args)
+    assert kernels.LAUNCHES["lp_gs_sweep"] == before + 1
+    ref = kernels.lp_gs_sweep_plain(*args)
+    for g, e in zip(got, ref):
+        assert torch.equal(g, e)
+    assert torch.equal(csum, csum0) and not torch.equal(got[1], csum)
+
+
+@pytest.mark.cuda
+def test_lp_sums_and_scatter_match_plain():
+    """K8a / K8b (K4 on the LP's sorted entries, with c as the base and
+    alpha -1 for the certificate) and K4's scatter of a bucket of
+    several blocks into the global m-vector."""
+    _need_cuda()
+    from lorads_torch.ops import lp as lp_ops
+    problem = _lp_problem()
+    lpd = lp_ops.build_lp_data(problem.lp, torch.float64, "cuda")
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    bk = pat.build_bucket_data(bp, problem.m, torch.float64, "cuda")
+    assert bk.B == 3 and not bk.glob_ident
+    rng = np.random.default_rng(12)
+    uv = _rand(rng, (lpd.n_cols,), torch.float64)
+    w = _rand(rng, (lpd.m_glob,), torch.float64)
+    vals = _rand(rng, (bk.B, bk.m_loc), torch.float64)
+    a8 = (lpd.a_col_cs[None], lpd.a_val_cs[None], lpd.bnd_con[None])
+    b8 = (lpd.a_con_ls[None], lpd.a_val_ls[None], lpd.bnd_col[None])
+    sc = (bk.scat_idx, bk.scat_val, bk.bnd_scat)
+    cases = [
+        (lp_ops.constr_vals(lpd, uv),
+         kernels.gather_segsum_plain(uv[None], *a8)[0],
+         kernels.gather_segsum_plain(uv.abs()[None], a8[0], a8[1].abs(),
+                                     a8[2])[0]),
+        (lp_ops.adjoint_cols(lpd, w, base=lpd.obj, alpha=-1.0),
+         kernels.gather_segsum_plain(w[None], *b8, lpd.obj[None], -1.0)[0],
+         kernels.gather_segsum_plain(w.abs()[None], b8[0], b8[1].abs(),
+                                     b8[2], lpd.obj.abs()[None])[0]),
+        (pat.scatter_constr(bk, vals),
+         kernels.gather_segsum_plain(vals.reshape(1, -1), *sc)[0],
+         kernels.gather_segsum_plain(vals.abs().reshape(1, -1), *sc)[0]),
+    ]
+    for got, ref, l1 in cases:
+        assert _close(got, ref, l1, torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp_gs", [False, True])
+def test_hand_multiblock_solve_on_cuda(lp_gs):
+    """Two dense buckets on local slots and an LP block; with lp_gs the
+    LP columns sweep in order through K8c."""
+    _need_cuda()
+    kernels.reset_launches()
+    res = LoradsSolver(read_sdpa(os.path.join(FIX, "hand_multiblock.dat-s")),
+                       LoradsParams(verbose=False, lp_gauss_seidel=lp_gs),
+                       device="cuda").solve()
+    assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
+    # lorads_tpu on CPU at f64: 0.21774877836010853 (Jacobi) and
+    # 0.21774893891060546 (Gauss-Seidel LP sweeps)
+    assert abs(res.pobj - 0.2177488) <= 1e-4 * 0.2177488
+    assert kernels.LAUNCHES["gather_segsum"] > 0
+    assert (kernels.LAUNCHES["lp_gs_sweep"] > 0) == lp_gs

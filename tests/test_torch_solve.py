@@ -24,7 +24,6 @@ from lorads_torch.alg.solver import LoradsSolver as TorchSolver
 from lorads_torch.config import LoradsParams, SolverStatus
 from lorads_torch.core.presolve import presolve as t_presolve
 from lorads_torch.io import generators as t_gen
-from lorads_torch.io.sdpa import read_sdpa as t_read_sdpa
 from lorads_torch.ops import pattern as t_pat
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -233,53 +232,17 @@ def test_device_cuda_without_gpu_raises():
                     LoradsParams(verbose=False))
 
 
-def _sparse_two_blocks():
-    """Two sparse matrix-completion blocks of different dims, each with
-    its own constraints (so neither block's slots are the global ones)."""
-    a = t_gen.matrix_completion(n1=60, n2=60, frac_obs=0.05, seed=1)
-    b = t_gen.matrix_completion(n1=40, n2=50, frac_obs=0.05, seed=2)
-    blk_b = dataclasses.replace(b.blocks[0], m=a.m + b.m,
-                                a_con=b.blocks[0].a_con + a.m)
-    blk_a = dataclasses.replace(a.blocks[0], m=a.m + b.m)
-    return dataclasses.replace(a, m=a.m + b.m,
-                               rhs=np.concatenate([a.rhs, b.rhs]),
-                               blocks=[blk_a, blk_b])
-
-
-def _dense_two_blocks():
-    """Two Lovász theta blocks of different dims, each with its own
-    constraints: two dense buckets, neither holding the global slots."""
-    a = t_gen.lovasz_theta(n=30, avg_degree=4, seed=1)
-    b = t_gen.lovasz_theta(n=90, avg_degree=4, seed=2)
-    blk_b = dataclasses.replace(b.blocks[0], m=a.m + b.m,
-                                a_con=b.blocks[0].a_con + a.m)
-    blk_a = dataclasses.replace(a.blocks[0], m=a.m + b.m)
-    return dataclasses.replace(a, m=a.m + b.m,
-                               rhs=np.concatenate([a.rhs, b.rhs]),
-                               blocks=[blk_a, blk_b])
-
-
-@pytest.mark.parametrize("case", ["dense_bucket", "lp_block", "shard",
-                                  "f32", "multi_block",
-                                  "sparse_multi_block"])
+@pytest.mark.parametrize("case", ["dual_uv", "fix_init_point", "shard",
+                                  "f32", "checkpoint_path", "trace_dir"])
 def test_out_of_slice_raises(case):
-    params = LoradsParams(verbose=False)
     problem = t_gen.maxcut(n=300, avg_degree=4, seed=3)
-    if case == "dense_bucket":        # dense buckets of several blocks
-        problem = _dense_two_blocks()
-        assert all(bp.dense for bp in t_presolve(problem, params).buckets)
-    elif case == "lp_block":
-        problem = t_read_sdpa(os.path.join(FIX, "hand_multiblock.dat-s"))
-    elif case == "shard":
-        params = LoradsParams(verbose=False, shard="dp")
-    elif case == "f32":
-        params = LoradsParams(verbose=False, dtype="f32")
-    elif case == "multi_block":       # a dense B = 3 bucket
-        problem = t_gen.random_multiblock(n_blocks=3, dim=40, m=30,
-                                          n_lp=0, seed=2)
-    else:
-        problem = _sparse_two_blocks()
-        assert not any(bp.dense
-                       for bp in t_presolve(problem, params).buckets)
+    params = LoradsParams(verbose=False, **{
+        "dual_uv": dict(dual_uv=True),
+        "fix_init_point": dict(fix_init_point=True),
+        "shard": dict(shard="dp"),
+        "f32": dict(dtype="f32"),
+        "checkpoint_path": dict(checkpoint_path="state.npz"),
+        "trace_dir": dict(trace_dir="traces"),
+    }[case])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TorchSolver(problem, params, device="cpu")
