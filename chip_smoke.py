@@ -54,7 +54,14 @@ Phases, each reported on its own lines:
    constraint- and column-sorted entries) and K8c (the Gauss-Seidel LP
    sweep, bit for bit) at random_multiblock(8, 40, 120, 400 LP
    columns)'s LP block, K4's scatter of its 8 blocks' local constraint
-   values, and K2 / K3 at the maxcut batch's B = 4.
+   values, and K2 / K3 at the maxcut batch's B = 4;
+   - the probes (lorads_torch.probes, the counterparts of the Pallas
+     kernels of tools/probes/): phase 3 holds P1 onehot_scatter and P2
+     onehot_gather (tensor-core one-hot window products), P3 row_gather
+     and P4 scatter_add to their plain versions at the probes' shapes
+     (n=20000, K=80000-160000, r=20-24), and K3 at the fused uvT probe's
+     shape (R=24, n=20000, K=100000, f32); the path is the probe driver,
+     `python -m lorads_torch.probes --small`, run in this process.
 
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.  Any failed phase raises and exits
@@ -148,12 +155,16 @@ PATH_KERNELS = {
     "theta": ("gather_segsum", "adj_a_dense"),
     "lp": ("gather_segsum", "lp_gs_sweep"),
     "batch": ("cmul_csr", "uvt_split"),
+    "probes": ("onehot_scatter", "onehot_gather", "row_gather",
+               "scatter_add", "uvt_split"),
 }
 POBJ_RTOL = 1e-4
-# the card's device-memory rate and its peak rates outside the tensor
-# cores (NVIDIA H100 SXM data sheet: 67 TFLOP/s f32, 34 TFLOP/s f64)
+# the card's device-memory rate, its peak rates outside the tensor cores
+# and its dense tensor-core peaks (NVIDIA H100 SXM data sheet: 67 TFLOP/s
+# f32, 34 TFLOP/s f64; tensor cores 989 TFLOP/s bf16, 494 TFLOP/s TF32)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"f32": 67e12, "f64": 34e12}
+PEAK_FLOP_PER_S = {"f32": 67e12, "f64": 34e12, "bf16": 989e12,
+                   "tf32": 494e12}
 
 
 def card_line() -> str:
@@ -397,6 +408,7 @@ def kernel_checks(card):
     matcomp_kernel_checks(rng, measure)
     theta_kernel_checks(rng, measure)
     multiblock_kernel_checks(rng, measure)
+    probe_kernel_checks(rng, measure)
     return measure.results
 
 
@@ -752,6 +764,136 @@ def multiblock_kernel_checks(rng, measure):
                                                        beta=0.0))
 
 
+def probe_kernel_checks(rng, measure):
+    """Phase 3, the probes: P1-P4 against their plain versions at the
+    probes' shapes (f32 values, int32 ids) and K3 at the fused uvT
+    probe's [R, n] shape, transposed once."""
+    import numpy as np
+    import torch
+
+    from lorads_torch.ops import kernels
+    from lorads_torch.probes import gather
+    from lorads_torch.probes import onehot as oh
+    from lorads_torch.probes.__main__ import gather_bytes
+
+    dev = torch.device("cuda")
+    eps32 = float(np.finfo(np.float32).eps)
+
+    def f32(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    # ---- P1 onehot_scatter: gather7 / onehot_nn's sorted segment sum
+    # (library: torch.segment_reduce on the same lengths)
+    n, K, r = 20000, 80000, 24
+    ids_np = np.sort(rng.integers(0, n, K)).astype(np.int32)
+    plan = oh.plan_sorted_scatter(ids_np, n, CT=256, WT=2048, device=dev)
+    lengths = torch.as_tensor(np.bincount(ids_np, minlength=n), device=dev)
+    vals = f32(K, r)
+    l1 = oh.sorted_scatter_plain(vals.abs(), plan, "f32")
+    print(f"probe shapes: n={n} K={K} r={r} CT={plan.CT} WT={plan.WT} "
+          f"n_pad={plan.n_pad} K_pad={plan.K_pad}")
+    for mode, layout in (("bf16x3", "kr"), ("f32", "rk"), ("bf16x2", "kr")):
+        v = vals if layout == "kr" else vals.T.contiguous()
+        measure("onehot_scatter",
+                f"{mode} {'[K,r]' if layout == 'kr' else '[r,K]'} CT=256",
+                "bf16", lambda: oh.sorted_scatter(v, plan, mode, layout),
+                lambda: oh.sorted_scatter_plain(v, plan, mode, layout),
+                l1 if layout == "kr" else l1.T,
+                nbytes=K * r * 4 + K * 4 + n * r * 4,
+                flops=oh.scatter_mma_flops(plan, r, mode), tol=4 * eps32,
+                library=lambda: torch.segment_reduce(vals, "sum",
+                                                     lengths=lengths))
+    # ---- P2 onehot_gather: bit for bit (each output is one row's planes)
+    X = f32(n, r)
+    ids = i32(ids_np)
+    gplan = oh.plan_sorted_gather(ids_np, n, KT=256, device=dev)
+    for mode in ("bf16x3", "bf16x2"):
+        ref = oh.sorted_gather_plain(X, gplan, mode)
+        measure("onehot_gather", f"{mode} KT=256 WT={gplan.WT}", "bf16",
+                lambda: oh.sorted_gather(X, gplan, mode),
+                lambda: oh.sorted_gather_plain(X, gplan, mode), ref.abs(),
+                nbytes=gather_bytes(ids, r),
+                flops=oh.gather_mma_flops(gplan, r, mode), exact=True,
+                tol=0.0, library=lambda: X.index_select(0, ids))
+    # ---- P3 row_gather: pallas_gather's rows, gT's transposed table, gE's
+    # 1-D gather (exact)
+    n3, K3, r3, R = 20000, 100000, 20, 24
+    ids3 = i32(rng.integers(0, n3, K3))
+    ids3l = ids3.long()
+    for label, T, layout, width, lib in (
+            (f"rows [{n3},{r3}]", f32(n3, r3), "kr", r3,
+             lambda T: T.index_select(0, ids3)),
+            (f"transposed [{R},{n3}]", f32(R, n3), "rk", R,
+             lambda T: T.index_select(1, ids3)),
+            (f"1-D [{n3}]", f32(n3), "kr", 1,
+             lambda T: torch.take(T, ids3l))):
+        ref = gather.row_gather_plain(T, ids3, layout)
+        measure("row_gather", f"{label} K={K3}", "f32",
+                lambda: gather.row_gather(T, ids3, layout, check=False),
+                lambda: gather.row_gather_plain(T, ids3, layout), ref.abs(),
+                nbytes=gather_bytes(ids3, width), flops=0, exact=True,
+                tol=0.0, library=lambda: lib(T))
+    # ---- P4 scatter_add: gather9 fC's unsorted segment sum (f32
+    # atomics in no fixed order; library: index_add_)
+    n4, K4, r4 = 20000, 160000, 24
+    ids4 = i32(rng.integers(0, n4, K4))
+    v4 = f32(K4, r4)
+    measure("scatter_add", f"unsorted n={n4} K={K4} r={r4}", "f32",
+            lambda: gather.scatter_add(v4, ids4, n4, check=False),
+            lambda: gather.scatter_add_plain(v4, ids4, n4),
+            gather.scatter_add_plain(v4.abs(), ids4, n4),
+            nbytes=K4 * r4 * 4 + K4 * 4 + n4 * r4 * 4, flops=K4 * r4,
+            tol=4 * eps32,
+            library=lambda: torch.zeros((n4, r4), device=dev).index_add_(
+                0, ids4, v4))
+    # ---- K3 at the uvT probe's shape: X, D [R, n] transposed once to the
+    # [1, n, R] factors K3 takes (library: the probe's unfused form, four
+    # index_selects, a product and a sum over R)
+    Xt = f32(R, n3)
+    Dt = Xt * 0.5 + 1.0
+    ic = ids3
+    ir = i32(np.sort(rng.integers(0, n3, K3)))
+    U, V = Xt.T.contiguous()[None], Dt.T.contiguous()[None]
+    rows, cols = ir[None], ic[None]
+    measure("uvt_split", f"f32 uvT probe R={R} n={n3} K={K3}", "f32",
+            lambda: kernels.uvt_split(U, V, rows, cols)[1],
+            lambda: kernels.uvt_split_plain(U, V, rows, cols)[1],
+            kernels.uvt_split_plain(U.abs(), V.abs(), rows, cols)[1],
+            nbytes=2 * n3 * R * 4 + 2 * K3 * 4 + (n3 + K3) * 4,
+            flops=2 * n3 * R + 4 * K3 * R,
+            library=lambda: 0.5 * (
+                torch.sum(Xt.index_select(1, ir) * Dt.index_select(1, ic), 0)
+                + torch.sum(Xt.index_select(1, ic) * Dt.index_select(1, ir),
+                            0)))
+
+
+def probes_path(card):
+    """The probes' main path: the probe driver at --small, with the
+    launch counts reset just before and read just after."""
+    import torch
+
+    from lorads_torch.ops import kernels
+    from lorads_torch.probes.__main__ import main as probes_main
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    if probes_main(["--small"]) != 0:
+        raise AssertionError("the probe driver failed")
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    print(f"main path probes: driver {time.time() - t0:.2f} s, kernel "
+          f"launches {counts}  [{card}]")
+    for k in PATH_KERNELS["probes"]:
+        if counts[k] <= 0:
+            raise AssertionError(f"the probes path never launched {k}")
+    return counts
+
+
 def solve_path(card, path, instances):
     """One main path: its solves through the public entry points, with
     the launch counts reset just before and read just after."""
@@ -836,7 +978,7 @@ def solve_path(card, path, instances):
 
 def main_path(card):
     """Phase 4: the Max-Cut, matrix-completion, theta, multi-block / LP
-    and batch paths.
+    and batch paths, then the probes' path (the probe driver).
     Returns the launch counts summed over the paths."""
     from lorads_torch.ops import kernels
 
@@ -852,6 +994,9 @@ def main_path(card):
                             [(name, INSTANCES[name]) for name in names])
         for k in total:
             total[k] += counts[k]
+    counts = probes_path(card)
+    for k in total:
+        total[k] += counts[k]
     return total
 
 
@@ -902,7 +1047,15 @@ def main() -> int:
            "adj_a_dense": ("lorads_torch/csrc/adj_a_dense.cu",
                            "lorads_tpu/ops/pattern.py:1458"),
            "lp_gs_sweep": ("lorads_torch/csrc/lp_gs.cu",
-                           "lorads_tpu/alg/admm.py:238")}
+                           "lorads_tpu/alg/admm.py:238"),
+           "onehot_scatter": ("lorads_torch/csrc/onehot_mma.cu",
+                              "tools/probes/onehot.py:190"),
+           "onehot_gather": ("lorads_torch/csrc/onehot_mma.cu",
+                             "tools/probes/onehot.py:238"),
+           "row_gather": ("lorads_torch/csrc/row_gather.cu",
+                          "tools/probes/microbench_pallas_gather.py:61"),
+           "scatter_add": ("lorads_torch/csrc/scatter_add.cu",
+                           "tools/probes/microbench_gather9.py:146")}
     summary = []
     for name, (path, replaces) in src.items():
         first = results[name][0]

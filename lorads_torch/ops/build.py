@@ -33,7 +33,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LINK_FLAGS = (*ARCH, "-shared")
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of every entry point: (is_f64, pointers..., ints..., stream)
+# C signature of every entry point: (is_f64 or mode flags, pointers...,
+# ints..., stream)
 _SIGNATURES = {
     "lt_segment_sum": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "lt_cmul": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
@@ -50,6 +51,11 @@ _SIGNATURES = {
     "lt_adj_a_dense": [_I, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "lt_lp_gs_sweep": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _I, _I, _I, ctypes.c_double, _VP],
+    "lt_onehot_scatter": [_I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                          _VP],
+    "lt_onehot_gather": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "lt_row_gather": [_I, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "lt_scatter_add": [_VP, _VP, _VP, _I, _I, _VP],
 }
 
 _LIB = None

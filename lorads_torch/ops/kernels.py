@@ -12,6 +12,16 @@
 | adj_a_dense    | csrc/adj_a_dense.cu    | a_adj_a_dense (K7a)                       |
 | lp_gs_sweep    | csrc/lp_gs.cu          | alg/admm.py: _update_lp_var_gs (K8c)      |
 
+and the probes' kernels, whose wrappers live in ``lorads_torch/probes``
+(no solver module calls them; ``python -m lorads_torch.probes`` does):
+
+| wrapper                 | CUDA source          | replaces (tools/probes/)              |
+|-------------------------|----------------------|---------------------------------------|
+| onehot.sorted_scatter   | csrc/onehot_mma.cu   | onehot.py: sorted_scatter and the one-hot window scatters (P1) |
+| onehot.sorted_gather    | csrc/onehot_mma.cu   | onehot.py: sorted_gather (P2)         |
+| gather.row_gather       | csrc/row_gather.cu   | the Pallas row / transposed / scalar gathers (P3) |
+| gather.scatter_add      | csrc/scatter_add.cu  | microbench_gather9.py: fC (P4)        |
+
 Each wrapper checks its arguments, then takes the plain PyTorch version
 (written with ``index_select`` / ``index_add_``) for CPU tensors, and
 for CUDA tensors launches the kernel on the current stream or raises;
@@ -34,7 +44,8 @@ import torch
 
 KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
                 "gather_segsum", "wmul_csr", "adj_a_offdiag",
-                "adj_a_dense", "lp_gs_sweep")
+                "adj_a_dense", "lp_gs_sweep", "onehot_scatter",
+                "onehot_gather", "row_gather", "scatter_add")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 
 

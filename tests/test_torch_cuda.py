@@ -390,3 +390,110 @@ def test_hand_multiblock_solve_on_cuda(lp_gs):
     assert abs(res.pobj - 0.2177488) <= 1e-4 * 0.2177488
     assert kernels.LAUNCHES["gather_segsum"] > 0
     assert (kernels.LAUNCHES["lp_gs_sweep"] > 0) == lp_gs
+
+
+# ---------------------------------------------------------------------------
+# The probes' kernels (lorads_torch.probes): P1-P4 against their plain
+# versions at a small shape with the edge cases (a CT tile with no ids, a
+# segment of 100 rows -- wider than a 16-row k-chunk --, n not a multiple
+# of the tile, ids padded with n_pad + 7) and at a probe shape.
+# ---------------------------------------------------------------------------
+
+def _probe_ids(shape, sort=True):
+    from numpy.random import default_rng
+    n, K = shape
+    rng = default_rng(n)
+    ids = rng.integers(0, n, K)
+    if n < 20000:
+        ids = ids[(ids < 256) | (ids >= 512)]          # an empty tile
+        ids = np.concatenate([ids, np.full(100, 700)])  # a wide segment
+    return (np.sort(ids) if sort else ids).astype(np.int32)
+
+
+def _f32(rng, *shape):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                           device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1000, 5000), (20000, 80000)])
+@pytest.mark.parametrize("r", [1, 24, 128])
+@pytest.mark.parametrize("mode", ["f32", "bf16x3", "bf16x2"])
+@pytest.mark.parametrize("layout", ["kr", "rk"])
+def test_onehot_scatter_kernel_matches_plain(shape, r, mode, layout):
+    _need_cuda()
+    from lorads_torch.probes import onehot as oh
+    ids = _probe_ids(shape)
+    n, K = shape[0], ids.size
+    plan = oh.plan_sorted_scatter(ids, n, CT=256, device="cuda")
+    assert plan.ok and plan.K_pad > K and plan.n_pad > n
+    rng = np.random.default_rng(r)
+    vals = _f32(rng, K, r) if layout == "kr" else _f32(rng, r, K)
+    got = oh.sorted_scatter(vals, plan, mode, layout)
+    ref = oh.sorted_scatter_plain(vals, plan, mode, layout)
+    l1 = oh.sorted_scatter_plain(vals.abs(), plan, "f32", layout)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _close(got.double(), ref.double(), l1.double(), torch.float32)
+    if n < 20000:
+        empty = got[:, 256:512] if layout == "rk" else got[256:512]
+        assert not bool(empty.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1000, 5000), (20000, 80000)])
+@pytest.mark.parametrize("r", [1, 24, 128])
+@pytest.mark.parametrize("mode", ["f32", "bf16x3", "bf16x2"])
+def test_onehot_gather_kernel_matches_plain(shape, r, mode):
+    _need_cuda()
+    from lorads_torch.probes import onehot as oh
+    ids = _probe_ids(shape)
+    plan = oh.plan_sorted_gather(ids, shape[0], KT=256, device="cuda")
+    assert plan.ok
+    X = _f32(np.random.default_rng(r), shape[0], r)
+    got = oh.sorted_gather(X, plan, mode)
+    ref = oh.sorted_gather_plain(X, plan, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)          # one row's planes per output
+    if mode != "bf16x2":
+        assert torch.equal(got, X[torch.as_tensor(ids, device="cuda").long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1000, 5000), (20000, 100000)])
+@pytest.mark.parametrize("form", ["kr1", "kr20", "kr128", "rk24", "1-D"])
+def test_row_gather_kernel_matches_plain(shape, form):
+    _need_cuda()
+    from lorads_torch.probes import gather
+    n, _ = shape
+    ids = torch.as_tensor(_probe_ids(shape, sort=False), device="cuda")
+    rng = np.random.default_rng(7)
+    if form == "1-D":
+        X, layout = _f32(rng, n), "kr"
+    elif form.startswith("rk"):
+        X, layout = _f32(rng, int(form[2:]), n), "rk"
+    else:
+        X, layout = _f32(rng, n, int(form[2:])), "kr"
+    got = gather.row_gather(X, ids, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.row_gather_plain(X, ids, layout))
+    with pytest.raises(IndexError):
+        gather.row_gather(X, torch.full_like(ids, n), layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1000, 5000), (20000, 160000)])
+@pytest.mark.parametrize("r", [0, 1, 24, 128])
+def test_scatter_add_kernel_matches_plain(shape, r):
+    _need_cuda()
+    from lorads_torch.probes import gather
+    n, _ = shape
+    ids = torch.as_tensor(_probe_ids(shape, sort=False), device="cuda")
+    rng = np.random.default_rng(r)
+    vals = _f32(rng, ids.shape[0]) if r == 0 else _f32(rng, ids.shape[0], r)
+    got = gather.scatter_add(vals, ids, n)
+    ref = gather.scatter_add_plain(vals, ids, n)
+    l1 = gather.scatter_add_plain(vals.abs(), ids, n)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _close(got.double(), ref.double(), l1.double(), torch.float32)

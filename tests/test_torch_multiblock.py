@@ -510,3 +510,84 @@ def test_multiblock_solves_match_lorads_tpu(name):
     assert abs(tr.pobj - jr.pobj) <= 1e-5 * abs(jr.pobj)
     assert ts.admm_retries >= 1
     assert any(ln.startswith("ADMM diverged") for ln in jlog)
+
+
+@pytest.mark.slow
+def test_merged_maxcut_batch_parts_by_summation_order(monkeypatch):
+    """merge_problems of maxcut(n=10000, deg 8) seeds 7-10, the smallest
+    merged Max-Cut batch seen to part (merged maxcut(2000)x4 and
+    maxcut(5000)x4 keep the quartic within 1e-6; chip_smoke's
+    maxcut(20000)x4 parts faster): the port and lorads_tpu part in ALM
+    outer 1 from summation order alone, not from a port fault.
+
+    - C @ R differs only within lorads_tpu's compensated prefix-scan
+      contract, 2^-48 * |prefix| (lorads_tpu/ops/pattern.py:138-170),
+      taken here as 2^-46 * sum |C| |R| of each block;
+    - the line search sees the same quartic at inner step 0 (relative
+      differences ~5e-15) and takes the same branch of its cubic (the
+      same number of real roots) at every step of outer 1; the
+      differences then grow geometrically with the L-BFGS steps at the
+      batch's rho of 1/sqrt(40000): 1e-9 by step 15, 1e-6 by step 40,
+      1e-3 by step 79 on the CPU, with no step where a root changes
+      branch;
+    - both whole solves are certified and each instance lies within
+      2e-5 of lorads_tpu's solve of that instance alone (its solo
+      spread)."""
+    from lorads_tpu.alg import linesearch as tpu_ls
+    from lorads_torch.alg import alm as t_alm
+    from lorads_torch.alg import linesearch as t_ls
+
+    probs = [tpu_gen.maxcut(n=10000, avg_degree=8, seed=s)
+             for s in (7, 8, 9, 10)]
+    problem = tpu_merge(probs)
+    bp = tpu_presolve.presolve(problem, TpuParams()).buckets[0]
+    assert (bp.B, bp.n) == (4, 10000)
+    jbk = tpu_pat.build_bucket_data(bp, problem.m, jnp.float64)
+    tbk = t_pat.build_bucket_data(bp, problem.m, torch.float64, "cpu")
+    R = _factors(bp, 20, 7)
+    jcr = np.asarray(tpu_pat.cmul(jbk, jnp.asarray(R)))
+    tcr = t_pat.cmul(tbk, _t(R)).numpy()
+    l1 = kernels.cmul_csr_plain(_t(np.abs(R)), tbk.c_diag.abs(),
+                                tbk.sym_cols_rs, tbk.c_sym_rs.abs(),
+                                tbk.bnd_sym_rows).numpy()
+    bound = 2.0 ** -46 * l1.sum(axis=(1, 2))[:, None, None]
+    assert np.all(np.abs(tcr - jcr) <= bound)
+
+    # the line search's quartic at each inner step of both solves
+    jrec, trec = [], []
+
+    def j_line_search(rho, lam, p1, p2, q0, q1, q2):
+        tau, num = tpu_ls.alm_line_search(rho, lam, p1, p2, q0, q1, q2)
+        q0s = q0 + lam / rho
+        coeffs = (rho * jnp.vdot(q2, q2) / 2.0, rho * jnp.vdot(q1, q2),
+                  p2 - rho * jnp.vdot(q0s, q2) + rho * jnp.vdot(q1, q1)
+                  / 2.0, p1 - rho * jnp.vdot(q0s, q1))
+        jax.debug.callback(lambda *v: jrec.append(np.array(v, np.float64)),
+                           *coeffs, tau, num, ordered=True)
+        return tau, num
+
+    def t_line_search(rho, lam, p1, p2, q0, q1, q2):
+        c = t_ls.quartic_coeffs(rho, lam, p1, p2, q0, q1, q2)
+        tau, num = t_ls.line_search_from_coeffs(c)
+        trec.append(np.array([*c.tolist(), tau, num], np.float64))
+        return tau, num
+
+    monkeypatch.setattr(tpu_alm, "alm_line_search", j_line_search)
+    monkeypatch.setattr(t_alm, "alm_line_search", t_line_search)
+    js, jr, jlog, ts, tr, tlog = _solve_both(problem)
+    outer1 = _outer_rows(tlog)[0][1]
+    assert _outer_rows(jlog)[0][1] == outer1
+    J, T = np.array(jrec[:outer1]), np.array(trec[:outer1])
+    rel = (np.abs(J[:, :4] - T[:, :4])
+           / np.maximum(np.abs(J[:, :4]), np.abs(T[:, :4]))).max(axis=1)
+    assert rel[0] <= 1e-13 and rel[:16].max() <= 1e-7
+    assert rel.max() >= 1e-3                          # parted in outer 1
+    np.testing.assert_array_equal(J[:, 5], T[:, 5])   # same cubic branch
+
+    assert jr.status.value == "primal_dual_optimal"
+    assert tr.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
+    solo = [TpuSolver(p, TpuParams(verbose=False)).solve().pobj
+            for p in probs]
+    for objs in (t_split(probs, *ts.factor_blocks()),
+                 tpu_split(probs, *js.factor_blocks())):
+        np.testing.assert_allclose(objs, solo, rtol=2e-5)
