@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (lorads_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-of DIR   # phases 1-3 on DIR's port
 
 Phases, each reported on its own lines:
 
@@ -8,10 +9,12 @@ Phases, each reported on its own lines:
 2. the build of the CUDA kernels from lorads_torch/csrc (one nvcc per
    source, in parallel, sm_90a);
 3. each kernel against its plain PyTorch version on the card, with the
-   tolerance stated, the kernel and plain times from CUDA events, the
-   kernel's bound (the larger of its bytes over 3.35 TB/s and its
-   operations over the card's peak for the type) and, where one PyTorch
-   call computes the same function, that call's time:
+   tolerance stated, the kernel and plain times from CUDA events
+   (dispatched: the host's launch included), the kernel's device time
+   (20 calls in one CUDA graph, lorads_torch/timing.py), its bound (the
+   larger of its bytes over 3.35 TB/s and its operations over the
+   card's peak for the type) and, where one PyTorch call computes the
+   same function, that call's time, dispatched and on the device:
    K1-K3 at the shapes of the Max-Cut path (maxcut n=20000, deg 8:
    Ks=160000, r = the solve's rank at f64; r=1 at f32 and f64 for the
    certificate) plus the segment-sum edge cases; K3p, K4, K5 and K6 at
@@ -20,7 +23,10 @@ Phases, each reported on its own lines:
    mixed-precision CG runs, and K5 at r=1 in f32 and f64 for the
    certificate); K7a and K4 on the dense layouts at the shapes of the
    theta path (theta800: n=800, n^2=640000 slots, m=3201, nnz_a=4000)
-   at f64 and in f32 as the mixed-precision CG runs them;
+   at f64 and in f32 as the mixed-precision CG runs them; K4 on skewed
+   segment lengths (one-entry segments with segments of 800, 5000 and
+   70000 entries among them, empty segments, B = 2, base and alpha),
+   bit for bit on one-entry segments;
 4. the main paths, each with the kernel launch counts reset just before
    it and read just after, through LoradsSolver(...).solve() on cuda at
    f64, each solve held to primal_dual_optimal and to lorads_tpu's CPU
@@ -38,6 +44,11 @@ Phases, each reported on its own lines:
      tests/fixtures/theta300.dat-s and bench.py's theta800,
      lovasz_theta(n=800, avg_degree=8, seed=5) (ALM, ADMM with CG on the
      K7a operator, exact-eigh certificate, spectral dual repair);
+   - the CGNR dual refinement: theta_gtoy60 with the spectral repair
+     replaced by a reject in this process, so that the solve takes the
+     CGNR refinement (K4 in every iteration), rejects its step and
+     ends by the level-2 reopt, held to lorads_tpu's CPU run of the
+     same forced path (status and objective);
    - multi-block and LP: tests/fixtures/hand_multiblock.dat-s (two dense
      one-block buckets on local slots, an LP block of 2 columns), solved
      with Jacobi and with Gauss-Seidel (K8c) LP sweeps;
@@ -66,17 +77,23 @@ Phases, each reported on its own lines:
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.  Any failed phase raises and exits
 nonzero without that line.  Needs no network and no JAX.
+
+With --kernels-of DIR only phases 1-3 run, on the lorads_torch of the
+checkout at DIR (built into DIR/build), timed by this checkout's
+lorads_torch/timing.py; the last line is {"kernels_of": DIR, "cases":
+{kernel: [case, ...]}}.  Two checkouts compare on one card by running
+both in one call, in turns.
 """
 
+import functools
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
-FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                   "fixtures")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIX = os.path.join(ROOT, "tests", "fixtures")
 
 
 def _gen():
@@ -147,12 +164,17 @@ REFERENCE_POBJ = {
 # so the batch is held to the instances, as a batch must equal them.
 REFERENCE_SPLIT = {"maxcut20000x4": (-62097.25666, -62076.14471913608,
                                      -62080.6703693886, -62064.98481252369)}
+# lorads_tpu on CPU at f64 with its spectral dual repair forced to reject:
+# the CGNR refinement rejects its step (dinf 3.28e-04 before and after),
+# two level-2 reopts leave dinf at 2.58e-04, outside its band
+REFERENCE_CGNR = {"theta_gtoy60": ("primal_optimal", -24.214264131151737)}
 # the kernels each main path must launch
 PATH_KERNELS = {
     "maxcut": ("cmul_csr", "uvt_split"),
     "matcomp": ("uvt_split", "uvt_pair_split", "gather_segsum", "wmul_csr",
                 "adj_a_offdiag"),
     "theta": ("gather_segsum", "adj_a_dense"),
+    "cgnr": ("gather_segsum", "adj_a_dense"),
     "lp": ("gather_segsum", "lp_gs_sweep"),
     "batch": ("cmul_csr", "uvt_split"),
     "probes": ("onehot_scatter", "onehot_gather", "row_gather",
@@ -167,27 +189,16 @@ PEAK_FLOP_PER_S = {"f32": 67e12, "f64": 34e12, "bf16": 989e12,
                    "tf32": 494e12}
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, reps=20, warmup=3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+@functools.lru_cache(maxsize=None)
+def timing():
+    """This checkout's lorads_torch/timing.py, loaded by its path, so that
+    --kernels-of times another checkout's kernels with the same code."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_timing", os.path.join(ROOT, "lorads_torch", "timing.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def check(name, got, ref, bound):
@@ -225,7 +236,10 @@ class Measure:
     """Runs one kernel case: the kernel and its plain version on the same
     inputs, the check against the stated tolerance (and bit equality
     where asked), CUDA-event times of the kernel, the plain version and
-    the one-call library counterpart (if any), and the bound."""
+    the one-call library counterpart (if any), dispatched (``ms``: the
+    host's launch included) and on the device alone (``device_ms``: 20
+    calls in one CUDA graph, or the profiler's kernel time for a call a
+    graph cannot hold), and the bound."""
 
     def __init__(self, card):
         self.card = card
@@ -235,6 +249,9 @@ class Measure:
                   library=None, exact=None, tol=None, steps=None):
         import numpy as np
         import torch
+
+        cuda_time_ms, device_time_ms = (timing().cuda_time_ms,
+                                        timing().device_time_ms)
         got = fn()
         ref = plain()
         torch.cuda.synchronize()
@@ -260,21 +277,30 @@ class Measure:
                           "segments")
         ms = cuda_time_ms(fn)
         pms = cuda_time_ms(plain)
-        lib_ms = None
+        dev_ms, dev_by = device_time_ms(fn)
+        lib_ms = lib_dev_ms = lib_dev_by = None
         if library is not None:
             lib_ms = cuda_time_ms(library)
+            lib_dev_ms, lib_dev_by = device_time_ms(library)
         bms, by = bound_of(nbytes, flops, sfx)
         # a sequential kernel: its time per dependent step
-        step_note = ("" if steps is None else
-                     f" ({ms / steps * 1e3:.3f} us per dependent step)")
+        step_note = ("" if steps is None or dev_ms is None else
+                     f" ({dev_ms / steps * 1e3:.3f} us per dependent step "
+                     "on the device)")
+
+        def fmt(t, how):
+            return "none" if t is None else f"{t:.4f} ms ({how})"
+
         print(f"{kname} [{label}]: max_abs_err {err:.3e} (tol {tol:.1e} x "
-              f"|terms|{exact_note}) kernel {ms:.4f} ms plain {pms:.4f} ms "
-              f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-              f"bound {bms:.6f} ms{step_note} ({by}: {nbytes} B, {flops} flop)  "
-              f"[{self.card}]")
+              f"|terms|{exact_note}) kernel {ms:.4f} ms device "
+              f"{fmt(dev_ms, dev_by)} plain {pms:.4f} ms library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} device "
+              f"{fmt(lib_dev_ms, lib_dev_by)} bound {bms:.6f} ms{step_note} "
+              f"({by}: {nbytes} B, {flops} flop)  [{self.card}]")
         self.results.setdefault(kname, []).append(dict(
-            label=label, max_abs_err=err, ms=ms, plain_ms=pms,
-            bound_ms=bms, bound_by=by, library_ms=lib_ms))
+            label=label, max_abs_err=err, ms=ms, device_ms=dev_ms,
+            plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms))
 
 
 def _csr(rows, cols, vals, shape):
@@ -407,6 +433,7 @@ def kernel_checks(card):
     segment_sum_edges(rng, dev)
     matcomp_kernel_checks(rng, measure)
     theta_kernel_checks(rng, measure)
+    gather_segsum_skewed(rng, dev)
     multiblock_kernel_checks(rng, measure)
     probe_kernel_checks(rng, measure)
     return measure.results
@@ -447,6 +474,79 @@ def segment_sum_edges(rng, dev):
                        kernels.segment_sum_plain(d, sb)):
         raise AssertionError("segment_sum single-entry: not exact")
     print("segment_sum [single-entry segments]: exact")
+
+
+def skewed_layouts(rng):
+    """K4 layouts with skewed segment lengths, as [B, S] length arrays
+    (B = 2; the second row a permutation of the first with its longest
+    segment cut by 1000 entries, so its bounds end before N): 80000
+    segments of one entry or none (10 %) with one of 800, one of 5000 and
+    one of 70000 entries among them (mean under 2: one lane per segment,
+    the long ones taken by whole warps); 2000 segments of 0-6 entries
+    with one of 800 and thirty of 33-40 (mean 3.5: four lanes per
+    segment, the long ones taken by whole warps); 400 segments of 0-120
+    entries (a warp per segment)."""
+    import numpy as np
+    out = []
+    one = (rng.random(80000) >= 0.1).astype(np.int64)
+    one[[100, 40000, 79999]] = (800, 5000, 70000)
+    mid = rng.integers(0, 7, 2000)
+    mid[rng.choice(2000, 30, replace=False)] = rng.integers(33, 41, 30)
+    mid[1000] = 800
+    for lengths in (one, mid, rng.integers(0, 121, 400)):
+        second = rng.permutation(lengths)
+        second[np.argmax(second)] -= min(1000, int(second.max()))
+        out.append(np.stack([lengths, second]))
+    return out
+
+
+def gather_segsum_skewed(rng, dev):
+    """K4 against its plain version on skewed_layouts, f64 and f32, with
+    and without base and alpha: within 64 eps64 / 4 eps32 x the sum of
+    |terms| of each output, bit for bit on one-entry segments."""
+    import numpy as np
+    import torch
+
+    from lorads_torch.ops import kernels
+    device_time_ms = timing().device_time_ms
+    for lengths in skewed_layouts(rng):
+        B, S = lengths.shape
+        N, Nx = int(lengths.sum(axis=1).max()), 20000
+        bnd = np.zeros((B, S + 1), np.int32)
+        bnd[:, 1:] = np.cumsum(lengths, axis=1)
+        bnd = torch.as_tensor(bnd, device=dev)
+        idx = torch.as_tensor(rng.integers(0, Nx, (B, N)).astype(np.int32),
+                              device=dev)
+        single = torch.as_tensor(lengths == 1, device=dev)
+        for dt in (torch.float64, torch.float32):
+            tol = (64 if dt == torch.float64 else 4) * torch.finfo(dt).eps
+
+            def rand(*shape):
+                return torch.as_tensor(rng.standard_normal(shape),
+                                       device=dev, dtype=dt)
+
+            x, val = rand(B, Nx), rand(B, N)
+            for base, alpha in ((None, 1.0), (rand(B, S), -0.75)):
+                args = (x, idx, val, bnd, base, alpha)
+                got = kernels.gather_segsum(*args)
+                ref = kernels.gather_segsum_plain(*args)
+                l1 = kernels.gather_segsum_plain(
+                    x.abs(), idx, val.abs(), bnd,
+                    None if base is None else base.abs(), abs(alpha))
+                torch.cuda.synchronize()
+                label = (f"skewed B={B} S={S} N={N} longest "
+                         f"{int(lengths.max())} {str(dt)[6:]} "
+                         f"{'base, alpha' if base is not None else 'no base'}")
+                err = check(f"gather_segsum {label}", got, ref,
+                            tol * l1.double() + 1e-300)
+                if not torch.equal(got[single], ref[single]):
+                    raise AssertionError(f"gather_segsum {label}: one-entry "
+                                         "segments not exact")
+                dev_ms, how = device_time_ms(
+                    lambda: kernels.gather_segsum(*args))
+                print(f"gather_segsum [{label}]: max_abs_err {err:.3e} (tol "
+                      f"{tol:.1e} x |terms|, exact on {int(single.sum())} "
+                      f"one-entry segments) device {dev_ms:.4f} ms ({how})")
 
 
 def matcomp_kernel_checks(rng, measure):
@@ -596,7 +696,7 @@ def theta_kernel_checks(rng, measure):
                 nbytes=3 * n * n * s + n * s, flops=n * n + n, exact=True)
         # ---- K4: dense A(.) over the flat [1, n^2] view (layout (i)):
         # bit for bit on the single-entry constraints, the trace one
-        # segment of n entries walked by one thread
+        # segment of n entries walked by a whole warp
         flat = rand((1, n * n), dt)
         a4 = (flat, bk.a_lin_cs, bk.a_val_inner_cs, bk.bnd_a_con_cs)
         measure("gather_segsum", f"{sfx} dense A(.) m={m}", sfx,
@@ -937,7 +1037,7 @@ def solve_path(card, path, instances):
               f"{res.dual_infeas_time:.3f} s) buckets {shapes} LP columns "
               f"{problem.n_lp_cols} ALM outer "
               f"{res.alm_stats.outer_iter} inner {res.alm_stats.inner_iter}"
-              f" ADMM {res.admm_stats.iter} CG {res.admm_stats.cg_iter} "
+              f" ADMM {res.admm_stats.iter} CG {solver.admm_cg_total} "
               f"divergence retries {solver.admm_retries} "
               f"rank {res.ranks} cert restarts {solver.last_cert_restarts} "
               f"spectral repair: {repair}; host syncs "
@@ -965,7 +1065,7 @@ def solve_path(card, path, instances):
                 raise AssertionError(f"{name}: per-instance objectives")
         if name in ("maxcut300", "matcomp500") and res.admm_stats.iter == 0:
             raise AssertionError(f"{name} did not reach ADMM")
-        if path in ("matcomp", "theta", "lp") and res.admm_stats.cg_iter <= 0:
+        if path in ("matcomp", "theta", "lp") and solver.admm_cg_total <= 0:
             raise AssertionError(f"{name}: ADMM ran no CG iteration")
     counts = dict(kernels.LAUNCHES)
     print(f"main path {path}: kernel launches {counts}, host syncs "
@@ -976,10 +1076,85 @@ def solve_path(card, path, instances):
     return counts
 
 
+def cgnr_path(card):
+    """The CGNR dual refinement's path: theta_gtoy60 with the spectral
+    dual repair replaced, in this process only, by a reject, so that the
+    solve goes on to the CGNR refinement (K4's dense A(.) and build_w in
+    every CGNR iteration) and, as in lorads_tpu's CPU run of the same
+    forced path, rejects its step and takes the level-2 reopt.  Held to
+    that run's status and objective (REFERENCE_CGNR); the launch counts
+    reset just before and read just after."""
+    import torch
+
+    from lorads_torch import LoradsParams, LoradsSolver
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import solver as solver_mod
+    from lorads_torch.ops import kernels
+
+    name = "theta_gtoy60"
+    problem = INSTANCES[name]()
+    status_ref, pobj_ref = REFERENCE_CGNR[name]
+    repair, refine = solver_mod.try_spectral_repair, solver_mod.dual_ls_refine
+    k4 = []
+
+    def counted_refine(*a, **k):
+        before = kernels.LAUNCHES["gather_segsum"]
+        out = refine(*a, **k)
+        k4.append(kernels.LAUNCHES["gather_segsum"] - before)
+        return out
+
+    lines = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    tdev.reset_host_syncs()
+    t0 = time.time()
+    solver_mod.try_spectral_repair = lambda solver, stats: False
+    solver_mod.dual_ls_refine = counted_refine
+    try:
+        solver = LoradsSolver(problem, LoradsParams(verbose=False),
+                              device="cuda")
+        solver.log = lambda *a, **k: lines.append(" ".join(map(str, a)))
+        res = solver.solve()
+        torch.cuda.synchronize()
+    finally:
+        solver_mod.try_spectral_repair = repair
+        solver_mod.dual_ls_refine = refine
+    wall = time.time() - t0
+    counts = dict(kernels.LAUNCHES)
+    rel = abs(res.pobj - pobj_ref) / abs(pobj_ref)
+    info = solver.dual_refine_info
+    refine_lines = [ln for ln in lines if ln.startswith("dual refine:")]
+    print(f"solve {name} (spectral repair forced to reject): status "
+          f"{res.status.value} pObj {res.pobj!r} (lorads_tpu CPU f64 on "
+          f"the same forced path: {status_ref}, {pobj_ref!r}; rel "
+          f"{rel:.2e}) pinf {res.pinf_l1:.3e} gap {res.gap:.3e} dinf "
+          f"{res.dinf_l1:.3e} wall {wall:.3f} s host syncs "
+          f"{tdev.HOST_SYNCS}  [{card}]")
+    print(f"  {refine_lines}")
+    print(f"  CGNR: {info['iters']} iterations (cap {info['n_iter']}), "
+          f"{info['seconds']:.3f} s, {info['host_syncs']} host reads "
+          f"(certificates included), {k4} K4 launches; main path cgnr: "
+          f"kernel launches {counts}")
+    if len(refine_lines) != 1:
+        raise AssertionError(f"{name}: no 'dual refine:' line in the log")
+    if res.status.value != status_ref:
+        raise AssertionError(f"{name}: status {res.status.value}, "
+                             f"lorads_tpu {status_ref}")
+    if not (math.isfinite(res.pobj) and rel <= POBJ_RTOL):
+        raise AssertionError(f"{name}: pObj {res.pobj} vs {pobj_ref}")
+    if not (k4 and k4[0] > 0 and info["iters"] > 0):
+        raise AssertionError("the CGNR refinement launched no K4")
+    for k in PATH_KERNELS["cgnr"]:
+        if counts[k] <= 0:
+            raise AssertionError(f"the cgnr path never launched {k}")
+    return counts
+
+
 def main_path(card):
     """Phase 4: the Max-Cut, matrix-completion, theta, multi-block / LP
-    and batch paths, then the probes' path (the probe driver).
-    Returns the launch counts summed over the paths."""
+    and batch paths, the CGNR refinement's path, then the probes' path
+    (the probe driver).  Returns the launch counts summed over the
+    paths."""
     from lorads_torch.ops import kernels
 
     paths = {"maxcut": ("maxcut300", "maxcut20000", "gset_torus10000"),
@@ -994,13 +1169,23 @@ def main_path(card):
                             [(name, INSTANCES[name]) for name in names])
         for k in total:
             total[k] += counts[k]
-    counts = probes_path(card)
-    for k in total:
-        total[k] += counts[k]
+    for path in (cgnr_path, probes_path):
+        counts = path(card)
+        for k in total:
+            total[k] += counts[k]
     return total
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-of", metavar="DIR",
+                    help="only phases 1-3 (build, kernel checks and "
+                    "times), on the lorads_torch of the checkout at DIR: "
+                    "two checkouts' kernels timed alike on one card")
+    args = ap.parse_args(argv)
+    if args.kernels_of:
+        sys.path.insert(0, os.path.abspath(args.kernels_of))
     try:
         import torch
 
@@ -1015,7 +1200,7 @@ def main() -> int:
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 3
 
-    card = card_line()
+    card = timing().card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
@@ -1028,6 +1213,11 @@ def main() -> int:
           f"(nvcc {build.BUILD_SECONDS:.2f} s)")
 
     results = kernel_checks(card)
+    if args.kernels_of:
+        print(f"card: {card}")
+        print(json.dumps({"kernels_of": os.path.abspath(args.kernels_of),
+                          "cases": results}))
+        return 0
     counts = main_path(card)
 
     src = {"segment_sum": ("lorads_torch/csrc/segment_sum.cu",

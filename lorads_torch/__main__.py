@@ -92,9 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "eigenvalues; dinf re-measured post-shift")
     p.add_argument("--dualRefine", type=int, default=1,
                    help="when dinf still fails its band after the "
-                        "repair, run the spectral dual repair (the CGNR "
-                        "refinement it falls back to is not yet ported: "
-                        "raises); 0 goes on to level-2 reopt")
+                        "repair, run the spectral dual repair, then, if "
+                        "that is not accepted, fit the dual to "
+                        "complementarity by CGNR and keep it only if the "
+                        "re-measured dinf meets its band; 0 goes on to "
+                        "level-2 reopt")
     p.add_argument("--warmStart", default=None, metavar="PATH",
                    help="seed the solve from a previous --solOut .npz "
                         "(not yet ported)")

@@ -14,12 +14,12 @@ f64 on one device; several instances merged by ``merge_problems`` solve
 as one batch.  Buckets whose blocks touch disjoint constraints sweep
 their blocks at once in ADMM (``_bucket_jacobi``), the others in
 sequence.  A failing dinf without an LP block takes the spectral dual
-repair (alg/spectral_repair.py).  Everything else raises
-NotImplementedError at construction (or, for the CGNR dual refinement,
-where the solve would take it) rather than taking another path.  Initial factors and
-certificate start vectors come from the same ``np.random.default_rng``
-stream, in the same order, as in lorads_tpu, so both packages start
-from the same point.
+repair (alg/spectral_repair.py), then, if that is not accepted, the
+CGNR dual refinement (alg/dualrefine.py).  Everything else raises
+NotImplementedError at construction rather than taking another path.
+Initial factors and certificate start vectors come from the same
+``np.random.default_rng`` stream, in the same order, as in lorads_tpu,
+so both packages start from the same point.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from lorads_torch.alg import alm as alm_mod
 from lorads_torch.alg import aop
 from lorads_torch.alg.admm import ADMMStats
 from lorads_torch.alg.alm import ALMStats
+from lorads_torch.alg.dualrefine import dual_ls_refine
 from lorads_torch.alg.lanczos import lanczos_min_eig_device
 from lorads_torch.alg.spectral_repair import try_spectral_repair
 from lorads_torch.alg.state import FactorVec, make_history
@@ -143,6 +144,9 @@ class LoradsSolver:
         self._gap_push_stalled = False
         # ADMM divergence recoveries taken (admm_phase)
         self.admm_retries = 0
+        # CG iterations of every ADMM chunk of the solve (ADMMStats.cg_iter
+        # holds the last chunk's, as in lorads_tpu)
+        self.admm_cg_total = 0
         self._init_vars()
         # buckets whose blocks touch pairwise-disjoint constraint sets
         # (merged batches, block-diagonal problems) sweep their blocks
@@ -353,17 +357,22 @@ class LoradsSolver:
             self._admm_n_dev = min(self.device_chunk_iters,
                                    2 * self._admm_n_dev)
             stats.iter = c["it"]
-            stats.cg_iter += c["cg_iter"]
+            # the last chunk's CG count, as lorads_tpu reports it; the
+            # solve's total is admm_cg_total
+            stats.cg_iter = c["cg_iter"]
+            self.admm_cg_total += c["cg_iter"]
             stats.rho = c["rho"]
             stats.pobj, stats.dobj = c["pobj"], c["dobj"]
             stats.pinf_l1, stats.pinf_inf = c["pinf_l1"], c["pinf_inf"]
             stats.gap = c["gap"]
             code = c["status"]
+            nblk = sum(bp.B for bp in self.ps.buckets)
             self.log(
                 f"ADMM Iter:{stats.iter} pObj:{stats.pobj:5.5e} "
                 f"dObj:{stats.dobj:5.5e} pInf(1):{stats.pinf_l1:5.5e} "
                 f"pInf(Inf):{stats.pinf_inf:5.5e} pdGap:{stats.gap:5.5e} "
-                f"rho:{stats.rho:3.2f} cgIter:{c['cg_iter']} "
+                f"rho:{stats.rho:3.2f} "
+                f"cgIter:{stats.cg_iter // max(nblk, 1)} "
                 f"Time:{time.time() - t0:3.2f}")
             if code == admm_mod.NUM_ERR:
                 status = "num_err"
@@ -599,16 +608,64 @@ class LoradsSolver:
 
     def _try_dual_refine(self, admm_stats) -> bool:
         """Dual refinement of a failing dinf (solver.py:1031-1101): the
-        spectral repair first (alg/spectral_repair.py); True iff it was
-        accepted (admm_stats' dinf/dObj/gap updated).  When it is not,
-        lorads_tpu fits the dual to complementarity by CGNR
-        (alg/dualrefine.py), which is not ported."""
+        spectral repair first (alg/spectral_repair.py); when it is not
+        accepted, the complementarity fit by CGNR (alg/dualrefine.py),
+        whose step is tried at t = 1 and t = 0.25, each candidate
+        re-certified without the identity repair (a composed shift would
+        move dObj).  Returns True iff a refined dual was kept
+        (admm_stats' dinf/dObj/gap updated); otherwise the dual, dObj
+        and gap are restored and the caller runs the level-2 reopt.
+        ``dual_refine_info`` records the CGNR run."""
+        p = self.params
+        band = p.phase2_tol if p.high_acc_mode else 5 * p.phase2_tol
         if try_spectral_repair(self, admm_stats):
             return True
-        raise _not_ported(
-            "the CGNR dual refinement (lorads_tpu/alg/dualrefine.py), "
-            "taken when the spectral repair is not accepted (dinf "
-            f"{admm_stats.dinf_l1:.3e})")
+        t0 = time.time()
+        syncs0 = dev.HOST_SYNCS
+        Rbar = self.U.average(self.V)
+        old_dual = self.dual
+        old_dobj, old_gap = self.dobj, self.gap
+        n_iter = min(max(2 * self.pd.m, 64), 1200)
+        step, ls0, ls1, its = dual_ls_refine(self.pd, Rbar, self.dual,
+                                             n_iter)
+        ls0, ls1, its = dev.host_read(torch.stack(
+            [ls0, ls1, its.to(ls0.dtype)]))
+        # b^T step = 0, so dObj and the gap are the same for every t:
+        # acceptance compares dinf alone
+        best_t, best_dinf = None, admm_stats.dinf_l1
+        for t in (1.0, 0.25):
+            self.dual = old_dual + t * step
+            dinf_t = self.dual_infeasibility(repair=False)
+            if dinf_t < best_dinf:
+                best_t, best_dinf = t, dinf_t
+            if dinf_t <= band:
+                break
+        accept = best_t is not None and best_dinf <= band
+        seconds = time.time() - t0
+        self.dual_refine_info = dict(
+            iters=int(its), n_iter=n_iter, accepted=accept, seconds=seconds,
+            host_syncs=dev.HOST_SYNCS - syncs0)
+        self.log(f"dual refine: LS |S R| {ls0:.3e} -> {ls1:.3e} "
+                 f"({n_iter}-iter CGNR cap, b-orthogonal), dinf "
+                 f"{admm_stats.dinf_l1:.2e} -> {best_dinf:.2e}"
+                 + (f" at t={best_t}" if best_t is not None else "")
+                 + f" [{seconds:.2f}s] -> "
+                 f"{'accepted' if accept else 'rejected'}")
+        if accept:
+            self.dual = old_dual + best_t * step
+            dobj = dev.host_read(torch.dot(self.pd.rhs, self.dual))
+            dobj /= self.scale_obj_his
+            self.dobj = dobj
+            self.gap = abs(self.pobj - dobj) / (
+                1.0 + abs(self.pobj) + abs(dobj))
+            admm_stats.dobj, admm_stats.gap = dobj, self.gap
+            admm_stats.dinf_l1 = best_dinf
+            admm_stats.dinf_inf = best_dinf * (1 + self.pd.c_nrm1) / (
+                1 + self.pd.c_nrm_inf)
+            return True
+        self.dual = old_dual
+        self.dobj, self.gap = old_dobj, old_gap
+        return False
 
     # ------------------------------------------------------------------
     # Reopt (lorads_solver.c:1075-1117).

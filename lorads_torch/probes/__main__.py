@@ -52,11 +52,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import numpy as np
 import torch
+
+from lorads_torch.timing import card_line, cuda_time_ms, device_time_ms
 
 SECTIONS = ("width", "height", "forms", "onehot", "scatter", "uvt")
 HBM_BYTES_PER_S = 3.35e12
@@ -64,87 +65,11 @@ PEAK_FLOP_PER_S = {"bf16": 989e12, "f32": 67e12}
 EPS32 = float(np.finfo(np.float32).eps)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def gather_bytes(ids, r) -> int:
     """The bytes a gather of r-wide rows must move: the distinct table rows
     these ids touch (each read once), the ids, and the output."""
     K = ids.numel()
     return (torch.unique(ids).numel() * r + K * r) * 4 + K * 4
-
-
-def cuda_time_ms(fn, reps=20, warmup=3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def graph_time_ms(fn, reps=20):
-    """Device ms per call: ``reps`` calls captured in one CUDA graph and
-    replayed between two CUDA events, so no host dispatch is timed.  None
-    when the call cannot be captured (it reads the device from the
-    host, as ``torch.segment_reduce`` does)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-    except RuntimeError:
-        torch.cuda.synchronize()
-        return None
-    graph.replay()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def profiler_time_ms(fn, reps=20):
-    """Device ms per call for a call a graph cannot hold: the kernels' and
-    copies' own device time over ``reps`` calls, from ``torch.profiler``
-    (no gaps between them); None if the profiler saw no device event."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type != torch.autograd.DeviceType.CPU)
-    return us * 1e-3 / reps if us > 0 else None
-
-
-def device_time_ms(fn):
-    """(device ms per call, how): a CUDA graph's replay, else the
-    profiler's device time."""
-    ms = graph_time_ms(fn)
-    if ms is not None:
-        return ms, "graph"
-    return profiler_time_ms(fn), "profiler"
 
 
 class Probe:

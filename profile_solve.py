@@ -33,12 +33,13 @@ import time
 
 import torch
 
-from chip_smoke import INSTANCES, PARAMS, card_line
+from chip_smoke import INSTANCES, PARAMS
 from lorads_torch import device as dev
 from lorads_torch.alg import admm as admm_mod
 from lorads_torch.alg import solver as solver_mod
 from lorads_torch.alg.solver import LoradsSolver
 from lorads_torch.config import LoradsParams
+from lorads_torch.timing import card_line
 
 
 def _solve(problem, name=None):
@@ -163,7 +164,7 @@ def profile_instance(name, walls, window):
         host_syncs=[h for _, _, _, h in runs],
         alm_outer=res.alm_stats.outer_iter,
         alm_inner=res.alm_stats.inner_iter, admm=res.admm_stats.iter,
-        cg=res.admm_stats.cg_iter, rank=res.ranks,
+        cg=runs[-1][1].admm_cg_total, rank=res.ranks,
         spectral_repair=getattr(runs[-1][1], "spectral_repair_info",
                                 None))
     phases = {}

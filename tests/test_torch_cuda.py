@@ -213,10 +213,11 @@ def test_adj_a_kernel_matches_plain(dtype, want_diag):
 def test_matcomp500_solve_on_cuda():
     _need_cuda()
     kernels.reset_launches()
-    res = LoradsSolver(read_sdpa(os.path.join(FIX, "matcomp500.dat-s")),
-                       LoradsParams(verbose=False), device="cuda").solve()
+    solver = LoradsSolver(read_sdpa(os.path.join(FIX, "matcomp500.dat-s")),
+                          LoradsParams(verbose=False), device="cuda")
+    res = solver.solve()
     assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
-    assert res.admm_stats.cg_iter > 0
+    assert solver.admm_cg_total > 0
     # lorads_tpu on CPU at f64 gives 3021.053389491232
     assert abs(res.pobj - 3021.053389491232) <= 1e-4 * 3021.05
     for k in ("uvt_pair_split", "gather_segsum", "wmul_csr",
@@ -294,14 +295,103 @@ def test_gather_segsum_dense_layouts_match_plain(dtype):
             assert torch.equal(got[:, single], ref[:, single])
 
 
+def _skewed_lengths(layout, rng):
+    """[2, S] segment lengths: one-entry segments (10 % empty) with one of
+    800, 5000 and 70000 entries among them (one lane per segment, the
+    long ones taken by whole warps); 0-6 entries with one of 800 and
+    thirty of 33-40 (four lanes per segment); 0-120 entries (a warp per
+    segment).  The second row is a permutation of the first, its longest
+    segment cut so that its bounds end before N."""
+    if layout == "one":
+        lengths = (rng.random(80000) >= 0.1).astype(np.int64)
+        lengths[[100, 40000, 79999]] = (800, 5000, 70000)
+    elif layout == "mid":
+        lengths = rng.integers(0, 7, 2000)
+        lengths[rng.choice(2000, 30, replace=False)] = rng.integers(33, 41,
+                                                                    30)
+        lengths[1000] = 800
+    else:
+        lengths = rng.integers(0, 121, 400)
+    second = rng.permutation(lengths)
+    second[np.argmax(second)] -= min(1000, int(second.max()))
+    return np.stack([lengths, second])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layout", ["one", "mid", "wide"])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_gather_segsum_skewed_segments_match_plain(dtype, layout, with_base):
+    """K4 on skewed segment lengths, B = 2, empty segments, with and
+    without base and alpha: within the stated tolerance, bit for bit on
+    one-entry segments."""
+    _need_cuda()
+    rng = np.random.default_rng(11)
+    lengths = _skewed_lengths(layout, rng)
+    B, S = lengths.shape
+    N, Nx = int(lengths.sum(axis=1).max()), 20000
+    bnd = np.zeros((B, S + 1), np.int32)
+    bnd[:, 1:] = np.cumsum(lengths, axis=1)
+    bnd = torch.as_tensor(bnd, device="cuda")
+    idx = torch.as_tensor(rng.integers(0, Nx, (B, N)).astype(np.int32),
+                          device="cuda")
+    x, val = _rand(rng, (B, Nx), dtype), _rand(rng, (B, N), dtype)
+    base = _rand(rng, (B, S), dtype) if with_base else None
+    alpha = -0.75 if with_base else 1.0
+    before = kernels.LAUNCHES["gather_segsum"]
+    got = kernels.gather_segsum(x, idx, val, bnd, base, alpha)
+    assert kernels.LAUNCHES["gather_segsum"] == before + 1
+    ref = kernels.gather_segsum_plain(x, idx, val, bnd, base, alpha)
+    l1 = kernels.gather_segsum_plain(x.abs(), idx, val.abs(), bnd,
+                                     None if base is None else base.abs(),
+                                     abs(alpha))
+    assert _close(got, ref, l1, dtype)
+    single = torch.as_tensor(lengths == 1, device="cuda")
+    assert torch.equal(got[single], ref[single])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixture", ["theta_gtoy60.dat-s",
+                                     "matcomp500.dat-s"])
+def test_dual_ls_refine_on_cuda_matches_cpu(fixture):
+    """The CGNR refinement (alg/dualrefine.py) on the card against its
+    CPU run from the same random factors and dual, 30 iterations: the
+    step and both LS norms within rtol 1e-8.  On theta's dense bucket
+    each iteration runs K4 (dense A(.) and build_w)."""
+    _need_cuda()
+    from lorads_torch.alg.dualrefine import dual_ls_refine
+    from lorads_torch.alg.state import FactorVec
+    problem = read_sdpa(os.path.join(FIX, fixture))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        solver = LoradsSolver(problem, LoradsParams(verbose=False),
+                              device=dev)
+        rng = np.random.default_rng(5)
+        R = FactorVec(tuple(torch.as_tensor(
+            rng.standard_normal(tuple(c.shape)), device=dev)
+            for c in solver.R.cones), solver.R.lp)
+        dual = torch.as_tensor(0.1 * rng.standard_normal(problem.m),
+                               device=dev)
+        before = kernels.LAUNCHES["gather_segsum"]
+        out[dev] = [t.cpu() for t in dual_ls_refine(solver.pd, R, dual, 30)]
+        if dev == "cuda":
+            assert kernels.LAUNCHES["gather_segsum"] > before
+    (cs, c0, c1, cits), (gs, g0, g1, gits) = out["cpu"], out["cuda"]
+    assert int(cits) == int(gits) > 0
+    for a, b in ((g0, c0), (g1, c1)):
+        assert float(a) == pytest.approx(float(b), rel=1e-8)
+    assert float((gs - cs).abs().max()) <= 1e-8 * float(cs.abs().max())
+
+
 @pytest.mark.cuda
 def test_theta_gtoy60_solve_on_cuda():
     _need_cuda()
     kernels.reset_launches()
-    res = LoradsSolver(read_sdpa(os.path.join(FIX, "theta_gtoy60.dat-s")),
-                       LoradsParams(verbose=False), device="cuda").solve()
+    solver = LoradsSolver(read_sdpa(os.path.join(FIX, "theta_gtoy60.dat-s")),
+                          LoradsParams(verbose=False), device="cuda")
+    res = solver.solve()
     assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
-    assert res.admm_stats.cg_iter > 0
+    assert solver.admm_cg_total > 0
     # lorads_tpu on CPU at f64 gives -24.209496946891917
     assert abs(res.pobj + 24.209496946891917) <= 1e-4 * 24.21
     for k in ("gather_segsum", "adj_a_dense"):

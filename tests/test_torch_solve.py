@@ -20,6 +20,7 @@ from lorads_tpu.alg.solver import LoradsSolver as TpuSolver
 from lorads_tpu.config import LoradsParams as TpuParams
 from lorads_tpu.io import generators as tpu_gen
 from lorads_tpu.io.sdpa import read_sdpa
+from lorads_torch.alg import admm as t_admm
 from lorads_torch.alg.solver import LoradsSolver as TorchSolver
 from lorads_torch.config import LoradsParams, SolverStatus
 from lorads_torch.core.presolve import presolve as t_presolve
@@ -92,11 +93,25 @@ def _instance(name):
     return read_sdpa(os.path.join(FIX, "maxcut2000.dat-s"))
 
 
-def _solve_both(name):
+def _solve_both(name, chunks=None):
+    """lorads_tpu's and the port's results; ``chunks``, if a list, gets
+    the CG count of each of the port's ADMM chunks."""
     problem = _instance(name)
     jr = TpuSolver(problem, TpuParams(verbose=False)).solve()
-    tr = TorchSolver(problem, LoradsParams(verbose=False),
-                     device="cpu").solve()
+    ts = TorchSolver(problem, LoradsParams(verbose=False), device="cpu")
+    if chunks is None:
+        return jr, ts.solve()
+    chunk = t_admm.admm_chunk
+
+    def counted(*a, **k):
+        c = chunk(*a, **k)
+        chunks.append(c["cg_iter"])
+        return c
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_admm, "admm_chunk", counted)
+        tr = ts.solve()
+    assert ts.admm_cg_total == sum(chunks)
     return jr, tr
 
 
@@ -127,7 +142,8 @@ def test_solve_matches_lorads_tpu(name):
     off constraints alone (matcomp500), beside diagonal ones
     (maxcut120_offdiag: the CG operator's diagonal composition) and
     sharing slots (maxcut120_shared: the generic CG operator)."""
-    jr, tr = _solve_both(name)
+    chunks = []
+    jr, tr = _solve_both(name, chunks)
     _assert_agree(jr, tr)
     assert tr.admm_stats.iter == jr.admm_stats.iter
     assert tr.alm_stats.inner_iter == jr.alm_stats.inner_iter
@@ -140,11 +156,15 @@ def test_solve_matches_lorads_tpu(name):
             torch.float64, "cpu")
         assert (bk.diag_ident, bk.has_diag_a,
                 bk.a_off_unique) == _GENERAL[name]
-        # lorads_tpu reports the last ADMM dispatch's CG count, the
-        # port the phase's total
-        assert tr.admm_stats.cg_iter >= jr.admm_stats.cg_iter > 0
+        # cg_iter is the last ADMM chunk's CG count in both packages (the
+        # port's solver keeps the total, checked in _solve_both)
+        assert tr.admm_stats.cg_iter == chunks[-1] > 0
+        assert jr.admm_stats.cg_iter > 0
     if name == "matcomp500":               # one ADMM dispatch
+        assert len(chunks) == 1
         assert tr.admm_stats.cg_iter == jr.admm_stats.cg_iter
+    if name == "maxcut120_shared":
+        assert len(chunks) > 1
 
 
 @pytest.mark.slow

@@ -12,13 +12,18 @@ Tolerances as stated in the test.
 """
 
 import re
+import time
 
+import jax.numpy as jnp
 import numpy as np
 
+from lorads_tpu.alg.alm import ALMStats as TpuALMStats
 from lorads_tpu.alg.solver import LoradsSolver as TpuSolver
+from lorads_tpu.alg.state import FactorVec as TpuFactorVec
 from lorads_tpu.config import LoradsParams as TpuParams
 from lorads_tpu.core.problem import merge_problems
 from lorads_tpu.io import generators as tpu_gen
+from lorads_torch.alg.alm import ALMStats
 from lorads_torch.alg.solver import LoradsSolver as TorchSolver
 from lorads_torch.config import LoradsParams as TorchParams
 from lorads_torch.config import SolverStatus
@@ -65,7 +70,47 @@ def test_sparse_two_block_solve_matches_lorads_tpu():
         assert t[:2] == j[:2]
         np.testing.assert_allclose(t[2:], j[2:], rtol=1e-5, atol=0)
     assert abs(tr.pobj - jr.pobj) <= 1e-5 * abs(jr.pobj)
-    assert tr.admm_stats.cg_iter > 0
+    assert ts.admm_cg_total > 0
     fs, lp_vals = ts.factor_blocks()
     assert lp_vals is None
     assert [F.shape[0] for F in fs] == [120, 90]
+
+
+def _outer_counts(lines):
+    return [ln.split(" pObj")[0] for ln in lines
+            if ln.startswith("ALM Outer")]
+
+
+def test_split_matcomp_alm_parts_by_summation_order():
+    """Where the two-block solve above parts from lorads_tpu: before any
+    CG, in ALM outer 5 (397 inner steps in lorads_tpu, 399 in the port).
+    lorads_tpu itself, from initial factors moved by one ulp, takes 398
+    there, while outer 1-4 keep their counts in all three runs: the
+    L-BFGS steps amplify summation order, as in the merged Max-Cut batch
+    (test_merged_maxcut_batch_parts_by_summation_order)."""
+    problem = merge_problems([
+        tpu_gen.matrix_completion(n1=60, n2=60, frac_obs=0.05, seed=1),
+        tpu_gen.matrix_completion(n1=40, n2=50, frac_obs=0.05, seed=2)])
+    runs = []
+    for ulp in (False, True):
+        js = TpuSolver(problem, TpuParams(verbose=False))
+        lines = []
+        js.log = lambda *a, **k: lines.append(" ".join(map(str, a)))
+        if ulp:
+            js.R = TpuFactorVec(tuple(
+                jnp.asarray(np.nextafter(np.asarray(c), np.inf))
+                for c in js.R.cones), js.R.lp)
+            js.U = js.V = js.R
+        js.alm_phase(TpuALMStats(rho=js.ps.rho0), time.time(),
+                     max_alm_iter=5)
+        runs.append(_outer_counts(lines))
+    ts = TorchSolver(problem, TorchParams(verbose=False), device="cpu")
+    lines = []
+    ts.log = lambda *a, **k: lines.append(" ".join(map(str, a)))
+    ts.alm_phase(ALMStats(rho=ts.ps.rho0), time.time(), max_alm_iter=5)
+    runs.append(_outer_counts(lines))
+    ref, moved, port = runs
+    assert ref[:4] == moved[:4] == port[:4]
+    assert ref[4] == "ALM Outer:5 Inner:397"
+    assert moved[4] == "ALM Outer:5 Inner:398"
+    assert port[4] == "ALM Outer:5 Inner:399"
