@@ -15,9 +15,15 @@ Phases, each reported on its own lines:
    larger of its bytes over 3.35 TB/s and its operations over the
    card's peak for the type) and, where one PyTorch call computes the
    same function, that call's time, dispatched and on the device:
+   first the floors the small kernels are read against (an empty
+   kernel's device time per call in a 20-call graph, one dependent
+   shared-memory load, from lorads_torch/csrc/floor.cu);
    K1-K3 at the shapes of the Max-Cut path (maxcut n=20000, deg 8:
    Ks=160000, r = the solve's rank at f64; r=1 at f32 and f64 for the
-   certificate) plus the segment-sum edge cases; K3p, K4, K5 and K6 at
+   certificate) plus the segment-sum edge cases; K2 at
+   gset_torus10000's shapes (4 entries a row, r = 19 and 1) and on
+   skewed rows (empty rows, one-entry rows, a hub row of 5000 entries,
+   B = 1 and 2); K3p, K4, K5 and K6 at
    the shapes of the matrix-completion path (matcomp2000: n=4000,
    Ko=478843, Ks=957686, r = the solve's rank at f64, the f32 copies the
    mixed-precision CG runs, and K5 at r=1 in f32 and f64 for the
@@ -63,9 +69,12 @@ Phases, each reported on its own lines:
      lorads_tpu's solve of that instance alone.
    Phase 3 adds, at the shapes of that path: K8a / K8b (K4 on the LP's
    constraint- and column-sorted entries) and K8c (the Gauss-Seidel LP
-   sweep, bit for bit) at random_multiblock(8, 40, 120, 400 LP
-   columns)'s LP block, K4's scatter of its 8 blocks' local constraint
-   values, and K2 / K3 at the maxcut batch's B = 4;
+   sweep, bit for bit, its time per dependent step beside the
+   dependent-step bound: n x one dependent shared-memory load) at
+   random_multiblock(8, 40, 120, 400 LP columns)'s LP block and at
+   m=30000 (csum in global memory; the label names the instantiation),
+   K4's scatter of its 8 blocks' local constraint values, and K2 / K3 at
+   the maxcut batch's B = 4;
    - the probes (lorads_torch.probes, the counterparts of the Pallas
      kernels of tools/probes/): phase 3 holds P1 onehot_scatter and P2
      onehot_gather (tensor-core one-hot window products), P3 row_gather
@@ -246,7 +255,8 @@ class Measure:
         self.results = {}
 
     def __call__(self, kname, label, sfx, fn, plain, l1, nbytes, flops,
-                  library=None, exact=None, tol=None, steps=None):
+                  library=None, exact=None, tol=None, steps=None,
+                  step_ns=None):
         import numpy as np
         import torch
 
@@ -283,10 +293,15 @@ class Measure:
             lib_ms = cuda_time_ms(library)
             lib_dev_ms, lib_dev_by = device_time_ms(library)
         bms, by = bound_of(nbytes, flops, sfx)
-        # a sequential kernel: its time per dependent step
-        step_note = ("" if steps is None or dev_ms is None else
-                     f" ({dev_ms / steps * 1e3:.3f} us per dependent step "
-                     "on the device)")
+        # a sequential kernel: its time per dependent step, beside the
+        # least one step can take (step_ns, measured) and n such steps
+        step_note = ""
+        if steps is not None and dev_ms is not None:
+            step_note = (f" ({dev_ms / steps * 1e3:.4f} us per dependent "
+                         "step on the device; dependent-step bound ")
+            step_note += ("not measured)" if step_ns is None else
+                          f"{step_ns * 1e-3:.4f} us per step, "
+                          f"{steps * step_ns * 1e-6:.6f} ms)")
 
         def fmt(t, how):
             return "none" if t is None else f"{t:.4f} ms ({how})"
@@ -300,7 +315,10 @@ class Measure:
         self.results.setdefault(kname, []).append(dict(
             label=label, max_abs_err=err, ms=ms, device_ms=dev_ms,
             plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-            library_device_ms=lib_dev_ms))
+            library_device_ms=lib_dev_ms,
+            us_per_step=(None if steps is None or dev_ms is None
+                         else dev_ms / steps * 1e3),
+            step_bound_us=None if step_ns is None else step_ns * 1e-3))
 
 
 def _csr(rows, cols, vals, shape):
@@ -338,6 +356,39 @@ def _seg_library(M, x, base=None):
     return lambda: torch.addmm(bc, M, xc)
 
 
+def launch_floors(card):
+    """The floors the small kernels are read against, from the
+    instruments of csrc/floor.cu (None where the checkout has none): an
+    empty kernel's device time per call in a 20-call CUDA graph, and one
+    dependent shared-memory load (ns and cycles, 100000 in a chain)."""
+    import torch
+
+    from lorads_torch.ops import build
+    lib = build.load()
+    if not hasattr(lib, "lt_smem_chase"):
+        print("floors: not measured (no csrc/floor.cu in this checkout)")
+        return {"empty_ms": None, "hop_ns": None}
+
+    def empty():
+        if lib.lt_empty(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("lt_empty: launch failed")
+
+    empty_ms, how = timing().device_time_ms(empty)
+    hops = 100000
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    for _ in range(2):               # the first call warms the clocks
+        rc = lib.lt_smem_chase(hops, out.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"lt_smem_chase: launch failed ({rc})")
+    ns, cycles, _ = (int(v) for v in out.cpu())
+    hop_ns = ns / hops
+    print(f"floors: empty kernel {empty_ms:.5f} ms per call ({how}, 20 "
+          f"calls); one dependent shared-memory load {hop_ns:.3f} ns "
+          f"({cycles / hops:.2f} cycles, {cycles / ns:.3f} GHz)  [{card}]")
+    return {"empty_ms": empty_ms, "hop_ns": hop_ns}
+
+
 def kernel_checks(card):
     """Phase 3: every kernel against its plain version on the card."""
     import numpy as np
@@ -352,6 +403,7 @@ def kernel_checks(card):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     measure = Measure(card)
+    measure.floors = launch_floors(card)
 
     problem = generators.maxcut(n=20000, avg_degree=8, seed=7)
     ps = presolve(problem, LoradsParams())
@@ -361,36 +413,9 @@ def kernel_checks(card):
     bk32 = pat.cast_floats(bk64, torch.float32)
     n, Ks, Ko = bk64.n, bk64.Ks, bk64.Ko
     print(f"main-path shapes: n={n} Ks={Ks} Ko={Ko} rank={r}")
-    diag = torch.arange(n, device=dev)
 
-    def row_l1(bk, X, with_diag):
-        """|C| @ |X| row sums: the sum of |terms| of each output."""
-        return kernels.cmul_csr_plain(
-            X.abs(), bk.c_diag.abs() if with_diag else None,
-            bk.sym_cols_rs, bk.c_sym_rs.abs(), bk.bnd_sym_rows)
-
-    # ---- K2 cmul_csr (library: torch.sparse.mm on C as a CSR tensor)
-    for label, bk, dt, rr, wd in (
-            ("f64 r=%d diag" % r, bk64, torch.float64, r, True),
-            ("f64 r=1 no-diag", bk64, torch.float64, 1, False),
-            ("f32 r=1 no-diag", bk32, torch.float32, 1, False)):
-        sfx = label[:3]
-        s = 8 if dt == torch.float64 else 4
-        X = torch.as_tensor(rng.standard_normal((1, n, rr)), device=dev,
-                            dtype=dt)
-        cd = bk.c_diag if wd else None
-        args = (X, cd, bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
-        rows = torch.cat([bk.sym_rows_rs[0]] + ([diag] if wd else []))
-        cols = torch.cat([bk.sym_cols_rs[0]] + ([diag] if wd else []))
-        vals = torch.cat([bk.c_sym_rs[0]] + ([bk.c_diag[0]] if wd else []))
-        C = _csr(rows, cols, vals, n)
-        X0 = X[0]
-        measure("cmul_csr", label, sfx, lambda: kernels.cmul_csr(*args),
-                lambda: kernels.cmul_csr_plain(*args), row_l1(bk, X, wd),
-                nbytes=2 * n * rr * s + Ks * (4 + s) + (n + 1) * 4
-                + (n * s if wd else 0),
-                flops=2 * Ks * rr + (2 * n * rr if wd else 0),
-                library=lambda: torch.sparse.mm(C, X0))
+    # ---- K2 cmul_csr at maxcut n=20000's shapes
+    cmul_cases(rng, measure, bk64, bk32, r, "")
 
     # ---- K3 uvt_split (library: torch.sparse.sampled_addmm on the off
     # pattern gives U V^T there; it leaves out the symmetrisation
@@ -431,12 +456,112 @@ def kernel_checks(card):
                 library=lambda: torch.segment_reduce(
                     data, "sum", offsets=offs, axis=1))
     segment_sum_edges(rng, dev)
+    # ---- K2 at gset_torus10000's shapes (4 entries a row) and on skewed
+    # row lengths
+    problem = INSTANCES["gset_torus10000"]()
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    bkg = pat.build_bucket_data(bp, problem.m, torch.float64, dev)
+    print(f"gset-path shapes: n={bkg.n} Ks={bkg.Ks} rank={bp.rank}")
+    cmul_cases(rng, measure, bkg, None, bp.rank, " gset_torus10000")
+    cmul_skewed(rng, dev)
     matcomp_kernel_checks(rng, measure)
     theta_kernel_checks(rng, measure)
     gather_segsum_skewed(rng, dev)
     multiblock_kernel_checks(rng, measure)
     probe_kernel_checks(rng, measure)
     return measure.results
+
+
+def cmul_cases(rng, measure, bk64, bk32, r, where):
+    """K2 on a Max-Cut bucket: f64 at the rank with the diagonal (C @ D,
+    C @ V), r=1 without it (the Lanczos SpMV) at f64 and, given bk32, at
+    f32 (library: torch.sparse.mm on C as a CSR tensor)."""
+    import torch
+
+    from lorads_torch.ops import kernels
+    n, Ks = bk64.n, bk64.Ks
+    dev = bk64.c_diag.device
+    diag = torch.arange(n, device=dev)
+    cases = [("f64 r=%d diag" % r, bk64, torch.float64, r, True),
+             ("f64 r=1 no-diag", bk64, torch.float64, 1, False)]
+    if bk32 is not None:
+        cases.append(("f32 r=1 no-diag", bk32, torch.float32, 1, False))
+    for label, bk, dt, rr, wd in cases:
+        sfx = label[:3]
+        s = 8 if dt == torch.float64 else 4
+        X = torch.as_tensor(rng.standard_normal((1, n, rr)), device=dev,
+                            dtype=dt)
+        cd = bk.c_diag if wd else None
+        args = (X, cd, bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
+        rows = torch.cat([bk.sym_rows_rs[0]] + ([diag] if wd else []))
+        cols = torch.cat([bk.sym_cols_rs[0]] + ([diag] if wd else []))
+        vals = torch.cat([bk.c_sym_rs[0]] + ([bk.c_diag[0]] if wd else []))
+        C = _csr(rows, cols, vals, n)
+        X0 = X[0]
+        l1 = kernels.cmul_csr_plain(
+            X.abs(), bk.c_diag.abs() if wd else None, bk.sym_cols_rs,
+            bk.c_sym_rs.abs(), bk.bnd_sym_rows)
+        measure("cmul_csr", label + where, sfx,
+                lambda: kernels.cmul_csr(*args),
+                lambda: kernels.cmul_csr_plain(*args), l1,
+                nbytes=2 * n * rr * s + Ks * (4 + s) + (n + 1) * 4
+                + (n * s if wd else 0),
+                flops=2 * Ks * rr + (2 * n * rr if wd else 0),
+                library=lambda: torch.sparse.mm(C, X0))
+
+
+def cmul_skewed(rng, dev):
+    """K2 against its plain version on skewed row lengths (10 % empty
+    rows, one-entry rows, rows of 2-8 entries and a hub row of 5000
+    entries among n=20000; B = 2 with the second block's lengths
+    permuted and its hub cut by 1000), f64 and f32, r = 1 without and
+    r = 20 with the diagonal: within 64 eps64 / 4 eps32 x the sum of
+    |terms| of each output."""
+    import numpy as np
+    import torch
+
+    from lorads_torch.ops import kernels
+    device_time_ms = timing().device_time_ms
+    n = 20000
+    lengths = rng.integers(1, 9, n)
+    lengths[rng.random(n) < 0.3] = 1
+    lengths[rng.random(n) < 0.1] = 0
+    lengths[n // 3] = 5000
+    second = rng.permutation(lengths)
+    second[np.argmax(second)] -= 1000
+    for B in (1, 2):
+        lens = np.stack([lengths, second][:B])
+        Ks = int(lens.sum(axis=1).max())
+        bnd = np.zeros((B, n + 1), np.int32)
+        bnd[:, 1:] = np.cumsum(lens, axis=1)
+        bnd = torch.as_tensor(bnd, device=dev)
+        cols = torch.as_tensor(rng.integers(0, n, (B, Ks)).astype(np.int32),
+                               device=dev)
+        for dt in (torch.float64, torch.float32):
+            tol = (64 if dt == torch.float64 else 4) * torch.finfo(dt).eps
+
+            def rand(*shape):
+                return torch.as_tensor(rng.standard_normal(shape),
+                                       device=dev, dtype=dt)
+
+            vals = rand(B, Ks)
+            for r, cd in ((1, None), (20, rand(B, n))):
+                X = rand(B, n, r)
+                args = (X, cd, cols, vals, bnd)
+                got = kernels.cmul_csr(*args)
+                ref = kernels.cmul_csr_plain(*args)
+                l1 = kernels.cmul_csr_plain(
+                    X.abs(), None if cd is None else cd.abs(), cols,
+                    vals.abs(), bnd)
+                torch.cuda.synchronize()
+                label = (f"skewed B={B} n={n} Ks={Ks} hub 5000 "
+                         f"{str(dt)[6:]} r={r} "
+                         f"{'diag' if cd is not None else 'no-diag'}")
+                err = check(f"cmul_csr {label}", got, ref,
+                            tol * l1.double() + 1e-300)
+                dev_ms, how = device_time_ms(lambda: kernels.cmul_csr(*args))
+                print(f"cmul_csr [{label}]: max_abs_err {err:.3e} (tol "
+                      f"{tol:.1e} x |terms|) device {dev_ms:.4f} ms ({how})")
 
 
 def segment_sum_edges(rng, dev):
@@ -748,6 +873,7 @@ def multiblock_kernel_checks(rng, measure):
     LP's sorted entries) and K8c at multiblock_lp's LP block (400
     columns, m=120), K4's scatter of its 8 blocks' local constraint
     values, and K2 / K3 at the maxcut batch's B = 4."""
+    import numpy as np
     import torch
 
     from lorads_torch.config import LoradsParams
@@ -795,18 +921,25 @@ def multiblock_kernel_checks(rng, measure):
             flops=2 * N + n,
             library=_seg_library(_seg_csr(*b8, m, alpha=-1.0), w[None],
                                  lpd.obj[None]))
-    # ---- K8c: the Gauss-Seidel LP sweep, bit for bit
+    # ---- K8c: the Gauss-Seidel LP sweep, bit for bit, at the LP block's
+    # shapes, then at m past the shared-memory limit (400 synthetic
+    # columns of 43-74 increasing ids, as the LP block's)
     u, v = rand(n), rand(n)
     csum, dual = rand(m), rand(m)
-    a8c = (lpd.pc_con, lpd.pc_val, lpd.obj, lpd.col_nrm2sq, u, v, csum,
-           rand(m), dual, 5.0)
-    measure("lp_gs_sweep", f"f64 K8c n_lp={n} L={L} (dependent steps: {n})",
-            "f64", lambda: kernels.lp_gs_sweep(*a8c),
-            lambda: kernels.lp_gs_sweep_plain(*a8c),
-            (torch.ones(n, dtype=torch.float64, device=dev),
-             torch.ones(m, dtype=torch.float64, device=dev)),
-            nbytes=n * L * (4 + s) + 5 * n * s + 4 * m * s,
-            flops=9 * N + 12 * n, exact=True, tol=0.0, steps=n)
+    lp_gs_case(measure, (lpd.pc_con, lpd.pc_val, lpd.obj, lpd.col_nrm2sq, u,
+                         v, csum, rand(m), dual, 5.0), N)
+    mb = 30000
+    gen = np.random.default_rng(5)
+    pc = np.full((n, L), mb, np.int32)
+    for j in range(n):
+        k = int(gen.integers(43, L + 1))
+        pc[j, :k] = np.sort(gen.choice(mb, k, replace=False))
+    pv = np.where(pc < mb, gen.standard_normal((n, L)) / np.sqrt(L), 0.0)
+    nrm2 = torch.as_tensor((pv ** 2).sum(axis=1), device=dev)
+    lp_gs_case(measure, (torch.as_tensor(pc, device=dev),
+                         torch.as_tensor(pv, device=dev), rand(n), nrm2,
+                         rand(n), 0.5 * rand(n).abs(), rand(mb), rand(mb),
+                         rand(mb), 5.0), int((pc < mb).sum()))
     # ---- K4: scatter_constr of the bucket's local values into [m]
     vals = rand(bk.B, bk.m_loc)
     sc = (bk.scat_idx, bk.scat_val, bk.bnd_scat)
@@ -862,6 +995,34 @@ def multiblock_kernel_checks(rng, measure):
             flops=B * (2 * nb * r + 4 * Ko * r),
             library=lambda: torch.sparse.sampled_addmm(Poff, Uf, Vt,
                                                        beta=0.0))
+
+
+def lp_gs_case(measure, a8c, N):
+    """K8c on the card against its plain version, bit for bit (f64 inputs
+    a8c = (pc_con, pc_val, obj, nrm2, u, v, csum, rhs, dual, rho), N
+    entries), its time per dependent step beside the dependent-step bound
+    (n x one dependent shared-memory load, measured by launch_floors);
+    the label names the instantiation lt_lp_gs_sweep picks."""
+    import torch
+
+    from lorads_torch.ops import build, kernels
+    n, L = a8c[0].shape
+    m = a8c[6].shape[0]
+    lib = build.load()
+    where = ("" if not hasattr(lib, "lt_lp_gs_smem_max_m") else
+             ", csum in shared memory" if m <= lib.lt_lp_gs_smem_max_m(1)
+             else ", csum in global memory")
+    dev = a8c[6].device
+    s = 8
+    measure("lp_gs_sweep",
+            f"f64 K8c n_lp={n} L={L} m={m}{where} (dependent steps: {n})",
+            "f64", lambda: kernels.lp_gs_sweep(*a8c),
+            lambda: kernels.lp_gs_sweep_plain(*a8c),
+            (torch.ones(n, dtype=torch.float64, device=dev),
+             torch.ones(m, dtype=torch.float64, device=dev)),
+            nbytes=n * L * (4 + s) + 5 * n * s + 4 * m * s,
+            flops=9 * N + 12 * n, exact=True, tol=0.0, steps=n,
+            step_ns=measure.floors["hop_ns"])
 
 
 def probe_kernel_checks(rng, measure):

@@ -22,6 +22,11 @@ and the probes' kernels, whose wrappers live in ``lorads_torch/probes``
 | gather.row_gather       | csrc/row_gather.cu   | the Pallas row / transposed / scalar gathers (P3) |
 | gather.scatter_add      | csrc/scatter_add.cu  | microbench_gather9.py: fC (P4)        |
 
+K4 and K2 at r = 1 share one segment-sum schedule (csrc/segsum.cuh).
+csrc/floor.cu holds two measuring instruments that chip_smoke.py calls
+(an empty kernel, a chain of dependent shared-memory loads); they have
+no wrapper here and no count in ``LAUNCHES``.
+
 Each wrapper checks its arguments, then takes the plain PyTorch version
 (written with ``index_select`` / ``index_add_``) for CPU tensors, and
 for CUDA tensors launches the kernel on the current stream or raises;
@@ -35,7 +40,9 @@ K3p and K6 (r terms each) sum in f32, as lorads_tpu's do.  K7a rounds
 its product and its diagonal sum separately, as its plain version
 does, so the two agree bit for bit.  K8c's plain version sums each
 column's terms in the kernel's lane order (32 partial sums, then the
-shuffle tree), so the two agree bit for bit too.
+shuffle tree), so the two agree bit for bit too; where a column's ids
+repeat, the kernel applies their deltas in order of k, as index_add_
+does on CPU tensors.
 """
 
 from __future__ import annotations

@@ -587,3 +587,120 @@ def test_scatter_add_kernel_matches_plain(shape, r):
     torch.cuda.synchronize()
     assert got.shape == ref.shape
     assert _close(got.double(), ref.double(), l1.double(), torch.float32)
+
+
+def _skewed_rows(rng, B, n=6000):
+    """A row-sorted entry list [B, Ks] with skewed row lengths: 10 % empty
+    rows, one-entry rows, rows of 2-8 entries, 5 % of 9-40 entries (past
+    one lane group's load, past K2's long-row threshold of 32) and one
+    hub row of 5000 entries (the second block a permutation of the
+    first's lengths with its hub cut by 1000, so its bounds end before
+    Ks)."""
+    lengths = rng.integers(1, 9, n)
+    lengths[rng.random(n) < 0.3] = 1
+    mid = rng.random(n) < 0.05
+    lengths[mid] = rng.integers(9, 41, int(mid.sum()))
+    lengths[rng.random(n) < 0.1] = 0
+    lengths[n // 3] = 5000
+    rows = [lengths]
+    for _ in range(B - 1):
+        second = rng.permutation(lengths)
+        second[np.argmax(second)] -= 1000
+        rows.append(second)
+    lengths = np.stack(rows)
+    Ks = int(lengths.sum(axis=1).max())
+    bnd = np.zeros((B, n + 1), np.int32)
+    bnd[:, 1:] = np.cumsum(lengths, axis=1)
+    cols = rng.integers(0, n, (B, Ks)).astype(np.int32)
+    return (torch.as_tensor(cols, device="cuda"),
+            torch.as_tensor(bnd, device="cuda"), Ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [1, 2, 17, 20, 33, 65, 130])
+@pytest.mark.parametrize("B", [1, 2])
+def test_cmul_kernel_skewed_rows_match_plain(B, r, dtype):
+    """K2 on empty rows, one-entry rows, rows of 9-40 entries and a
+    5000-entry hub row, with and without the diagonal, at ranks up to
+    r = 130 (two and three column tiles of 64): within the stated
+    tolerance."""
+    _need_cuda()
+    rng = np.random.default_rng(100 * B + r)
+    cols, bnd, Ks = _skewed_rows(rng, B)
+    n = bnd.shape[1] - 1
+    vals = _rand(rng, (B, Ks), dtype)
+    X = _rand(rng, (B, n, r), dtype)
+    for cd in (_rand(rng, (B, n), dtype), None):
+        args = (X, cd, cols, vals, bnd)
+        before = kernels.LAUNCHES["cmul_csr"]
+        got = kernels.cmul_csr(*args)
+        assert kernels.LAUNCHES["cmul_csr"] == before + 1
+        ref = kernels.cmul_csr_plain(*args)
+        l1 = kernels.cmul_csr_plain(X.abs(), None if cd is None else cd.abs(),
+                                    cols, vals.abs(), bnd)
+        torch.cuda.synchronize()
+        assert _close(got, ref, l1, dtype)
+
+
+def _lp_sweep_case(case, dtype, rng):
+    """Synthetic K8c inputs on the CPU: (pc_con, pc_val, obj, nrm2, u, v,
+    csum, rhs, dual, rho).  Columns hold increasing ids, padded with m,
+    except where the case says otherwise."""
+    # m = 60000 lies past the shared-memory room of both dtypes (23596
+    # sums at f64, 51860 at f32)
+    n, L, m = {"global_m": (300, 40, 60000),
+               "repeated_id": (200, 40, 50), "odd_L": (150, 45, 60),
+               "one_column": (1, 10, 20), "past_ring": (1000, 74, 120),
+               "long_10_rounds": (60, 300, 400),
+               "long_35_rounds": (20, 1100, 1500)}[case]
+    pc_con = np.full((n, L), m, np.int32)
+    for j in range(n):
+        k = int(rng.integers(1, L + 1))
+        pc_con[j, :k] = np.sort(rng.choice(m, k, replace=False))
+    if case == "repeated_id":
+        # a repeat inside one round, one across rounds, an unsorted column
+        pc_con[3, :6] = (7, 7, 9, 7, 11, 12)
+        pc_con[4, [0, 33]] = 5
+        pc_con[5, :L] = rng.integers(0, m, L)
+    # entries of size 1 / sqrt(L) and fixed values v in [0, 0.5), so that
+    # a sweep of 1000 columns stays finite at f32 (NaN != NaN bitwise)
+    pc_val = np.where(pc_con < m, rng.standard_normal((n, L)) / np.sqrt(L),
+                      0.0)
+    nrm2 = (pc_val ** 2).sum(axis=1)
+
+    def vec(k):
+        return rng.standard_normal(k)
+
+    arrays = (pc_con, pc_val, vec(n), nrm2, vec(n), 0.5 * rng.random(n),
+              vec(m), vec(m), vec(m))
+    out = [torch.as_tensor(a) if a.dtype == np.int32
+           else torch.as_tensor(a, dtype=dtype) for a in arrays]
+    return (*out, 3.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["global_m", "repeated_id", "odd_L",
+                                  "one_column", "past_ring",
+                                  "long_10_rounds", "long_35_rounds"])
+def test_lp_gs_sweep_kernel_cases_bit_for_bit(case, dtype):
+    """K8c against its plain version on the CPU (index_add_ there applies
+    a repeated id's deltas in order of k, as the kernel does), bit for
+    bit: csum in global memory past the shared-memory limit, repeated
+    ids, L not a multiple of 32, one column, more columns than the ring
+    holds, columns of 10 and of 35 rounds."""
+    _need_cuda()
+    rng = np.random.default_rng(21)
+    cpu = _lp_sweep_case(case, dtype, rng)
+    m = cpu[6].shape[0]
+    from lorads_torch.ops import build
+    smem_max_m = build.load().lt_lp_gs_smem_max_m(int(dtype == torch.float64))
+    assert (m <= smem_max_m) == (case != "global_m")
+    dev = tuple(t.to("cuda") for t in cpu[:-1]) + (cpu[-1],)
+    before = kernels.LAUNCHES["lp_gs_sweep"]
+    got = kernels.lp_gs_sweep(*dev)
+    assert kernels.LAUNCHES["lp_gs_sweep"] == before + 1
+    ref = kernels.lp_gs_sweep_plain(*cpu)
+    for g, e in zip(got, ref):
+        assert torch.equal(g.cpu(), e)

@@ -203,6 +203,36 @@ def test_lp_gs_sweep_plain_is_the_column_order():
                                atol=1e-10 * np.abs(csum).max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lp_gs_sweep_applies_repeated_ids_in_order(dtype):
+    """The plain K8c adds a column's deltas to csum one entry at a time in
+    order of k, also where an id repeats: the order the CUDA kernel
+    follows (lane 0 alone, in lane order, in such a column), so the two
+    agree bit for bit on the card."""
+    rng = np.random.default_rng(3)
+    n, L, m = 6, 40, 10
+    pc_con = rng.integers(0, m + 1, (n, L)).astype(np.int32)   # m: padding
+    pc_con[0, :4] = (2, 2, 7, 2)
+    pc_val = np.where(pc_con < m, rng.standard_normal((n, L)) / 4, 0.0)
+    obj, u, v = (rng.standard_normal(n) for _ in range(3))
+    v = np.abs(v) / 2
+    nrm2 = (pc_val ** 2).sum(axis=1)
+    csum0, rhs, dual = (rng.standard_normal(m) for _ in range(3))
+    t = [torch.as_tensor(a, dtype=dtype) for a in (pc_val, obj, nrm2, u, v,
+                                                   csum0, rhs, dual)]
+    new, csum = kernels.lp_gs_sweep_plain(torch.as_tensor(pc_con), *t, 3.5)
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    want = csum0.astype(npdt)
+    nw, uu, vv = (x.astype(npdt) for x in (new.numpy(), u, v))
+    for j in range(n):
+        for k in range(L):
+            c = pc_con[j, k]
+            if c < m:
+                want[c] = want[c] + (npdt(pc_val[j, k]) * (nw[j] - uu[j])) \
+                    * vv[j]
+    np.testing.assert_array_equal(csum.numpy(), want)
+
+
 def test_lp_gs_sweep_checks_shapes():
     _, tpd = _pds("hand")
     lp = tpd.lp

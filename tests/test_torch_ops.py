@@ -16,7 +16,10 @@ tests/test_torch_cuda.py and chip_smoke.py.
 
 import dataclasses
 import functools
+import os
+import tempfile
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ import torch
 from lorads_tpu.config import LoradsParams as TpuParams
 from lorads_tpu.config import SolverStatus as TpuStatus
 from lorads_tpu.core import presolve as tpu_presolve
+from lorads_tpu.core import problem as tpu_problem
 from lorads_tpu.io import generators as tpu_gen
 from lorads_tpu.io import sdpa as tpu_sdpa
 from lorads_tpu.ops import pattern as tpu_pat
@@ -41,9 +45,43 @@ EPS32 = float(np.finfo(np.float32).eps)
 F64_PREFIX = 2.0 ** -48
 
 
+def _graph_maxcut(n, a, b, w):
+    """Max-Cut of an edge list, through the rudy reader."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.rudy")
+        tpu_gen.write_graph(path, n, a, b, w)
+        return tpu_gen.maxcut_from_graph(path)
+
+
+def _hub_graph(n=144, hub=100, isolated=14, n_edges=288, seed=4):
+    """Vertex 0 joined to vertices 1..hub (a row of `hub` entries), the
+    last `isolated` vertices joined to none (empty rows), random edges
+    among the others up to `n_edges` distinct edges (the 12 x 12 torus's
+    count, so that both lists have one shape); weights +-1."""
+    rng = np.random.default_rng(seed)
+    live = n - isolated
+    edges = {(0, j) for j in range(1, hub + 1)}
+    while len(edges) < n_edges:
+        i, j = sorted(int(v) for v in rng.integers(1, live, 2))
+        if i != j:
+            edges.add((i, j))
+    a, b = np.array(sorted(edges)).T
+    return n, a, b, rng.choice([-1.0, 1.0], a.size)
+
+
 def _maxcut_instance(name):
+    """maxcut300, maxcut2000, a 12 x 12 torus (4 entries a row), the hub
+    graph (empty rows, one row of 100 entries) and the two merged into
+    one bucket of B = 2."""
     if name == "maxcut300":
         return tpu_gen.maxcut(n=300, avg_degree=4, seed=3)
+    if name == "torus":
+        return _graph_maxcut(*tpu_gen.gset_torus(12, 12, seed=1))
+    if name == "hub":
+        return _graph_maxcut(*_hub_graph())
+    if name == "merged2":
+        return tpu_problem.merge_problems([_maxcut_instance("torus"),
+                                           _maxcut_instance("hub")])
     return tpu_sdpa.read_sdpa(FIX + "maxcut2000.dat-s")
 
 
@@ -157,19 +195,34 @@ def test_segment_sum_wrapper_checks_inputs():
 # K2: cmul, K3: uvt.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["maxcut300", "maxcut2000"])
-@pytest.mark.parametrize("r", ["1", "rank"])
+# lorads_tpu's cmul compiled whole (one compile per shape, where its
+# op-by-op execution compiles each op's shape apart)
+_tpu_cmul = jax.jit(tpu_pat.cmul, static_argnames=("include_diag",))
+
+# (r, instance): the solve's rank and the Lanczos r=1 on maxcut300 and
+# maxcut2000; r = 1, 20 and 33 on the torus, the hub graph and the two
+# merged (B = 2); r = 65 and 130 (more than one column tile of the
+# kernel's 64) on the hub graph
+CMUL_CASES = ([(r, name) for name in ("maxcut300", "maxcut2000")
+               for r in ("1", "rank")]
+              + [(r, name) for name in ("torus", "hub", "merged2")
+                 for r in ("1", "20", "33")]
+              + [(r, "hub") for r in ("65", "130")])
+
+
+@pytest.mark.parametrize("r,name", CMUL_CASES,
+                         ids=[f"{r}-{name}" for r, name in CMUL_CASES])
 @pytest.mark.parametrize("include_diag", [True, False])
 @pytest.mark.parametrize("dtype", ["f64", "f32"])
 def test_cmul_matches(name, r, include_diag, dtype):
     npdt = np.float64 if dtype == "f64" else np.float32
     jbk, tbk, bp = _buckets(name, npdt)
-    rr = 1 if r == "1" else bp.rank
+    rr = {"1": 1, "rank": bp.rank}.get(r) or int(r)
     rng = np.random.default_rng(5)
-    X = rng.standard_normal((1, bp.n, rr))
+    X = rng.standard_normal((jbk.c_diag.shape[0], bp.n, rr))
     tdt = torch.float64 if dtype == "f64" else torch.float32
-    ref = np.asarray(tpu_pat.cmul(jbk, jnp.asarray(X, jbk.c_diag.dtype),
-                                  include_diag=include_diag), np.float64)
+    ref = np.asarray(_tpu_cmul(jbk, jnp.asarray(X, jbk.c_diag.dtype),
+                               include_diag=include_diag), np.float64)
     got = t_pat.cmul(tbk, _t(X, tdt),
                      include_diag=include_diag).double().numpy()
     # sum |terms| per output row
