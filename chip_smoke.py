@@ -27,7 +27,10 @@ Phases, each reported on its own lines:
    the shapes of the matrix-completion path (matcomp2000: n=4000,
    Ko=478843, Ks=957686, r = the solve's rank at f64, the f32 copies the
    mixed-precision CG runs, and K5 at r=1 in f32 and f64 for the
-   certificate); K7a and K4 on the dense layouts at the shapes of the
+   certificate), and K5 and K6 at f64 on maxcut n=20000's sparse
+   pattern (Ko=80000, r=20: no tile worth staging) and on a skewed
+   pattern (n=20000: a hub row, a 12 %-dense block, 4 random entries a
+   row; r=17); K7a and K4 on the dense layouts at the shapes of the
    theta path (theta800: n=800, n^2=640000 slots, m=3201, nnz_a=4000)
    at f64 and in f32 as the mixed-precision CG runs them; K4 on skewed
    segment lengths (one-entry segments with segments of 800, 5000 and
@@ -751,7 +754,8 @@ def matcomp_kernel_checks(rng, measure):
             X = rand((1, n, rr), dt)
             X0 = X[0]
             measure("wmul_csr", f"{sfx} r={rr}", sfx,
-                    lambda: kernels.wmul_csr(X, W_d, W_o, *a5),
+                    lambda: kernels.wmul_csr(X, W_d, W_o, *a5,
+                                             **_tiles_kw(pat, bk, "sym")),
                     lambda: kernels.wmul_csr_plain(X, W_d, W_o, *a5),
                     kernels.wmul_csr_plain(X.abs(), W_d.abs(), W_o.abs(),
                                            *a5),
@@ -763,11 +767,127 @@ def matcomp_kernel_checks(rng, measure):
         X, F = rand((1, n, r), dt), rand((1, n, r), dt)
         a6 = (bk.off_rows, bk.off_cols, bk.a2_off)
         measure("adj_a_offdiag", f"{sfx} r={r}", sfx,
-                lambda: kernels.adj_a_offdiag(X, F, *a6)[1],
+                lambda: kernels.adj_a_offdiag(
+                    X, F, *a6, **_tiles_kw(pat, bk, "off"))[1],
                 lambda: kernels.adj_a_offdiag_plain(X, F, *a6, False)[1],
                 kernels.adj_a_offdiag_plain(X.abs(), F.abs(), *a6,
                                             False)[1],
                 nbytes=2 * n * r * s + 2 * Ko * 4 + 2 * Ko * s,
+                flops=4 * Ko * r + Ko)
+    k5_k6_other_patterns(rng, measure)
+
+
+def _tiles_kw(pat, bk, kind):
+    """The tile schedule K5 ("sym") or K6 ("off") runs on, as a keyword
+    of its wrapper; nothing for a checkout whose kernels take none
+    (--kernels-of an earlier one)."""
+    t = getattr(bk, f"{kind}_tiles", None)
+    return {} if t is None else {"tiles": t}
+
+
+def _skewed_split_bucket(rng, dev):
+    """A split bucket on n = 20000 whose off pattern mixes every kind of
+    tile: a hub row (row n-1 against every column), a 12 %-dense block
+    (rows 10000..10999 x columns 0..999, well-filled tiles) and 4 random
+    lower entries a row elsewhere (sparse tiles, their strips' L2 units).
+    Its port-only fields are built as the solver builds a bucket's
+    (pattern.port_fields, and pattern.tile_fields on the card where the
+    checkout has them)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from lorads_torch.ops import pattern as pat
+
+    n = 20000
+    hub = np.stack([np.full(n - 1, n - 1), np.arange(n - 1)])
+    dense = np.nonzero(rng.random((1000, 1000)) < 0.12)
+    dense = np.stack([dense[0] + 10000, dense[1]])
+    rows = np.repeat(np.arange(1, n - 1), 4)
+    rand = np.stack([rows, (rng.random(rows.size) * rows).astype(np.int64)])
+    pairs = np.unique(np.concatenate([hub, dense, rand], 1), axis=1)
+    key = pairs[0] * n + pairs[1]
+    rows, cols = pairs[:, np.argsort(key)]
+    Ko = rows.size
+    z = np.zeros((1, 1))
+    port = pat.port_fields(n, 1, rows[None], cols[None],
+                           rng.standard_normal((1, Ko)),
+                           z.astype(np.int64), z.astype(np.int64), z)
+    Ks = port.pop("Ks")
+    t = {k: torch.as_tensor(np.asarray(v, np.int32), device=dev)
+         for k, v in port.items() if np.asarray(v).dtype.kind in "iu"}
+    t["off_rows"] = torch.as_tensor(rows[None].astype(np.int32), device=dev)
+    t["off_cols"] = torch.as_tensor(cols[None].astype(np.int32), device=dev)
+    bk = types.SimpleNamespace(n=n, Ko=Ko, Ks=Ks, **t)
+    if hasattr(pat, "tile_fields"):
+        vars(bk).update(pat.tile_fields(n, bk.off_rows, bk.off_cols,
+                                        bk.sym_slot_rs, bk.sym_cols_rs,
+                                        bk.bnd_sym_rows))
+        bk.off_tiles = pat.bucket_tiles(bk, "off")
+        bk.sym_tiles = pat.bucket_tiles(bk, "sym")
+    return bk
+
+
+def k5_k6_other_patterns(rng, measure):
+    """Phase 3: K5 and K6 beside matcomp2000's pattern, at f64: on the
+    sparse pattern of the Max-Cut path (maxcut n=20000 deg 8: Ko=80000,
+    r=20), where nearly every tile holds a few entries and reads its
+    columns from L2, and on a skewed pattern (_skewed_split_bucket,
+    r=17); W, a2 and the factors random (K6 library: none --
+    torch.sparse.sampled_addmm gives <X_i, F_j> alone, not the
+    symmetrised, scaled value)."""
+    import torch
+
+    from lorads_torch.config import LoradsParams
+    from lorads_torch.core.presolve import presolve
+    from lorads_torch.io import generators
+    from lorads_torch.ops import kernels
+    from lorads_torch.ops import pattern as pat
+
+    dev = torch.device("cuda")
+    problem = generators.maxcut(n=20000, avg_degree=8, seed=7)
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    cases = [("sparse maxcut20000", bp.rank, pat.build_bucket_data(
+        bp, problem.m, torch.float64, dev)),
+        ("skewed", 17, _skewed_split_bucket(rng, dev))]
+    for where, r, bk in cases:
+        n, Ko, Ks = bk.n, bk.Ko, bk.Ks
+        print(f"K5/K6 {where} shapes: n={n} Ko={Ko} Ks={Ks} rank={r}")
+
+        def rand(*shape):
+            return torch.as_tensor(rng.standard_normal(shape), device=dev)
+
+        W_d, W_o = rand(1, n), rand(1, Ko)
+        W_o[bk.off_rows == bk.off_cols] = 0.0
+        a5 = (bk.sym_slot_rs, bk.sym_cols_rs, bk.bnd_sym_rows)
+        slot = bk.sym_slot_rs[0].long()
+        diag = torch.arange(n, device=dev)
+        Wc = _csr(torch.cat([bk.sym_rows_rs[0], diag]),
+                  torch.cat([bk.sym_cols_rs[0], diag]),
+                  torch.cat([torch.where(slot >= 0, W_o[0][slot.clamp(
+                      min=0)], 0.0), W_d[0]]), n)
+        X = rand(1, n, r)
+        X0 = X[0]
+        measure("wmul_csr", f"{where} f64 r={r}", "f64",
+                lambda: kernels.wmul_csr(X, W_d, W_o, *a5,
+                                         **_tiles_kw(pat, bk, "sym")),
+                lambda: kernels.wmul_csr_plain(X, W_d, W_o, *a5),
+                kernels.wmul_csr_plain(X.abs(), W_d.abs(), W_o.abs(), *a5),
+                nbytes=2 * n * r * 8 + (n + Ko) * 8 + Ks * 8 + (n + 1) * 4,
+                flops=2 * (Ks + n) * r,
+                library=lambda: torch.sparse.mm(Wc, X0))
+        F = rand(1, n, r)
+        a2 = rand(1, Ko).abs()
+        a2[bk.off_rows == bk.off_cols] = 0.0
+        a6 = (bk.off_rows, bk.off_cols, a2)
+        measure("adj_a_offdiag", f"{where} f64 r={r}", "f64",
+                lambda: kernels.adj_a_offdiag(
+                    X, F, *a6, **_tiles_kw(pat, bk, "off"))[1],
+                lambda: kernels.adj_a_offdiag_plain(X, F, *a6, False)[1],
+                kernels.adj_a_offdiag_plain(X.abs(), F.abs(), *a6,
+                                            False)[1],
+                nbytes=2 * n * r * 8 + 2 * Ko * 4 + 2 * Ko * 8,
                 flops=4 * Ko * r + Ko)
 
 

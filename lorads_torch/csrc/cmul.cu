@@ -81,19 +81,6 @@ using lt::FULL;
 constexpr int THREADS = 128;  // 4 warps a block
 constexpr int U = 4;          // X gathers in flight a lane
 
-// out[t] = c_diag[t] * X[t] + sum (r == 1: X and out are [B * n])
-template <typename T>
-struct StoreDiag {
-  const T* X;
-  const T* c_diag;
-  T* out;
-  __device__ __forceinline__ void operator()(long t, int, T sum) const {
-    T v = sum;
-    if (c_diag != nullptr) v = lt::add_rn(lt::mul_rn(c_diag[t], X[t]), v);
-    out[t] = v;
-  }
-};
-
 template <typename T>
 struct Pair;
 template <>
@@ -251,7 +238,7 @@ int launch(const void* Xv, const void* c_diagv, const void* colsv,
   if (r > 1)
     return launch_pairs(X, c_diag, cols, vals, bnd, out, B, n, Ks, r, stream);
   lt::launch_segsum(X, cols, vals, bnd, B, n, Ks, n,
-                    StoreDiag<T>{X, c_diag, out}, stream);
+                    lt::StoreDiag<T>{X, c_diag, out}, stream);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,9 @@
 // with G lanes per segment (lanes_per_segment, from the shapes alone),
 // segments longer than 8 G entries taken by the whole warp after the
 // group pass, loads issued ahead.  Each caller's Store functor writes
-// the output: store(t, b, sum) with t = b * S + s.
+// the output: store(t, b, sum) with t = b * S + s.  The values are an
+// array val [B, N], or (K5 at r = 1, wmul.cu) SlotVal: val[b, k] =
+// W_o[b, slot[b, k]], 0 where the slot is -1.
 
 #pragma once
 #include <climits>
@@ -32,14 +34,59 @@ __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
 
+// the values of the entries read through their off slots
+template <typename T>
+struct SlotVal {
+  const T* w;     // W_o [B, Ko]
+  const int* s;   // slots [B, N], -1: padding
+  int Ko;
+  __device__ __forceinline__ T operator[](int k) const {
+    const int q = s[k];
+    return q >= 0 ? w[q] : T(0);
+  }
+};
+
+// a value array stays __restrict__ as a kernel parameter
+template <typename V>
+struct restrict_ptr {
+  using type = V;
+};
+template <typename T>
+struct restrict_ptr<const T*> {
+  using type = const T* __restrict__;
+};
+
+// block b's values
+template <typename T>
+__device__ __forceinline__ const T* block_vals(const T* v, int b, int N) {
+  return v + (long)b * N;
+}
+template <typename T>
+__device__ __forceinline__ SlotVal<T> block_vals(SlotVal<T> v, int b, int N) {
+  return {v.w + (long)b * v.Ko, v.s + (long)b * N, v.Ko};
+}
+
+// out[t] = diag[t] * x[t] + sum (diag == nullptr: sum), each operation
+// rounded once (_rn): K2's and K5's r = 1 outputs
+template <typename T>
+struct StoreDiag {
+  const T* x;
+  const T* diag;
+  T* out;
+  __device__ __forceinline__ void operator()(long t, int, T sum) const {
+    T v = sum;
+    if (diag != nullptr) v = add_rn(mul_rn(diag[t], x[t]), v);
+    out[t] = v;
+  }
+};
+
 // acc += sum_{k = lo + first, step apart, below hi} vb[k] * xb[ib[k]], in
 // order of k, U entries' loads in flight at a time; PRED: the last,
-// partial batch too.
-template <typename T, int U, bool PRED = false>
+// partial batch too.  V: const T* or SlotVal<T>.
+template <typename T, int U, bool PRED = false, typename V>
 __device__ __forceinline__ void walk(Acc<T>& acc, const T* __restrict__ xb,
-                                     const int* __restrict__ ib,
-                                     const T* __restrict__ vb, int lo, int hi,
-                                     int first, int step) {
+                                     const int* __restrict__ ib, V vb, int lo,
+                                     int hi, int first, int step) {
   int k = lo + first;
   if constexpr (PRED) {
     for (; k < hi; k += U * step) {
@@ -57,27 +104,27 @@ __device__ __forceinline__ void walk(Acc<T>& acc, const T* __restrict__ xb,
       for (int u = 0; u < U; ++u)
         if (k + u * step < hi) acc.add(v[u] * g[u]);
     }
-    return;
+  } else {
+    for (; k + (U - 1) * step < hi; k += U * step) {
+      int i[U];
+      T v[U], g[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) i[u] = ib[k + u * step];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = vb[k + u * step];
+#pragma unroll
+      for (int u = 0; u < U; ++u) g[u] = xb[i[u]];
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc.add(v[u] * g[u]);
+    }
+    for (; k < hi; k += step) acc.add(vb[k] * xb[ib[k]]);
   }
-  for (; k + (U - 1) * step < hi; k += U * step) {
-    int i[U];
-    T v[U], g[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) i[u] = ib[k + u * step];
-#pragma unroll
-    for (int u = 0; u < U; ++u) v[u] = vb[k + u * step];
-#pragma unroll
-    for (int u = 0; u < U; ++u) g[u] = xb[i[u]];
-#pragma unroll
-    for (int u = 0; u < U; ++u) acc.add(v[u] * g[u]);
-  }
-  for (; k < hi; k += step) acc.add(vb[k] * xb[ib[k]]);
 }
 
-template <typename T, int G, typename Store>
+template <typename T, int G, typename Store, typename V>
 __global__ void segsum_kernel(const T* __restrict__ x,
                               const int* __restrict__ idx,
-                              const T* __restrict__ val,
+                              typename restrict_ptr<V>::type val,
                               const int* __restrict__ bnd, int B, int Nx,
                               int N, int S, int long_min, Store store) {
   constexpr int SPW = 32 / G;  // segments per warp
@@ -107,7 +154,7 @@ __global__ void segsum_kernel(const T* __restrict__ x,
   Acc<T> acc;
   if (!is_long)
     walk<T, UG, G == 32>(acc, x + (long)b * Nx, idx + (long)b * N,
-                         val + (long)b * N, lo, hi, gl, G);
+                         block_vals(val, b, N), lo, hi, gl, G);
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1) acc.merge_down(off);
   if (gl == 0 && t < segs && !is_long) store(t, b, acc.value());
@@ -119,8 +166,8 @@ __global__ void segsum_kernel(const T* __restrict__ x,
     const int llo = __shfl_sync(FULL, lo, src);
     const int lhi = __shfl_sync(FULL, hi, src);
     Acc<T> w;
-    walk<T, UW>(w, x + (long)lb * Nx, idx + (long)lb * N, val + (long)lb * N,
-                llo, lhi, lane, 32);
+    walk<T, UW>(w, x + (long)lb * Nx, idx + (long)lb * N,
+                block_vals(val, lb, N), llo, lhi, lane, 32);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) w.merge_down(off);
     if (lane == 0) store(seg0 + src / G, lb, w.value());
@@ -136,8 +183,8 @@ inline int lanes_per_segment(long N, long S) {
   return G;
 }
 
-template <typename T, int G, typename Store>
-void launch_segsum_g(const T* x, const int* idx, const T* val, const int* bnd,
+template <typename T, int G, typename Store, typename V>
+void launch_segsum_g(const T* x, const int* idx, V val, const int* bnd,
                      int B, int Nx, int N, int S, Store store,
                      cudaStream_t stream) {
   const long segs = (long)B * S;
@@ -145,14 +192,15 @@ void launch_segsum_g(const T* x, const int* idx, const T* val, const int* bnd,
   const long blocks = (warps * 32 + SEGSUM_THREADS - 1) / SEGSUM_THREADS;
   // a group of 32 lanes is the warp: nothing is left for the warp pass
   const int long_min = G == 32 ? INT_MAX : 8 * G;
-  segsum_kernel<T, G, Store><<<(unsigned)blocks, SEGSUM_THREADS, 0, stream>>>(
+  segsum_kernel<T, G, Store, V><<<(unsigned)blocks, SEGSUM_THREADS, 0,
+                                  stream>>>(
       x, idx, val, bnd, B, Nx, N, S, long_min, store);
 }
 
 // x [B, Nx], idx [B, N] into x, val [B, N], bnd [B, S+1]: one launch of
 // the instance for lanes_per_segment(N, S); nothing when B * S == 0.
-template <typename T, typename Store>
-void launch_segsum(const T* x, const int* idx, const T* val, const int* bnd,
+template <typename T, typename Store, typename V>
+void launch_segsum(const T* x, const int* idx, V val, const int* bnd,
                    int B, int Nx, int N, int S, Store store,
                    cudaStream_t stream) {
   if ((long)B * S <= 0) return;

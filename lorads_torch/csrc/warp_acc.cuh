@@ -42,6 +42,13 @@ struct Acc<float> {
   __device__ float value() const { return __fadd_rn(s, c); }
 };
 
+// the accumulator's value in f64: a compensated f32 sum keeps its
+// error term (one rounding less than value())
+__device__ __forceinline__ double wide(const Acc<double>& a) { return a.s; }
+__device__ __forceinline__ double wide(const Acc<float>& a) {
+  return (double)a.s + (double)a.c;
+}
+
 template <typename T>
 __device__ T warp_sum(T v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);

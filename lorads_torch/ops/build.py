@@ -46,8 +46,8 @@ _SIGNATURES = {
                          ctypes.c_double, _VP],
     "lt_wmul": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                 _VP],
-    "lt_adj_a_offdiag": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                         _I, _VP],
+    "lt_wmul_tiled": [_I, *[_VP] * 11, *[_I] * 9, _VP],
+    "lt_adj_a_offdiag": [_I, *[_VP] * 12, *[_I] * 8, _VP],
     "lt_adj_a_dense": [_I, _VP, _VP, _VP, _VP, _I, _I, _VP],
     "lt_lp_gs_sweep": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                        _I, _I, _I, ctypes.c_double, _VP],

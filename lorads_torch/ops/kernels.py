@@ -22,7 +22,11 @@ and the probes' kernels, whose wrappers live in ``lorads_torch/probes``
 | gather.row_gather       | csrc/row_gather.cu   | the Pallas row / transposed / scalar gathers (P3) |
 | gather.scatter_add      | csrc/scatter_add.cu  | microbench_gather9.py: fC (P4)        |
 
-K4 and K2 at r = 1 share one segment-sum schedule (csrc/segsum.cuh).
+K4 and K2 at r = 1 share one segment-sum schedule (csrc/segsum.cuh);
+K5 at r = 1 takes it too, its values read through the slots.  K6 and K5
+at r > 1 run over tile schedules of the static pattern (``Tiles``,
+built once per bucket by ``tile_schedule``), staging factor rows in
+shared memory a tile at a time (csrc/tiles.cuh).
 csrc/floor.cu holds two measuring instruments that chip_smoke.py calls
 (an empty kernel, a chain of dependent shared-memory loads); they have
 no wrapper here and no count in ``LAUNCHES``.
@@ -46,6 +50,9 @@ does on CPU tensors.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -105,6 +112,170 @@ def _take_rows(X, idx):
 
 def _ptr(t):
     return t.data_ptr() if t is not None else None
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
+# Tile schedules of a static pattern (K5, K6).
+# ---------------------------------------------------------------------------
+
+# K6: square tiles of ADJ_TILE rows and columns; a tile whose entries
+# number at least ADJ_MIN_FILL is staged, a unit of at most ADJ_EMAX
+# entries a CTA; the other entries of a row strip are read from L2 in
+# units of ADJ_EMAX_L2 (a warp an entry).  K5: row strips of WMUL_STRIP
+# rows (one CTA each, or up to WMUL_MAX_PARTS until there are
+# WMUL_WAVES CTAs for every SM; their partial sums in f64, added in
+# order by a second kernel) over column tiles of WMUL_COLS rows of X,
+# staged from WMUL_MIN_FILL entries on.  The sizes read fastest in a
+# sweep at matcomp2000's shapes on an H100 (PERF.md).  The rank is not
+# known when a bucket is built, so the kernels choose between staging
+# and L2 from r at launch; a pattern with no staged tile runs the
+# parent kernels (a warp a row or an entry, rows from L2).
+ADJ_TILE, ADJ_MIN_FILL, ADJ_EMAX, ADJ_EMAX_L2 = 64, 16, 2048, 32
+WMUL_STRIP, WMUL_COLS, WMUL_MIN_FILL = 32, 256, 64
+WMUL_WAVES, WMUL_MAX_PARTS = 8, 8
+# ij packs (row - unit row0) << IJ_SHIFT | col
+IJ_SHIFT = 25
+
+
+class Tiles(NamedTuple):
+    """A tile schedule of a static pattern, per block b.  Its entries
+    are ordered by unit; unit u holds the entries ``bnd[b, u]`` ..
+    ``bnd[b, u+1] - 1``, all in the rows ``row0[b, u]`` .. ``row0[b, u]
+    + rows - 1`` and, when ``col0[b, u] >= 0``, in the columns
+    ``col0[b, u]`` .. ``+ cols - 1`` (staged in shared memory; -1: a
+    unit of sparse tiles, its columns read from L2).  Units follow
+    their row strip, entries keep their input order within a unit (row
+    by row where the input comes row by row, as K5's does), and padding
+    units (past a block's last) are empty with row0 = n.  K5's schedule
+    also says where each strip's units and each unit's rows start
+    (strip s of rows s * rows .. owns the units ``strip[b, s]`` ..
+    ``strip[b, s+1] - 1``; ``rowptr[b, u, i]``: the unit's entries of a
+    local row below i); K6's reads neither (None)."""
+    slot: torch.Tensor     # int32 [B, N] the entry's slot
+    ij: torch.Tensor       # int32 [B, N] (row - row0) << IJ_SHIFT | col
+    bnd: torch.Tensor      # int32 [B, U+1]
+    row0: torch.Tensor     # int32 [B, U]
+    col0: torch.Tensor     # int32 [B, U]
+    strip: Optional[torch.Tensor]   # int32 [B, ceil(n / rows) + 1]
+    rowptr: Optional[torch.Tensor]  # int32 [B, U * (rows + 1)]
+    rows: int
+    cols: int
+    staged: int            # staged units, all blocks (0: none; K5 and K6
+                           # then walk the pattern from L2 unscheduled)
+    sparse: int            # units of sparse tiles, all blocks
+
+
+def tile_schedule(rows, cols, slot, n: int, tile_rows: int,
+                  tile_cols: int, min_fill: int, emax=None,
+                  emax_l2=None, strips: bool = True) -> Tiles:
+    """The Tiles of the entries (rows, cols, slot) [B, N] of a static
+    pattern on n rows; entries with a negative row are left out (they
+    lie past each block's last unit).  Per block: the entries of every
+    (row strip, column tile) of at least ``min_fill`` entries form a
+    staged unit, the rest of each strip one unit read from L2; staged
+    units are split at ``emax`` entries, L2 units at ``emax_l2`` (None:
+    not split); ``strips``: with ``strip`` and ``rowptr``.  One stable
+    sort of a composite key over all blocks; any device."""
+    if tile_rows > 1 << (31 - IJ_SHIFT) or n > 1 << IJ_SHIFT:
+        raise ValueError(f"tile_schedule: tile_rows={tile_rows}, n={n}")
+    dev = rows.device
+    B, N = rows.shape
+    rows, cols = rows.long(), cols.long()
+    live = rows >= 0
+    nrt, nct = -(-n // tile_rows), -(-n // tile_cols)
+    bi = torch.arange(B, device=dev)[:, None]
+    rt = torch.where(live, rows // tile_rows, nrt)
+    ct = cols // tile_cols
+    _, inv, cnt = torch.unique((bi * (nrt + 1) + rt) * nct + ct,
+                               return_inverse=True, return_counts=True)
+    ctx = torch.where(cnt[inv] >= min_fill, ct, nct)
+    key = ((bi * (nrt + 1) + rt) * (nct + 1) + ctx).reshape(-1)
+    key, perm = torch.sort(key, stable=True)
+    pos = torch.arange(B * N, device=dev)
+    run = torch.ones_like(key, dtype=torch.bool)
+    run[1:] = key[1:] != key[:-1]
+    start = run.clone()
+    cap = torch.where(key % (nct + 1) < nct, emax or B * N + 1,
+                      emax_l2 or B * N + 1)
+    first = torch.cummax(torch.where(run, pos, 0), 0).values
+    start |= (pos - first) % cap == 0
+    r_s = rows.reshape(-1)[perm]
+    ok = r_s >= 0
+    start &= ok
+    per = start.reshape(B, N).sum(1)
+    U = max(int(per.max()) if B else 0, 1)
+    su = start.nonzero().squeeze(1)
+    b_u = su // N
+    u_loc = torch.arange(su.numel(), device=dev) - (
+        torch.cumsum(per, 0) - per)[b_u]
+    bnd = torch.empty((B, U + 1), dtype=torch.long, device=dev)
+    bnd[:] = live.sum(1, keepdim=True)
+    bnd[b_u, u_loc] = su - b_u * N
+    row0 = torch.full((B, U), n, dtype=torch.long, device=dev)
+    col0 = torch.full((B, U), -1, dtype=torch.long, device=dev)
+    strip0 = (r_s // tile_rows) * tile_rows
+    row0[b_u, u_loc] = strip0[su]
+    c_u = (key[su] % (nct + 1))
+    col0[b_u, u_loc] = torch.where(c_u < nct, c_u * tile_cols, -1)
+    lr = (r_s - strip0).clamp(min=0)
+    ij = (lr << IJ_SHIFT) | cols.reshape(-1)[perm]
+    i32 = lambda t: t.reshape(B, -1).to(torch.int32).contiguous()  # noqa
+    strip = rowptr = None
+    if strips:
+        g = torch.cumsum(start.long(), 0) - 1
+        G = su.numel()
+        cnt = torch.bincount((g * tile_rows + lr)[ok],
+                             minlength=G * tile_rows)
+        rowptr = torch.zeros((B, U, tile_rows + 1), dtype=torch.long,
+                             device=dev)
+        rowptr[b_u, u_loc, 1:] = torch.cumsum(cnt.reshape(G, tile_rows), 1)
+        rowptr = i32(rowptr)
+        strip = i32(torch.searchsorted(
+            row0, (torch.arange(nrt + 1, device=dev) * tile_rows).clamp(
+                max=n).expand(B, nrt + 1).contiguous()))
+    return Tiles(i32(slot.reshape(-1)[perm]), i32(ij), i32(bnd),
+                 i32(row0), i32(col0), strip, rowptr, tile_rows,
+                 tile_cols, *unit_counts(row0, col0, n).sum(0).tolist())
+
+
+def unit_counts(row0, col0, n: int):
+    """Per block, (staged units, units of sparse tiles) of a schedule's
+    unit rows and columns [B, U] -> [B, 2]."""
+    live = row0 < n
+    return torch.stack([(live & (col0 >= 0)).sum(1),
+                        (live & (col0 < 0)).sum(1)], 1)
+
+
+def adj_tiles(rows, cols, n: int) -> Tiles:
+    """K6's schedule of the off slots (rows, cols) [B, Ko]: square tiles,
+    the slot of each entry its own position."""
+    slot = torch.arange(rows.shape[1], device=rows.device)
+    return tile_schedule(rows, cols, slot.expand(rows.shape), n, ADJ_TILE,
+                         ADJ_TILE, ADJ_MIN_FILL, ADJ_EMAX, ADJ_EMAX_L2,
+                         strips=False)
+
+
+def csr_rows(bnd, N: int):
+    """The row of each of N entries under CSR bounds bnd [B, n+1]; -1
+    outside [bnd[b, 0], bnd[b, n])."""
+    B, n1 = bnd.shape
+    k = torch.arange(N, device=bnd.device).expand(B, N).contiguous()
+    row = torch.searchsorted(bnd.long().contiguous(), k, right=True) - 1
+    return torch.where((row >= 0) & (row < n1 - 1), row, -1)
+
+
+def wmul_tiles(slots, cols, bnd) -> Tiles:
+    """K5's schedule of the full-symmetric entry list (slots, cols
+    [B, Ks], CSR bounds bnd [B, n+1]): row strips over column tiles,
+    each entry carrying its off slot."""
+    n = bnd.shape[1] - 1
+    return tile_schedule(csr_rows(bnd, cols.shape[1]), cols, slots, n,
+                         WMUL_STRIP, WMUL_COLS, WMUL_MIN_FILL)
 
 
 # ---------------------------------------------------------------------------
@@ -300,10 +471,13 @@ def wmul_csr_plain(X, W_d, W_o, slots, cols, bnd):
 
 def wmul_csr(X: torch.Tensor, W_d: torch.Tensor, W_o: torch.Tensor,
              slots: torch.Tensor, cols: torch.Tensor,
-             bnd: torch.Tensor) -> torch.Tensor:
+             bnd: torch.Tensor, tiles: Tiles = None) -> torch.Tensor:
     """K5.  X [B, n, r]; W_d [B, n]; W_o [B, Ko]; slots (-1: padding)
     and cols int32 [B, Ks] sorted by row; bnd int32 [B, n+1] row
-    pointers -> W @ X [B, n, r]."""
+    pointers -> W @ X [B, n, r].  ``tiles``: the entries' schedule
+    (wmul_tiles), which r > 1 runs on; built here when None (a host
+    sync).  r = 1 runs K4's schedule, a pattern with no staged tile a
+    warp a row, neither with the schedule."""
     B, n, r = X.shape
     Ko, Ks = W_o.shape[1], cols.shape[1]
     if (slots.shape != cols.shape or cols.shape[0] != B
@@ -313,9 +487,28 @@ def wmul_csr(X: torch.Tensor, W_d: torch.Tensor, W_o: torch.Tensor,
     if not _check("wmul_csr", [X, W_d, W_o], [slots, cols, bnd]):
         return wmul_csr_plain(X, W_d, W_o, slots, cols, bnd)
     out = torch.empty_like(X)
-    _launch("wmul_csr", "lt_wmul", _is_f64(X), X.data_ptr(),
-            W_d.data_ptr(), W_o.data_ptr(), slots.data_ptr(),
-            cols.data_ptr(), bnd.data_ptr(), out.data_ptr(), B, n, Ko, Ks, r)
+    t = None
+    if r > 1:
+        t = tiles if tiles is not None else wmul_tiles(slots, cols, bnd)
+        if t.slot.shape != cols.shape or t.bnd.shape[0] != B:
+            raise ValueError("wmul_csr: tiles of another pattern")
+    if t is None or not t.staged:
+        _launch("wmul_csr", "lt_wmul", _is_f64(X), X.data_ptr(),
+                W_d.data_ptr(), W_o.data_ptr(), slots.data_ptr(),
+                cols.data_ptr(), bnd.data_ptr(), out.data_ptr(), B, n, Ko,
+                Ks, r)
+        return out
+    ti = (t.slot, t.ij, t.bnd, t.col0, t.strip, t.rowptr)
+    _check("wmul_csr", [X], list(ti))
+    # parts a strip, so that the CTAs fill the card WMUL_WAVES deep
+    P = max(1, min(WMUL_MAX_PARTS, -(-WMUL_WAVES * _sm_count(X.device)
+                                     // (B * -(-n // t.rows)))))
+    part = (torch.empty((P, B, n, r), dtype=torch.float64, device=X.device)
+            if P > 1 else None)
+    _launch("wmul_csr", "lt_wmul_tiled", _is_f64(X), X.data_ptr(),
+            W_d.data_ptr(), W_o.data_ptr(), *(a.data_ptr() for a in ti),
+            out.data_ptr(), _ptr(part), B, n, Ko, Ks, r, t.row0.shape[1],
+            t.rows, t.cols, P)
     return out
 
 
@@ -330,10 +523,11 @@ def adj_a_offdiag_plain(X, F, rows, cols, a2, want_diag):
 
 def adj_a_offdiag(X: torch.Tensor, F: torch.Tensor, rows: torch.Tensor,
                   cols: torch.Tensor, a2: torch.Tensor,
-                  want_diag: bool = False):
+                  want_diag: bool = False, tiles: Tiles = None):
     """K6.  X, F [B, n, r]; rows, cols int32 [B, Ko]; a2 [B, Ko] ->
     (rowsum(X*F) [B, n] or None, a2 * sym(XF^T) at (rows, cols)
-    [B, Ko])."""
+    [B, Ko]).  ``tiles``: the off slots' schedule (adj_tiles); built
+    here when None."""
     B, n, r = X.shape
     Ko = rows.shape[1]
     if (F.shape != X.shape or cols.shape != rows.shape
@@ -341,12 +535,20 @@ def adj_a_offdiag(X: torch.Tensor, F: torch.Tensor, rows: torch.Tensor,
         raise ValueError("adj_a_offdiag: inconsistent shapes")
     if not _check("adj_a_offdiag", [X, F, a2], [rows, cols]):
         return adj_a_offdiag_plain(X, F, rows, cols, a2, want_diag)
+    t = tiles if tiles is not None else adj_tiles(rows, cols, n)
+    if t.slot.shape != rows.shape or t.bnd.shape[0] != B:
+        raise ValueError("adj_a_offdiag: tiles of another pattern")
+    _check("adj_a_offdiag", [X], list(t[:5]))
     d = (torch.empty((B, n), dtype=X.dtype, device=X.device)
          if want_diag else None)
     W_o = torch.empty((B, Ko), dtype=X.dtype, device=X.device)
+    # U = 0 (no staged tile): the warp-per-entry kernel on (rows, cols);
+    # no unit of sparse tiles: no L2 pass
     _launch("adj_a_offdiag", "lt_adj_a_offdiag", _is_f64(X), X.data_ptr(),
             F.data_ptr(), rows.data_ptr(), cols.data_ptr(), a2.data_ptr(),
-            _ptr(d), W_o.data_ptr(), B, n, Ko, r)
+            *(a.data_ptr() for a in t[:5]), _ptr(d), W_o.data_ptr(), B, n,
+            Ko, r, t.row0.shape[1] if t.staged else 0, t.rows, t.cols,
+            int(t.sparse > 0))
     return d, W_o
 
 

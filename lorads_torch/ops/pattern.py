@@ -34,6 +34,12 @@ not build):
 * no gathered-row caches (``gather_cache`` gives None): the cached
   forms compute from the factors directly, which a fused SDDMM reads
   from L2;
+* the tile schedules of K6 over the off slots and of K5 over the
+  full-symmetric entry list (``off_tile_*``, ``sym_tile_*``, built once
+  where the bucket lies by kernels.adj_tiles and kernels.wmul_tiles in
+  tile_fields; ``off_tiles`` and ``sym_tiles`` hold them as
+  kernels.Tiles), so that both kernels stage factor rows in shared
+  memory a tile at a time;
 * a constraint-sorted copy of the off constraint entries with CSR
   bounds (``a_con_o_cs``, ``a_pos_o_cs``, ``a_val_o_cs``,
   ``bnd_a_con_o_cs``) that always exists (lorads_tpu has bounds only
@@ -161,12 +167,37 @@ class BucketData:
     a_pos_o_cs: torch.Tensor    # int32 [B, nnz_o]
     a_val_o_cs: torch.Tensor    # [B, nnz_o]
     bnd_a_con_o_cs: torch.Tensor  # int32 [B, m_loc+1]
+    # port-only: the tile schedules (kernels.Tiles) of the off slots
+    # (K6: each slot its own, [B, Ko]) and of the sym entries (K5:
+    # each entry's off slot, [B, Ks]); U_o / U_s units a block
+    off_tile_slot: torch.Tensor  # int32 [B, Ko]
+    off_tile_ij: torch.Tensor   # int32 [B, Ko]
+    off_tile_bnd: torch.Tensor  # int32 [B, U_o+1]
+    off_tile_row0: torch.Tensor  # int32 [B, U_o]
+    off_tile_col0: torch.Tensor  # int32 [B, U_o]
+    sym_tile_slot: torch.Tensor  # int32 [B, Ks]
+    sym_tile_ij: torch.Tensor   # int32 [B, Ks]
+    sym_tile_bnd: torch.Tensor  # int32 [B, U_s+1]
+    sym_tile_row0: torch.Tensor  # int32 [B, U_s]
+    sym_tile_col0: torch.Tensor  # int32 [B, U_s]
+    sym_tile_strip: torch.Tensor  # int32 [B, ceil(n / WMUL_STRIP) + 1]
+    sym_tile_rowptr: torch.Tensor  # int32 [B, U_s * (WMUL_STRIP + 1)]
     # port-only: the scatter into the global m-vector (scatter_fields)
     scat_idx: torch.Tensor      # int32 [1, L]
     scat_val: torch.Tensor      # [1, L]
     bnd_scat: torch.Tensor      # int32 [1, m_glob+1]
     split: bool = True
     dense: bool = False
+    # port-only: per block, (staged units, units of sparse tiles) of each
+    # tile schedule (kernels.unit_counts; host values, no device read)
+    off_tile_units: tuple = ()
+    sym_tile_units: tuple = ()
+
+    def __post_init__(self):
+        # the schedules as kernels.Tiles (``off_tiles``, ``sym_tiles``),
+        # made once from the fields above; attributes, not fields
+        object.__setattr__(self, "off_tiles", bucket_tiles(self, "off"))
+        object.__setattr__(self, "sym_tiles", bucket_tiles(self, "sym"))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -187,10 +218,17 @@ SYM_INT_FIELDS = ("sym_rows_rs", "sym_cols_rs", "bnd_sym_rows")
 SYM_FLOAT_FIELDS = ("c_sym_rs",)
 PORT_INT_FIELDS = ("sym_slot_rs", "a_con_o_cs", "a_pos_o_cs",
                    "bnd_a_con_o_cs", "scat_idx", "bnd_scat")
+# the tile schedules' fields (tile_fields): K6's, K5's
+TILE_FIELDS = {"off": ("slot", "ij", "bnd", "row0", "col0"),
+               "sym": ("slot", "ij", "bnd", "row0", "col0", "strip",
+                       "rowptr")}
+TILE_INT_FIELDS = tuple(f"{p}_tile_{f}" for p, fs in TILE_FIELDS.items()
+                        for f in fs)
 PORT_FLOAT_FIELDS = ("a_val_o_cs", "scat_val")
 # the bucket-wide [1, ...] fields (every other tensor is per block)
 _SCATTER_FIELDS = ("scat_idx", "scat_val", "bnd_scat")
-ALL_INT_FIELDS = INT_FIELDS + SYM_INT_FIELDS + PORT_INT_FIELDS
+ALL_INT_FIELDS = (INT_FIELDS + SYM_INT_FIELDS + PORT_INT_FIELDS
+                  + TILE_INT_FIELDS)
 ALL_FLOAT_FIELDS = FLOAT_FIELDS + SYM_FLOAT_FIELDS + PORT_FLOAT_FIELDS
 # the scalar layout (meta) of a BucketData
 META_FIELDS = ("n", "B", "K", "m_loc", "m_glob", "Ko", "Ks", "nnz_d",
@@ -201,14 +239,36 @@ META_FIELDS = ("n", "B", "K", "m_loc", "m_glob", "Ko", "Ks", "nnz_d",
 def bucket_from_arrays(meta: dict, arrays: dict, dtype,
                        device) -> BucketData:
     """BucketData from numpy arrays (``arrays``) and the scalar layout
-    (``meta``: META_FIELDS)."""
+    (``meta``: META_FIELDS), with its tile schedules built on ``device``
+    (tile_fields)."""
     t = {k: torch.as_tensor(np.array(arrays[k], dtype=np.int32),
                             device=device)
-         for k in ALL_INT_FIELDS}
+         for k in ALL_INT_FIELDS if k not in TILE_INT_FIELDS}
     t.update({k: torch.as_tensor(np.array(arrays[k], dtype=np.float64),
                                  device=device).to(dtype).contiguous()
               for k in ALL_FLOAT_FIELDS})
+    t.update(tile_fields(meta["n"], t["off_rows"], t["off_cols"],
+                         t["sym_slot_rs"], t["sym_cols_rs"],
+                         t["bnd_sym_rows"]))
     return BucketData(**meta, **t)
+
+
+def tile_fields(n: int, off_rows, off_cols, sym_slot, sym_cols,
+                bnd_sym) -> dict:
+    """The bucket fields of K6's tile schedule over the off slots
+    (off_rows, off_cols int32 [B, Ko]: kernels.adj_tiles) and of K5's
+    over the full-symmetric entry list (sym_slot, sym_cols [B, Ks],
+    bnd_sym [B, n+1]: kernels.wmul_tiles), built where the tensors lie
+    (one host read each for the unit counts), padding slots and entries
+    included: ``off_tile_*``, ``sym_tile_*`` and the per-block unit
+    counts ``off_tile_units``, ``sym_tile_units``."""
+    tiles = {"off": kernels.adj_tiles(off_rows, off_cols, n),
+             "sym": kernels.wmul_tiles(sym_slot, sym_cols, bnd_sym)}
+    out = {f"{p}_tile_{f}": getattr(tiles[p], f)
+           for p, fs in TILE_FIELDS.items() for f in fs}
+    out.update({f"{p}_tile_units": tuple(map(tuple, kernels.unit_counts(
+        t.row0, t.col0, n).tolist())) for p, t in tiles.items()})
+    return out
 
 
 def _bounds_np(ids: np.ndarray, S: int) -> np.ndarray:
@@ -627,6 +687,9 @@ def bucket_slice(bk, b: int):
             own[f.name] = v[b:b + 1]
     g = bk.glob_idx[b].contiguous()
     dev = g.device
+    if not bk.dense:  # the block's own unit counts
+        own.update(off_tile_units=(bk.off_tile_units[b],),
+                   sym_tile_units=(bk.sym_tile_units[b],))
     own.update(
         B=1, glob_ident=False,
         scat_idx=torch.arange(bk.m_loc, dtype=torch.int32, device=dev)[None],
@@ -794,6 +857,22 @@ def build_w(bk, w_loc: torch.Tensor, include_obj: bool = True):
     return W_d, W_o
 
 
+def _unit_totals(units):
+    """(staged, sparse) units over a bucket's blocks."""
+    return (sum(u[0] for u in units), sum(u[1] for u in units))
+
+
+def bucket_tiles(f, kind: str) -> kernels.Tiles:
+    """K6's ("off") or K5's ("sym") schedule, as kernels.Tiles, from the
+    fields of a bucket (or of anything that carries tile_fields'
+    names)."""
+    fs = [getattr(f, f"{kind}_tile_{k}") for k in TILE_FIELDS[kind]]
+    size = ((kernels.ADJ_TILE, kernels.ADJ_TILE) if kind == "off"
+            else (kernels.WMUL_STRIP, kernels.WMUL_COLS))
+    return kernels.Tiles(*fs, *[None] * (7 - len(fs)), *size,
+                         *_unit_totals(getattr(f, f"{kind}_tile_units")))
+
+
 def w_mul(bk, W, X: torch.Tensor) -> torch.Tensor:
     """W @ X [B, n, r] for a build_w output: torch.matmul on dense
     buckets (pattern.py:1326-1329), else kernel K5
@@ -804,7 +883,8 @@ def w_mul(bk, W, X: torch.Tensor) -> torch.Tensor:
     W_d, W_o = W
     return kernels.wmul_csr(X.contiguous(), W_d.contiguous(),
                             W_o.contiguous(), bk.sym_slot_rs,
-                            bk.sym_cols_rs, bk.bnd_sym_rows)
+                            bk.sym_cols_rs, bk.bnd_sym_rows,
+                            tiles=bk.sym_tiles)
 
 
 def densify_w(bk, W) -> torch.Tensor:
@@ -833,7 +913,8 @@ def a_adj_a(bk: BucketData, X: torch.Tensor, F: torch.Tensor):
     launches.  Returns (W_d, W_o)."""
     d, W_o = kernels.adj_a_offdiag(X.contiguous(), F.contiguous(),
                                    bk.off_rows, bk.off_cols, bk.a2_off,
-                                   want_diag=bk.has_diag_a)
+                                   want_diag=bk.has_diag_a,
+                                   tiles=bk.off_tiles)
     if not bk.has_diag_a:
         return torch.zeros((X.shape[0], bk.n), dtype=X.dtype,
                            device=X.device), W_o

@@ -16,6 +16,7 @@ accumulation agree within 4 eps32 * sum|terms|.
 """
 
 import os
+import types
 
 import numpy as np
 import pytest
@@ -174,39 +175,117 @@ def test_gather_segsum_kernel_matches_plain(dtype):
             assert torch.equal(got, ref)
 
 
+def _merged_bucket(dtype):
+    """A merged batch of two matrix completions: one split bucket of
+    B = 2 blocks with their own padding."""
+    from lorads_torch.core.problem import merge_problems
+    problem = merge_problems([
+        generators.matrix_completion(n1=60, n2=60, frac_obs=0.05, seed=1),
+        generators.matrix_completion(n1=40, n2=50, frac_obs=0.05, seed=2)])
+    bp = presolve(problem, LoradsParams()).buckets[0]
+    return pat.build_bucket_data(bp, problem.m, dtype, "cuda")
+
+
+def _skewed_pattern():
+    """Two blocks on n = 300 (as tests/test_torch_tiles.py): block 0 a
+    hub row against every column and a band of short rows, block 1 only
+    rows 200..230, its padding alone in tile (0, 0).  Returns n, the
+    off (rows, cols) and the port fields (sym list, schedules built on
+    the card) on cuda."""
+    rng = np.random.default_rng(5)
+    n = 300
+    band = {(int(r), int(rng.integers(0, r)))
+            for r in rng.integers(100, 140, 150)}
+    pats = [sorted({(299, c) for c in range(299)} | band),
+            sorted({(int(r), int(rng.integers(64, r)))
+                    for r in rng.integers(200, 231, 120)})]
+    Ko = max(len(p) for p in pats)
+    rows, cols = np.zeros((2, Ko), np.int64), np.zeros((2, Ko), np.int64)
+    for b, p in enumerate(pats):
+        rows[b, :len(p)] = [e[0] for e in p]
+        cols[b, :len(p)] = [e[1] for e in p]
+    z = np.zeros((2, 1))
+    port = pat.port_fields(n, 1, rows, cols, np.ones((2, Ko)),
+                           z.astype(np.int64), z.astype(np.int64), z)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32),  # noqa: E731
+                                    device="cuda")
+    f = {k: i32(v) for k, v in port.items()
+         if np.asarray(v).dtype.kind in "iu"}
+    f.update(pat.tile_fields(n, i32(rows), i32(cols), f["sym_slot_rs"],
+                             f["sym_cols_rs"], f["bnd_sym_rows"]))
+    return n, i32(rows), i32(cols), f
+
+
+def _k5_k6_inputs(pattern, dtype):
+    """(B, n, Ko, K5 args, K5 tiles, K6 (rows, cols), K6 tiles, pad
+    slots) of a test pattern on cuda (merged_b2_slice: block 0 of the
+    merged bucket as bucket_slice gives it)."""
+    if pattern == "skewed":
+        n, rows, cols, f = _skewed_pattern()
+        ns = types.SimpleNamespace(**f)
+        t5, t6 = pat.bucket_tiles(ns, "sym"), pat.bucket_tiles(ns, "off")
+        a5 = (f["sym_slot_rs"], f["sym_cols_rs"], f["bnd_sym_rows"])
+        return 2, n, rows.shape[1], a5, t5, (rows, cols), t6, rows == cols
+    bk = (_mc_bucket(dtype)[0] if pattern == "matcomp500"
+          else _merged_bucket(dtype))
+    if pattern == "merged_b2_slice":  # the bucket Gauss-Seidel scan's view
+        bk = pat.bucket_slice(bk, 0)
+    a5 = (bk.sym_slot_rs, bk.sym_cols_rs, bk.bnd_sym_rows)
+    return (bk.B, bk.n, bk.Ko, a5, bk.sym_tiles,
+            (bk.off_rows, bk.off_cols), bk.off_tiles,
+            bk.off_rows == bk.off_cols)
+
+
+# r: 1 (K5's segment-sum schedule), 2 .. 65, 130 (K5 staged at f32,
+# from L2 at f64, in launches over 64-column blocks from r = 65 on; K6
+# from L2 at both: above its staging limit, as K6 is at r = 65 in f64)
+# and, for K5, 300 (five column blocks)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("r", [1, 14, 40])
-def test_wmul_kernel_matches_plain(dtype, r):
+@pytest.mark.parametrize("r", [1, 2, 17, 33, 65, 130, 300])
+@pytest.mark.parametrize("pattern", ["matcomp500", "merged_b2",
+                                     "merged_b2_slice", "skewed"])
+def test_wmul_kernel_matches_plain(dtype, r, pattern):
     _need_cuda()
-    bk, bp = _mc_bucket(dtype)
+    B, n, Ko, a5, t5, _, _, pad = _k5_k6_inputs(pattern, dtype)
     rng = np.random.default_rng(r)
-    X = _rand(rng, (1, bp.n, r), dtype)
-    W_d, W_o = _rand(rng, (1, bp.n), dtype), _rand(rng, (1, bk.Ko), dtype)
-    args = (bk.sym_slot_rs, bk.sym_cols_rs, bk.bnd_sym_rows)
-    got = kernels.wmul_csr(X, W_d, W_o, *args)
-    ref = kernels.wmul_csr_plain(X, W_d, W_o, *args)
-    l1 = kernels.wmul_csr_plain(X.abs(), W_d.abs(), W_o.abs(), *args)
+    X = _rand(rng, (B, n, r), dtype)
+    W_d, W_o = _rand(rng, (B, n), dtype), _rand(rng, (B, Ko), dtype)
+    W_o[pad] = 0.0
+    before = kernels.LAUNCHES["wmul_csr"]
+    got = kernels.wmul_csr(X, W_d, W_o, *a5, tiles=t5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wmul_csr"] == before + 1
+    ref = kernels.wmul_csr_plain(X, W_d, W_o, *a5)
+    l1 = kernels.wmul_csr_plain(X.abs(), W_d.abs(), W_o.abs(), *a5)
     assert _close(got, ref, l1, dtype)
+    # the wrapper's own schedule (built on the card) is the bucket's
+    assert torch.equal(kernels.wmul_csr(X, W_d, W_o, *a5), got)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("want_diag", [False, True])
-def test_adj_a_kernel_matches_plain(dtype, want_diag):
+@pytest.mark.parametrize("r", [1, 2, 17, 33, 65, 130])
+@pytest.mark.parametrize("pattern", ["matcomp500", "merged_b2",
+                                     "merged_b2_slice", "skewed"])
+def test_adj_a_kernel_matches_plain(dtype, want_diag, r, pattern):
     _need_cuda()
-    bk, bp = _mc_bucket(dtype)
+    B, n, Ko, _, _, args, t6, pad = _k5_k6_inputs(pattern, dtype)
     rng = np.random.default_rng(6)
-    X, F = (_rand(rng, (1, bp.n, bp.rank), dtype) for _ in range(2))
-    args = (bk.off_rows, bk.off_cols)
-    got = kernels.adj_a_offdiag(X, F, *args, bk.a2_off, want_diag)
-    ref = kernels.adj_a_offdiag_plain(X, F, *args, bk.a2_off, want_diag)
-    l1 = kernels.adj_a_offdiag_plain(X.abs(), F.abs(), *args, bk.a2_off,
-                                     True)
+    X, F = (_rand(rng, (B, n, r), dtype) for _ in range(2))
+    a2 = _rand(rng, (B, Ko), dtype).abs()
+    a2[pad] = 0.0
+    before = kernels.LAUNCHES["adj_a_offdiag"]
+    got = kernels.adj_a_offdiag(X, F, *args, a2, want_diag, tiles=t6)
+    assert kernels.LAUNCHES["adj_a_offdiag"] == before + 1
+    ref = kernels.adj_a_offdiag_plain(X, F, *args, a2, want_diag)
+    l1 = kernels.adj_a_offdiag_plain(X.abs(), F.abs(), *args, a2, True)
     assert (got[0] is None) == (not want_diag)
     if want_diag:
         assert _close(got[0], ref[0], l1[0], dtype)
     assert _close(got[1], ref[1], l1[1], dtype)
+    assert torch.equal(kernels.adj_a_offdiag(X, F, *args, a2)[1], got[1])
 
 
 @pytest.mark.cuda
