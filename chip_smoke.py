@@ -10,8 +10,9 @@ Phases, each reported on its own lines:
    source, in parallel, sm_90a);
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance stated, the kernel and plain times from CUDA events
-   (dispatched: the host's launch included), the kernel's device time
-   (20 calls in one CUDA graph, lorads_torch/timing.py), its bound (the
+   (dispatched: the host's launch included; the kernel's and the
+   library's the median of 5 readings of 20 calls), the kernel's device
+   time (20 calls in one CUDA graph, lorads_torch/timing.py), its bound (the
    larger of its bytes over 3.35 TB/s and its operations over the
    card's peak for the type) and, where one PyTorch call computes the
    same function, that call's time, dispatched and on the device:
@@ -20,17 +21,19 @@ Phases, each reported on its own lines:
    shared-memory load, from lorads_torch/csrc/floor.cu);
    K1-K3 at the shapes of the Max-Cut path (maxcut n=20000, deg 8:
    Ks=160000, r = the solve's rank at f64; r=1 at f32 and f64 for the
-   certificate) plus the segment-sum edge cases; K2 at
+   certificate; K3 with U != V and with U is V, the ALM's objective
+   values, whose one dot an entry is first checked bit for bit against
+   the two-dot path on a copy of U) plus the segment-sum edge cases; K2 at
    gset_torus10000's shapes (4 entries a row, r = 19 and 1) and on
    skewed rows (empty rows, one-entry rows, a hub row of 5000 entries,
-   B = 1 and 2); K3p, K4, K5 and K6 at
+   B = 1 and 2); K3p, K3, K4, K5 and K6 at
    the shapes of the matrix-completion path (matcomp2000: n=4000,
    Ko=478843, Ks=957686, r = the solve's rank at f64, the f32 copies the
    mixed-precision CG runs, and K5 at r=1 in f32 and f64 for the
-   certificate), and K5 and K6 at f64 on maxcut n=20000's sparse
-   pattern (Ko=80000, r=20: no tile worth staging) and on a skewed
-   pattern (n=20000: a hub row, a 12 %-dense block, 4 random entries a
-   row; r=17); K7a and K4 on the dense layouts at the shapes of the
+   certificate), K5 and K6 at f64 on maxcut n=20000's sparse pattern
+   (Ko=80000, r=20: no tile worth staging), and K3, K3p, K5 and K6 on a
+   skewed pattern (n=20000: a hub row, a 12 %-dense block, 4 random
+   entries a row; r=17); K7a and K4 on the dense layouts at the shapes of the
    theta path (theta800: n=800, n^2=640000 slots, m=3201, nnz_a=4000)
    at f64 and in f32 as the mixed-precision CG runs them; K4 on skewed
    segment lengths (one-entry segments with segments of 800, 5000 and
@@ -77,7 +80,8 @@ Phases, each reported on its own lines:
    random_multiblock(8, 40, 120, 400 LP columns)'s LP block and at
    m=30000 (csum in global memory; the label names the instantiation),
    K4's scatter of its 8 blocks' local constraint values, and K2 / K3 at
-   the maxcut batch's B = 4;
+   the maxcut batch's B = 4 (K3 with U is V against
+   torch.sparse.sampled_addmm, the same off values);
    - the probes (lorads_torch.probes, the counterparts of the Pallas
      kernels of tools/probes/): phase 3 holds P1 onehot_scatter and P2
      onehot_gather (tensor-core one-hot window products), P3 row_gather
@@ -101,6 +105,7 @@ import functools
 import json
 import math
 import os
+import statistics
 import sys
 import time
 
@@ -288,12 +293,15 @@ class Measure:
             exact_note = (", exact" if exact is True else
                           f", exact on {int(exact.sum())} single-entry "
                           "segments")
-        ms = cuda_time_ms(fn)
+        # dispatched: the median of 5 readings (the host's share moves
+        # between readings on a shared host)
+        ms = statistics.median(cuda_time_ms(fn) for _ in range(5))
         pms = cuda_time_ms(plain)
         dev_ms, dev_by = device_time_ms(fn)
         lib_ms = lib_dev_ms = lib_dev_by = None
         if library is not None:
-            lib_ms = cuda_time_ms(library)
+            lib_ms = statistics.median(cuda_time_ms(library)
+                                       for _ in range(5))
             lib_dev_ms, lib_dev_by = device_time_ms(library)
         bms, by = bound_of(nbytes, flops, sfx)
         # a sequential kernel: its time per dependent step, beside the
@@ -420,24 +428,15 @@ def kernel_checks(card):
     # ---- K2 cmul_csr at maxcut n=20000's shapes
     cmul_cases(rng, measure, bk64, bk32, r, "")
 
-    # ---- K3 uvt_split (library: torch.sparse.sampled_addmm on the off
-    # pattern gives U V^T there; it leaves out the symmetrisation
-    # (U V^T + V U^T) / 2 and the diagonal rowsum)
+    # ---- K3 uvt_split, U != V and U is V (the ALM's objective values)
     U = torch.as_tensor(rng.standard_normal((1, n, r)), device=dev)
     V = torch.as_tensor(rng.standard_normal((1, n, r)), device=dev)
-    args = (U, V, bk64.off_rows, bk64.off_cols)
     Poff = _csr(bk64.off_rows[0], bk64.off_cols[0],
                 torch.ones(Ko, dtype=torch.float64, device=dev), n)
-    U0, Vt = U[0], V[0].T.contiguous()
-    measure("uvt_split", f"f64 r={r}", "f64",
-            lambda: kernels.uvt_split(*args),
-            lambda: kernels.uvt_split_plain(*args),
-            kernels.uvt_split_plain(U.abs(), V.abs(), bk64.off_rows,
-                                    bk64.off_cols),
-            nbytes=2 * n * r * 8 + 2 * Ko * 4 + (n + Ko) * 8,
-            flops=2 * n * r + 4 * Ko * r,
-            library=lambda: torch.sparse.sampled_addmm(Poff, U0, Vt,
-                                                       beta=0.0))
+    kw = _tiles_kw(pat, bk64, "off", kernels.uvt_split)
+    for VV in (V, None):
+        uvt_cases(measure, kernels, "", "f64", U, VV, bk64.off_rows,
+                  bk64.off_cols, kw, n, Ko, Poff)
 
     # ---- K1 segment_sum: the segment sum cmul fuses, unfused: [1, Ks, r]
     # products over the row pointers of the maxcut n=20000 entry list
@@ -708,15 +707,23 @@ def matcomp_kernel_checks(rng, measure):
         sfx = "f64" if dt == torch.float64 else "f32"
         s = 8 if dt == torch.float64 else 4
         # ---- K3p uvt_pair_split (ALM line search; f64 only on the path)
+        a = (bk.off_rows, bk.off_cols)
         if dt == torch.float64:
             R, D = rand((1, n, r), dt), rand((1, n, r), dt)
-            a = (bk.off_rows, bk.off_cols)
+            kw = _tiles_kw(pat, bk, "off", kernels.uvt_pair_split)
             measure("uvt_pair_split", f"{sfx} r={r}", sfx,
-                    lambda: kernels.uvt_pair_split(R, D, *a),
+                    lambda: kernels.uvt_pair_split(R, D, *a, **kw),
                     lambda: kernels.uvt_pair_split_plain(R, D, *a),
                     kernels.uvt_pair_split_plain(R.abs(), D.abs(), *a),
                     nbytes=2 * n * r * s + 2 * Ko * 4 + 2 * (n + Ko) * s,
                     flops=4 * n * r + 6 * Ko * r)
+        # ---- K3 uvt_split: ADMM's sym(x F^T) (U != V) at both types, the
+        # ALM's objective values (U is V) at f64
+        U, V = rand((1, n, r), dt), rand((1, n, r), dt)
+        kw = _tiles_kw(pat, bk, "off", kernels.uvt_split)
+        for VV in ((V, None) if dt == torch.float64 else (V,)):
+            uvt_cases(measure, kernels, "matcomp2000 ", sfx, U, VV, *a, kw,
+                      n, Ko)
         # ---- K4 gather_segsum: A(.) (one entry per constraint: exact)
         # (library, here and below: K4's entry list as a CSR matrix,
         # built once, times x by torch.sparse.mm, or torch.addmm with C)
@@ -777,12 +784,75 @@ def matcomp_kernel_checks(rng, measure):
     k5_k6_other_patterns(rng, measure)
 
 
-def _tiles_kw(pat, bk, kind):
-    """The tile schedule K5 ("sym") or K6 ("off") runs on, as a keyword
-    of its wrapper; nothing for a checkout whose kernels take none
-    (--kernels-of an earlier one)."""
-    t = getattr(bk, f"{kind}_tiles", None)
-    return {} if t is None else {"tiles": t}
+def _tiles_kw(pat, bk, kind, fn=None):
+    """The tile schedule K5 ("sym") or K3, K3p, K6 ("off") run on, as a
+    keyword of the wrapper fn; nothing for a checkout whose bucket holds
+    none or whose fn takes none (--kernels-of an earlier one)."""
+    return _kw_tiles(fn, getattr(bk, f"{kind}_tiles", None))
+
+
+def _kw_tiles(fn, t):
+    """{"tiles": t} where the wrapper fn takes a schedule (fn None: K5,
+    K6, which take one wherever a bucket holds one), else {}."""
+    import inspect
+    if t is None or (fn is not None
+                     and "tiles" not in inspect.signature(fn).parameters):
+        return {}
+    return {"tiles": t}
+
+
+def one_dot_exact(kernels, label, U, rows, cols, kw):
+    """K3 with U is V (one dot an entry) against its two-dot path on a
+    copy of U: equal bit for bit, diagonal and off values."""
+    import torch
+    one = kernels.uvt_split(U, U, rows, cols, **kw)
+    two = kernels.uvt_split(U, U.clone(), rows, cols, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+        raise AssertionError(f"uvt_split [{label}]: U is V differs from "
+                             "the two-dot path")
+    print(f"uvt_split [{label}]: U is V equals the two-dot path on a copy "
+          "of U bit for bit")
+
+
+def uvt_cases(measure, kernels, where, sfx, U, V, rows, cols, kw, n, Ko,
+              Poff=None, B=1):
+    """K3 on one pattern: U != V (library: torch.sparse.sampled_addmm on
+    the off pattern gives U V^T there, without the symmetrisation
+    (U V^T + V U^T) / 2 and the diagonal rowsum) and, where V is given
+    as None, only U is V: one dot an entry, checked bit for bit against
+    the two-dot path (library: sampled_addmm gives U U^T there, the same
+    off values; the diagonal rowsum is outside it)."""
+    import torch
+    s = 8 if sfx == "f64" else 4
+    r = U.shape[2]
+    Uf = U.reshape(B * n, r)
+    if V is not None:
+        a = (U, V, rows, cols)
+        Vt = V.reshape(B * n, r).T.contiguous()
+        measure("uvt_split", f"{where}{sfx} r={r}", sfx,
+                lambda: kernels.uvt_split(*a, **kw),
+                lambda: kernels.uvt_split_plain(*a),
+                kernels.uvt_split_plain(U.abs(), V.abs(), rows, cols),
+                nbytes=2 * B * n * r * s + 2 * B * Ko * 4 + B * (n + Ko) * s,
+                flops=B * (2 * n * r + 4 * Ko * r),
+                library=None if Poff is None else (
+                    lambda: torch.sparse.sampled_addmm(Poff, Uf, Vt,
+                                                       beta=0.0)))
+        return
+    a = (U, U, rows, cols)
+    Ut = Uf.T.contiguous()
+    one_dot_exact(kernels, f"{where}{sfx} r={r} U is V", U, rows, cols, kw)
+    note = "" if Poff is None else (" (library: the off values alone, "
+                                     "no diagonal rowsum)")
+    measure("uvt_split", f"{where}{sfx} r={r} U is V{note}", sfx,
+            lambda: kernels.uvt_split(*a, **kw),
+            lambda: kernels.uvt_split_plain(*a),
+            kernels.uvt_split_plain(U.abs(), U.abs(), rows, cols),
+            nbytes=B * n * r * s + 2 * B * Ko * 4 + B * (n + Ko) * s,
+            flops=B * (2 * n * r + 2 * Ko * r),
+            library=None if Poff is None else (
+                lambda: torch.sparse.sampled_addmm(Poff, Uf, Ut, beta=0.0)))
 
 
 def _skewed_split_bucket(rng, dev):
@@ -889,6 +959,20 @@ def k5_k6_other_patterns(rng, measure):
                                             False)[1],
                 nbytes=2 * n * r * 8 + 2 * Ko * 4 + 2 * Ko * 8,
                 flops=4 * Ko * r + Ko)
+        if where != "skewed":
+            continue
+        # ---- K3 (U != V, U is V) and K3p on the skewed pattern
+        a = (bk.off_rows, bk.off_cols)
+        for VV in (F, None):
+            uvt_cases(measure, kernels, f"{where} ", "f64", X, VV, *a,
+                      _tiles_kw(pat, bk, "off", kernels.uvt_split), n, Ko)
+        kw = _tiles_kw(pat, bk, "off", kernels.uvt_pair_split)
+        measure("uvt_pair_split", f"{where} f64 r={r}", "f64",
+                lambda: kernels.uvt_pair_split(X, F, *a, **kw),
+                lambda: kernels.uvt_pair_split_plain(X, F, *a),
+                kernels.uvt_pair_split_plain(X.abs(), F.abs(), *a),
+                nbytes=2 * n * r * 8 + 2 * Ko * 4 + 2 * (n + Ko) * 8,
+                flops=4 * n * r + 6 * Ko * r)
 
 
 def theta_kernel_checks(rng, measure):
@@ -1101,20 +1185,13 @@ def multiblock_kernel_checks(rng, measure):
             flops=2 * B * (Ks + nb) * r,
             library=lambda: torch.sparse.mm(C, Xf))
     U, V = rand(B, nb, r), rand(B, nb, r)
-    a3 = (U, V, bk.off_rows, bk.off_cols)
     Poff = _csr((bk.off_rows + off).reshape(-1),
                 (bk.off_cols + off).reshape(-1),
                 torch.ones(B * Ko, dtype=torch.float64, device=dev), B * nb)
-    Uf, Vt = U.reshape(B * nb, r), V.reshape(B * nb, r).T.contiguous()
-    measure("uvt_split", f"f64 B={B} r={r}", "f64",
-            lambda: kernels.uvt_split(*a3),
-            lambda: kernels.uvt_split_plain(*a3),
-            kernels.uvt_split_plain(U.abs(), V.abs(), bk.off_rows,
-                                    bk.off_cols),
-            nbytes=2 * B * nb * r * s + 2 * B * Ko * 4 + B * (nb + Ko) * s,
-            flops=B * (2 * nb * r + 4 * Ko * r),
-            library=lambda: torch.sparse.sampled_addmm(Poff, Uf, Vt,
-                                                       beta=0.0))
+    kw = _tiles_kw(pat, bk, "off", kernels.uvt_split)
+    for VV in (V, None):
+        uvt_cases(measure, kernels, f"B={B} ", "f64", U, VV, bk.off_rows,
+                  bk.off_cols, kw, nb, Ko, Poff, B)
 
 
 def lp_gs_case(measure, a8c, N):
@@ -1240,8 +1317,11 @@ def probe_kernel_checks(rng, measure):
     ir = i32(np.sort(rng.integers(0, n3, K3)))
     U, V = Xt.T.contiguous()[None], Dt.T.contiguous()[None]
     rows, cols = ir[None], ic[None]
+    kw = _kw_tiles(kernels.uvt_split,
+                   getattr(kernels, "adj_tiles", lambda *a: None)(
+                       rows, cols, n3))
     measure("uvt_split", f"f32 uvT probe R={R} n={n3} K={K3}", "f32",
-            lambda: kernels.uvt_split(U, V, rows, cols)[1],
+            lambda: kernels.uvt_split(U, V, rows, cols, **kw)[1],
             lambda: kernels.uvt_split_plain(U, V, rows, cols)[1],
             kernels.uvt_split_plain(U.abs(), V.abs(), rows, cols)[1],
             nbytes=2 * n3 * R * 4 + 2 * K3 * 4 + (n3 + K3) * 4,
@@ -1349,7 +1429,8 @@ def solve_path(card, path, instances):
         if path in ("matcomp", "theta", "lp") and solver.admm_cg_total <= 0:
             raise AssertionError(f"{name}: ADMM ran no CG iteration")
     counts = dict(kernels.LAUNCHES)
-    print(f"main path {path}: kernel launches {counts}, host syncs "
+    print(f"main path {path}: kernel launches {counts} (uvt_split with U "
+          f"is V: {kernels.ONE_DOT_LAUNCHES['uvt_split']}), host syncs "
           f"{tdev.HOST_SYNCS}")
     for k in PATH_KERNELS[path]:
         if counts[k] <= 0:

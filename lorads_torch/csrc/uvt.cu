@@ -1,106 +1,130 @@
 // K3 uvt_split: sym(U V^T) on a split sparsity pattern (an SDDMM).
 //
-// Replaces the split branch of lorads_tpu/ops/pattern.py: uvt.  The TPU
-// version gathers four [B, Ko, r] row blocks (U and V at the off rows and
-// off columns) into HBM and reduces their products along r.  Here:
+// Replaces the split branch of lorads_tpu/ops/pattern.py: uvt (and
+// uvt_from_cache, its U-is-V form from gathered rows).  The TPU version
+// gathers four [B, Ko, r] row blocks (U and V at the off rows and off
+// columns) into HBM and reduces their products along r.  Here:
 //
-//   d[b, i] = <U[b, i], V[b, i]>                                (diag kernel)
-//   o[b, k] = (<U[b, i_k], V[b, j_k]> + <U[b, j_k], V[b, i_k]>) / 2   (off kernel)
+//   d[b, i] = <U[b, i], V[b, i]>                                (diagonal)
+//   o[b, k] = (<U[b, i_k], V[b, j_k]> + <U[b, j_k], V[b, i_k]>) / 2   (off values)
 //
-// with i_k = rows[b, k], j_k = cols[b, k].  One warp per output entry:
-// the lanes run over r (coalesced row reads; the four rows of an off
-// entry come from L2, since U and V together are 6.4 MB at n=20000,
-// r=20, f64) and a shuffle tree sums them.  Both kernels launch on the
-// same stream from one entry point.  Sums are direct in the input type
-// (the path runs it at f64).
+// with i_k = rows[b, k], j_k = cols[b, k].  When U is V (the ALM's
+// objective values, the spectral repair) both dots are <R_i, R_j>, and
+// the off values take one dot an entry, reading two rows instead of
+// four: bit for bit the two-dot value of the same path, since the two
+// dots then add equal terms in the same order.
 //
-// What bounds it: memory traffic -- per off entry four r-wide row reads
-// from L2 and one write; Ko=80000 at maxcut n=20000.
+// The off values run over K6's schedule of the off slots (sddmm.cuh:
+// staged 64 x 64 tiles, a thread an entry from shared memory; units of
+// sparse tiles and patterns with no staged tile, a warp per entry, or 4
+// entries for one dot at f64 or two at f32, lanes over r, rows from L2;
+// the diagonal rows ride in that launch, as entries (i, i)).  Sums are direct in the input type (the path runs it
+// at f64).
+//
+// What bounds it: the factor rows' traffic into the SMs.  The function
+// must move U, V, the indices and its outputs once (7.84 MB at maxcut
+// n=20000, Ko=80000, r=20, f64); a warp path reads two r-wide rows an
+// entry from L2 for each factor (one for U is V: 25.6 MB at maxcut20000,
+// the traffic of K2's gathers there), a staged tile each factor row once
+// a tile (matrix completion's 12 %-dense block, ~240 entries a row).
 
 #include <cuda_runtime.h>
 
-#include "warp_acc.cuh"
+#include "sddmm.cuh"
 
 namespace {
 
-using lt::warp_sum;
-constexpr int WARPS_PER_BLOCK = 8;
+using lt::Direct;
 
-template <typename T>
-__global__ void uvt_diag_kernel(const T* __restrict__ U,
-                                const T* __restrict__ V, T* __restrict__ d,
-                                int B, int n, int r) {
-  const long warp = (blockIdx.x * (long)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long)B * n) return;  // uniform across the warp
-  const T* u = U + warp * r;
-  const T* v = V + warp * r;
-  T s = 0;
-  for (int c = lane; c < r; c += 32) s += u[c] * v[c];
-  s = warp_sum(s);
-  if (lane == 0) d[warp] = s;
-}
-
-template <typename T>
-__global__ void uvt_off_kernel(const T* __restrict__ U,
-                               const T* __restrict__ V,
-                               const int* __restrict__ rows,
-                               const int* __restrict__ cols,
-                               T* __restrict__ o, int B, int n, int Ko,
-                               int r) {
-  const long warp = (blockIdx.x * (long)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long)B * Ko) return;  // uniform across the warp
-  const int b = (int)(warp / Ko);
-  const long i = rows[warp], j = cols[warp];
-  const T* Ub = U + (long)b * n * r;
-  const T* Vb = V + (long)b * n * r;
-  T s1 = 0, s2 = 0;
-  for (int c = lane; c < r; c += 32) {
-    s1 += Ub[i * r + c] * Vb[j * r + c];
-    s2 += Ub[j * r + c] * Vb[i * r + c];
+// o = (<U_i, V_j> + <U_j, V_i>) / 2
+template <typename T_>
+struct UvtTwo {
+  using T = T_;
+  using A = Direct<T>;
+  static constexpr int NF = 2, ND = 2;
+  const T* f[NF];  // U, V
+  T* o;
+  T* d;
+  __device__ __forceinline__ void dots(A (&s)[ND], const T* const (&I)[NF],
+                                       const T* const (&J)[NF],
+                                       int c) const {
+    s[0].add(I[0][c] * J[1][c]);
+    s[1].add(J[0][c] * I[1][c]);
   }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  if (lane == 0) o[warp] = T(0.5) * (s1 + s2);
-}
+  __device__ __forceinline__ void store(const A (&s)[ND], long k) const {
+    o[k] = T(0.5) * (s[0].value() + s[1].value());
+  }
+  __device__ __forceinline__ void store_diag(const A (&s)[ND],
+                                             long k) const {
+    d[k] = s[0].value();
+  }
+};
 
-long blocks_for(long warps) {
-  return (warps + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-}
+// U is V: o = <R_i, R_j>
+template <typename T_>
+struct UvtOne {
+  using T = T_;
+  using A = Direct<T>;
+  static constexpr int NF = 1, ND = 1;
+  const T* f[NF];  // R
+  T* o;
+  T* d;
+  __device__ __forceinline__ void dots(A (&s)[ND], const T* const (&I)[NF],
+                                       const T* const (&J)[NF],
+                                       int c) const {
+    s[0].add(I[0][c] * J[0][c]);
+  }
+  __device__ __forceinline__ void store(const A (&s)[ND], long k) const {
+    o[k] = s[0].value();
+  }
+  __device__ __forceinline__ void store_diag(const A (&s)[ND],
+                                             long k) const {
+    d[k] = s[0].value();
+  }
+};
 
 template <typename T>
-int launch(const void* U, const void* V, const void* rows, const void* cols,
-           void* d, void* o, int B, int n, int Ko, int r,
+int launch(int one_dot, const void* U, const void* V, const void* rows,
+           const void* cols, const int* const* t, void* d, void* o, int B,
+           int n, int Ko, int r, int Un, int TR, int TC, int l2,
            cudaStream_t stream) {
   const T* u = static_cast<const T*>(U);
   const T* v = static_cast<const T*>(V);
-  if ((long)B * n > 0) {
-    uvt_diag_kernel<T><<<(unsigned)blocks_for((long)B * n),
-                         32 * WARPS_PER_BLOCK, 0, stream>>>(
-        u, v, static_cast<T*>(d), B, n, r);
-    int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  if ((long)B * Ko > 0) {
-    uvt_off_kernel<T><<<(unsigned)blocks_for((long)B * Ko),
-                        32 * WARPS_PER_BLOCK, 0, stream>>>(
-        u, v, static_cast<const int*>(rows), static_cast<const int*>(cols),
-        static_cast<T*>(o), B, n, Ko, r);
-  }
-  return (int)cudaGetLastError();
+  const int* ri = static_cast<const int*>(rows);
+  const int* ci = static_cast<const int*>(cols);
+  T* op = static_cast<T*>(o);
+  T* dp = static_cast<T*>(d);
+  if (one_dot)
+    return lt::launch_sddmm<UvtOne<T>, UvtTwo<T>>(
+        UvtOne<T>{{u}, op, dp}, ri, ci, t, B, n, Ko, r, Un, TR, TC, l2, B * n,
+        stream);
+  return lt::launch_sddmm(UvtTwo<T>{{u, v}, op, dp}, ri, ci, t, B, n, Ko, r,
+                          Un, TR, TC, l2, B * n, stream);
 }
 
 }  // namespace
 
-// U, V [B, n, r]; rows, cols int32 [B, Ko]; d [B, n]; o [B, Ko]; all
-// contiguous.  is_f64: 1 for float64, 0 for float32.
-// Returns cudaGetLastError().
-extern "C" int lt_uvt_split(int is_f64, const void* U, const void* V,
-                            const void* rows, const void* cols, void* d,
-                            void* o, int B, int n, int Ko, int r,
-                            void* stream) {
+// U, V [B, n, r] (one_dot: V is U, one dot an entry); rows, cols int32
+// [B, Ko]; the schedule of the off slots (kernels.Tiles: slot, ij int32
+// [B, Ko], bnd [B, U+1], row0, col0 [B, U], tiles of TR x TC; Un == 0:
+// no staged tile, the warp path on rows, cols); l2: 0 when no unit of
+// sparse tiles exists; d [B, n]; o [B, Ko]; all contiguous.  is_f64: 1
+// for float64, 0 for float32.  Returns cudaGetLastError().
+extern "C" int lt_uvt_split(int is_f64, int one_dot, const void* U,
+                            const void* V, const void* rows,
+                            const void* cols, const void* t_slot,
+                            const void* t_ij, const void* t_bnd,
+                            const void* t_row0, const void* t_col0, void* d,
+                            void* o, int B, int n, int Ko, int r, int Un,
+                            int TR, int TC, int l2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(U, V, rows, cols, d, o, B, n, Ko, r, s)
-                : launch<float>(U, V, rows, cols, d, o, B, n, Ko, r, s);
+  const int* t[5] = {static_cast<const int*>(t_slot),
+                     static_cast<const int*>(t_ij),
+                     static_cast<const int*>(t_bnd),
+                     static_cast<const int*>(t_row0),
+                     static_cast<const int*>(t_col0)};
+  return is_f64 ? launch<double>(one_dot, U, V, rows, cols, t, d, o, B, n,
+                                 Ko, r, Un, TR, TC, l2, s)
+                : launch<float>(one_dot, U, V, rows, cols, t, d, o, B, n,
+                                Ko, r, Un, TR, TC, l2, s);
 }

@@ -8,125 +8,102 @@
 // keeps R's two of them as an incrementally updated cache -- and reduces
 // their products along r.  Here:
 //
-//   rd_d[b, i] = <R_i, D_i>,   dd_d[b, i] = <D_i, D_i>            (diag kernel)
+//   rd_d[b, i] = <R_i, D_i>,   dd_d[b, i] = <D_i, D_i>            (diagonal)
 //   rd_o[b, k] = (<R_i, D_j> + <R_j, D_i>) / 2,
-//   dd_o[b, k] = <D_i, D_j>,   i = rows[b, k], j = cols[b, k]      (off kernel)
+//   dd_o[b, k] = <D_i, D_j>,   i = rows[b, k], j = cols[b, k]      (off values)
 //
-// One warp per output entry, the lanes over r (a loop when r > 32): each
-// off warp reads the four rows R_i, R_j, D_i, D_j once, from L2 (R and D
-// are 0.5 MB each at n = 4000, r = 17 in f64), and writes two values, so
-// the gathered [Ko, r] blocks never exist and no cache is needed.  Both
-// kernels launch on the same stream from one entry point.  f32 sums are
+// The off values run over K6's schedule of the off slots (sddmm.cuh):
+// a staged 64 x 64 tile stages R and D at its rows and columns into
+// shared memory (four arrays of 64 x r), and a thread takes one entry at
+// a time, its three dots from shared memory, two stores at the entry's
+// slot; units of sparse tiles, and patterns with no staged tile, take a
+// warp per entry, lanes over r, the rows from L2.  So the gathered
+// [Ko, r] blocks never exist and no cache is needed.  The diagonal rows
+// ride in the warp path's launch, as entries (i, i).  f32 sums are
 // Neumaier-compensated (warp_acc.cuh), f64 sums direct.
 //
-// What bounds it: L2 traffic -- four r-wide row reads per off entry
-// (Ko = 478843 at matcomp2000) and two writes.
+// What bounds it: the factor rows' traffic into the SMs.  The function
+// must move R, D, the indices and four outputs once (12.6 MB at
+// matcomp2000: n = 4000, Ko = 478843, r = 17, f64); a warp an entry
+// gathers four r-wide rows from L2 for each (260 MB a call), a staged
+// tile reads each row once a tile (the pattern's 12 %-dense block uses
+// each row in ~240 entries).
 
 #include <cuda_runtime.h>
 
-#include "warp_acc.cuh"
+#include "sddmm.cuh"
 
 namespace {
 
 using lt::Acc;
-constexpr int WARPS_PER_BLOCK = 8;
 
-template <typename T>
-__global__ void pair_diag_kernel(const T* __restrict__ R,
-                                 const T* __restrict__ D,
-                                 T* __restrict__ rd_d, T* __restrict__ dd_d,
-                                 int B, int n, int r) {
-  const long warp = (blockIdx.x * (long)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long)B * n) return;  // uniform across the warp
-  const T* rr = R + warp * r;
-  const T* dd = D + warp * r;
-  Acc<T> a, c;
-  for (int k = lane; k < r; k += 32) {
-    a.add(rr[k] * dd[k]);
-    c.add(dd[k] * dd[k]);
+// rd_o = (<R_i, D_j> + <R_j, D_i>) / 2, dd_o = <D_i, D_j>
+template <typename T_>
+struct Pair {
+  using T = T_;
+  using A = Acc<T>;
+  static constexpr int NF = 2, ND = 3;
+  const T* f[NF];  // R, D
+  T* rd_o;
+  T* dd_o;
+  T* rd_d;
+  T* dd_d;
+  __device__ __forceinline__ void dots(A (&s)[ND], const T* const (&I)[NF],
+                                       const T* const (&J)[NF],
+                                       int c) const {
+    const T ri = I[0][c], rj = J[0][c], di = I[1][c], dj = J[1][c];
+    s[0].add(ri * dj);
+    s[1].add(rj * di);
+    s[2].add(di * dj);
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    a.merge_down(off);
-    c.merge_down(off);
+  __device__ __forceinline__ void store(const A (&s)[ND], long k) const {
+    rd_o[k] = T(0.5) * (s[0].value() + s[1].value());
+    dd_o[k] = s[2].value();
   }
-  if (lane == 0) {
-    rd_d[warp] = a.value();
-    dd_d[warp] = c.value();
+  __device__ __forceinline__ void store_diag(const A (&s)[ND],
+                                             long k) const {
+    rd_d[k] = s[0].value();
+    dd_d[k] = s[2].value();
   }
-}
-
-template <typename T>
-__global__ void pair_off_kernel(const T* __restrict__ R,
-                                const T* __restrict__ D,
-                                const int* __restrict__ rows,
-                                const int* __restrict__ cols,
-                                T* __restrict__ rd_o, T* __restrict__ dd_o,
-                                int B, int n, int Ko, int r) {
-  const long warp = (blockIdx.x * (long)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long)B * Ko) return;  // uniform across the warp
-  const int b = (int)(warp / Ko);
-  const long i = rows[warp], j = cols[warp];
-  const T* Rb = R + (long)b * n * r;
-  const T* Db = D + (long)b * n * r;
-  Acc<T> s1, s2, s3;
-  for (int k = lane; k < r; k += 32) {
-    const T ri = Rb[i * r + k], rj = Rb[j * r + k];
-    const T di = Db[i * r + k], dj = Db[j * r + k];
-    s1.add(ri * dj);
-    s2.add(rj * di);
-    s3.add(di * dj);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    s1.merge_down(off);
-    s2.merge_down(off);
-    s3.merge_down(off);
-  }
-  if (lane == 0) {
-    rd_o[warp] = T(0.5) * (s1.value() + s2.value());
-    dd_o[warp] = s3.value();
-  }
-}
-
-long blocks_for(long warps) {
-  return (warps + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-}
+};
 
 template <typename T>
 int launch(const void* R, const void* D, const void* rows, const void* cols,
-           void* rd_d, void* rd_o, void* dd_d, void* dd_o, int B, int n,
-           int Ko, int r, cudaStream_t stream) {
-  const T* rp = static_cast<const T*>(R);
-  const T* dp = static_cast<const T*>(D);
-  if ((long)B * n > 0) {
-    pair_diag_kernel<T><<<(unsigned)blocks_for((long)B * n),
-                          32 * WARPS_PER_BLOCK, 0, stream>>>(
-        rp, dp, static_cast<T*>(rd_d), static_cast<T*>(dd_d), B, n, r);
-    int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  if ((long)B * Ko > 0) {
-    pair_off_kernel<T><<<(unsigned)blocks_for((long)B * Ko),
-                         32 * WARPS_PER_BLOCK, 0, stream>>>(
-        rp, dp, static_cast<const int*>(rows), static_cast<const int*>(cols),
-        static_cast<T*>(rd_o), static_cast<T*>(dd_o), B, n, Ko, r);
-  }
-  return (int)cudaGetLastError();
+           const int* const* t, void* rd_d, void* rd_o, void* dd_d,
+           void* dd_o, int B, int n, int Ko, int r, int U, int TR, int TC,
+           int l2, cudaStream_t stream) {
+  const Pair<T> p{{static_cast<const T*>(R), static_cast<const T*>(D)},
+                  static_cast<T*>(rd_o), static_cast<T*>(dd_o),
+                  static_cast<T*>(rd_d), static_cast<T*>(dd_d)};
+  return lt::launch_sddmm(p, static_cast<const int*>(rows),
+                          static_cast<const int*>(cols), t, B, n, Ko, r, U,
+                          TR, TC, l2, B * n, stream);
 }
 
 }  // namespace
 
-// R, D [B, n, r]; rows, cols int32 [B, Ko]; rd_d, dd_d [B, n]; rd_o,
-// dd_o [B, Ko]; all contiguous.  is_f64: 1 for float64, 0 for float32.
-// Returns cudaGetLastError().
+// R, D [B, n, r]; rows, cols int32 [B, Ko]; the schedule of the off
+// slots (kernels.Tiles: slot, ij int32 [B, Ko], bnd [B, U+1], row0,
+// col0 [B, U], tiles of TR x TC; U == 0: no staged tile, the warp path
+// on rows, cols); l2: 0 when no unit of sparse tiles exists; rd_d, dd_d
+// [B, n]; rd_o, dd_o [B, Ko]; all contiguous.  is_f64: 1 for float64, 0
+// for float32.  Returns cudaGetLastError().
 extern "C" int lt_uvt_pair(int is_f64, const void* R, const void* D,
-                           const void* rows, const void* cols, void* rd_d,
-                           void* rd_o, void* dd_d, void* dd_o, int B, int n,
-                           int Ko, int r, void* stream) {
+                           const void* rows, const void* cols,
+                           const void* t_slot, const void* t_ij,
+                           const void* t_bnd, const void* t_row0,
+                           const void* t_col0, void* rd_d, void* rd_o,
+                           void* dd_d, void* dd_o, int B, int n, int Ko,
+                           int r, int U, int TR, int TC, int l2,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(R, D, rows, cols, rd_d, rd_o, dd_d, dd_o, B,
-                                 n, Ko, r, s)
-                : launch<float>(R, D, rows, cols, rd_d, rd_o, dd_d, dd_o, B,
-                                n, Ko, r, s);
+  const int* t[5] = {static_cast<const int*>(t_slot),
+                     static_cast<const int*>(t_ij),
+                     static_cast<const int*>(t_bnd),
+                     static_cast<const int*>(t_row0),
+                     static_cast<const int*>(t_col0)};
+  return is_f64 ? launch<double>(R, D, rows, cols, t, rd_d, rd_o, dd_d, dd_o,
+                                 B, n, Ko, r, U, TR, TC, l2, s)
+                : launch<float>(R, D, rows, cols, t, rd_d, rd_o, dd_d, dd_o,
+                                B, n, Ko, r, U, TR, TC, l2, s);
 }

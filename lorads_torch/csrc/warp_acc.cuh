@@ -1,10 +1,11 @@
 // Warp-level accumulators shared by the lorads_torch kernels.
 //
-// Acc<double> sums directly.  Acc<float> is a Neumaier (Kahan-Babuska)
-// compensated sum written with __fadd_rn/__fsub_rn, so no compiler
-// contraction can fold its error term away (the kernels are built
-// without --use_fast_math).  merge_down(off) adds the accumulator of
-// lane + off (warp shuffle), for tree reductions across a warp.
+// Acc<double> sums directly, and Direct<T> at either type.  Acc<float>
+// is a Neumaier (Kahan-Babuska) compensated sum written with
+// __fadd_rn/__fsub_rn, so no compiler contraction can fold its error
+// term away (the kernels are built without --use_fast_math).
+// merge_down(off) adds the accumulator of lane + off (warp shuffle), for
+// tree reductions across a warp.
 
 #pragma once
 #include <cuda_runtime.h>
@@ -13,13 +14,17 @@ namespace lt {
 
 constexpr unsigned FULL = 0xffffffffu;
 
+// a direct sum in T at either type (K3's sums)
 template <typename T>
-struct Acc {
+struct Direct {
   T s = 0;
   __device__ void add(T x) { s += x; }
   __device__ void merge_down(int off) { s += __shfl_down_sync(FULL, s, off); }
   __device__ T value() const { return s; }
 };
+
+template <typename T>
+struct Acc : Direct<T> {};
 
 template <>
 struct Acc<float> {
@@ -47,12 +52,6 @@ struct Acc<float> {
 __device__ __forceinline__ double wide(const Acc<double>& a) { return a.s; }
 __device__ __forceinline__ double wide(const Acc<float>& a) {
   return (double)a.s + (double)a.c;
-}
-
-template <typename T>
-__device__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);
-  return v;
 }
 
 }  // namespace lt

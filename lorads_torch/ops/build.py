@@ -38,10 +38,8 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "lt_segment_sum": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "lt_cmul": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "lt_uvt_split": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                     _VP],
-    "lt_uvt_pair": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                    _I, _VP],
+    "lt_uvt_split": [_I, _I, *[_VP] * 11, *[_I] * 8, _VP],
+    "lt_uvt_pair": [_I, *[_VP] * 13, *[_I] * 8, _VP],
     "lt_gather_segsum": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                          ctypes.c_double, _VP],
     "lt_wmul": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,

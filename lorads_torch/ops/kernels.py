@@ -23,10 +23,12 @@ and the probes' kernels, whose wrappers live in ``lorads_torch/probes``
 | gather.scatter_add      | csrc/scatter_add.cu  | microbench_gather9.py: fC (P4)        |
 
 K4 and K2 at r = 1 share one segment-sum schedule (csrc/segsum.cuh);
-K5 at r = 1 takes it too, its values read through the slots.  K6 and K5
-at r > 1 run over tile schedules of the static pattern (``Tiles``,
-built once per bucket by ``tile_schedule``), staging factor rows in
-shared memory a tile at a time (csrc/tiles.cuh).
+K5 at r = 1 takes it too, its values read through the slots.  K3, K3p,
+K6 and K5 at r > 1 run over tile schedules of the static pattern
+(``Tiles``, built once per bucket by ``tile_schedule``), staging factor
+rows in shared memory a tile at a time (csrc/tiles.cuh); K3, K3p and K6
+share one schedule of the off slots and one set of kernels
+(csrc/sddmm.cuh).
 csrc/floor.cu holds two measuring instruments that chip_smoke.py calls
 (an empty kernel, a chain of dependent shared-memory loads); they have
 no wrapper here and no count in ``LAUNCHES``.
@@ -61,11 +63,14 @@ KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
                 "adj_a_dense", "lp_gs_sweep", "onehot_scatter",
                 "onehot_gather", "row_gather", "scatter_add")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
+# of LAUNCHES["uvt_split"], those with V is U (one dot an entry)
+ONE_DOT_LAUNCHES = {"uvt_split": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    ONE_DOT_LAUNCHES["uvt_split"] = 0
 
 
 def _check(name, floats, ints):
@@ -238,9 +243,10 @@ def tile_schedule(rows, cols, slot, n: int, tile_rows: int,
         strip = i32(torch.searchsorted(
             row0, (torch.arange(nrt + 1, device=dev) * tile_rows).clamp(
                 max=n).expand(B, nrt + 1).contiguous()))
-    return Tiles(i32(slot.reshape(-1)[perm]), i32(ij), i32(bnd),
-                 i32(row0), i32(col0), strip, rowptr, tile_rows,
-                 tile_cols, *unit_counts(row0, col0, n).sum(0).tolist())
+    return checked_tiles(Tiles(
+        i32(slot.reshape(-1)[perm]), i32(ij), i32(bnd), i32(row0),
+        i32(col0), strip, rowptr, tile_rows, tile_cols,
+        *unit_counts(row0, col0, n).sum(0).tolist()))
 
 
 def unit_counts(row0, col0, n: int):
@@ -258,6 +264,43 @@ def adj_tiles(rows, cols, n: int) -> Tiles:
     return tile_schedule(rows, cols, slot.expand(rows.shape), n, ADJ_TILE,
                          ADJ_TILE, ADJ_MIN_FILL, ADJ_EMAX, ADJ_EMAX_L2,
                          strips=False)
+
+
+def checked_tiles(t: Tiles) -> Tiles:
+    """t, once its arrays are found int32, contiguous and on one device;
+    made so by tile_schedule and bucket_tiles, the wrappers then check
+    only that it is a schedule of their entries (_pairs)."""
+    arrays = [a for a in t[:7] if a is not None]
+    for a in arrays:
+        if (a.dtype != torch.int32 or not a.is_contiguous()
+                or a.device != arrays[0].device):
+            raise ValueError("Tiles: arrays must be contiguous int32 on "
+                             "one device")
+    return t
+
+
+def _pairs(name, t: Tiles, entries):
+    """t schedules these entries [B, N] (same shape, same device)."""
+    if t.slot.shape != entries.shape or t.slot.device != entries.device:
+        raise ValueError(f"{name}: tiles of another pattern")
+
+
+def _off_tiles(name, tiles, rows, cols, n: int) -> Tiles:
+    """The off slots' schedule a K3, K3p or K6 call runs on: ``tiles``,
+    or adj_tiles built here (a host sync)."""
+    t = tiles if tiles is not None else adj_tiles(rows, cols, n)
+    _pairs(name, t, rows)
+    return t
+
+
+def _tile_args(t: Tiles, outs, B: int, n: int, Ko: int, r: int):
+    """The C arguments of K3, K3p and K6 from the schedule's arrays on:
+    those five, the outputs, the sizes, the units a block (0: no staged
+    tile, the warp path on rows, cols), the tile's rows and columns, and
+    whether units of sparse tiles exist."""
+    return (*(a.data_ptr() for a in t[:5]), *map(_ptr, outs), B, n, Ko, r,
+            t.row0.shape[1] if t.staged else 0, t.rows, t.cols,
+            int(t.sparse > 0))
 
 
 def csr_rows(bnd, N: int):
@@ -367,9 +410,12 @@ def uvt_split_plain(U, V, rows, cols):
 
 
 def uvt_split(U: torch.Tensor, V: torch.Tensor, rows: torch.Tensor,
-              cols: torch.Tensor):
+              cols: torch.Tensor, tiles: Tiles = None):
     """K3.  U, V [B, n, r]; rows, cols int32 [B, Ko] ->
-    (d [B, n] = rowsum(U*V), o [B, Ko] = sym(UV^T) at (rows, cols))."""
+    (d [B, n] = rowsum(U*V), o [B, Ko] = sym(UV^T) at (rows, cols)).
+    ``tiles``: the off slots' schedule (adj_tiles); built here when
+    None.  When V is U (the same storage and shape) the off values take
+    one dot an entry, <U_i, U_j>: bit for bit the two-dot value."""
     B, n, r = U.shape
     Ko = rows.shape[1]
     if V.shape != U.shape or cols.shape != rows.shape \
@@ -377,11 +423,14 @@ def uvt_split(U: torch.Tensor, V: torch.Tensor, rows: torch.Tensor,
         raise ValueError("uvt_split: inconsistent shapes")
     if not _check("uvt_split", [U, V], [rows, cols]):
         return uvt_split_plain(U, V, rows, cols)
+    t = _off_tiles("uvt_split", tiles, rows, cols, n)
+    one_dot = U.data_ptr() == V.data_ptr()
     d = torch.empty((B, n), dtype=U.dtype, device=U.device)
     o = torch.empty((B, Ko), dtype=U.dtype, device=U.device)
-    _launch("uvt_split", "lt_uvt_split", _is_f64(U), U.data_ptr(),
-            V.data_ptr(), rows.data_ptr(), cols.data_ptr(), d.data_ptr(),
-            o.data_ptr(), B, n, Ko, r)
+    _launch("uvt_split", "lt_uvt_split", _is_f64(U), int(one_dot),
+            U.data_ptr(), V.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+            *_tile_args(t, (d, o), B, n, Ko, r))
+    ONE_DOT_LAUNCHES["uvt_split"] += one_dot
     return d, o
 
 
@@ -400,10 +449,11 @@ def uvt_pair_split_plain(R, D, rows, cols):
 
 
 def uvt_pair_split(R: torch.Tensor, D: torch.Tensor, rows: torch.Tensor,
-                   cols: torch.Tensor):
+                   cols: torch.Tensor, tiles: Tiles = None):
     """K3p.  R, D [B, n, r]; rows, cols int32 [B, Ko] ->
     (rd_d, rd_o, dd_d, dd_o): rowsum(R*D) and rowsum(D*D) [B, n],
-    sym(RD^T) and DD^T at (rows, cols) [B, Ko]."""
+    sym(RD^T) and DD^T at (rows, cols) [B, Ko].  ``tiles``: the off
+    slots' schedule (adj_tiles); built here when None."""
     B, n, r = R.shape
     Ko = rows.shape[1]
     if D.shape != R.shape or cols.shape != rows.shape \
@@ -411,13 +461,14 @@ def uvt_pair_split(R: torch.Tensor, D: torch.Tensor, rows: torch.Tensor,
         raise ValueError("uvt_pair_split: inconsistent shapes")
     if not _check("uvt_pair_split", [R, D], [rows, cols]):
         return uvt_pair_split_plain(R, D, rows, cols)
+    t = _off_tiles("uvt_pair_split", tiles, rows, cols, n)
     rd_d, dd_d = (torch.empty((B, n), dtype=R.dtype, device=R.device)
                   for _ in range(2))
     rd_o, dd_o = (torch.empty((B, Ko), dtype=R.dtype, device=R.device)
                   for _ in range(2))
     _launch("uvt_pair_split", "lt_uvt_pair", _is_f64(R), R.data_ptr(),
-            D.data_ptr(), rows.data_ptr(), cols.data_ptr(), rd_d.data_ptr(),
-            rd_o.data_ptr(), dd_d.data_ptr(), dd_o.data_ptr(), B, n, Ko, r)
+            D.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+            *_tile_args(t, (rd_d, rd_o, dd_d, dd_o), B, n, Ko, r))
     return rd_d, rd_o, dd_d, dd_o
 
 
@@ -490,8 +541,7 @@ def wmul_csr(X: torch.Tensor, W_d: torch.Tensor, W_o: torch.Tensor,
     t = None
     if r > 1:
         t = tiles if tiles is not None else wmul_tiles(slots, cols, bnd)
-        if t.slot.shape != cols.shape or t.bnd.shape[0] != B:
-            raise ValueError("wmul_csr: tiles of another pattern")
+        _pairs("wmul_csr", t, cols)
     if t is None or not t.staged:
         _launch("wmul_csr", "lt_wmul", _is_f64(X), X.data_ptr(),
                 W_d.data_ptr(), W_o.data_ptr(), slots.data_ptr(),
@@ -499,7 +549,6 @@ def wmul_csr(X: torch.Tensor, W_d: torch.Tensor, W_o: torch.Tensor,
                 Ks, r)
         return out
     ti = (t.slot, t.ij, t.bnd, t.col0, t.strip, t.rowptr)
-    _check("wmul_csr", [X], list(ti))
     # parts a strip, so that the CTAs fill the card WMUL_WAVES deep
     P = max(1, min(WMUL_MAX_PARTS, -(-WMUL_WAVES * _sm_count(X.device)
                                      // (B * -(-n // t.rows)))))
@@ -535,20 +584,13 @@ def adj_a_offdiag(X: torch.Tensor, F: torch.Tensor, rows: torch.Tensor,
         raise ValueError("adj_a_offdiag: inconsistent shapes")
     if not _check("adj_a_offdiag", [X, F, a2], [rows, cols]):
         return adj_a_offdiag_plain(X, F, rows, cols, a2, want_diag)
-    t = tiles if tiles is not None else adj_tiles(rows, cols, n)
-    if t.slot.shape != rows.shape or t.bnd.shape[0] != B:
-        raise ValueError("adj_a_offdiag: tiles of another pattern")
-    _check("adj_a_offdiag", [X], list(t[:5]))
+    t = _off_tiles("adj_a_offdiag", tiles, rows, cols, n)
     d = (torch.empty((B, n), dtype=X.dtype, device=X.device)
          if want_diag else None)
     W_o = torch.empty((B, Ko), dtype=X.dtype, device=X.device)
-    # U = 0 (no staged tile): the warp-per-entry kernel on (rows, cols);
-    # no unit of sparse tiles: no L2 pass
     _launch("adj_a_offdiag", "lt_adj_a_offdiag", _is_f64(X), X.data_ptr(),
             F.data_ptr(), rows.data_ptr(), cols.data_ptr(), a2.data_ptr(),
-            *(a.data_ptr() for a in t[:5]), _ptr(d), W_o.data_ptr(), B, n,
-            Ko, r, t.row0.shape[1] if t.staged else 0, t.rows, t.cols,
-            int(t.sparse > 0))
+            *_tile_args(t, (d, W_o), B, n, Ko, r))
     return d, W_o
 
 

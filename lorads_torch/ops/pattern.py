@@ -34,11 +34,11 @@ not build):
 * no gathered-row caches (``gather_cache`` gives None): the cached
   forms compute from the factors directly, which a fused SDDMM reads
   from L2;
-* the tile schedules of K6 over the off slots and of K5 over the
-  full-symmetric entry list (``off_tile_*``, ``sym_tile_*``, built once
-  where the bucket lies by kernels.adj_tiles and kernels.wmul_tiles in
-  tile_fields; ``off_tiles`` and ``sym_tiles`` hold them as
-  kernels.Tiles), so that both kernels stage factor rows in shared
+* the tile schedules of the off slots (K3, K3p, K6) and of the
+  full-symmetric entry list (K5) (``off_tile_*``, ``sym_tile_*``, built
+  once where the bucket lies by kernels.adj_tiles and kernels.wmul_tiles
+  in tile_fields; ``off_tiles`` and ``sym_tiles`` hold them as
+  kernels.Tiles), so that the kernels stage factor rows in shared
   memory a tile at a time;
 * a constraint-sorted copy of the off constraint entries with CSR
   bounds (``a_con_o_cs``, ``a_pos_o_cs``, ``a_val_o_cs``,
@@ -741,11 +741,12 @@ def _sym_product(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 def uvt(bk, U: torch.Tensor, V: torch.Tensor):
     """sym(UV^T): full [B, n, n] on dense buckets, else on the split
     pattern (diag [B, n], off [B, Ko]) -- kernel K3
-    (pattern.py:1085-1092)."""
+    (pattern.py:1085-1092) over the off slots' schedule, one dot an
+    entry when V is U."""
     if bk.dense:
         return _sym_product(U, V)
     return kernels.uvt_split(U.contiguous(), V.contiguous(), bk.off_rows,
-                             bk.off_cols)
+                             bk.off_cols, tiles=bk.off_tiles)
 
 
 def uvt_pair(bk, R: torch.Tensor, D: torch.Tensor):
@@ -755,7 +756,8 @@ def uvt_pair(bk, R: torch.Tensor, D: torch.Tensor):
     if bk.dense:
         return _sym_product(R, D), _sym_product(D, D)
     rd_d, rd_o, dd_d, dd_o = kernels.uvt_pair_split(
-        R.contiguous(), D.contiguous(), bk.off_rows, bk.off_cols)
+        R.contiguous(), D.contiguous(), bk.off_rows, bk.off_cols,
+        tiles=bk.off_tiles)
     return (rd_d, rd_o), (dd_d, dd_o)
 
 
@@ -869,8 +871,9 @@ def bucket_tiles(f, kind: str) -> kernels.Tiles:
     fs = [getattr(f, f"{kind}_tile_{k}") for k in TILE_FIELDS[kind]]
     size = ((kernels.ADJ_TILE, kernels.ADJ_TILE) if kind == "off"
             else (kernels.WMUL_STRIP, kernels.WMUL_COLS))
-    return kernels.Tiles(*fs, *[None] * (7 - len(fs)), *size,
-                         *_unit_totals(getattr(f, f"{kind}_tile_units")))
+    return kernels.checked_tiles(kernels.Tiles(
+        *fs, *[None] * (7 - len(fs)), *size,
+        *_unit_totals(getattr(f, f"{kind}_tile_units"))))
 
 
 def w_mul(bk, W, X: torch.Tensor) -> torch.Tensor:
@@ -956,8 +959,9 @@ def cmul(bk: BucketData, X: torch.Tensor,
 # The cached forms.  lorads_tpu keeps gathered pattern rows of the ALM
 # and ADMM factors (X[off_rows], X[off_cols], a column-order mirror) and
 # advances them by tau * D, because its scatters at unsorted ids are
-# slow.  The port's fused SDDMM kernels read the rows from L2, so there
-# is no cache: the names stay and every form computes from the factors.
+# slow.  The port's fused SDDMM kernels stage the rows of a tile in
+# shared memory, or read them from L2, so there is no cache: the names
+# stay and every form computes from the factors.
 # ---------------------------------------------------------------------------
 
 def gather_cache(bk: BucketData, X: torch.Tensor):

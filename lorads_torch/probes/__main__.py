@@ -452,6 +452,7 @@ def uvt(p: Probe):
     U, V = Xt.T.contiguous()[None], Dt.T.contiguous()[None]  # once
     rows, cols = p.t(idx_r)[None], p.t(idx)[None]
     ir, ic = rows[0], cols[0]
+    tiles = kernels.adj_tiles(rows, cols, n)  # once, as a bucket holds it
 
     def unfused():
         return 0.5 * (torch.sum(Xt.index_select(1, ir) * Dt.index_select(
@@ -460,7 +461,8 @@ def uvt(p: Probe):
 
     l1 = kernels.uvt_split_plain(U.abs(), V.abs(), rows, cols)[1][0]
     row = p.case("uvt", "K3 uvt_split on X^T, D^T", f"R={R} n={n} K={K}",
-                 lambda: kernels.uvt_split(U, V, rows, cols)[1][0],
+                 lambda: kernels.uvt_split(U, V, rows, cols,
+                                           tiles=tiles)[1][0],
                  lambda: kernels.uvt_split_plain(U, V, rows, cols)[1][0],
                  nbytes=2 * n * R * 4 + 2 * K * 4 + (n + K) * 4,
                  flops=2 * n * R + 4 * K * R, library=unfused,

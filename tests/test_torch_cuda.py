@@ -1,6 +1,7 @@
 """lorads_torch's CUDA kernels on the card (marker ``cuda``).
 
-Each kernel against its plain PyTorch version on CUDA tensors, one
+Each kernel against its plain PyTorch version on CUDA tensors (K3's
+one-dot path for U is V also bit for bit against its two-dot path), one
 Max-Cut, one matrix-completion, one Lovász theta and one multi-block
 LP solve (both LP sweeps) on cuda.  Imports no JAX, so it also runs
 where JAX is not installed; without a GPU every test skips.  On a GPU
@@ -227,6 +228,7 @@ def _k5_k6_inputs(pattern, dtype):
         a5 = (f["sym_slot_rs"], f["sym_cols_rs"], f["bnd_sym_rows"])
         return 2, n, rows.shape[1], a5, t5, (rows, cols), t6, rows == cols
     bk = (_mc_bucket(dtype)[0] if pattern == "matcomp500"
+          else _bucket(dtype)[0] if pattern == "maxcut2000"
           else _merged_bucket(dtype))
     if pattern == "merged_b2_slice":  # the bucket Gauss-Seidel scan's view
         bk = pat.bucket_slice(bk, 0)
@@ -286,6 +288,52 @@ def test_adj_a_kernel_matches_plain(dtype, want_diag, r, pattern):
         assert _close(got[0], ref[0], l1[0], dtype)
     assert _close(got[1], ref[1], l1[1], dtype)
     assert torch.equal(kernels.adj_a_offdiag(X, F, *args, a2)[1], got[1])
+
+
+# K3 and K3p on the off slots' schedule: staged tiles (matcomp500, the
+# merged batch, the skewed pattern's hub strip) and the warp path (sparse
+# tiles; maxcut2000, where nearly every tile is sparse; r = 65 and 130 at
+# f64, r = 130 at f32, where the two-factor arrays pass the staging limit)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [1, 2, 17, 33, 65, 130])
+@pytest.mark.parametrize("pattern", ["matcomp500", "maxcut2000", "merged_b2",
+                                     "merged_b2_slice", "skewed"])
+def test_tiled_uvt_kernels_match_plain(dtype, r, pattern):
+    _need_cuda()
+    B, n, Ko, _, _, args, t6, _ = _k5_k6_inputs(pattern, dtype)
+    rng = np.random.default_rng(9)
+    U, V = (_rand(rng, (B, n, r), dtype) for _ in range(2))
+    # K3, U != V
+    before = dict(kernels.LAUNCHES), dict(kernels.ONE_DOT_LAUNCHES)
+    got = kernels.uvt_split(U, V, *args, tiles=t6)
+    ref = kernels.uvt_split_plain(U, V, *args)
+    l1 = kernels.uvt_split_plain(U.abs(), V.abs(), *args)
+    for g, e, a in zip(got, ref, l1):
+        assert _close(g, e, a, dtype)
+    # K3, U is V: one dot an entry, bit for bit the two-dot path on a copy
+    one = kernels.uvt_split(U, U, *args, tiles=t6)
+    two = kernels.uvt_split(U, U.clone(), *args, tiles=t6)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["uvt_split"] == before[0]["uvt_split"] + 3
+    assert kernels.ONE_DOT_LAUNCHES["uvt_split"] == \
+        before[1]["uvt_split"] + 1
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    ref = kernels.uvt_split_plain(U, U, *args)
+    l1 = kernels.uvt_split_plain(U.abs(), U.abs(), *args)
+    for g, e, a in zip(one, ref, l1):
+        assert _close(g, e, a, dtype)
+    # K3p
+    got_p = kernels.uvt_pair_split(U, V, *args, tiles=t6)
+    assert kernels.LAUNCHES["uvt_pair_split"] == \
+        before[0]["uvt_pair_split"] + 1
+    ref = kernels.uvt_pair_split_plain(U, V, *args)
+    l1 = kernels.uvt_pair_split_plain(U.abs(), V.abs(), *args)
+    for g, e, a in zip(got_p, ref, l1):
+        assert _close(g, e, a, dtype)
+    # the wrappers' own schedule (built on the card) is the bucket's
+    assert torch.equal(kernels.uvt_split(U, V, *args)[1], got[1])
+    assert torch.equal(kernels.uvt_pair_split(U, V, *args)[1], got_p[1])
 
 
 @pytest.mark.cuda

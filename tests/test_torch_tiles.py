@@ -13,10 +13,14 @@ hub row, empty tiles, a tile that holds only padding):
   are monotone; padding slots and entries are scheduled like the rest;
 * a torch walk over each schedule (test-only code, in the order the
   kernels decode it) gives what lorads_tpu computes from the same numpy
-  inputs on the CPU at f64: a2 .* sym(X F^T) on the off slots (its
-  a_adj_a of its uvt) and W @ X (its w_mul), within rtol 1e-11 plus 4 * 2^-48 *
-  sum|terms| (lorads_tpu's compensated prefix scan splits each term
-  into two f32 planes, as tests/test_torch_sparse.py states).
+  inputs on the CPU at f64: on the off slots K3's sym(U V^T) (its uvt),
+  K3's one dot when V is U (its uvt_from_cache of its gather_cache),
+  K3p's sym(R D^T) and D D^T (its uvt_pair) and a2 .* sym(X F^T) (its
+  a_adj_a of its uvt), and W @ X (its w_mul), within rtol 1e-11 plus
+  4 * 2^-48 * sum|terms| (lorads_tpu's compensated prefix scan splits
+  each term into two f32 planes, as tests/test_torch_sparse.py states);
+  the skewed pattern's off values against lorads_tpu's uvt, uvt_pair
+  and uvt_from_cache on its off (rows, cols).
 """
 
 import functools
@@ -178,13 +182,39 @@ def _check_schedule(t, rows, cols, slots, n, emax=None, emax_l2=None,
                            per.reshape(-1, t.rows).cumsum(1))
 
 
-def _walk_adj(t, X, F, a2):
-    out = torch.zeros(a2.shape, dtype=X.dtype)
-    for b in range(X.shape[0]):
+def _dot(a, b):
+    return (a * b).sum(-1)
+
+
+# the off values of K3 (two dots; one dot when V is U) and K3p per entry,
+# from the rows I[f], J[f] of each factor f at the entry's row and column
+OFF_VALUES = {
+    "uvt": lambda I, J: (0.5 * (_dot(I[0], J[1]) + _dot(J[0], I[1])),),
+    "uvt_one_dot": lambda I, J: (_dot(I[0], J[0]),),
+    "uvt_pair": lambda I, J: (0.5 * (_dot(I[0], J[1]) + _dot(J[0], I[1])),
+                              _dot(I[1], J[1])),
+}
+
+
+def _walk_off(t, kind, *F):
+    """The off values of K3 or K3p (OFF_VALUES[kind]) over the schedule t
+    of the off slots, entry by entry in the kernels' decode order, each
+    value written at its entry's slot: a tuple of [B, Ko]."""
+    B, Ko = t.slot.shape
+    outs = None
+    for b in range(B):
         i, j, s, _ = _decode(t, b)
-        dots = (X[b, i] * F[b, j]).sum(-1) + (X[b, j] * F[b, i]).sum(-1)
-        out[b, s] = a2[b, s] * (0.5 * dots)
-    return out
+        vals = OFF_VALUES[kind]([f[b, i] for f in F], [f[b, j] for f in F])
+        if outs is None:
+            outs = tuple(torch.zeros((B, Ko), dtype=F[0].dtype)
+                         for _ in vals)
+        for o, v in zip(outs, vals):
+            o[b, s] = v
+    return outs
+
+
+def _walk_adj(t, X, F, a2):
+    return a2 * _walk_off(t, "uvt", X, F)[0]
 
 
 def _walk_wmul(t, X, W_d, W_o):
@@ -223,12 +253,64 @@ def test_schedule_invariants(name):
                             row_runs=True, units=bk.sym_tile_units)
 
 
+def _skewed_buckets():
+    """The skewed pattern as (the fields lorads_tpu's uvt, uvt_pair and
+    gather_cache read, the port's fields with its schedules, None)."""
+    n, off_rows, off_cols, port = _skewed()
+    jbk = types.SimpleNamespace(
+        B=2, rowshard=False, summed=False, mesh=None, dense=False,
+        split=True, has_off=True, off_rows=jnp.asarray(off_rows),
+        off_cols=jnp.asarray(off_cols), off_rows_cp=jnp.asarray(off_rows))
+    tbk = types.SimpleNamespace(
+        B=2, n=n, Ko=off_rows.shape[1], off_tiles=_tiles(port, "off"),
+        off_rows=torch.as_tensor(off_rows, dtype=torch.int32),
+        off_cols=torch.as_tensor(off_cols, dtype=torch.int32))
+    return [(jbk, tbk, None)]
+
+
+def _check_off_walks(jbk, tbk, rng, r):
+    """K3 (U != V and U is V) and K3p walked over the off schedule
+    against lorads_tpu's uvt, uvt_from_cache and uvt_pair (and against
+    the plain versions)."""
+    B, n = tbk.B, tbk.n
+    U, V = (rng.standard_normal((B, n, r)) for _ in range(2))
+    Uj, Vj = jnp.asarray(U), jnp.asarray(V)
+    Ut, Vt = torch.as_tensor(U), torch.as_tensor(V)
+    a = (tbk.off_rows, tbk.off_cols)
+    t = tbk.off_tiles
+    # K3, U != V
+    got, = _walk_off(t, "uvt", Ut, Vt)
+    l1, = _walk_off(t, "uvt", Ut.abs(), Vt.abs())
+    _close(got, tpu_pat.uvt(jbk, Uj, Vj)[1], l1)
+    _close(got, kernels.uvt_split_plain(Ut, Vt, *a)[1], l1)
+    # K3, U is V: lorads_tpu's one-dot form from its gathered rows
+    got, = _walk_off(t, "uvt_one_dot", Ut)
+    l1, = _walk_off(t, "uvt_one_dot", Ut.abs())
+    _close(got, tpu_pat.uvt_from_cache(jbk, Uj,
+                                       tpu_pat.gather_cache(jbk, Uj))[1], l1)
+    _close(got, tpu_pat.uvt(jbk, Uj, Uj)[1], l1)
+    _close(got, kernels.uvt_split_plain(Ut, Ut, *a)[1], l1)
+    # K3p: (sym(R D^T), D D^T) off values
+    got = _walk_off(t, "uvt_pair", Ut, Vt)
+    l1 = _walk_off(t, "uvt_pair", Ut.abs(), Vt.abs())
+    (_, rd_o), (_, dd_o) = tpu_pat.uvt_pair(jbk, Uj, Vj)
+    plain = kernels.uvt_pair_split_plain(Ut, Vt, *a)
+    for g, ref, p, e in zip(got, (rd_o, dd_o), plain[1::2], l1):
+        _close(g, ref, e)
+        _close(g, p, e)
+
+
 @pytest.mark.parametrize("name", ["matcomp500", "hand_multiblock",
-                                  "merged_b2"])
+                                  "merged_b2", "skewed"])
 def test_schedule_walks_match_lorads_tpu(name):
     rng = np.random.default_rng(11)
-    for jbk, tbk, bp in _buckets(name):
-        B, n, r, Ko = tbk.B, tbk.n, max(bp.rank, 2), tbk.Ko
+    buckets = _skewed_buckets() if name == "skewed" else _buckets(name)
+    for jbk, tbk, bp in buckets:
+        r = 5 if bp is None else max(bp.rank, 2)
+        _check_off_walks(jbk, tbk, rng, r)
+        if bp is None:  # the skewed pattern: K6 and K5 in test_skewed_schedule
+            continue
+        B, n, Ko = tbk.B, tbk.n, tbk.Ko
         X, F = (rng.standard_normal((B, n, r)) for _ in range(2))
         Xj, Fj = jnp.asarray(X), jnp.asarray(F)
         Xt, Ft = torch.as_tensor(X), torch.as_tensor(F)
