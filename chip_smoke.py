@@ -568,12 +568,26 @@ def cmul_skewed(rng, dev):
 
 def segment_sum_edges(rng, dev):
     """K1 edge cases: empty segments, padded blocks (B=2, second block's
-    entries end early), 2-D and 3-D data, single-entry segments."""
+    entries end early), 2-D and 3-D data (r = 3, 20, 40: 16-byte copies
+    with and without a tail), a segment of 70000 entries (longer than a
+    run's staging buffer) beside short ones in data one element past an
+    aligned address, single-entry segments."""
     import numpy as np
     import torch
 
     from lorads_torch.ops import kernels
     from lorads_torch.ops import pattern as pat
+
+    def one(label, d, bnd):
+        got = kernels.segment_sum(d, bnd)
+        ref = kernels.segment_sum_plain(d, bnd)
+        l1 = kernels.segment_sum_plain(d.abs(), bnd).double()
+        torch.cuda.synchronize()
+        tol = ((64 if d.dtype == torch.float64 else 4)
+               * torch.finfo(d.dtype).eps)
+        err = check(f"segment_sum {label}", got, ref, tol * l1 + 1e-300)
+        print(f"segment_sum [{label}]: max_abs_err {err:.3e} (tol "
+              f"{tol:.1e} x segment |terms|)")
 
     B, N, S = 2, 3 * 512 + 7, 97
     ids = np.sort(rng.integers(0, S, (B, N)), axis=1)
@@ -581,19 +595,20 @@ def segment_sum_edges(rng, dev):
     ids[1, N // 2:] = S                 # padded tail past the last bound
     ids = np.clip(ids, 0, S)
     bnd = torch.as_tensor(pat._bounds_np(ids, S), device=dev)
-    for shape in ((B, N), (B, N, 3), (B, N, 40)):
+    for shape in ((B, N), (B, N, 3), (B, N, 20), (B, N, 40)):
         for dt in (torch.float64, torch.float32):
             d = torch.as_tensor(rng.standard_normal(shape), device=dev,
                                 dtype=dt)
-            got = kernels.segment_sum(d, bnd)
-            ref = kernels.segment_sum_plain(d, bnd)
-            l1 = kernels.segment_sum_plain(d.abs(), bnd).double()
-            torch.cuda.synchronize()
-            tol = (64 if dt == torch.float64 else 4) * torch.finfo(dt).eps
-            err = check(f"segment_sum edges {shape}", got, ref,
-                        tol * l1 + 1e-300)
-            print(f"segment_sum [edges {str(dt)[6:]} {shape}]: max_abs_err "
-                  f"{err:.3e} (tol {tol:.1e} x segment |terms|)")
+            one(f"edges {str(dt)[6:]} {shape}", d, bnd)
+    ids = np.sort(np.concatenate([rng.integers(0, S, 2000),
+                                  np.full(70000, S // 2)]))[None]
+    bnd = torch.as_tensor(pat._bounds_np(ids, S), device=dev)
+    for r, dt in ((20, torch.float32), (20, torch.float64),
+                  (1, torch.float32)):
+        flat = torch.as_tensor(rng.standard_normal(1 + ids.size * r),
+                               device=dev, dtype=dt)
+        d = flat[1:].view((1, ids.size) + ((r,) if r > 1 else ()))
+        one(f"70000-entry segment, offset data {str(dt)[6:]} r={r}", d, bnd)
     single = np.sort(rng.choice(S, size=40, replace=False))[None]
     sb = torch.as_tensor(pat._bounds_np(single, S), device=dev)
     d = torch.as_tensor(rng.standard_normal((1, 40)), device=dev)
@@ -721,9 +736,11 @@ def matcomp_kernel_checks(rng, measure):
         # ALM's objective values (U is V) at f64
         U, V = rand((1, n, r), dt), rand((1, n, r), dt)
         kw = _tiles_kw(pat, bk, "off", kernels.uvt_split)
+        Poff = _csr(bk.off_rows[0], bk.off_cols[0],
+                    torch.ones(Ko, dtype=dt, device=dev), n)
         for VV in ((V, None) if dt == torch.float64 else (V,)):
             uvt_cases(measure, kernels, "matcomp2000 ", sfx, U, VV, *a, kw,
-                      n, Ko)
+                      n, Ko, Poff)
         # ---- K4 gather_segsum: A(.) (one entry per constraint: exact)
         # (library, here and below: K4's entry list as a CSR matrix,
         # built once, times x by torch.sparse.mm, or torch.addmm with C)
@@ -963,9 +980,12 @@ def k5_k6_other_patterns(rng, measure):
             continue
         # ---- K3 (U != V, U is V) and K3p on the skewed pattern
         a = (bk.off_rows, bk.off_cols)
+        Poff = _csr(bk.off_rows[0], bk.off_cols[0],
+                    torch.ones(Ko, dtype=torch.float64, device=dev), n)
         for VV in (F, None):
             uvt_cases(measure, kernels, f"{where} ", "f64", X, VV, *a,
-                      _tiles_kw(pat, bk, "off", kernels.uvt_split), n, Ko)
+                      _tiles_kw(pat, bk, "off", kernels.uvt_split), n, Ko,
+                      Poff)
         kw = _tiles_kw(pat, bk, "off", kernels.uvt_pair_split)
         measure("uvt_pair_split", f"{where} f64 r={r}", "f64",
                 lambda: kernels.uvt_pair_split(X, F, *a, **kw),
@@ -1222,6 +1242,15 @@ def lp_gs_case(measure, a8c, N):
             step_ns=measure.floors["hop_ns"])
 
 
+def _p1_flops(oh, plan, r, mode, layout):
+    """P1's one-hot flops in this layout (a checkout whose count takes no
+    layout: its [K, r] count)."""
+    import inspect
+    if "layout" in inspect.signature(oh.scatter_mma_flops).parameters:
+        return oh.scatter_mma_flops(plan, r, mode, layout)
+    return oh.scatter_mma_flops(plan, r, mode)
+
+
 def probe_kernel_checks(rng, measure):
     """Phase 3, the probes: P1-P4 against their plain versions at the
     probes' shapes (f32 values, int32 ids) and K3 at the fused uvT
@@ -1262,7 +1291,7 @@ def probe_kernel_checks(rng, measure):
                 lambda: oh.sorted_scatter_plain(v, plan, mode, layout),
                 l1 if layout == "kr" else l1.T,
                 nbytes=K * r * 4 + K * 4 + n * r * 4,
-                flops=oh.scatter_mma_flops(plan, r, mode), tol=4 * eps32,
+                flops=_p1_flops(oh, plan, r, mode, layout), tol=4 * eps32,
                 library=lambda: torch.segment_reduce(vals, "sum",
                                                      lengths=lengths))
     # ---- P2 onehot_gather: bit for bit (each output is one row's planes)

@@ -13,20 +13,28 @@
 // streams only the rows that feed it:
 //
 //   scatter: out[s, c] = sum_k [ids[k] == s] vals[k, c]  over the rows k
-//            of segments [s0, s0 + 16), found by binary search of the
-//            sorted ids inside the plan's window of the tile;
+//            of segments [s0, s0 + 16), given by the plan's sub-tile row
+//            pointers (sub_ptr, host-built by searchsorted);
 //   gather:  out[t, c] = sum_j [ids[t] == j] X[j, c]     over the source
 //            rows j in [ids[t0], ids[t0 + 15]] of the sub-tile's ids.
 //
-// Work split: one block per CT-segment (KT-id) output tile, 8 warps; a
-// warp takes one (16-row sub-tile, 32-column group) unit at a time.
-// Data flow: the unit's rows go through the warp's shared memory in
-// 16-row k-chunks (ids and the [16, 32] value chunk, zero past the
-// segment end and past r); each lane builds its one-hot A fragment of
-// mma.m16n8k16 in registers from id == segment (or id == row) compares --
-// no one-hot matrix is stored anywhere -- and its B fragment from the
-// staged values.  The [r, K] layout stages the chunk with the lanes along
-// K, so both layouts give the same shared-memory chunk and B fragment.
+// Scatter work split: a warp per (16-segment sub-tile, 32-column group)
+// unit, 4 warps a block (1264 units at n = 20000, r <= 32: every SM
+// busy; the plan's CT tile and window choose nothing here).  The unit's
+// rows go through a ring of 3 staged 16-row k-chunks a warp (values and
+// ids, cp.async: 16 bytes a copy where the layout allows, two chunks in
+// flight while one is split and multiplied); rows outside the unit are
+// zeroed as the B fragment is read.  A block a CT tile would leave
+// most SMs idle (79 blocks at CT = 256) and bound the kernel by the
+// latency of too few warps.
+// Gather work split: one block per KT-id output tile, 8 warps; a warp
+// takes one (16-row sub-tile, 32-column group) unit at a time, its rows
+// through the warp's shared memory in 16-row k-chunks.
+// Data flow: each lane builds its one-hot A fragment of mma.m16n8k16 in
+// registers from id == segment (or id == row) compares -- no one-hot
+// matrix is stored anywhere -- and its B fragment from the staged
+// values.  The scatter's [r, K] layout stages a chunk column by column
+// ([col][row]), the gather's and the [K, r] layout row by row.
 // Arithmetic: each f32 value is split in-kernel (round to nearest even)
 // into bf16 planes hi, mid(, lo) whose sum is the value exactly (3
 // planes) or to ~2^-16 (2 planes); one mma per plane with f32
@@ -44,24 +52,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tiles.cuh"
+
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;          // gather: warps a block
+constexpr int SWARPS = 4;         // scatter: warps a block, a unit each
+constexpr int NBUF = 3;           // scatter: staged k-chunks a warp
 constexpr int SUB = 16;          // segments / ids per sub-tile (mma m)
 constexpr int KC = 16;           // rows per k-chunk (mma k)
 constexpr int NT = 4;            // 8-column n-tiles per unit
 constexpr int COLS = 8 * NT;     // columns per unit
 constexpr int LD = COLS + 4;     // padded row: conflict-free B reads
+constexpr int LDT = KC + 8;      // padded [r, K] column: conflict-free
+                                 // float2 B reads, 16-byte aligned
 constexpr uint32_t ONE = 0x3F80u;  // bf16 1.0
-
-__device__ __forceinline__ int lower_bound(const int* a, int lo, int hi,
-                                           int key) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(a + mid) < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 __device__ __forceinline__ uint32_t onehot2(int id0, int id1, int key0,
                                             int key1) {
@@ -128,63 +133,163 @@ __device__ __forceinline__ float planes_sum(const float (&acc)[P][NT][4],
   return v;
 }
 
-template <int P>
-__global__ void __launch_bounds__(WARPS * 32)
+// A staged k-chunk of a scatter unit: its values as [row][col] ([K, r]
+// layout: a row's columns contiguous, as in vals) or [col][row] ([r, K]:
+// a column's 16 rows contiguous, read as float2 pairs), and its ids.
+struct __align__(16) Chunk {
+  union {
+    float kr[KC][LD];
+    float rk[COLS][LDT];
+  };
+  int id[KC];
+};
+
+// Rows [k0, k0 + 16) of the unit's column group [n0, n0 + w) into ch,
+// rows at or past hi left unstaged (every row of the chunk lies in
+// vals: k0 >= 0, and k0 + 16 <= K_pad for the ids).  VEC: 16 bytes a
+// cp.async ([K, r]: r % 4 == 0; [r, K]: K % 4 == 0 and k0 % 4 == 0, vals
+// 16-byte aligned), else 4.  Asynchronous until the group's wait.
+template <bool RK>
+__device__ __forceinline__ void stage_chunk(Chunk& ch,
+                                            const float* __restrict__ vals,
+                                            const int* __restrict__ ids,
+                                            int k0, int hi, int n0, int w,
+                                            int K, int r, bool vec,
+                                            int lane) {
+  if (lane < KC) lt::copy_async<4>(&ch.id[lane], ids + k0 + lane);
+  if constexpr (!RK) {
+    if (vec) {
+      // lane e: row e / 8, columns 4 (e % 8) .. + 3
+      for (int e = lane; e < KC * 8; e += 32) {
+        const int kk = e >> 3, v = e & 7;
+        if (4 * v < w && k0 + kk < hi)
+          lt::copy_async<16>(&ch.kr[kk][4 * v],
+                             vals + (long)(k0 + kk) * r + n0 + 4 * v);
+      }
+    } else {
+      for (int kk = 0; kk < KC && k0 + kk < hi; ++kk)
+        if (lane < w)
+          lt::copy_async<4>(&ch.kr[kk][lane],
+                            vals + (long)(k0 + kk) * r + n0 + lane);
+    }
+  } else {
+    if (vec) {
+      // lane e: column e / 4, rows 4 (e % 4) .. + 3
+      for (int e = lane; e < COLS * 4; e += 32) {
+        const int c = e >> 2, v = e & 3;
+        if (c < w && k0 + 4 * v < hi)
+          lt::copy_async<16>(&ch.rk[c][4 * v],
+                             vals + (long)(n0 + c) * K + k0 + 4 * v);
+      }
+    } else {
+      for (int e = lane; e < COLS * KC; e += 32) {
+        const int c = e >> 4, kk = e & 15;
+        if (c < w && k0 + kk < hi)
+          lt::copy_async<4>(&ch.rk[c][kk],
+                            vals + (long)(n0 + c) * K + k0 + kk);
+      }
+    }
+  }
+}
+
+// acc[p][j] += A @ plane_p(B_j) for one staged chunk: A[m][kk] = (id ==
+// s0 + m) built in registers, B the chunk's values with the rows outside
+// [lo, hi) zeroed (unstaged, or a neighbouring sub-tile's).  B fragment
+// of m16n8k16: rows 2t, 2t+1 (b0) and 2t+8, 2t+9 (b1) of column g.
+template <int P, bool RK>
+__device__ __forceinline__ void mma_chunk(float (&acc)[P][NT][4],
+                                          const Chunk& ch, int k0, int lo,
+                                          int hi, int s0, int n0, int r,
+                                          int g, int t) {
+  const int i0 = ch.id[2 * t], i1 = ch.id[2 * t + 1];
+  const int i8 = ch.id[2 * t + 8], i9 = ch.id[2 * t + 9];
+  const int sa = s0 + g, sb = s0 + g + 8;
+  const uint32_t a0 = onehot2(i0, i1, sa, sa), a1 = onehot2(i0, i1, sb, sb);
+  const uint32_t a2 = onehot2(i8, i9, sa, sa), a3 = onehot2(i8, i9, sb, sb);
+  const int k = k0 + 2 * t;
+  const bool m0 = k >= lo && k < hi, m1 = k + 1 >= lo && k + 1 < hi;
+  const bool m8 = k + 8 >= lo && k + 8 < hi, m9 = k + 9 >= lo && k + 9 < hi;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (n0 + 8 * j >= r) break;  // uniform across the warp
+    const int col = 8 * j + g;
+    float x0, x1, x8, x9;
+    if constexpr (RK) {
+      const float2 p = *reinterpret_cast<const float2*>(&ch.rk[col][2 * t]);
+      const float2 q =
+          *reinterpret_cast<const float2*>(&ch.rk[col][2 * t + 8]);
+      x0 = p.x; x1 = p.y; x8 = q.x; x9 = q.y;
+    } else {
+      x0 = ch.kr[2 * t][col]; x1 = ch.kr[2 * t + 1][col];
+      x8 = ch.kr[2 * t + 8][col]; x9 = ch.kr[2 * t + 9][col];
+    }
+    uint32_t p0[P], p1[P], p8[P], p9[P];
+    split<P>(m0 ? x0 : 0.f, p0);
+    split<P>(m1 ? x1 : 0.f, p1);
+    split<P>(m8 ? x8 : 0.f, p8);
+    split<P>(m9 ? x9 : 0.f, p9);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      mma_bf16(acc[p][j], a0, a1, a2, a3, p0[p] | (p1[p] << 16),
+               p8[p] | (p9[p] << 16));
+  }
+}
+
+// A warp a unit (16-segment sub-tile, 32-column group); its rows [lo,
+// hi) from the plan's sub-tile row pointers; k-chunks of 16 rows
+// (from lo, or in [r, K] from lo rounded down to a multiple of 4 so
+// that a column's 16 rows are four aligned 16-byte copies) through a
+// ring of NBUF staged chunks, NBUF - 1 in flight while one is split and
+// multiplied.
+template <int P, bool RK>
+__global__ void __launch_bounds__(SWARPS * 32)
     onehot_scatter_kernel(const float* __restrict__ vals,
                           const int* __restrict__ ids,
-                          const int* __restrict__ wblock,
+                          const int* __restrict__ sub_ptr,
                           float* __restrict__ out, int K, int n, int r,
-                          int CT, int WT, int rk) {
-  __shared__ float sv[WARPS][KC][LD];
-  __shared__ int sid[WARPS][KC];
+                          int units, int ngroups, bool vec) {
+  __shared__ Chunk ring[SWARPS][NBUF];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int tile = blockIdx.x;
-  const int w0 = __ldg(wblock + tile) * WT;
-  const int w1 = min(w0 + 2 * WT, K);  // the tile's window of rows
-  const int ngroups = (r + COLS - 1) / COLS;
-  const int units = (CT / SUB) * ngroups;
-  for (int u = warp; u < units; u += WARPS) {
-    const int n0 = (u % ngroups) * COLS;
-    const int s0 = tile * CT + (u / ngroups) * SUB;
-    const int lo = lower_bound(ids, w0, w1, s0);
-    const int hi = lower_bound(ids, lo, w1, s0 + SUB);
-    float acc[P][NT][4] = {};
-    for (int k0 = lo; k0 < hi; k0 += KC) {
-      if (lane < KC)
-        sid[warp][lane] = k0 + lane < hi ? __ldg(ids + k0 + lane) : -1;
-      for (int e = lane; e < KC * COLS; e += 32) {
-        const int kk = rk ? e % KC : e / COLS;
-        const int c = rk ? e / KC : e % COLS;
-        const int row = k0 + kk, col = n0 + c;
-        float v = 0.f;
-        if (row < hi && col < r)
-          v = __ldg(vals + (rk ? (long)col * K + row : (long)row * r + col));
-        sv[warp][kk][c] = v;
-      }
-      __syncwarp();
-      // A[m][kk] = (ids[k0 + kk] == s0 + m): rows g, g + 8; columns 2t,
-      // 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3)
-      const int* si = sid[warp];
-      const int i0 = si[2 * t], i1 = si[2 * t + 1];
-      const int i8 = si[2 * t + 8], i9 = si[2 * t + 9];
-      const int sa = s0 + g, sb = s0 + g + 8;
-      mma_planes<P>(acc, sv[warp], onehot2(i0, i1, sa, sa),
-                    onehot2(i0, i1, sb, sb), onehot2(i8, i9, sa, sa),
-                    onehot2(i8, i9, sb, sb), n0, r, g, t);
-      __syncwarp();
-    }
+  const int u = blockIdx.x * SWARPS + warp;
+  if (u >= units) return;  // uniform across the warp
+  const int sub = u / ngroups;
+  const int n0 = (u - sub * ngroups) * COLS, s0 = sub * SUB;
+  const int w = min(COLS, r - n0);
+  const int lo = __ldg(sub_ptr + sub), hi = __ldg(sub_ptr + sub + 1);
+  const int kstart = RK ? lo & ~3 : lo;
+  const int nch = hi > lo ? (hi - kstart + KC - 1) / KC : 0;
+  Chunk* my = ring[warp];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (n0 + 8 * j >= r) break;
+  for (int i = 0; i < NBUF - 1; ++i) {
+    if (i < nch)
+      stage_chunk<RK>(my[i], vals, ids, kstart + i * KC, hi, n0, w, K, r,
+                      vec, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  float acc[P][NT][4] = {};
+  for (int i = 0; i < nch; ++i) {
+    const int nx = i + NBUF - 1;
+    if (nx < nch)
+      stage_chunk<RK>(my[nx % NBUF], vals, ids, kstart + nx * KC, hi, n0, w,
+                      K, r, vec, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NBUF - 1) : "memory");
+    __syncwarp();
+    mma_chunk<P, RK>(acc, my[i % NBUF], kstart + i * KC, lo, hi, s0, n0, r,
+                     g, t);
+    __syncwarp();  // the chunk's slot is free for the next stage
+  }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int seg = s0 + g + (i >= 2 ? 8 : 0);
-        const int c = n0 + 8 * j + 2 * t + (i & 1);
-        if (seg < n && c < r)
-          out[rk ? (long)c * n + seg : (long)seg * r + c] =
-              planes_sum<P>(acc, j, i);
-      }
+  for (int j = 0; j < NT; ++j) {
+    if (n0 + 8 * j >= r) break;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int seg = s0 + g + (i >= 2 ? 8 : 0);
+      const int c = n0 + 8 * j + 2 * t + (i & 1);
+      if (seg < n && c < r)
+        out[RK ? (long)c * n + seg : (long)seg * r + c] =
+            planes_sum<P>(acc, j, i);
     }
   }
 }
@@ -239,26 +344,40 @@ __global__ void __launch_bounds__(WARPS * 32)
 
 }  // namespace
 
+template <int P, bool RK>
+void launch_scatter(const float* v, const int* id, const int* sp, float* o,
+                    int K, int n, int r, bool vec, cudaStream_t s) {
+  const int ngroups = (r + COLS - 1) / COLS;
+  const int units = (n + SUB - 1) / SUB * ngroups;
+  onehot_scatter_kernel<P, RK><<<(units + SWARPS - 1) / SWARPS,
+                                 SWARPS * 32, 0, s>>>(v, id, sp, o, K, n, r,
+                                                      units, ngroups, vec);
+}
+
 // planes: 2 or 3; rk: 0 for vals [K, r] -> out [n, r], 1 for vals [r, K]
-// -> out [r, n]; ids int32 [>= K] sorted (padding n_pad + 7); wblock
-// int32 [n_pad / CT]; CT a multiple of 16.  Returns cudaGetLastError().
+// -> out [r, n]; ids int32 [>= K + 16] sorted (padding n_pad + 7);
+// sub_ptr int32 [ceil(n / 16) + 1]: the first row of each 16-segment
+// sub-tile (and K).  Returns cudaGetLastError().
 extern "C" int lt_onehot_scatter(int planes, int rk, const void* vals,
-                                 const void* ids, const void* wblock,
-                                 void* out, int K, int n, int n_pad, int r,
-                                 int CT, int WT, void* stream) {
+                                 const void* ids, const void* sub_ptr,
+                                 void* out, int K, int n, int r,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = n_pad / CT;
   const float* v = static_cast<const float*>(vals);
   const int* id = static_cast<const int*>(ids);
-  const int* wb = static_cast<const int*>(wblock);
+  const int* sp = static_cast<const int*>(sub_ptr);
   float* o = static_cast<float*>(out);
-  if (tiles > 0 && r > 0) {
-    if (planes == 3)
-      onehot_scatter_kernel<3><<<tiles, WARPS * 32, 0, s>>>(
-          v, id, wb, o, K, n, r, CT, WT, rk);
+  const bool vec = reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                   (rk ? K % 4 == 0 : r % 4 == 0);
+  if (n > 0 && r > 0) {
+    if (planes == 3 && rk)
+      launch_scatter<3, true>(v, id, sp, o, K, n, r, vec, s);
+    else if (planes == 3)
+      launch_scatter<3, false>(v, id, sp, o, K, n, r, vec, s);
+    else if (rk)
+      launch_scatter<2, true>(v, id, sp, o, K, n, r, vec, s);
     else
-      onehot_scatter_kernel<2><<<tiles, WARPS * 32, 0, s>>>(
-          v, id, wb, o, K, n, r, CT, WT, rk);
+      launch_scatter<2, false>(v, id, sp, o, K, n, r, vec, s);
   }
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,7 @@
 // __fadd_rn/__fsub_rn, so no compiler contraction can fold its error
 // term away (the kernels are built without --use_fast_math).
 // merge_down(off) adds the accumulator of lane + off (warp shuffle), for
-// tree reductions across a warp.
+// tree reductions across a warp; merge(o) adds the accumulator o.
 
 #pragma once
 #include <cuda_runtime.h>
@@ -20,6 +20,7 @@ struct Direct {
   T s = 0;
   __device__ void add(T x) { s += x; }
   __device__ void merge_down(int off) { s += __shfl_down_sync(FULL, s, off); }
+  __device__ void merge(const Direct& o) { s += o.s; }
   __device__ T value() const { return s; }
 };
 
@@ -43,6 +44,11 @@ struct Acc<float> {
     float c2 = __shfl_down_sync(FULL, c, off);
     add(s2);
     c = __fadd_rn(c, c2);
+  }
+  // the same merge with an accumulator at hand (K1's entry groups)
+  __device__ void merge(const Acc& o) {
+    add(o.s);
+    c = __fadd_rn(c, o.c);
   }
   __device__ float value() const { return __fadd_rn(s, c); }
 };

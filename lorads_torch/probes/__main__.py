@@ -320,7 +320,7 @@ def onehot(p: Probe):
             lambda: oh.sorted_scatter(vin, plan, mode, layout),
             lambda: oh.sorted_scatter_plain(vin, plan, mode, layout),
             nbytes=K * rr * 4 + K * 4 + n * rr * 4,
-            flops=oh.scatter_mma_flops(plan, rr, mode), unit="bf16",
+            flops=oh.scatter_mma_flops(plan, rr, mode, layout), unit="bf16",
             library=lambda: torch.segment_reduce(v, "sum", lengths=lengths,
                                                  unsafe=True),
             lib_name="segment_reduce [K,r]",

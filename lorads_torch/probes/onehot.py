@@ -21,7 +21,8 @@ The planner is a copy of the reference's, fields and refusals
 included (``_BAD`` for unsorted ids or too-wide spans, ``_MAX_WT``, the
 reference's VMEM cap, kept for parity of the plans).  The Hopper kernel
 (``csrc/onehot_mma.cu``) does not depend on the window size: it streams
-only the rows that feed each 16-wide sub-tile.
+only the rows that feed each 16-wide sub-tile, found in a port-only plan
+field (``sub_ptr``) for the scatter.
 
 Each wrapper takes its plain PyTorch version (``index_add_`` /
 ``index_select`` over the same planes, f64 accumulation rounded once)
@@ -56,7 +57,9 @@ class WindowPlan:
     ``wblock`` (int32 [n_tiles]) holds the WT-unit window block each
     output tile reads (it and its successor: coverage 2*WT); ``ids_pad``
     (int32 [K_pad, 1]) the sorted ids padded with n_pad + 7, which
-    matches no segment or row."""
+    matches no segment or row.  ``sub_ptr`` (port only, scatter plans:
+    int32 [n_pad / 16 + 1]) holds the first row of each 16-segment
+    sub-tile, and K at the end: the rows the kernel's units read."""
 
     ok: bool
     kind: str             # scatter | gather | none
@@ -68,6 +71,7 @@ class WindowPlan:
     K_pad: int
     wblock: Optional[torch.Tensor] = None
     ids_pad: Optional[torch.Tensor] = None
+    sub_ptr: Optional[torch.Tensor] = None
 
 
 _BAD = WindowPlan(ok=False, kind="none", n=0, K=0, CT=0, WT=0,
@@ -101,10 +105,13 @@ def plan_sorted_scatter(ids, n: int, CT: int = 256, WT: int = 0,
     wblock = np.minimum(starts // WT, K_pad // WT - 2).astype(np.int32)
     ids_pad = np.full((K_pad, 1), n_pad + 7, np.int32)
     ids_pad[:K, 0] = ids
+    sub_ptr = np.searchsorted(ids, np.arange(0, n_pad + 1, 16)).astype(
+        np.int32)
     return WindowPlan(ok=True, kind="scatter", n=n, K=K, CT=CT, WT=WT,
                       n_pad=n_pad, K_pad=K_pad,
                       wblock=torch.as_tensor(wblock, device=device),
-                      ids_pad=torch.as_tensor(ids_pad, device=device))
+                      ids_pad=torch.as_tensor(ids_pad, device=device),
+                      sub_ptr=torch.as_tensor(sub_ptr, device=device))
 
 
 def plan_sorted_gather(ids, n: int, KT: int = 256, WT: int = 0,
@@ -189,17 +196,13 @@ def sorted_scatter(vals: torch.Tensor, plan: WindowPlan, mode="bf16x3",
     K = vals.shape[0] if layout == "kr" else vals.shape[1]
     if K != plan.K:
         raise ValueError(f"sorted_scatter: {K} values for {plan.K} ids")
-    if not _check("onehot_scatter", [vals], [plan.ids_pad, plan.wblock]):
+    if not _check("onehot_scatter", [vals], [plan.ids_pad, plan.sub_ptr]):
         return sorted_scatter_plain(vals, plan, mode, layout)
-    if plan.CT % 16:
-        raise ValueError(f"onehot_scatter: CT={plan.CT} (need a multiple "
-                         "of 16)")
     shape = (plan.n, r) if layout == "kr" else (r, plan.n)
     out = torch.empty(shape, dtype=torch.float32, device=vals.device)
     _launch("onehot_scatter", "lt_onehot_scatter", MODES[mode],
             int(layout == "rk"), vals.data_ptr(), plan.ids_pad.data_ptr(),
-            plan.wblock.data_ptr(), out.data_ptr(), plan.K, plan.n,
-            plan.n_pad, r, plan.CT, plan.WT)
+            plan.sub_ptr.data_ptr(), out.data_ptr(), plan.K, plan.n, r)
     return out
 
 
@@ -249,12 +252,15 @@ def sorted_gather(X: torch.Tensor, plan: WindowPlan,
 _MMA_FLOPS = 2 * 16 * 16 * 8      # one mma.m16n8k16
 
 
-def scatter_mma_flops(plan: WindowPlan, r: int, mode: str) -> int:
-    """P1's one-hot flops on these ids: each 16-segment sub-tile takes
-    ceil(rows / 16) k-chunks of one mma per 8 columns per plane."""
-    ids = plan.ids_pad[:plan.K, 0].cpu().numpy()
-    rows = np.bincount(ids // 16, minlength=plan.n_pad // 16)
-    chunks = int(np.sum((rows + 15) // 16))
+def scatter_mma_flops(plan: WindowPlan, r: int, mode: str,
+                      layout: str = "kr") -> int:
+    """P1's one-hot flops on these ids: each 16-segment sub-tile with rows
+    [lo, hi) takes ceil((hi - lo) / 16) k-chunks ([r, K]: from lo rounded
+    down to a multiple of 4) of one mma per 8 columns per plane."""
+    ptr = plan.sub_ptr.cpu().numpy().astype(np.int64)
+    lo, hi = ptr[:-1], ptr[1:]
+    start = lo if layout == "kr" else lo & ~3
+    chunks = int(np.sum(np.where(hi > lo, (hi - start + 15) // 16, 0)))
     return chunks * _MMA_FLOPS * -(-r // 8) * MODES[mode]
 
 

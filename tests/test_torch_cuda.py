@@ -90,22 +90,50 @@ def test_uvt_kernel_matches_plain(dtype, r):
         assert _close(g, e, a, dtype)
 
 
+def _segment_ids(layout, B, N, S, rng):
+    """Sorted segment ids [B, N'] for K1's run schedule: random lengths;
+    "long": one segment of 70000 more entries (longer than any run's
+    staging buffer); "empty_runs": segments 10-89 empty (whole runs of
+    empty segments).  Block 1's second half is a padded tail (id S)."""
+    ids = np.sort(rng.integers(0, S, (B, N)), axis=1)
+    if layout == "long":
+        ids = np.sort(np.concatenate(
+            [ids, np.full((B, 70000), S // 2)], axis=1), axis=1)
+    elif layout == "empty_runs":
+        ids = np.where((ids >= 10) & (ids < 90), 9, ids)
+    ids[1, ids.shape[1] // 2:] = S
+    return ids
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(2, 1543), (2, 1543, 3), (2, 1543, 40)])
-def test_segment_sum_kernel_matches_plain(dtype, shape):
+@pytest.mark.parametrize("shape", [(2, 1543), (2, 1543, 3), (2, 1543, 40),
+                                   (2, 1543, 20), (2, 1543, 24)])
+@pytest.mark.parametrize("layout", ["random", "long", "empty_runs",
+                                    "odd_offset"])
+def test_segment_sum_kernel_matches_plain(dtype, shape, layout):
+    """K1 on B = 2 with a padded block tail, r covering the 16-byte
+    copies' tails (1, 3, 20, 24, 40), and the run schedule's cases:
+    a segment longer than the buffer, all-empty runs, and data one
+    element past an aligned address (every staged span's head
+    unaligned)."""
     _need_cuda()
     rng = np.random.default_rng(3)
     S = 97
-    ids = np.sort(rng.integers(0, S, shape[:2]), axis=1)
-    ids[1, shape[1] // 2:] = S             # padded block tail
+    ids = _segment_ids(layout, shape[0], shape[1], S, rng)
     bounds = torch.as_tensor(pat._bounds_np(ids, S), device="cuda")
-    data = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
-                           device="cuda")
+    full = ids.shape + shape[2:]
+    flat = torch.as_tensor(rng.standard_normal(1 + int(np.prod(full))),
+                           dtype=dtype, device="cuda")
+    data = (flat[1:] if layout == "odd_offset" else flat[:-1]).view(full)
+    before = kernels.LAUNCHES["segment_sum"]
     got = kernels.segment_sum(data, bounds)
+    assert kernels.LAUNCHES["segment_sum"] == before + 1
     ref = kernels.segment_sum_plain(data, bounds)
     l1 = kernels.segment_sum_plain(data.abs(), bounds)
     assert _close(got, ref, l1, dtype)
+    if layout == "empty_runs":
+        assert not bool(got[:, 10:90].any())
 
 
 def _mc_bucket(dtype):
@@ -616,7 +644,10 @@ def test_hand_multiblock_solve_on_cuda(lp_gs):
 # of the tile, ids padded with n_pad + 7) and at a probe shape.
 # ---------------------------------------------------------------------------
 
-def _probe_ids(shape, sort=True):
+def _probe_ids(shape, sort=True, edge=False):
+    """edge: 200 more ids at 767 and at 768, the last segment of a CT =
+    256 tile and the first of the next (sub-tiles of 13+ k-chunks on
+    either side of the tile boundary)."""
     from numpy.random import default_rng
     n, K = shape
     rng = default_rng(n)
@@ -624,6 +655,8 @@ def _probe_ids(shape, sort=True):
     if n < 20000:
         ids = ids[(ids < 256) | (ids >= 512)]          # an empty tile
         ids = np.concatenate([ids, np.full(100, 700)])  # a wide segment
+    if edge:
+        ids = np.concatenate([ids, np.full(200, 767), np.full(200, 768)])
     return (np.sort(ids) if sort else ids).astype(np.int32)
 
 
@@ -637,10 +670,14 @@ def _f32(rng, *shape):
 @pytest.mark.parametrize("r", [1, 24, 128])
 @pytest.mark.parametrize("mode", ["f32", "bf16x3", "bf16x2"])
 @pytest.mark.parametrize("layout", ["kr", "rk"])
-def test_onehot_scatter_kernel_matches_plain(shape, r, mode, layout):
+@pytest.mark.parametrize("edge", [False, True])
+def test_onehot_scatter_kernel_matches_plain(shape, r, mode, layout, edge):
+    """Sub-tiles of more than the ring's three k-chunks (the 100-row
+    segment; with edge, 400 rows across a CT tile boundary), odd r (no
+    16-byte copies in [K, r]) and K % 4 != 0 (none in [r, K])."""
     _need_cuda()
     from lorads_torch.probes import onehot as oh
-    ids = _probe_ids(shape)
+    ids = _probe_ids(shape, edge=edge)
     n, K = shape[0], ids.size
     plan = oh.plan_sorted_scatter(ids, n, CT=256, device="cuda")
     assert plan.ok and plan.K_pad > K and plan.n_pad > n

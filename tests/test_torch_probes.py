@@ -196,6 +196,27 @@ def test_flop_counts_follow_the_kernels_chunks():
     gplan = oh.plan_sorted_gather(ids, 50, KT=16, device="cpu")
     # one 16-id sub-tile spanning rows 0..40: 3 chunks
     assert oh.gather_mma_flops(gplan, 8, "bf16x2") == 3 * 4096 * 1 * 2
+    # [r, K] chunks start at a multiple of 4: rows [3, 19) take 2
+    ids = np.array([0] * 3 + [16] * 16, np.int32)
+    plan = oh.plan_sorted_scatter(ids, 32, CT=16, device="cpu")
+    assert oh.scatter_mma_flops(plan, 8, "f32") == 2 * 4096 * 3
+    assert oh.scatter_mma_flops(plan, 8, "f32", "rk") == 3 * 4096 * 3
+
+
+@pytest.mark.parametrize("i", range(len(SHAPES)))
+def test_scatter_plan_sub_tile_pointers(i):
+    """The port-only sub_ptr: each 16-segment sub-tile's first row, as
+    np.searchsorted of the plan's ids, and K at the end; gather plans
+    have none."""
+    ids, n, _ = _ids_vals(3, "scatter")[i]
+    for CT in (256, 128, 16):
+        plan = oh.plan_sorted_scatter(ids, n, CT=CT, device="cpu")
+        got = plan.sub_ptr.numpy()
+        want = np.searchsorted(plan.ids_pad[:plan.K, 0].numpy(),
+                               np.arange(0, plan.n_pad + 1, 16))
+        assert got.dtype == np.int32 and got[-1] == plan.K
+        np.testing.assert_array_equal(got, want)
+    assert oh.plan_sorted_gather(ids, n, device="cpu").sub_ptr is None
 
 
 # ---------------------------------------------------------------------------
