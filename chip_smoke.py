@@ -39,10 +39,18 @@ Phases, each reported on its own lines:
    segment lengths (one-entry segments with segments of 800, 5000 and
    70000 entries among them, empty segments, B = 2, base and alpha),
    bit for bit on one-entry segments;
+   the device loops (lorads_torch/alg/devloop.py): each chunk of CG
+   (matcomp2000 and theta800, the mixed-precision CG's f32 inner loop)
+   and of the ALM inner loop (maxcut20000, matcomp2000) replayed from
+   its CUDA graph against the same masked steps run eagerly on the card
+   from the same state, bit for bit, with the chunk's device ms and the
+   eager chunk's dispatched ms;
 4. the main paths, each with the kernel launch counts reset just before
    it and read just after, through LoradsSolver(...).solve() on cuda at
    f64, each solve held to primal_dual_optimal and to lorads_tpu's CPU
-   f64 objective within 1e-4 relative:
+   f64 objective within 1e-4 relative, its line giving the host syncs
+   by label (device.HOST_SYNCS_BY), the loop graphs captured and
+   replayed and the kernel launches the replays counted:
    - Max-Cut (split, diag-identity): maxcut(n=300, deg 4, seed 3) (ALM
      + closed-form ADMM, exact-eigh certificate), maxcut n=20000 (deg 8,
      seed 7) and tests/fixtures/gset_torus10000.rudy (Lanczos
@@ -1361,6 +1369,107 @@ def probe_kernel_checks(rng, measure):
                             0)))
 
 
+def _devloop_cg(name):
+    """(label, the CG loop) of the first ADMM-like solve of ``name``'s
+    first bucket: the mixed-precision CG's f32 inner loop as the solve
+    runs it (the bucket's f32 cast, the solver's initial factor as F, a
+    seeded right-hand side, from zero, inner_tol 1e-5)."""
+    import numpy as np
+    import torch
+
+    from lorads_torch import LoradsParams, LoradsSolver
+    from lorads_torch.alg import admm, cg, devloop
+    from lorads_torch.ops import pattern as pat
+
+    s = LoradsSolver(INSTANCES[name](), LoradsParams(verbose=False),
+                     device="cuda")
+    bk = pat.cast_floats(s.pd.buckets[0], torch.float32)
+    F = s.R.cones[0].to(torch.float32)
+    b = torch.as_tensor(np.random.default_rng(11).standard_normal(
+        tuple(F.shape)), dtype=torch.float32, device="cuda")
+    op = cg.Bound(admm._cg_operator(bk), (F,), devloop.ident(bk))
+    return cg.cg_loop(op, torch.zeros_like(b), b, 1e-5, admm.CG_MAX_ITER)
+
+
+def _devloop_alm(name):
+    """The ALM inner loop of ``name``'s solver from its start (rho0,
+    the solver's initial factor, dual and history)."""
+    from lorads_torch import LoradsParams, LoradsSolver
+    from lorads_torch.alg import alm
+
+    s = LoradsSolver(INSTANCES[name](), LoradsParams(verbose=False),
+                     device="cuda")
+    rho, p = s.ps.rho0, s.params
+    cs, g, cert = alm.alm_recompute(s.pd, s.R, s.dual, rho)
+    return alm.inner_loop(s.pd, s.R, g, s.hist, s.dual, cs, cert, rho,
+                          0.1 / rho, p.end_alm_sub_tol, p.end_tau_tol,
+                          p.phase1_tol, True, 801)
+
+
+def devloop_checks(card):
+    """The device loops' chunks (alg/devloop.py): each chunk replayed
+    from its CUDA graph against the same masked steps run eagerly on
+    the card from the same state, bit for bit, with the chunk's device
+    ms (graph replays between CUDA events) and the eager chunk's
+    dispatched ms: each loop's two graphs, CG's first two chunks (with
+    and without the true-residual restart), the ALM's first and the
+    one that holds step 24 (the cache refresh), reached by eager
+    chunks."""
+    import torch
+
+    from lorads_torch.alg import devloop
+
+    cuda_time_ms = timing().cuda_time_ms
+    cases = (("matcomp2000 CG, f32 (K6, K5)", "cg", "matcomp2000"),
+             ("theta800 CG, f32 (K7a, K4, matmuls)", "cg", "theta800"),
+             ("maxcut20000 ALM inner (K2, K3)", "alm", "maxcut20000"),
+             ("matcomp2000 ALM inner (K3p, K4, K5)", "alm", "matcomp2000"))
+    for label, kind, name in cases:
+        with devloop.phase():
+            loop = (_devloop_cg if kind == "cg" else _devloop_alm)(name)
+            last = 1 if kind == "cg" else 24 // loop.K
+            for c in range(last + 1):
+                start = c * loop.K
+                if c not in (0, last):
+                    loop.state = devloop.eager_chunk(loop, start)
+                    continue
+                eager = devloop.flatten(devloop.eager_chunk(loop, start))[0]
+                graph, load, bufs = devloop.graph_chunk(loop, start)
+                load()
+                graph.replay()
+                got = devloop.flatten(bufs.tree("state"))[0]
+                same = [torch.equal(g, e) for g, e in zip(got, eager)]
+                if not all(same):
+                    raise AssertionError(
+                        f"devloop {label} chunk {c}: the graph replay "
+                        f"differs from the eager chunk in tensors "
+                        f"{[i for i, ok in enumerate(same) if not ok]}")
+                # device: 10 replays between two events (the state
+                # advances; a masked step launches the same kernels)
+                load()
+                torch.cuda.synchronize()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                for _ in range(10):
+                    graph.replay()
+                t1.record()
+                torch.cuda.synchronize()
+                g_ms = t0.elapsed_time(t1) / 10
+                e_ms = cuda_time_ms(
+                    lambda: devloop.eager_chunk(loop, start), reps=3,
+                    warmup=1)
+                held = sum(n for (t, _), n in graph.launches.items()
+                           if t == "launches")
+                print(f"devloop {label}: chunk {c} (steps {start}-"
+                      f"{start + loop.K - 1}) graph replay == eager, bit "
+                      f"for bit ({len(got)} tensors); graph {g_ms:.4f} ms "
+                      f"on the device, eager {e_ms:.4f} ms dispatched; "
+                      f"{held} kernel launches in the graph  [{card}]")
+                loop.state = devloop.unflatten(
+                    devloop.flatten(loop.state)[1], eager)
+
+
 def probes_path(card):
     """The probes' main path: the probe driver at --small, with the
     launch counts reset just before and read just after."""
@@ -1402,6 +1511,8 @@ def solve_path(card, path, instances):
     for name, problem in problems:
         before = dict(kernels.LAUNCHES)
         syncs0 = tdev.HOST_SYNCS
+        by0 = dict(tdev.HOST_SYNCS_BY)
+        graphs0 = dict(kernels.GRAPHS)
         t0 = time.time()
         solver = LoradsSolver(problem, LoradsParams(verbose=False,
                                                     **PARAMS.get(name, {})),
@@ -1411,6 +1522,9 @@ def solve_path(card, path, instances):
         wall = time.time() - t0
         launches = {k: kernels.LAUNCHES[k] - before[k]
                     for k in kernels.LAUNCHES}
+        by = {k: tdev.HOST_SYNCS_BY[k] - by0[k] for k in by0
+              if tdev.HOST_SYNCS_BY[k] > by0[k]}
+        graphs = {k: kernels.GRAPHS[k] - graphs0[k] for k in graphs0}
         ref = REFERENCE_POBJ[name]
         rel = abs(res.pobj - ref) / abs(ref)
         rep = getattr(solver, "spectral_repair_info", None)
@@ -1431,7 +1545,10 @@ def solve_path(card, path, instances):
               f"divergence retries {solver.admm_retries} "
               f"rank {res.ranks} cert restarts {solver.last_cert_restarts} "
               f"spectral repair: {repair}; host syncs "
-              f"{tdev.HOST_SYNCS - syncs0} launches {launches}  [{card}]")
+              f"{tdev.HOST_SYNCS - syncs0} {by} graphs captured "
+              f"{graphs['captured']} replayed {graphs['replayed']} "
+              f"(launches in replays {graphs['launches']}) launches "
+              f"{launches}  [{card}]")
         if res.status is not SolverStatus.PRIMAL_DUAL_OPTIMAL:
             raise AssertionError(f"{name}: status {res.status.value}")
         if not (math.isfinite(res.pobj) and rel <= POBJ_RTOL):
@@ -1609,6 +1726,7 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels_of": os.path.abspath(args.kernels_of),
                           "cases": results}))
         return 0
+    devloop_checks(card)
     counts = main_path(card)
 
     src = {"segment_sum": ("lorads_torch/csrc/segment_sum.cu",

@@ -30,8 +30,12 @@ fixed factor, is solved
 
 lorads_tpu runs up to ``n_steps`` iterations per device dispatch; here
 ``admm_chunk`` runs them as a Python loop and reads the four DIMACS
-scalars of each iteration to the host (one counted read), where the
-status, rho schedule and stall detectors run on Python floats.
+scalars of each iteration to the host (one counted read, label
+``admm``), where the status, rho schedule and stall detectors run on
+Python floats.  The CG solves inside run on the device in graphed
+chunks (alg/cg.py), ``cg_tol`` a device scalar, the fixed factor a
+graph input, the graphs keyed by the bucket or block slice and dropped
+with the phase.
 """
 
 from __future__ import annotations
@@ -42,9 +46,9 @@ import math
 import torch
 
 from lorads_torch import device as dev
-from lorads_torch.alg import aop
+from lorads_torch.alg import aop, devloop
 from lorads_torch.alg.aop import ProblemData
-from lorads_torch.alg.cg import cg_solve, cg_solve_ir
+from lorads_torch.alg.cg import Bound, cg_solve, cg_solve_ir
 from lorads_torch.alg.state import FactorVec
 from lorads_torch.ops import kernels
 from lorads_torch.ops import lp as lp_ops
@@ -91,13 +95,15 @@ def _admm_cache(bk: pat.BucketData, x):
     return pat.gather_cache(bk, x)
 
 
-def _cg_operator(bk, F: torch.Tensor):
-    """x -> x + A^*(A(sym(x F^T))) @ F, the CG operator of one side
-    (linSysProduct, lorads_admm.c:376-391; admm.py:154-170): kernel K6
-    on split buckets whose off constraints own their slots, K7a on
-    dense buckets whose constraints are single-entry or diagonal-only,
-    else A(.) then A^*(.)."""
-    def op(x):
+def _cg_operator(bk, F=None):
+    """(x, F) -> x + A^*(A(sym(x F^T))) @ F, the CG operator of one side
+    with the fixed factor F (linSysProduct, lorads_admm.c:376-391;
+    admm.py:154-170): kernel K6 on split buckets whose off constraints
+    own their slots, K7a on dense buckets whose constraints are
+    single-entry or diagonal-only, else A(.) then A^*(.).  The solver
+    passes F as an operand of the CG loop (a graph input on the card);
+    given here, it is op's default."""
+    def op(x, F=F):
         if bk.dense and bk.a_single_dense:
             Wop = pat.a_adj_a_dense(bk, pat.uvt_half_cached(bk, x, F, None))
         elif bk.a_off_unique:
@@ -120,8 +126,10 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
     (I + a_i^2 v_i v_i^T) x_i = rhs_i exactly by Sherman-Morrison, with
     W @ V = C @ V (``fcache``) + (a .* w) .* V.  Other cones form
     W = C + A^*(w) (K4) and W @ V (K5), and solve by CG to ``cg_tol``
-    (at most CG_MAX_ITER iterations); with ``bk_lo`` (the bucket's f32
-    cast) the CG is the mixed-precision cg_solve_ir.
+    (at most CG_MAX_ITER iterations; ``cg_tol`` a number or a 0-d
+    tensor); with ``bk_lo`` (the bucket's f32 cast) the CG is the
+    mixed-precision cg_solve_ir.  A CG loop's graphs are keyed by the
+    bucket (or block slice) it runs on.
     Returns (new_var, new_local_vals, new_constr_sum, cg_iters,
     new_cache)."""
     base = rho * (constr_sum - pd.rhs) - dual
@@ -141,12 +149,15 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
     else:
         W = pat.build_w(bk, w_loc)                        # C + A*(M1)
         rhs = -(pat.w_mul(bk, W, fixed_var) - rho * fixed_var) / rho
-        op = _cg_operator(bk, fixed_var)
         if bk_lo is not None:
-            op_lo = _cg_operator(bk_lo, fixed_var.to(torch.float32))
-            new_var, iters = cg_solve_ir(op, op_lo, update_var, rhs,
-                                         cg_tol, CG_MAX_ITER)
+            op_lo = Bound(_cg_operator(bk_lo),
+                          (fixed_var.to(torch.float32),),
+                          devloop.ident(bk_lo))
+            new_var, iters = cg_solve_ir(_cg_operator(bk, fixed_var), op_lo,
+                                         update_var, rhs, cg_tol,
+                                         CG_MAX_ITER)
         else:
+            op = Bound(_cg_operator(bk), (fixed_var,), devloop.ident(bk))
             new_var, iters = cg_solve(op, update_var, rhs, cg_tol,
                                       CG_MAX_ITER)
         new_local = pat.constr_vals(bk, pat.uvt(bk, new_var, fixed_var))
@@ -317,7 +328,7 @@ def admm_init_eval(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
     pobj, dobj, pinf, gap, locals_, total = _obj_dimacs_xbar(
         pd, U, V, dual, scale)
     return locals_, total, dev.host_read(torch.stack([pobj, dobj, pinf,
-                                                      gap]))
+                                                      gap]), "admm")
 
 
 def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
@@ -364,7 +375,8 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
     status, count, cg_iter = RUNNING, 0, 0
     while (status == RUNNING and count < n_steps and c["it"] < iter_celling
            and cg_iter < cg_budget):
-        cg_tol = min(c["pinf_l1"] * cg_tol_mult, 1e-8)
+        cg_tol = torch.full((), min(c["pinf_l1"] * cg_tol_mult, 1e-8),
+                            dtype=pd.rhs.dtype, device=pd.rhs.device)
         U, V, locals_, csum, ucs, vcs, cg_it = admm_update_all(
             pd, c["U"], c["V"], c["locals"], c["constr_sum"], c["dual"],
             c["rho"], c["u_caches"], c["v_caches"], cg_tol=cg_tol,
@@ -374,7 +386,7 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
         pobj, dobj, pinf, gap, locals_, csum = _obj_dimacs_xbar(
             pd, U, V, c["dual"], scale, ucs, vcs)
         pobj, dobj, pinf, gap = dev.host_read(
-            torch.stack([pobj, dobj, pinf, gap]))
+            torch.stack([pobj, dobj, pinf, gap]), "admm")
         pinf_inf = pinf * pinf_scale
 
         status = (NUM_ERR if (pinf_inf >= 1e10 or gap >= 1 - 1e-8)

@@ -4,11 +4,15 @@ minimize  <C, RR^T> - lambda^T (A(RR^T) - b) + (rho/2) ||A(RR^T) - b||^2
 
 by L-BFGS directions + exact quartic line search.  Port of
 lorads_tpu/alg/alm.py.  lorads_tpu runs the inner, middle and outer
-loops as device while_loops and fetches one packed vector per dispatch;
-here they are Python loops over device tensors, and each loop condition
-is read on the host (every read goes through ``device.host_read`` and is
-counted).  The decisions are those of LORADS_ALMOptimize and its reopt
-variant (lorads_alm.c:745-1255) in the same order, on Python floats.
+loops as device while_loops and fetches one packed vector per dispatch.
+Here the inner L-BFGS loop is a ``devloop.Loop`` as well: its masked
+step (direction, line search, update, exit test) stays on the device,
+in graphed chunks of INNER_CHUNK steps on the card with one packed read
+a chunk.  The middle and outer loops are Python loops that read their
+conditions on the host (every read goes through ``device.host_read``
+and is counted); their decisions are those of LORADS_ALMOptimize and
+its reopt variant (lorads_alm.c:745-1255) in the same order, on Python
+floats.
 
 The outer loop hands control back to the host after every outer
 iteration (lorads_tpu batches several per dispatch and sizes the batch
@@ -26,7 +30,7 @@ from typing import Optional
 import torch
 
 from lorads_torch import device as dev
-from lorads_torch.alg import aop
+from lorads_torch.alg import aop, devloop
 from lorads_torch.alg.aop import ProblemData
 from lorads_torch.alg.linesearch import alm_line_search
 from lorads_torch.alg.state import (FactorVec, LBFGSHistory, history_push,
@@ -82,7 +86,7 @@ def alm_update_rho_body(pd: ProblemData, R: FactorVec, dual, constr_sum,
         rho_n = rho_ * factor
         w = rho_n * (constr_sum - pd.rhs) - dual
         g = aop.grad_cached(pd, R, w, caches)
-        return rho_n, g, dev.host_read(aop.cert_value(pd, g))
+        return rho_n, g, dev.host_read(aop.cert_value(pd, g), "other")
 
     rho_n, g, cert = body(rho)
     while 0.1 / rho_n >= cert:
@@ -97,9 +101,125 @@ def alm_obj_dimacs(pd: ProblemData, R: FactorVec, dual, scale):
     dobj = torch.dot(pd.rhs, dual) / scale
     _, total = aop.auv(pd, R, R)
     pinf = aop.primal_infeas_l1(pd, total)
-    pobj, dobj, pinf = dev.host_read(torch.stack([pobj, dobj, pinf]))
+    pobj, dobj, pinf = dev.host_read(torch.stack([pobj, dobj, pinf]), "other")
     gap = abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
     return total, [pobj, dobj, pinf, gap]
+
+
+def _inner_step(pd: ProblemData, check_pinf_conv: bool):
+    """The masked inner L-BFGS step and the loop's exit test
+    (lorads_alm.c:1073-1150; lorads_tpu alm.py:150-233) ->
+    (running, step): ``running(inputs, state)`` is the loop condition
+    on the device; ``step(inputs, state, refresh)`` one iteration, the
+    state unchanged where the condition fails.  ``refresh``: this step
+    recomputes the caches and A(RR^T) (every refresh_every steps)."""
+    pinf_scale = (1.0 + pd.b_nrm1) / (1.0 + pd.b_nrm_inf)
+
+    def running(inp, st):
+        _, _, cert_tol, end_sub_tol, _, phase1_tol, gap_ok, max_local = inp
+        cert, pinf, it, num_err, tau_small = (st[5], st[6], st[7], st[9],
+                                              st[10])
+        run = ((cert - cert_tol > end_sub_tol) & (it < max_local)
+               & ~num_err & ~tau_small)
+        if check_pinf_conv:
+            run = run & ~((pinf * pinf_scale <= phase1_tol) & gap_ok)
+        return run
+
+    def step(inp, st, refresh):
+        dual, rho, _, _, end_tau_tol = inp[:5]
+        R, grad, hist, caches, cs, cert, pinf, it, tau, num_err, \
+            tau_small = st
+        run = running(inp, st)
+        hist = history_reset(hist, run & (it % 300 == 0))
+        D = lbfgs_direction(hist, grad)
+        q0 = pd.rhs - cs
+        p1, q1, p2, q2, dcaches = aop.obj_and_auv_pair_cached(
+            pd, R, D, caches)
+        p1, q1 = 2.0 * p1, 2.0 * q1
+        tau_n, num = alm_line_search(rho, dual, p1, p2, q0, q1, q2)
+        err_n = num == 0
+        small_n = ~err_n & (torch.abs(tau_n) < end_tau_tol)
+        ok = run & ~err_n & ~small_n
+        y0 = grad.scale(-1.0)
+        Rn = R.axpy(tau_n, D)
+        cs_inc = cs + tau_n * q1 + (tau_n * tau_n) * q2
+        # A(RR^T) and the caches advance incrementally (exact in exact
+        # arithmetic) and are recomputed every refresh_every steps for
+        # fp hygiene (the reference recomputes each step,
+        # lorads_alm.c:1128-1130)
+        if refresh:
+            can = aop.gather_caches(pd, Rn)
+            total = aop.auv_cached(pd, Rn, can)
+        else:
+            can = aop.axpy_caches(caches, tau_n, dcaches)
+            total = cs_inc
+        w = rho * (cs_inc - pd.rhs) - dual
+        gn = aop.grad_cached(pd, Rn, w, can)
+        hist = history_push(hist, D.scale(tau_n), y0 + gn, ok)
+        pinf_n = aop.primal_infeas_l1(pd, total)
+        cert_n = aop.cert_value(pd, gn)
+        sel = lambda a, b: torch.where(ok, a, b)  # noqa: E731
+        fv = lambda a, b: FactorVec(  # noqa: E731
+            tuple(map(sel, a.cones, b.cones)), sel(a.lp, b.lp))
+        caches = tuple(c if c is None else aop.CRCache(sel(n.cr, c.cr))
+                       for n, c in zip(can, caches))
+        return (fv(Rn, R), fv(gn, grad), hist, caches, sel(total, cs),
+                sel(cert_n, cert), sel(pinf_n, pinf),
+                it + run.to(it.dtype), torch.where(run, tau_n, tau),
+                torch.where(run, err_n, num_err),
+                torch.where(run, small_n, tau_small))
+    return running, step
+
+
+# ALM inner steps a chunk on the card, a divisor of the cache refresh
+# period (25): the refresh then sits at a fixed position of one of two
+# graphs (the history reset is a device select).  5 read faster on an
+# H100 than 25 (PERF.md): an inner pass runs ~4-15 steps on Max-Cut and
+# matrix completion, and a masked step past its exit costs as much
+# device time as a real one.
+INNER_CHUNK = 5
+
+
+def inner_loop(pd: ProblemData, R: FactorVec, grad: FactorVec,
+               hist: LBFGSHistory, dual, constr_sum, cert_val, rho,
+               cert_tol, end_sub_tol, end_tau_tol, phase1_tol, gap_ok,
+               max_local, check_pinf_conv: bool = True,
+               refresh_every: int = 25, caches=None) -> devloop.Loop:
+    """The inner L-BFGS loop (lorads_alm.c:1073-1150) as a
+    devloop.Loop: the scalars (rho, the tolerances, gap_ok, max_local;
+    numbers or 0-d tensors) become device scalars, and with ``dual``
+    the loop's inputs; the state carries R, the gradient, the history
+    (device head and valid count), the caches, A(RR^T), cert, pinf and
+    the step's it, tau, num_err and tau_small.  The history reset at
+    it % 300 == 0 is a device select in the step.  The pack: (running,
+    cert, pinf, it, tau, num_err, tau_small)."""
+    if caches is None:
+        caches = aop.gather_caches(pd, R)
+    dt, dv = pd.rhs.dtype, pd.rhs.device
+
+    def scalar(v, dtype=dt):
+        return devloop.scalar(v, dtype, dv)
+
+    running, step = _inner_step(pd, check_pinf_conv)
+    inputs = (dual, scalar(rho), scalar(cert_tol), scalar(end_sub_tol),
+              scalar(end_tau_tol), scalar(phase1_tol),
+              scalar(gap_ok, torch.bool), scalar(max_local, torch.int64))
+    false = torch.zeros((), dtype=torch.bool, device=dv)
+    state = (R, grad, hist, tuple(caches), constr_sum, scalar(cert_val),
+             aop.primal_infeas_l1(pd, constr_sum),
+             torch.zeros((), dtype=torch.int64, device=dv),
+             torch.zeros((), dtype=dt, device=dv), false, false)
+
+    def pack(inp, st):
+        return torch.stack([x.to(torch.float64) for x in (
+            running(inp, st), st[5], st[6], st[7], st[8], st[9], st[10])])
+
+    return devloop.Loop(
+        key=("alm_inner", devloop.ident(pd), check_pinf_conv,
+             refresh_every),
+        step=step, pack=pack, inputs=inputs, state=state, K=INNER_CHUNK,
+        label="alm_inner",
+        kind=lambda it: it % refresh_every == refresh_every - 1)
 
 
 def _inner_loop(pd: ProblemData, R: FactorVec, grad: FactorVec,
@@ -107,61 +227,24 @@ def _inner_loop(pd: ProblemData, R: FactorVec, grad: FactorVec,
                 cert_tol, end_sub_tol, end_tau_tol, phase1_tol, gap_ok,
                 max_local, check_pinf_conv: bool = True,
                 refresh_every: int = 25, caches=None):
-    """The inner L-BFGS loop (lorads_alm.c:1073-1150).
+    """The inner L-BFGS loop (lorads_alm.c:1073-1150), run to its exit.
 
     Exits when: certificate satisfied, local iteration cap, tau too
     small, line-search failure, or (init phase only) primal
     infeasibility below phase1Tol.  ``caches`` hold CR = C @ R; per
     iteration only C @ D is computed and the caches advance by tau,
-    with a fresh recompute every ``refresh_every`` steps.
-    Returns (R, grad, hist, constr_sum, info, caches).
+    with a fresh recompute every ``refresh_every`` steps.  On the card
+    the steps run in graphed chunks of INNER_CHUNK, one host read each
+    (label ``alm_inner``).  Returns (R, grad, hist, constr_sum, info,
+    caches), info's values host numbers from the last read.
     """
-    pinf_scale = (1.0 + pd.b_nrm1) / (1.0 + pd.b_nrm_inf)
-    if caches is None:
-        caches = aop.gather_caches(pd, R)
-
-    def conv(pinf_l1):
-        return (check_pinf_conv and pinf_l1 * pinf_scale <= phase1_tol
-                and gap_ok)
-
-    cert = float(cert_val)
-    pinf = dev.host_read(aop.primal_infeas_l1(pd, constr_sum))
-    it, tau, num_err, tau_small = 0, 0.0, False, False
-    while (cert - cert_tol > end_sub_tol and it < max_local
-           and not num_err and not tau_small and not conv(pinf)):
-        if it % 300 == 0:
-            hist = history_reset(hist)
-        D = lbfgs_direction(hist, grad)
-        q0 = pd.rhs - constr_sum
-        p1, q1, p2, q2, dcaches = aop.obj_and_auv_pair_cached(
-            pd, R, D, caches)
-        p1, q1 = 2.0 * p1, 2.0 * q1
-        tau, num = alm_line_search(rho, dual, p1, p2, q0, q1, q2)
-        num_err = num == 0
-        tau_small = (not num_err) and abs(tau) < end_tau_tol
-        if not num_err and not tau_small:
-            y0 = grad.scale(-1.0)
-            Rn = R.axpy(tau, D)
-            cs_inc = constr_sum + tau * q1 + (tau * tau) * q2
-            # A(RR^T) and the caches advance incrementally (exact in
-            # exact arithmetic) and are recomputed every refresh_every
-            # steps for fp hygiene (the reference recomputes each step,
-            # lorads_alm.c:1128-1130)
-            if it % refresh_every == refresh_every - 1:
-                caches = aop.gather_caches(pd, Rn)
-                total = aop.auv_cached(pd, Rn, caches)
-            else:
-                caches = aop.axpy_caches(caches, tau, dcaches)
-                total = cs_inc
-            w = rho * (cs_inc - pd.rhs) - dual
-            gn = aop.grad_cached(pd, Rn, w, caches)
-            hist = history_push(hist, D.scale(tau), y0 + gn)
-            pinf, cert = dev.host_read(torch.stack([
-                aop.primal_infeas_l1(pd, total), aop.cert_value(pd, gn)]))
-            R, grad, constr_sum = Rn, gn, total
-        it += 1
-    info = dict(cert_val=cert, pinf_l1=pinf, local_iter=it, tau=tau,
-                num_err=num_err, tau_small=tau_small)
+    st, out = devloop.run(inner_loop(
+        pd, R, grad, hist, dual, constr_sum, cert_val, rho, cert_tol,
+        end_sub_tol, end_tau_tol, phase1_tol, gap_ok, max_local,
+        check_pinf_conv, refresh_every, caches))
+    R, grad, hist, caches, constr_sum = st[:5]
+    info = dict(cert_val=out[1], pinf_l1=out[2], local_iter=int(out[3]),
+                tau=out[4], num_err=bool(out[5]), tau_small=bool(out[6]))
     return R, grad, hist, constr_sum, info, caches
 
 
@@ -235,7 +318,7 @@ def _middle_and_rho(pd: ProblemData, R: FactorVec, grad: FactorVec,
         if exit2 == M_RUNNING:
             dual_n, g2, cert2 = alm_dual_and_grad(pd, R1, c["dual"], cs1,
                                                   rho, caches=ca1)
-            cert2 = dev.host_read(cert2)
+            cert2 = dev.host_read(cert2, "other")
         # difficulty grading (lorads_alm.c:1154-1171); reopt grades
         # SUPER as HARD
         difficulty = (EASY if local <= 20 else MEDIUM if local <= 100
@@ -342,7 +425,7 @@ def alm_optimize(pd: ProblemData, params, R: FactorVec, dual, hist,
     k = stats.outer_iter
 
     constr_sum, grad, cert_val = alm_recompute(pd, R, dual, stats.rho)
-    cert_val = dev.host_read(cert_val)
+    cert_val = dev.host_read(cert_val, "other")
     caches = aop.gather_caches(pd, R)
 
     def finalize(action: str) -> ALMResult:
@@ -417,7 +500,7 @@ def alm_optimize(pd: ProblemData, params, R: FactorVec, dual, hist,
         pobj, dobj, pinf = dev.host_read(torch.stack([
             aop.obj_cached(pd, R, caches) / scale_obj,
             torch.dot(pd.rhs, dual) / scale_obj,
-            aop.primal_infeas_l1(pd, total)]))
+            aop.primal_infeas_l1(pd, total)]), "other")
         gap = abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
         pinf_inf = pinf * pinf_scale
         constr_sum = total

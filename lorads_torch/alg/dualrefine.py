@@ -87,7 +87,7 @@ def dual_ls_refine(pd, R: FactorVec, dual: torch.Tensor, n_iter: int,
     done = ~(rs > stop)
     its = torch.zeros((), dtype=torch.int64, device=dual.device)
     k = 0
-    while k < n_iter and not dev.host_read(done):
+    while k < n_iter and not dev.host_read(done, "repair"):
         for _ in range(min(CHUNK, n_iter - k)):
             Ap = proj(Mt(M(p)))
             denom = torch.dot(p, Ap)

@@ -116,7 +116,7 @@ def lanczos_min_eig_device(matvec: Callable, v0: torch.Tensor,
                                         * torch.abs(lam))
         done = ((resid <= band) | (lam - resid >= -tol * pos_floor)
                 | settled)
-        return bool(dev.host_read(torch.all(done)))
+        return bool(dev.host_read(torch.all(done), "lanczos"))
 
     while it < max_restarts and not done_all():
         lam_n, v, resid = _min_ritz(matvec, v, k)

@@ -1,11 +1,11 @@
 """Exact ALM line search: quartic minimization via closed-form cubic roots.
 
 Port of lorads_tpu/alg/linesearch.py (reference LORADScubic_equation and
-ALMLineSearch, lorads_alm.c:114-228).  The quartic's coefficients come
-from dot products of device vectors; they are read to the host in one
-counted transfer, and the branchless root selection then runs on four
-f64 CPU scalars (a few dozen tiny ops that would otherwise each be a
-kernel launch on the card).
+ALMLineSearch, lorads_alm.c:114-228).  Everything stays on the
+coefficients' device, as in lorads_tpu: the quartic's coefficients
+(dot products of device vectors), the closed-form cubic (a chain of
+torch ops) and the selection of tau (a ``torch.where`` chain), so the
+ALM inner loop can run in graphed chunks with no host read per step.
 """
 
 from __future__ import annotations
@@ -13,8 +13,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-from lorads_torch import device as dev
 
 
 def _nthroot3(x):
@@ -105,8 +103,9 @@ def quartic_coeffs(rho, lam, p1, p2, q0, q1, q2) -> torch.Tensor:
 
 
 def line_search_from_coeffs(coeffs: torch.Tensor):
-    """Minimize the quartic over tau in (0, 1] -> (tau, num_roots);
-    num_roots == 0 means a numerical error."""
+    """Minimize the quartic over tau in (0, 1] -> (tau, num_roots), 0-d
+    tensors on coeffs' device; num_roots == 0 means a numerical
+    error."""
     a, b, c, d = coeffs.to(torch.float64).unbind()
     # Normalize the derivative cubic by its largest coefficient before
     # the discriminant: roots are scale-invariant, and B^2 - 4AC on the
@@ -129,18 +128,15 @@ def line_search_from_coeffs(coeffs: torch.Tensor):
     min_f = torch.minimum(torch.minimum(f0, f1), torch.min(froots))
     # selection priority (last assignment wins in the reference):
     # roots[2] > roots[1] > roots[0] > tau=1 > tau=0
-    tau = 0.0
-    if abs(float(min_f - f1)) < 1e-10:
-        tau = 1.0
+    tau = torch.where(torch.abs(min_f - f1) < 1e-10, 1.0, f0)
     for j in range(3):
-        if abs(float(min_f - froots[j])) < 1e-10:
-            tau = float(roots[j])
-    return tau, int(num)
+        tau = torch.where(torch.abs(min_f - froots[j]) < 1e-10, roots[j],
+                          tau)
+    return tau, num
 
 
 def alm_line_search(rho, lam, p1, p2, q0, q1, q2):
-    """(tau, num_roots) of the exact ALM line search; one counted host
-    read of the four coefficients."""
-    coeffs = quartic_coeffs(rho, lam, p1, p2, q0, q1, q2)
+    """(tau, num_roots) of the exact ALM line search, 0-d tensors on the
+    inputs' device; ``rho`` a number or a 0-d tensor."""
     return line_search_from_coeffs(
-        torch.tensor(dev.host_read(coeffs), dtype=torch.float64))
+        quartic_coeffs(rho, lam, p1, p2, q0, q1, q2))

@@ -35,7 +35,7 @@ import torch
 from lorads_torch import device as dev
 from lorads_torch.alg import admm as admm_mod
 from lorads_torch.alg import alm as alm_mod
-from lorads_torch.alg import aop
+from lorads_torch.alg import aop, devloop
 from lorads_torch.alg.admm import ADMMStats
 from lorads_torch.alg.alm import ALMStats
 from lorads_torch.alg.dualrefine import dual_ls_refine
@@ -246,11 +246,13 @@ class LoradsSolver:
         factor = (rho_update_factor if rho_update_factor is not None
                   else self.params.alm_rho_factor)
         while True:
-            res = alm_mod.alm_optimize(
-                self.pd, self.params, self.R, self.dual, self.hist, stats,
-                self.scale_obj_his, self.is_rank_max(), factor,
-                time_solve_start, self, reopt=reopt, early_stop=early_stop,
-                max_alm_iter=max_alm_iter, log=self.log)
+            with devloop.phase():     # the ALM inner loop's graphs
+                res = alm_mod.alm_optimize(
+                    self.pd, self.params, self.R, self.dual, self.hist,
+                    stats, self.scale_obj_his, self.is_rank_max(), factor,
+                    time_solve_start, self, reopt=reopt,
+                    early_stop=early_stop, max_alm_iter=max_alm_iter,
+                    log=self.log)
             self.R, self.dual, self.hist = res.R, res.dual, res.hist
             self.pobj, self.dobj = stats.pobj, stats.dobj
             self.gap, self.pinf_l1 = stats.gap, stats.pinf_l1
@@ -333,6 +335,12 @@ class LoradsSolver:
 
     def _admm_phase_once(self, stats: ADMMStats, iter_celling: int,
                          time_solve_start: float, reopt: bool) -> str:
+        with devloop.phase():         # the CG graphs of its sweep plan
+            return self._admm_chunks(stats, iter_celling,
+                                     time_solve_start, reopt)
+
+    def _admm_chunks(self, stats: ADMMStats, iter_celling: int,
+                     time_solve_start: float, reopt: bool) -> str:
         p = self.params
         t0 = time.time()
         locals_, total, vals = admm_mod.admm_init_eval(
@@ -458,12 +466,12 @@ class LoradsSolver:
         R = R if R is not None else self.R
         out = [None] * len(self.ps.plans)
         for bp, Rb in zip(self.ps.buckets, R.cones):
-            Rh = np.asarray(dev.host_read(Rb.double()), np.float64)
+            Rh = np.asarray(dev.host_read(Rb.double(), "other"), np.float64)
             for b, plan in enumerate(bp.plans):
                 out[plan.index] = Rh[b, :plan.dim]
         lp_vals = None
         if self.pd.lp is not None:
-            u = np.asarray(dev.host_read(R.lp.double()), np.float64)
+            u = np.asarray(dev.host_read(R.lp.double(), "other"), np.float64)
             lp_vals = u * u
         return out, lp_vals
 
@@ -507,7 +515,7 @@ class LoradsSolver:
         self.last_cert_lams_k = lams_k
         out = []
         for lam in lams:
-            lam = np.asarray(dev.host_read(lam), dtype=np.float64)
+            lam = np.asarray(dev.host_read(lam, "other"), dtype=np.float64)
             if np.any(np.isnan(lam)):
                 # a NaN sweep must not let the status claim optimality
                 self.log("warning: Lanczos returned NaN on a block; "
@@ -542,7 +550,8 @@ class LoradsSolver:
             if delta is not None:
                 self.dual = self.dual + self._tensor(delta)
                 lp_part, lams = self._dual_infeas_pass()
-                dobj = dev.host_read(torch.dot(self.pd.rhs, self.dual))
+                dobj = dev.host_read(torch.dot(self.pd.rhs, self.dual),
+                                     "other")
                 dobj /= self.scale_obj_his
                 self.dobj = dobj
                 self.gap = abs(self.pobj - dobj) / (
@@ -591,7 +600,7 @@ class LoradsSolver:
         if repairable == 0.0 or (pre - repairable) / norm > band:
             return None
         rhs = self.problem.rhs.astype(np.float64)
-        dobj_cur = dev.host_read(torch.dot(self.pd.rhs, self.dual))
+        dobj_cur = dev.host_read(torch.dot(self.pd.rhs, self.dual), "other")
         dobj_new = (dobj_cur + float(np.dot(rhs, delta))) \
             / self.scale_obj_his
         gap_new = abs(self.pobj - dobj_new) / (
@@ -629,7 +638,7 @@ class LoradsSolver:
         step, ls0, ls1, its = dual_ls_refine(self.pd, Rbar, self.dual,
                                              n_iter)
         ls0, ls1, its = dev.host_read(torch.stack(
-            [ls0, ls1, its.to(ls0.dtype)]))
+            [ls0, ls1, its.to(ls0.dtype)]), "repair")
         # b^T step = 0, so dObj and the gap are the same for every t:
         # acceptance compares dinf alone
         best_t, best_dinf = None, admm_stats.dinf_l1
@@ -653,7 +662,7 @@ class LoradsSolver:
                  f"{'accepted' if accept else 'rejected'}")
         if accept:
             self.dual = old_dual + best_t * step
-            dobj = dev.host_read(torch.dot(self.pd.rhs, self.dual))
+            dobj = dev.host_read(torch.dot(self.pd.rhs, self.dual), "other")
             dobj /= self.scale_obj_his
             self.dobj = dobj
             self.gap = abs(self.pobj - dobj) / (
@@ -822,7 +831,7 @@ class LoradsSolver:
         self.R = Rbar
         pinf_inf = self.pinf_l1 * (1 + self.pd.b_nrm1) / (
             1 + self.pd.b_nrm_inf)
-        dual = np.asarray(dev.host_read(self.dual), np.float64)
+        dual = np.asarray(dev.host_read(self.dual, "other"), np.float64)
         return SolveResult(
             status=status, pobj=self.pobj, dobj=self.dobj,
             pinf_l1=self.pinf_l1, pinf_inf=pinf_inf,
@@ -850,7 +859,7 @@ def _lp_dual_part(pd, dual) -> float:
         return 0.0
     vals = lp_ops.adjoint_cols(pd.lp, dual, base=pd.lp.obj, alpha=-1.0)
     return float(dev.host_read(torch.sum(torch.abs(
-        torch.clamp(vals, max=0.0)))))
+        torch.clamp(vals, max=0.0))), "other"))
 
 
 def _find_identity_direction(blk, shared):

@@ -81,9 +81,9 @@ def _host_active_set(solver, bases: dict, delta: float, sigma: float):
             Bm[bi, :, :Bb.shape[1]] = Bb
             p_real[(j, bi)] = Bb.shape[1]
         Bmats[j] = solver._tensor(Bm)
-    b = np.asarray(dev.host_read(solver.pd.rhs.double()), np.float64)
+    b = np.asarray(dev.host_read(solver.pd.rhs.double(), "repair"), np.float64)
     bb = float(b @ b)
-    lam = np.asarray(dev.host_read(solver.dual.double()), np.float64)
+    lam = np.asarray(dev.host_read(solver.dual.double(), "repair"), np.float64)
     d_tot = np.zeros(solver.pd.m)
     cons_c, cons_g = [], []
     for _ in range(N_ITERS):
@@ -91,7 +91,8 @@ def _host_active_set(solver, bases: dict, delta: float, sigma: float):
         new_dirs = []          # (j, bi, u)
         for j, Bm in Bmats.items():
             P_all = np.asarray(dev.host_read(_proj_slack(
-                solver.pd.buckets[j], dual_cur, Bm).double()), np.float64)
+                solver.pd.buckets[j], dual_cur, Bm).double(), "repair"),
+                np.float64)
             for (jj, bi), pw in p_real.items():
                 if jj != j:
                     continue
@@ -111,8 +112,8 @@ def _host_active_set(solver, bases: dict, delta: float, sigma: float):
             Vkd = solver._tensor(Vk)
             pieces = [_pieces(bk, Vkd[q]) for q in range(len(dirs_j))]
             got = np.asarray(dev.host_read(torch.stack(
-                [torch.cat([c[None], g]) for c, g in pieces]).double()),
-                np.float64)
+                [torch.cat([c[None], g]) for c, g in pieces]).double(),
+                "repair"), np.float64)
             cons_c.extend(got[:, 0])
             cons_g.extend(got[:, 1:])
         G = np.stack(cons_g)
@@ -197,7 +198,7 @@ def _active_set(bk, Bmat: torch.Tensor, p_mask: torch.Tensor, dual0,
         alpha = torch.linalg.solve((Mn / sc).to(torch.float32),
                                    (t / sc).to(torch.float32)).to(dt)
         n_new, n_cons = dev.host_read(torch.stack([torch.sum(valid),
-                                                   torch.sum(rv)]))
+                                                   torch.sum(rv)]), "repair")
         it += 1
         if n_new == 0:
             # no new directions: no step, and the loop ends
@@ -262,10 +263,10 @@ def try_spectral_repair(solver, admm_stats) -> bool:
         # eigendirections (orthonormalized)
         grab = 2.0 * band * norm
         for j in range(len(solver.pd.buckets)):
-            vec = np.asarray(dev.host_read(solver.last_cert_vecs[j]),
+            vec = np.asarray(dev.host_read(solver.last_cert_vecs[j], "repair"),
                              np.float64)
-            lk = np.asarray(dev.host_read(solver.last_cert_lams_k[j]),
-                            np.float64)
+            lk = np.asarray(dev.host_read(solver.last_cert_lams_k[j],
+                                          "repair"), np.float64)
             for bi, ki in zip(*np.nonzero(lk < max(grab, floor))):
                 Bb = bases.get((j, bi))
                 v = vec[bi, ki].copy()
@@ -314,7 +315,8 @@ def try_spectral_repair(solver, admm_stats) -> bool:
         # b-orthogonal moves leave dObj/gap untouched, so a strictly
         # better certified dinf is kept even when the band is unmet
         solver.dual = best_dual
-        dobj_new = dev.host_read(torch.dot(solver.pd.rhs, solver.dual))
+        dobj_new = dev.host_read(torch.dot(solver.pd.rhs, solver.dual),
+                                 "repair")
         dobj_new /= solver.scale_obj_his
         solver.dobj = dobj_new
         solver.gap = abs(solver.pobj - dobj_new) / (

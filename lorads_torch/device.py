@@ -7,8 +7,10 @@
   ``precision="highest"`` in lorads_tpu/__init__.py:32-35: every dot of
   the solver is DIMACS-critical.  ``assert_full_precision`` checks it.
 * ``host_read``: every device-to-host scalar read of the solver's loop
-  control goes through here and is counted (``HOST_SYNCS``), so a run
-  can report how often the host waited on the device.
+  control goes through here and is counted (``HOST_SYNCS``, and per
+  label in ``HOST_SYNCS_BY``), so a run can report how often the host
+  waited on the device, and in which loop.  A read while the current
+  stream is being captured into a CUDA graph raises.
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ torch.backends.cudnn.allow_tf32 = False
 
 # device -> host reads made by the solver's control flow (see host_read)
 HOST_SYNCS = 0
+# the loops a read is made for: the ALM inner loop's chunks, CG's chunks,
+# the mixed-precision CG's refinement passes, the ADMM iterations, the
+# Lanczos restarts, the dual repairs (spectral and CGNR), the rest
+LABELS = ("alm_inner", "cg", "cg_ir", "admm", "lanczos", "repair", "other")
+HOST_SYNCS_BY = dict.fromkeys(LABELS, 0)
 
 
 def assert_full_precision() -> None:
@@ -50,10 +57,15 @@ def resolve_dtype(name: str) -> torch.dtype:
         f"dtype={name!r} not yet ported to lorads_torch")
 
 
-def host_read(t: torch.Tensor):
+def host_read(t: torch.Tensor, label: str):
     """Copy a (small) device tensor to the host as Python numbers,
-    counting the sync.  0-d tensors give a float, others a list."""
+    counting the sync under ``label`` (one of LABELS).  0-d tensors give
+    a float, others a list."""
     global HOST_SYNCS
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"host read ({label}) inside a CUDA graph "
+                           "capture")
+    HOST_SYNCS_BY[label] += 1
     HOST_SYNCS += 1
     return t.item() if t.dim() == 0 else t.tolist()
 
@@ -61,6 +73,8 @@ def host_read(t: torch.Tensor):
 def reset_host_syncs() -> None:
     global HOST_SYNCS
     HOST_SYNCS = 0
+    for k in HOST_SYNCS_BY:
+        HOST_SYNCS_BY[k] = 0
 
 
 def backend_report(device: torch.device, dtype: torch.dtype) -> str:

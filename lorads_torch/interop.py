@@ -97,6 +97,7 @@ def state_from_numpy(R=None, U=None, V=None, dual=None, hist=None,
             s=factor_from_numpy(hist.s.cones, hist.s.lp, dtype, device),
             y=factor_from_numpy(hist.y.cones, hist.y.lp, dtype, device),
             beta=_tensor(hist.beta, dtype, device),
-            head=int(np.asarray(hist.head)),
-            n_valid=int(np.asarray(hist.n_valid)))
+            head=torch.tensor(int(np.asarray(hist.head)), device=device),
+            n_valid=torch.tensor(int(np.asarray(hist.n_valid)),
+                                 device=device))
     return out

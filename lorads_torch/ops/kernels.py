@@ -37,7 +37,11 @@ Each wrapper checks its arguments, then takes the plain PyTorch version
 (written with ``index_select`` / ``index_add_``) for CPU tensors, and
 for CUDA tensors launches the kernel on the current stream or raises;
 there is no fallback between the two.  ``LAUNCHES`` counts kernel
-launches per wrapper (plain-version calls are not counted).
+launches per wrapper (plain-version calls are not counted); a launch
+recorded into a CUDA graph (``alg/devloop.py``, inside ``recording``)
+counts once at each replay of the graph (``replayed``), not at its
+capture.  ``GRAPHS`` counts devloop's captures and replays and the
+launches those replays made.
 
 Plain-version precision: f64 sums directly.  At f32 the segment sums
 (K1, K2, K4, K5) accumulate in f64 and round once, which bounds their
@@ -53,6 +57,7 @@ does on CPU tensors.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple, Optional
 
@@ -65,12 +70,46 @@ KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # of LAUNCHES["uvt_split"], those with V is U (one dot an entry)
 ONE_DOT_LAUNCHES = {"uvt_split": 0}
+# devloop's graphs captured and replayed, and the launches of the replays
+GRAPHS = {"captured": 0, "replayed": 0, "launches": 0}
+_TABLES = {"launches": LAUNCHES, "one_dot": ONE_DOT_LAUNCHES}
+# the launches of the graph being captured, (table, name) -> count
+_TALLY = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    ONE_DOT_LAUNCHES["uvt_split"] = 0
+    for table in (*_TABLES.values(), GRAPHS):
+        for k in table:
+            table[k] = 0
+
+
+def _bump(table: str, name: str, n: int = 1) -> None:
+    if _TALLY is not None:
+        _TALLY[(table, name)] = _TALLY.get((table, name), 0) + n
+    else:
+        _TABLES[table][name] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Launches inside are recorded into the graph being captured: they
+    are tallied in the dict yielded, which ``replayed`` adds to the
+    counts at each replay."""
+    global _TALLY
+    prev, _TALLY = _TALLY, {}
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = prev
+
+
+def replayed(tally: dict) -> None:
+    """Count one replay of a graph whose launches are ``tally``."""
+    for (table, name), n in tally.items():
+        _TABLES[table][name] += n
+        if table == "launches":
+            GRAPHS["launches"] += n
+    GRAPHS["replayed"] += 1
 
 
 def _check(name, floats, ints):
@@ -102,7 +141,7 @@ def _launch(name, fn, *args):
     rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
+    _bump("launches", name)
 
 
 def _is_f64(t):
@@ -430,7 +469,7 @@ def uvt_split(U: torch.Tensor, V: torch.Tensor, rows: torch.Tensor,
     _launch("uvt_split", "lt_uvt_split", _is_f64(U), int(one_dot),
             U.data_ptr(), V.data_ptr(), rows.data_ptr(), cols.data_ptr(),
             *_tile_args(t, (d, o), B, n, Ko, r))
-    ONE_DOT_LAUNCHES["uvt_split"] += one_dot
+    _bump("one_dot", "uvt_split", int(one_dot))
     return d, o
 
 

@@ -7,7 +7,9 @@ so the kernels are built and loaded):
 
 * ``walls``: the wall seconds of that many untraced solves,
   ``LoradsSolver(...)`` construction included, each ending in a device
-  synchronise; with the host syncs (``device.HOST_SYNCS``) of each;
+  synchronise; with the host syncs (``device.HOST_SYNCS``) of each, the
+  last one's by label (``device.HOST_SYNCS_BY``) and its loop graphs
+  captured and replayed (``kernels.GRAPHS``);
 * ``phases``: one solve with synchronised timers around the solver's
   construction, the ALM phases, the ADMM phases (and, inside them, the
   CG solves), the certificate passes and the spectral dual repair;
@@ -19,7 +21,9 @@ so the kernels are built and loaded):
   whose trace takes longer to process than the solve takes to run.)
 
 The instances are chip_smoke.py's main-path instances, solved with
-its options for each (``PARAMS``).  Run from the
+its options for each (``PARAMS``).  ``--cg-chunk`` and ``--alm-chunk``
+set the device loops' chunk lengths (``cg.CHUNK``, ``alm.INNER_CHUNK``)
+for this process, to measure them.  Run from the
 root of the repository; needs a GPU; prints one JSON line per instance
 and the card's name and power limit.
 """
@@ -36,21 +40,27 @@ import torch
 from chip_smoke import INSTANCES, PARAMS
 from lorads_torch import device as dev
 from lorads_torch.alg import admm as admm_mod
+from lorads_torch.alg import alm as alm_mod
+from lorads_torch.alg import cg as cg_mod
 from lorads_torch.alg import solver as solver_mod
 from lorads_torch.alg.solver import LoradsSolver
 from lorads_torch.config import LoradsParams
+from lorads_torch.ops import kernels
 from lorads_torch.timing import card_line
 
 
 def _solve(problem, name=None):
     t0 = time.time()
-    s0 = dev.HOST_SYNCS
+    dev.reset_host_syncs()
+    kernels.reset_launches()
     solver = LoradsSolver(problem, LoradsParams(verbose=False,
                                                 **PARAMS.get(name, {})),
                           device="cuda")
     res = solver.solve()
     torch.cuda.synchronize()
-    return res, solver, time.time() - t0, dev.HOST_SYNCS - s0
+    solver.syncs_by = {k: v for k, v in dev.HOST_SYNCS_BY.items() if v}
+    solver.graphs = dict(kernels.GRAPHS)
+    return res, solver, time.time() - t0, dev.HOST_SYNCS
 
 
 @contextlib.contextmanager
@@ -118,8 +128,8 @@ def _device_share(problem, name, window, top=8):
             prof.stop()
             out[state["phase"]] = _summary(prof, wall, top)
 
-    def counted(t):
-        v = read(t)
+    def counted(t, label):
+        v = read(t, label)
         state["n"] = state.get("n", 0) + 1
         if state["n"] >= window:
             stop()
@@ -165,6 +175,7 @@ def profile_instance(name, walls, window):
         alm_outer=res.alm_stats.outer_iter,
         alm_inner=res.alm_stats.inner_iter, admm=res.admm_stats.iter,
         cg=runs[-1][1].admm_cg_total, rank=res.ranks,
+        host_syncs_by=runs[-1][1].syncs_by, graphs=runs[-1][1].graphs,
         spectral_repair=getattr(runs[-1][1], "spectral_repair_info",
                                 None))
     phases = {}
@@ -181,11 +192,19 @@ def main(argv=None) -> int:
     ap.add_argument("--walls", type=int, default=5)
     ap.add_argument("--window", type=int, default=2000,
                     help="host syncs traced per phase")
+    ap.add_argument("--cg-chunk", type=int, help="cg.CHUNK")
+    ap.add_argument("--alm-chunk", type=int, help="alm.INNER_CHUNK")
     args = ap.parse_args(argv)
+    if args.cg_chunk:
+        cg_mod.CHUNK = args.cg_chunk
+    if args.alm_chunk:
+        alm_mod.INNER_CHUNK = args.alm_chunk
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve needs an NVIDIA GPU")
     card = card_line()
     print(f"card: {card}")
+    print(json.dumps({"cg_chunk": cg_mod.CHUNK,
+                      "alm_chunk": alm_mod.INNER_CHUNK}))
     _solve(INSTANCES["maxcut300"]())        # build, load, warm up
     for name in args.instances:
         print(json.dumps(profile_instance(name, args.walls, args.window)),

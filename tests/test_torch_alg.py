@@ -68,30 +68,42 @@ def test_cubic_roots_matches():
 
 
 def _ls_inputs(seed, scale=1.0):
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(0 if isinstance(seed, str) else seed)
     m = 40
     q0, q1, q2, lam = rng.standard_normal((4, m)) * scale
     p1, p2 = rng.standard_normal(2) * scale
     rho = float(10.0 ** rng.uniform(-2, 3))
+    if isinstance(seed, str):
+        # q1 = q2 = 0: phi(t) = p2 t^2 + p1 t, the cubic's one root
+        # out of (0, 1]; its minimum over [0, 1] at t = 1 ("tau1") or at
+        # t = 0 ("tau0")
+        q1, q2 = np.zeros(m), np.zeros(m)
+        p1, p2 = (-3.0 if seed == "tau1" else 3.0) * scale, scale
     return rho, lam, p1, abs(p2), q0, q1, q2
 
 
-@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("seed", [*range(6), "tau1", "tau0"])
 @pytest.mark.parametrize("scale", [1.0, 1e80])
 def test_alm_line_search_matches(seed, scale):
     """Random quartics; scale 1e80 drives the raw discriminant past the
     f64 range, where only the coefficient normalization (linesearch.py
-    107-118) keeps the root finder alive."""
+    107-118) keeps the root finder alive.  "tau1" and "tau0": the
+    device's choice of tau falls back to the interval's ends.  The port
+    returns 0-d tensors (the choice is a torch.where chain)."""
     rho, lam, p1, p2, q0, q1, q2 = _ls_inputs(seed, scale)
     jt, jn = tpu_ls.alm_line_search(
         rho, jnp.asarray(lam), p1, p2, jnp.asarray(q0), jnp.asarray(q1),
         jnp.asarray(q2))
     tt, tn = t_ls.alm_line_search(
         rho, _t(lam), _t(p1), _t(p2), _t(q0), _t(q1), _t(q2))
+    assert tt.dim() == tn.dim() == 0
+    tt, tn = float(tt), int(tn)
     assert tn == int(jn)
     assert tn > 0
     assert tt == pytest.approx(float(jt), rel=1e-9, abs=1e-12)
     assert 0.0 <= tt <= 1.0
+    if isinstance(seed, str):
+        assert tt == float(jt) == (1.0 if seed == "tau1" else 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -104,20 +116,29 @@ def _fv_pair(rng, shape):
             t_state.FactorVec((_t(x),), torch.zeros(0, dtype=torch.float64)))
 
 
-@pytest.mark.parametrize("pushes", [0, 2, 3, 5])
+@pytest.mark.parametrize("pushes", [0, 2, 3, 5, (5, 1), (4, 0)])
 def test_lbfgs_twoloop_matches(pushes):
-    rng = np.random.default_rng(pushes)
+    """The two-loop from the device head and valid count; (p, q): p
+    pushes, a reset, q pushes, so that stale slots (written before the
+    reset) sit beside valid ones and weigh 0."""
+    before, after = pushes if isinstance(pushes, tuple) else (pushes, None)
+    rng = np.random.default_rng(before)
     shape = (1, 30, 4)
     g_j, g_t = _fv_pair(rng, shape)
     hist = tpu_state.make_history(g_j, 3)
-    for _ in range(pushes):
+    for k in range(before + (after or 0)):
+        if k == before:
+            hist = tpu_state.history_reset(hist)
         s_j, _ = _fv_pair(rng, shape)
         # y = s + noise keeps <y, s> > 0 (a convex-like history)
         y = _np(s_j.cones[0]) + 0.3 * rng.standard_normal(shape)
         y_j = tpu_state.FactorVec((jnp.asarray(y),), jnp.zeros((0,)))
         hist = tpu_state.history_push(hist, s_j, y_j)
+    if after == 0:
+        hist = tpu_state.history_reset(hist)
     th = interop.state_from_numpy(hist=hist)["hist"]
-    assert (th.head, th.n_valid) == (int(hist.head), int(hist.n_valid))
+    assert (int(th.head), int(th.n_valid)) == (int(hist.head),
+                                               int(hist.n_valid))
     jd = tpu_state.lbfgs_direction_twoloop(hist, g_j)
     td = t_state.lbfgs_direction_twoloop(th, g_t)
     np.testing.assert_allclose(td.cones[0].numpy(), _np(jd.cones[0]),

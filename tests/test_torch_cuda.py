@@ -868,3 +868,107 @@ def test_lp_gs_sweep_kernel_cases_bit_for_bit(case, dtype):
     ref = kernels.lp_gs_sweep_plain(*cpu)
     for g, e in zip(got, ref):
         assert torch.equal(g.cpu(), e)
+
+
+# ---------------------------------------------------------------------------
+# Device-resident loops (alg/devloop.py): graphed chunks on the card.
+# ---------------------------------------------------------------------------
+
+def _mc_cg_loop(dtype):
+    """The CG loop of matcomp500's operator (K6, K5) at ``dtype``."""
+    from lorads_torch.alg import admm, cg, devloop
+    bk, bp = _mc_bucket(dtype)
+    rng = np.random.default_rng(4)
+    F = 0.3 * _rand(rng, (1, bp.n, bp.rank), dtype)
+    b = _rand(rng, (1, bp.n, bp.rank), dtype)
+    op = cg.Bound(admm._cg_operator(bk), (F,), devloop.ident(bk))
+    return cg.cg_loop(op, torch.zeros_like(b), b, 1e-8, 800)
+
+
+def _mc_alm_loop():
+    """The ALM inner loop of matcomp500 (K3p, K4, K5) from its start."""
+    from lorads_torch.alg import alm
+    problem = read_sdpa(os.path.join(FIX, "matcomp500.dat-s"))
+    s = LoradsSolver(problem, LoradsParams(verbose=False), device="cuda")
+    rho = s.ps.rho0
+    cs, g, cert = alm.alm_recompute(s.pd, s.R, s.dual, rho)
+    p = s.params
+    return alm.inner_loop(s.pd, s.R, g, s.hist, s.dual, cs, cert, rho,
+                          0.1 / rho, p.end_alm_sub_tol, p.end_tau_tol,
+                          p.phase1_tol, True, 801)
+
+
+def _flat(tree):
+    from lorads_torch.alg import devloop
+    return devloop.flatten(tree)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["cg_f64", "cg_f32", "alm_inner"])
+def test_graphed_chunk_equals_eager_chunk(which):
+    """One chunk replayed from its CUDA graph equals the same masked
+    steps run eagerly on the card from the same state, bit for bit."""
+    _need_cuda()
+    from lorads_torch.alg import devloop
+    with devloop.phase():
+        loop = (_mc_alm_loop() if which == "alm_inner" else
+                _mc_cg_loop(torch.float64 if which == "cg_f64"
+                            else torch.float32))
+        eager = _flat(devloop.eager_chunk(loop))
+        graph, load, bufs = devloop.graph_chunk(loop)
+        load()
+        graph.replay()
+        got = _flat(bufs.tree("state"))
+        for g, e in zip(got, eager):
+            assert torch.equal(g, e)
+
+
+@pytest.mark.cuda
+def test_host_read_inside_capture_raises():
+    """A step that reads the host fails its capture loudly; the loop does
+    not go on eagerly."""
+    _need_cuda()
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import devloop
+    calls = []
+
+    def step(inp, st, kind):
+        calls.append(kind)
+        x = st[0] + inp[0]
+        tdev.host_read(x.sum(), "other")
+        return (x,)
+
+    loop = devloop.Loop(
+        key=("reads",), step=step,
+        pack=lambda inp, st: torch.ones(1, dtype=torch.float64,
+                                        device="cuda"),
+        inputs=(torch.ones(3, device="cuda"),),
+        state=(torch.zeros(3, device="cuda"),), K=2, label="other")
+    with devloop.phase():
+        with pytest.raises(RuntimeError):
+            devloop.run(loop)
+    # the eager first chunk (2 steps), then the capture's first step
+    assert len(calls) == 3
+
+
+@pytest.mark.cuda
+def test_launches_count_per_replay():
+    """kernels.LAUNCHES after 3 replays of a CG chunk's graph: 3 times
+    the launches the graph holds, none at its capture."""
+    _need_cuda()
+    from lorads_torch.alg import devloop
+    with devloop.phase():
+        loop = _mc_cg_loop(torch.float64)
+        devloop.eager_chunk(loop)            # build, set attributes
+        kernels.reset_launches()
+        graph, load, _ = devloop.graph_chunk(loop)
+        assert not any(kernels.LAUNCHES.values())
+        held = sum(n for (table, _), n in graph.launches.items()
+                   if table == "launches")
+        assert held > 0
+        load()
+        for _ in range(3):
+            graph.replay()
+        assert sum(kernels.LAUNCHES.values()) == 3 * held
+        assert kernels.LAUNCHES["adj_a_offdiag"] > 0
+        assert kernels.GRAPHS["replayed"] == 3
