@@ -26,7 +26,7 @@ Phases, each reported on its own lines:
    the two-dot path on a copy of U) plus the segment-sum edge cases; K2 at
    gset_torus10000's shapes (4 entries a row, r = 19 and 1) and on
    skewed rows (empty rows, one-entry rows, a hub row of 5000 entries,
-   B = 1 and 2); K3p, K3, K4, K5 and K6 at
+   B = 1 and 2; beside torch.sparse.mm at B = 1); K3p, K3, K4, K5 and K6 at
    the shapes of the matrix-completion path (matcomp2000: n=4000,
    Ko=478843, Ks=957686, r = the solve's rank at f64, the f32 copies the
    mixed-precision CG runs, and K5 at r=1 in f32 and f64 for the
@@ -94,7 +94,11 @@ Phases, each reported on its own lines:
      kernels of tools/probes/): phase 3 holds P1 onehot_scatter and P2
      onehot_gather (tensor-core one-hot window products), P3 row_gather
      and P4 scatter_add to their plain versions at the probes' shapes
-     (n=20000, K=80000-160000, r=20-24), and K3 at the fused uvT probe's
+     (n=20000, K=80000-160000, r=20-24), P2 and P3's transposed layout
+     at their edge shapes too (P3 under each of its schedules: R = 1, 3,
+     24, 40, K = 1, n past a block's shared memory; P2 at r = 3-40, K
+     not a multiple of 16, spans past a 16-row chunk, X not 16-byte
+     aligned), bit for bit, and K3 at the fused uvT probe's
      shape (R=24, n=20000, K=100000, f32); the path is the probe driver,
      `python -m lorads_torch.probes --small`, run in this process.
 
@@ -526,7 +530,8 @@ def cmul_skewed(rng, dev):
     entries among n=20000; B = 2 with the second block's lengths
     permuted and its hub cut by 1000), f64 and f32, r = 1 without and
     r = 20 with the diagonal: within 64 eps64 / 4 eps32 x the sum of
-    |terms| of each output."""
+    |terms| of each output.  At B = 1, r = 20 beside the library call:
+    torch.sparse.mm of C (entries and diagonal) as a CSR tensor."""
     import numpy as np
     import torch
 
@@ -570,8 +575,24 @@ def cmul_skewed(rng, dev):
                 err = check(f"cmul_csr {label}", got, ref,
                             tol * l1.double() + 1e-300)
                 dev_ms, how = device_time_ms(lambda: kernels.cmul_csr(*args))
+                lib = ""
+                if B == 1 and cd is not None:
+                    diag = torch.arange(n, device=dev)
+                    rows = torch.repeat_interleave(
+                        diag, torch.as_tensor(lens[0], device=dev))
+                    C = _csr(torch.cat([rows, diag]),
+                             torch.cat([cols[0], diag]),
+                             torch.cat([vals[0], cd[0]]), n)
+                    X0 = X[0]
+                    check(f"torch.sparse.mm {label}", torch.sparse.mm(C, X0),
+                          ref[0], tol * l1[0].double() + 1e-300)
+                    lib_ms, lib_how = device_time_ms(
+                        lambda: torch.sparse.mm(C, X0))
+                    lib = (f" library torch.sparse.mm (CSR) device "
+                           f"{lib_ms:.4f} ms ({lib_how})")
                 print(f"cmul_csr [{label}]: max_abs_err {err:.3e} (tol "
-                      f"{tol:.1e} x |terms|) device {dev_ms:.4f} ms ({how})")
+                      f"{tol:.1e} x |terms|) device {dev_ms:.4f} ms "
+                      f"({how}){lib}")
 
 
 def segment_sum_edges(rng, dev):
@@ -1332,6 +1353,7 @@ def probe_kernel_checks(rng, measure):
                 lambda: gather.row_gather_plain(T, ids3, layout), ref.abs(),
                 nbytes=gather_bytes(ids3, width), flops=0, exact=True,
                 tol=0.0, library=lambda: lib(T))
+    probe_edge_checks(dev)
     # ---- P4 scatter_add: gather9 fC's unsorted segment sum (f32
     # atomics in no fixed order; library: index_add_)
     n4, K4, r4 = 20000, 160000, 24
@@ -1367,6 +1389,67 @@ def probe_kernel_checks(rng, measure):
                 torch.sum(Xt.index_select(1, ir) * Dt.index_select(1, ic), 0)
                 + torch.sum(Xt.index_select(1, ic) * Dt.index_select(1, ir),
                             0)))
+
+
+def probe_edge_checks(dev):
+    """P3's transposed layout and P2 at their edge shapes, bit for bit
+    against their plain versions on the card: P3 under every schedule
+    whose rows fit a block (the L2 schedule, 1 and 2 staged rows; a
+    checkout without them: its one), at R = 1, 3, 24, 40, K = 1 and K
+    not a multiple of 4 or of a slice, repeated ids, ids at 0 and n - 1,
+    and n = 60000 (past a block's shared memory); P2 at r = 3, 24, 40,
+    2 and 3 planes, K not a multiple of 16, 16-id spans of ~60 rows
+    (past a 16-row chunk) and X 4 bytes into its storage."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from lorads_torch.probes import gather
+    from lorads_torch.probes import onehot as oh
+
+    rng = np.random.default_rng(12)
+    staged = "rb" in inspect.signature(gather.row_gather).parameters
+    cases = 0
+    for R, n, K in ((1, 20000, 100000), (3, 20000, 1), (24, 20000, 99997),
+                    (40, 20000, 100000), (3, 60000, 50000)):
+        X = torch.as_tensor(rng.standard_normal((R, n)).astype(np.float32),
+                            device=dev)
+        ids_np = rng.integers(0, n, K).astype(np.int32)
+        ids_np[:3] = [0, n - 1, n - 1][:K]
+        ids = torch.as_tensor(ids_np, device=dev)
+        ref = gather.row_gather_plain(X, ids, "rk")
+        fit = (gather._smem_optin(torch.cuda.current_device())
+               // (-(-n // 4) * 16)) if staged else 0
+        for rb in (0, 1, 2)[:fit + 1] if staged else (None,):
+            kw = {} if rb is None else {"rb": rb}
+            got = gather.row_gather(X, ids, "rk", check=False, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"row_gather transposed [{R},{n}] K={K} "
+                                     f"rb={rb}: not exact")
+            cases += 1
+    for n, K, r in ((5000, 1237, 3), (5000, 1237, 24), (5000, 1237, 40),
+                    (20000, 80003, 40)):
+        ids_np = np.sort(np.concatenate([rng.integers(0, n, K - 40),
+                                         np.full(40, 700)])).astype(np.int32)
+        plan = oh.plan_sorted_gather(ids_np, n, KT=256, device=dev)
+        for offset in (0, 1):
+            store = torch.zeros(n * r + offset, device=dev)
+            X = store[offset:].view(n, r)
+            X.copy_(torch.as_tensor(
+                rng.standard_normal((n, r)).astype(np.float32)))
+            for mode in ("bf16x3", "bf16x2"):
+                got = oh.sorted_gather(X, plan, mode)
+                ref = oh.sorted_gather_plain(X, plan, mode)
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"onehot_gather n={n} K={K} r={r} "
+                                         f"offset {offset} {mode}: not "
+                                         "exact")
+                cases += 1
+    print(f"probe edges: row_gather transposed and onehot_gather, {cases} "
+          "cases, each bit for bit its plain version")
 
 
 def _devloop_cg(name):

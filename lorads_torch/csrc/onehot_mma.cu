@@ -27,9 +27,19 @@
 // zeroed as the B fragment is read.  A block a CT tile would leave
 // most SMs idle (79 blocks at CT = 256) and bound the kernel by the
 // latency of too few warps.
-// Gather work split: one block per KT-id output tile, 8 warps; a warp
-// takes one (16-row sub-tile, 32-column group) unit at a time, its rows
-// through the warp's shared memory in 16-row k-chunks.
+// Gather work split: units of (16-id sub-tile, 32-column group), 5000
+// at K = 80000, r <= 32 (the plan's KT tile chooses nothing here), 4
+// warps a block and as many blocks as the SMs hold at once; a warp takes
+// the units u, u + stride, ... .  It holds a unit's 16 ids in registers
+// (two a lane, and the sub-tile's last) and stages the source rows
+// [ids[t0], ids[t0 + 15]] of its columns by cp.async in 16-row k-chunks
+// from ids[t0] (16 bytes a copy where r % 4 == 0 and X is 16-byte
+// aligned, else 4; rows past the span left unstaged and zeroed as the B
+// fragment is read) through a ring of 3 chunks; the next unit's ids load
+// while this unit's rows are copied; each D fragment's two adjacent
+// columns go out as one 8-byte store where r is even.  A block a KT
+// tile of 8 warps, each walking its units one after another with
+// scalar loads, left too few independent warps in flight.
 // Data flow: each lane builds its one-hot A fragment of mma.m16n8k16 in
 // registers from id == segment (or id == row) compares -- no one-hot
 // matrix is stored anywhere -- and its B fragment from the staged
@@ -52,13 +62,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "tiles.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;          // gather: warps a block
-constexpr int SWARPS = 4;         // scatter: warps a block, a unit each
-constexpr int NBUF = 3;           // scatter: staged k-chunks a warp
+constexpr int SWARPS = 4;         // warps a block, a unit each
+constexpr int NBUF = 3;           // staged k-chunks a warp
 constexpr int SUB = 16;          // segments / ids per sub-tile (mma m)
 constexpr int KC = 16;           // rows per k-chunk (mma k)
 constexpr int NT = 4;            // 8-column n-tiles per unit
@@ -67,6 +78,7 @@ constexpr int LD = COLS + 4;     // padded row: conflict-free B reads
 constexpr int LDT = KC + 8;      // padded [r, K] column: conflict-free
                                  // float2 B reads, 16-byte aligned
 constexpr uint32_t ONE = 0x3F80u;  // bf16 1.0
+
 
 __device__ __forceinline__ uint32_t onehot2(int id0, int id1, int key0,
                                             int key1) {
@@ -96,31 +108,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// acc[p][j] += A @ plane_p(S[:, 8j : 8j + 8]) for the n-tiles inside r.
-// B fragment of m16n8k16: rows 2t, 2t+1 (b0) and 2t+8, 2t+9 (b1) of
-// column g.
-template <int P>
-__device__ __forceinline__ void mma_planes(float (&acc)[P][NT][4],
-                                           float (*S)[LD], uint32_t a0,
-                                           uint32_t a1, uint32_t a2,
-                                           uint32_t a3, int n0, int r, int g,
-                                           int t) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (n0 + 8 * j >= r) break;  // uniform across the warp
-    const int col = 8 * j + g;
-    uint32_t p0[P], p1[P], p8[P], p9[P];
-    split<P>(S[2 * t][col], p0);
-    split<P>(S[2 * t + 1][col], p1);
-    split<P>(S[2 * t + 8][col], p8);
-    split<P>(S[2 * t + 9][col], p9);
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-      mma_bf16(acc[p][j], a0, a1, a2, a3, p0[p] | (p1[p] << 16),
-               p8[p] | (p9[p] << 16));
-  }
 }
 
 // C fragment element i of n-tile j: row g (+8 for i >= 2), column
@@ -294,51 +281,133 @@ __global__ void __launch_bounds__(SWARPS * 32)
   }
 }
 
+// Rows [row0, row0 + nrows) of the unit's column group [n0, n0 + w)
+// of X [n, r] into S; asynchronous until the group's wait.  VEC: 16
+// bytes a copy (r % 4 == 0, X 16-byte aligned), else 4.
+__device__ __forceinline__ void stage_rows_kr(float (*S)[LD],
+                                              const float* __restrict__ X,
+                                              int row0, int nrows, int n0,
+                                              int w, int r, bool vec,
+                                              int lane) {
+  if (vec) {
+    // lane e: row e / 8, columns 4 (e % 8) .. + 3
+    for (int e = lane; e < nrows * 8; e += 32) {
+      const int kk = e >> 3, v = e & 7;
+      if (4 * v < w)
+        lt::copy_async<16>(&S[kk][4 * v],
+                           X + (long)(row0 + kk) * r + n0 + 4 * v);
+    }
+  } else {
+    for (int kk = 0; kk < nrows; ++kk)
+      if (lane < w)
+        lt::copy_async<4>(&S[kk][lane], X + (long)(row0 + kk) * r + n0 + lane);
+  }
+}
+
+// A warp a unit (16-id sub-tile, 32-column group) at a time, its units
+// u, u + stride, ... of the grid's warps: the unit's ids in registers
+// (the next unit's loaded while this one's rows are copied), the source
+// rows of their span [first, last] in k-chunks of 16 rows from first
+// through a ring of NBUF staged chunks, NBUF - 1 in flight while one is
+// split and multiplied.  A[m][kk] = (ids[t0 + m] == row0 + kk) is built
+// in registers; B rows past the span are zeroed.
 template <int P>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(SWARPS * 32)
     onehot_gather_kernel(const float* __restrict__ X,
                          const int* __restrict__ ids,
-                         float* __restrict__ out, int K, int n, int r,
-                         int KT) {
-  __shared__ float sv[WARPS][KC][LD];
+                         float* __restrict__ out, int K, int r, int units,
+                         int ngroups, bool vec, bool vec2) {
+  __shared__ __align__(16) float ring[SWARPS][NBUF][KC][LD];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int ngroups = (r + COLS - 1) / COLS;
-  const int units = (KT / SUB) * ngroups;
-  for (int u = warp; u < units; u += WARPS) {
-    const int n0 = (u % ngroups) * COLS;
-    const int t0 = blockIdx.x * KT + (u / ngroups) * SUB;
-    if (t0 >= K) continue;  // uniform across the warp
-    // ids are padded to the tile (n_pad + 7 past K: matches no row)
-    const int ia = __ldg(ids + t0 + g), ib = __ldg(ids + t0 + g + 8);
-    const int first = __ldg(ids + t0);
-    const int last = __ldg(ids + min(t0 + SUB - 1, K - 1));
-    float acc[P][NT][4] = {};
-    for (int row0 = first; row0 <= last; row0 += KC) {
-      for (int e = lane; e < KC * COLS; e += 32) {
-        const int row = row0 + e / COLS, col = n0 + e % COLS;
-        sv[warp][e / COLS][e % COLS] =
-            row < n && col < r ? __ldg(X + (long)row * r + col) : 0.f;
-      }
-      __syncwarp();
-      // A[m][kk] = (ids[t0 + m] == row0 + kk): rows g (ia), g + 8 (ib)
-      const int j0 = row0 + 2 * t;
-      mma_planes<P>(acc, sv[warp], onehot2(ia, ia, j0, j0 + 1),
-                    onehot2(ib, ib, j0, j0 + 1),
-                    onehot2(ia, ia, j0 + 8, j0 + 9),
-                    onehot2(ib, ib, j0 + 8, j0 + 9), n0, r, g, t);
-      __syncwarp();
+  const int stride = gridDim.x * SWARPS;
+  int u = blockIdx.x * SWARPS + warp;
+  if (u >= units) return;  // uniform across the warp
+  // ids are padded to the plan's tile (n_pad + 7 past K: matches no row)
+  int t0 = u / ngroups * SUB;
+  int ia = __ldg(ids + t0 + g), ib = __ldg(ids + t0 + g + 8);
+  int last = __ldg(ids + min(t0 + SUB - 1, K - 1));
+  float(*my)[KC][LD] = ring[warp];
+  for (;;) {
+    const int n0 = (u - t0 / SUB * ngroups) * COLS;
+    const int w = min(COLS, r - n0);
+    const int first = __shfl_sync(0xffffffffu, ia, 0);
+    const int nch = (last - first) / KC + 1;
+#pragma unroll
+    for (int i = 0; i < NBUF - 1; ++i) {
+      if (i < nch)
+        stage_rows_kr(my[i], X, first + i * KC,
+                      min(KC, last - first - i * KC + 1), n0, w, r, vec,
+                      lane);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
+    const int un = u + stride;
+    int tn = 0, na = 0, nb = 0, nl = 0;
+    if (un < units) {
+      tn = un / ngroups * SUB;
+      na = __ldg(ids + tn + g);
+      nb = __ldg(ids + tn + g + 8);
+      nl = __ldg(ids + min(tn + SUB - 1, K - 1));
+    }
+    float acc[P][NT][4] = {};
+    for (int i = 0; i < nch; ++i) {
+      const int nx = i + NBUF - 1;
+      if (nx < nch)
+        stage_rows_kr(my[nx % NBUF], X, first + nx * KC,
+                      min(KC, last - first - nx * KC + 1), n0, w, r, vec,
+                      lane);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(NBUF - 1) : "memory");
+      __syncwarp();
+      const int row0 = first + i * KC;
+      const int nrows = min(KC, last - row0 + 1);
+      const float(*S)[LD] = my[i % NBUF];
+      // A rows g (ia) and g + 8 (ib), k-columns 2t, 2t+1 and 2t+8, 2t+9
+      const int j0 = row0 + 2 * t;
+      const uint32_t a0 = onehot2(ia, ia, j0, j0 + 1);
+      const uint32_t a1 = onehot2(ib, ib, j0, j0 + 1);
+      const uint32_t a2 = onehot2(ia, ia, j0 + 8, j0 + 9);
+      const uint32_t a3 = onehot2(ib, ib, j0 + 8, j0 + 9);
+      const bool m0 = 2 * t < nrows, m1 = 2 * t + 1 < nrows;
+      const bool m8 = 2 * t + 8 < nrows, m9 = 2 * t + 9 < nrows;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (n0 + 8 * j >= r) break;  // uniform across the warp
+        const int col = 8 * j + g;
+        uint32_t p0[P], p1[P], p8[P], p9[P];
+        split<P>(m0 ? S[2 * t][col] : 0.f, p0);
+        split<P>(m1 ? S[2 * t + 1][col] : 0.f, p1);
+        split<P>(m8 ? S[2 * t + 8][col] : 0.f, p8);
+        split<P>(m9 ? S[2 * t + 9][col] : 0.f, p9);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          mma_bf16(acc[p][j], a0, a1, a2, a3, p0[p] | (p1[p] << 16),
+                   p8[p] | (p9[p] << 16));
+      }
+      __syncwarp();  // the chunk's slot is free for the next stage
+    }
+    // D fragment: rows g and g + 8, columns 2t and 2t + 1 of each n-tile
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (n0 + 8 * j >= r) break;
+      const int c = n0 + 8 * j + 2 * t;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = t0 + g + (i >= 2 ? 8 : 0);
-        const int c = n0 + 8 * j + 2 * t + (i & 1);
-        if (k < K && c < r) out[(long)k * r + c] = planes_sum<P>(acc, j, i);
+      for (int h = 0; h < 2; ++h) {
+        const int k = t0 + g + 8 * h;
+        if (k >= K) continue;
+        const float v0 = planes_sum<P>(acc, j, 2 * h);
+        const float v1 = planes_sum<P>(acc, j, 2 * h + 1);
+        float* o = out + (long)k * r + c;
+        if (vec2 && c + 1 < r) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (c < r) o[0] = v0;
+          if (c + 1 < r) o[1] = v1;
+        }
       }
     }
+    if (un >= units) break;
+    u = un; t0 = tn; ia = na; ib = nb; last = nl;
   }
 }
 
@@ -382,24 +451,44 @@ extern "C" int lt_onehot_scatter(int planes, int rk, const void* vals,
   return (int)cudaGetLastError();
 }
 
-// planes: 2 or 3; X float32 [n, r]; ids int32 [ceil(K / KT) * KT] sorted,
-// padded with n_pad + 7; out [K, r]; KT a multiple of 16.  Returns
-// cudaGetLastError().
+// A resident grid: the blocks an SM holds (queried once) times the SMs,
+// or fewer where the units end first.
+template <int P>
+int launch_gather(const float* x, const int* id, float* o, int K, int r,
+                  int units, int ngroups, bool vec, bool vec2,
+                  cudaStream_t s) {
+  static int per_sm = 0;
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err == 0 && per_sm == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, onehot_gather_kernel<P>, SWARPS * 32, 0);
+  if (err != 0) return err;
+  const long blocks = std::min<long>((units + SWARPS - 1) / SWARPS,
+                                     (long)std::max(per_sm, 1) * sms);
+  onehot_gather_kernel<P><<<(unsigned)blocks, SWARPS * 32, 0, s>>>(
+      x, id, o, K, r, units, ngroups, vec, vec2);
+  return (int)cudaGetLastError();
+}
+
+// planes: 2 or 3; X float32 [n, r]; ids int32 [>= ceil(K / 16) * 16]
+// sorted, ids[:K] in [0, n), padded with n_pad + 7 (past n + 16: no
+// staged row matches it); out [K, r].  Returns cudaGetLastError().
 extern "C" int lt_onehot_gather(int planes, const void* X, const void* ids,
-                                void* out, int K, int n, int r, int KT,
-                                void* stream) {
+                                void* out, int K, int r, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (K + KT - 1) / KT;
   const float* x = static_cast<const float*>(X);
   const int* id = static_cast<const int*>(ids);
   float* o = static_cast<float*>(out);
-  if (tiles > 0 && r > 0) {
-    if (planes == 3)
-      onehot_gather_kernel<3><<<tiles, WARPS * 32, 0, s>>>(x, id, o, K, n,
-                                                           r, KT);
-    else
-      onehot_gather_kernel<2><<<tiles, WARPS * 32, 0, s>>>(x, id, o, K, n,
-                                                           r, KT);
-  }
-  return (int)cudaGetLastError();
+  if (K <= 0 || r <= 0) return (int)cudaGetLastError();
+  const int ngroups = (r + COLS - 1) / COLS;
+  const int units = (K + SUB - 1) / SUB * ngroups;
+  const bool vec = r % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec2 = r % 2 == 0 && reinterpret_cast<uintptr_t>(o) % 8 == 0;
+  return planes == 3
+             ? launch_gather<3>(x, id, o, K, r, units, ngroups, vec, vec2, s)
+             : launch_gather<2>(x, id, o, K, r, units, ngroups, vec, vec2, s);
 }

@@ -51,8 +51,9 @@ _SIGNATURES = {
                        _I, _I, _I, ctypes.c_double, _VP],
     "lt_lp_gs_smem_max_m": [_I],
     "lt_onehot_scatter": [_I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    "lt_onehot_gather": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "lt_row_gather": [_I, _VP, _VP, _VP, _I, _I, _I, _VP],
+    "lt_onehot_gather": [_I, _VP, _VP, _VP, _I, _I, _VP],
+    "lt_row_gather": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "lt_smem_optin": [],
     "lt_scatter_add": [_VP, _VP, _VP, _I, _I, _VP],
     # measuring instruments (csrc/floor.cu), read by chip_smoke.py
     "lt_empty": [_VP],

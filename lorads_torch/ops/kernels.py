@@ -19,7 +19,7 @@ and the probes' kernels, whose wrappers live in ``lorads_torch/probes``
 |-------------------------|----------------------|---------------------------------------|
 | onehot.sorted_scatter   | csrc/onehot_mma.cu   | onehot.py: sorted_scatter and the one-hot window scatters (P1) |
 | onehot.sorted_gather    | csrc/onehot_mma.cu   | onehot.py: sorted_gather (P2)         |
-| gather.row_gather       | csrc/row_gather.cu   | the Pallas row / transposed / scalar gathers (P3) |
+| gather.row_gather       | csrc/row_gather.cu   | the Pallas row / transposed / scalar gathers (P3); the transposed layout (gT) stages table rows in shared memory (``gather.cols_schedule``) |
 | gather.scatter_add      | csrc/scatter_add.cu  | microbench_gather9.py: fC (P4)        |
 
 K4 and K2 at r = 1 share one segment-sum schedule (csrc/segsum.cuh);

@@ -15,7 +15,9 @@ data drawn from ``numpy.random.default_rng(0)`` as the probes draw it:
   there a cliff when the table leaves L2?
 - ``forms`` (microbench_pallas_gather gA-gE, microbench_gather9 fA/fB,
   microbench_pallas_gather3 gT): P3 in the row, transposed and 1-D
-  layouts, against ``index_select`` and ``torch.take``;
+  layouts, against ``index_select`` and ``torch.take``; the transposed
+  layout under each of its schedules (L2, 1 or 2 staged rows a block)
+  and beside the row layout of the same table;
 - ``onehot`` (onehot, microbench_gather5/6/7, onehot_nn, onehot_r,
   onehot_bisect): P1 over the (CT, WT) grid, the three modes, both
   layouts and the r sweep, beside K1 (``kernels.segment_sum`` on the CSR
@@ -233,11 +235,23 @@ def forms(p: Probe):
                 nbytes=gather_bytes(ids, R),
                 library=lambda: Xt.index_select(1, ids),
                 lib_name="index_select dim 1")
+    # the transposed layout's schedules, each forced: a thread an id from
+    # L2, and 1 or 2 table rows a block staged in shared memory
+    sched = {}
+    for rb, what in ((0, "L2"), (1, "1 staged row a block"),
+                     (2, "2 staged rows a block")):
+        sched[rb] = p.case(
+            "forms", f"P3 transposed layout (gT), {what}",
+            f"[{R},{n}] K={K}",
+            lambda: gather.row_gather(Xt, ids, "rk", check=False, rb=rb),
+            lambda: gather.row_gather_plain(Xt, ids, "rk"),
+            nbytes=gather_bytes(ids, R))
     XtT = Xt.T.contiguous()
-    p.case("forms", "P3 row layout of the transposed table", f"[{n},{R}] "
-           f"K={K}", lambda: gather.row_gather(XtT, ids, check=False),
-           lambda: gather.row_gather_plain(XtT, ids),
-           nbytes=gather_bytes(ids, R))
+    trow = p.case("forms", "P3 row layout of the transposed table",
+                  f"[{n},{R}] K={K}",
+                  lambda: gather.row_gather(XtT, ids, check=False),
+                  lambda: gather.row_gather_plain(XtT, ids),
+                  nbytes=gather_bytes(ids, R))
     one = []
     # scalar gathers: a [K] vector by n ids (gE), an [n'] vector by K' ids
     # (pallas_gather2 gE), and the [n, 1] row form (gather5 §2)
@@ -272,7 +286,10 @@ def forms(p: Probe):
         p.verdict(f"row {_d(row['device_ms'])} ms (index_select "
                   f"{_d(row['library_device_ms'])}), transposed "
                   f"{_d(tr['device_ms'])} ms (index_select "
-                  f"{_d(tr['library_device_ms'])}); 1-D " + ", ".join(
+                  f"{_d(tr['library_device_ms'])}; L2 / 1 / 2 staged rows "
+                  + " / ".join(_d(v["device_ms"]) for v in sched.values())
+                  + f"; the row layout of the same table "
+                  f"{_d(trow['device_ms'])}); 1-D " + ", ".join(
                       f"{_d(v['device_ms'])} (take "
                       f"{_d(v['library_device_ms'])})" for v in one))
 

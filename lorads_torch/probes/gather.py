@@ -13,6 +13,11 @@ Ports of the gather probes of ``tools/probes/``:
   read-modify-write loop that sums [K, r] values into [n, r] rows at
   unsorted ids.
 
+The transposed layout runs one of two schedules (``cols_schedule``): a
+block stages one or two whole table rows in shared memory and gathers
+from there, or, where a row does not fit or the ids are too few to pay
+for it, a thread an id reads the table from L2.
+
 Ids are int32 and values float32, as in the probes.  Ids out of
 [0, n) raise in the wrapper (one host read of their range; pass
 ``check=False`` for ids already checked), never in the kernel.  The
@@ -23,11 +28,13 @@ the kernel or raise.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
-from lorads_torch.ops.kernels import _check, _launch
+from lorads_torch.ops.kernels import _check, _launch, _sm_count
 
 
 def _check_ids(name, ids, n):
@@ -41,6 +48,64 @@ def _check_ids(name, ids, n):
 # P3: unsorted row gather.
 # ---------------------------------------------------------------------------
 
+class ColsSchedule(NamedTuple):
+    """The transposed gather's schedule: ``rb`` table rows a block stages
+    in shared memory (0: the L2 schedule, a thread an id), ``slice`` ids
+    a block takes (a multiple of 4; 0 for the L2 schedule)."""
+    rb: int
+    slice: int
+
+
+# the staged kernel: 512 threads a staged row, each holding up to 24 ids
+# (csrc/row_gather.cu ROW_THREADS, IDS); rows a block stages unless the
+# caller asks for another count
+STAGED_THREADS, STAGED_IDS, STAGED_RB = 512, 24, 2
+
+
+def cols_schedule(n: int, R: int, K: int, smem_bytes: int, sms: int = 132,
+                  rb=None) -> ColsSchedule:
+    """The schedule of out[c, k] = X[c, ids[k]] for X [R, n] and K ids on
+    a card of ``sms`` SMs whose blocks may use ``smem_bytes`` of shared
+    memory.  ``rb`` None: STAGED_RB rows a block where they fit, one where
+    only one does, and the L2 schedule where none fits or where the ids
+    number fewer than an eighth of a row (a staged row then costs more
+    bytes than the 32-byte sectors the L2 gather reads); 0, 1 or 2: that
+    schedule (ValueError where its rows do not fit).  The slices cut K so
+    that the grid fills the SMs in one wave (two blocks an SM at one row:
+    a second wave of a few blocks would double the time), each
+    slice at least an eighth of a row and at most what a block's threads
+    hold."""
+    row = -(-n // 4) * 4 * 4                   # a staged row's bytes
+    fit = smem_bytes // row
+    if rb is None:
+        rb = 0 if fit == 0 or 8 * K < n else min(STAGED_RB, fit, R)
+    if rb not in (0, 1, 2):
+        raise ValueError(f"cols_schedule: rb={rb} (need 0, 1 or 2)")
+    if rb > fit:
+        raise ValueError(f"cols_schedule: {rb} rows of {n} floats exceed "
+                         f"{smem_bytes} bytes of shared memory")
+    if rb == 0 or K <= 0:
+        return ColsSchedule(rb, 0)
+    per_sm = max(1, min(2 // rb, fit // rb))   # blocks an SM
+    groups = -(-R // rb)
+    slices = max(1, sms * per_sm // groups)
+    slices = min(slices, max(1, 8 * K // n))
+    slices = max(slices, -(-K // (rb * STAGED_THREADS * STAGED_IDS)))
+    per = -(-K // slices)
+    return ColsSchedule(rb, -(-per // 4) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    from lorads_torch.ops import build
+    with torch.cuda.device(index):
+        got = build.load().lt_smem_optin()
+    if got <= 0:
+        raise RuntimeError("row_gather: cannot read the device's shared "
+                           "memory per block")
+    return got
+
+
 def row_gather_plain(X, ids, layout="kr"):
     if X.dim() == 1 or layout == "kr":
         return X.index_select(0, ids.long())
@@ -48,11 +113,15 @@ def row_gather_plain(X, ids, layout="kr"):
 
 
 def row_gather(X: torch.Tensor, ids: torch.Tensor, layout="kr",
-               check=True) -> torch.Tensor:
+               check=True, rb=None) -> torch.Tensor:
     """P3.  X f32 [n, r] ("kr") -> X[ids] [K, r]; X [r, n] ("rk") ->
-    X[:, ids] [r, K]; a 1-D X [n] -> X[ids] [K] (layout ignored)."""
+    X[:, ids] [r, K]; a 1-D X [n] -> X[ids] [K] (layout ignored).  ``rb``
+    (transposed layout): the rows a block stages, 0 for the L2 schedule,
+    None to let ``cols_schedule`` choose."""
     if layout not in ("kr", "rk"):
         raise ValueError(f"row_gather: layout {layout!r}")
+    if rb not in (None, 0, 1, 2):
+        raise ValueError(f"row_gather: rb={rb!r} (need None, 0, 1 or 2)")
     if X.dtype != torch.float32 or X.dim() not in (1, 2) or ids.dim() != 1:
         raise TypeError("row_gather: X float32 [n], [n, r] or [r, n]; "
                         "ids 1-D")
@@ -67,8 +136,14 @@ def row_gather(X: torch.Tensor, ids: torch.Tensor, layout="kr",
     K = ids.shape[0]
     shape = (K,) if X.dim() == 1 else ((r, K) if rk else (K, r))
     out = torch.empty(shape, dtype=torch.float32, device=X.device)
+    sched = ColsSchedule(0, 0)
+    if rk:
+        index = X.device.index if X.device.index is not None \
+            else torch.cuda.current_device()
+        sched = cols_schedule(n, r, K, _smem_optin(index),
+                              _sm_count(X.device), rb)
     _launch("row_gather", "lt_row_gather", int(rk), X.data_ptr(),
-            ids.data_ptr(), out.data_ptr(), n, K, r)
+            ids.data_ptr(), out.data_ptr(), n, K, r, sched.rb, sched.slice)
     return out
 
 

@@ -19,10 +19,11 @@ runs as the bf16x3 split (the reference runs an f32 product).
 
 The planner is a copy of the reference's, fields and refusals
 included (``_BAD`` for unsorted ids or too-wide spans, ``_MAX_WT``, the
-reference's VMEM cap, kept for parity of the plans).  The Hopper kernel
-(``csrc/onehot_mma.cu``) does not depend on the window size: it streams
-only the rows that feed each 16-wide sub-tile, found in a port-only plan
-field (``sub_ptr``) for the scatter.
+reference's VMEM cap, kept for parity of the plans).  The Hopper kernels
+(``csrc/onehot_mma.cu``) depend on neither the window nor the tile: a
+warp takes one 16-wide sub-tile and streams only the rows that feed it,
+found in a port-only plan field (``sub_ptr``) for the scatter and from
+the sub-tile's first and last id for the gather.
 
 Each wrapper takes its plain PyTorch version (``index_add_`` /
 ``index_select`` over the same planes, f64 accumulation rounded once)
@@ -240,8 +241,7 @@ def sorted_gather(X: torch.Tensor, plan: WindowPlan,
     r = X.shape[1]
     out = torch.empty((plan.K, r), dtype=torch.float32, device=X.device)
     _launch("onehot_gather", "lt_onehot_gather", MODES[mode], X.data_ptr(),
-            plan.ids_pad.data_ptr(), out.data_ptr(), plan.K, plan.n, r,
-            plan.CT)
+            plan.ids_pad.data_ptr(), out.data_ptr(), plan.K, r)
     return out
 
 

@@ -695,32 +695,53 @@ def test_onehot_scatter_kernel_matches_plain(shape, r, mode, layout, edge):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1000, 5000), (20000, 80000)])
-@pytest.mark.parametrize("r", [1, 24, 128])
+@pytest.mark.parametrize("shape", [(1000, 5000), (20000, 80000),
+                                   (5000, 1237)])
+@pytest.mark.parametrize("r", [1, 3, 24, 40, 128])
 @pytest.mark.parametrize("mode", ["f32", "bf16x3", "bf16x2"])
-def test_onehot_gather_kernel_matches_plain(shape, r, mode):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_onehot_gather_kernel_matches_plain(shape, r, mode, offset):
+    """r = 3 and odd (4-byte copies, scalar stores), 40 (two column
+    groups); K not a multiple of 16 and 16-id spans of ~60 rows, past a
+    16-row chunk (5000, 1237: the ring turns); offset 1: X 4 bytes into
+    its storage (not 16-byte aligned: 4-byte copies)."""
     _need_cuda()
     from lorads_torch.probes import onehot as oh
     ids = _probe_ids(shape)
-    plan = oh.plan_sorted_gather(ids, shape[0], KT=256, device="cuda")
+    n, K = shape[0], ids.size
+    plan = oh.plan_sorted_gather(ids, n, KT=256, device="cuda")
     assert plan.ok
-    X = _f32(np.random.default_rng(r), shape[0], r)
+    store = torch.zeros(n * r + offset, device="cuda")
+    X = store[offset:].view(n, r)
+    X.copy_(_f32(np.random.default_rng(r), n, r))
+    assert (X.data_ptr() % 16 == 0) == (offset == 0)
     got = oh.sorted_gather(X, plan, mode)
     ref = oh.sorted_gather_plain(X, plan, mode)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)          # one row's planes per output
     if mode != "bf16x2":
         assert torch.equal(got, X[torch.as_tensor(ids, device="cuda").long()])
+    if n == 5000:
+        assert K % 16 and np.max(ids[15::16] - ids[::16][:K // 16]) > 16
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1000, 5000), (20000, 100000)])
-@pytest.mark.parametrize("form", ["kr1", "kr20", "kr128", "rk24", "1-D"])
+@pytest.mark.parametrize("shape", [(1000, 5000), (20000, 100000), (20000, 1),
+                                   (20000, 99997), (60000, 50000)])
+@pytest.mark.parametrize("form", ["kr1", "kr20", "kr128", "rk1", "rk3",
+                                  "rk24", "rk40", "1-D"])
 def test_row_gather_kernel_matches_plain(shape, form):
+    """Ids at 0 and n - 1, repeated; the transposed layout under every
+    schedule whose rows fit (the L2 schedule, 1 and 2 staged rows a
+    block): K = 1, K not a multiple of 4 or of a block's slice, R = 1, 3
+    (a group of one row at 2 rows a block), 24 and 40, and n = 60000,
+    past the shared memory of a block (the L2 schedule alone)."""
     _need_cuda()
     from lorads_torch.probes import gather
     n, _ = shape
-    ids = torch.as_tensor(_probe_ids(shape, sort=False), device="cuda")
+    ids_np = _probe_ids(shape, sort=False)
+    ids_np[:3] = [0, n - 1, n - 1][:ids_np.size]
+    ids = torch.as_tensor(ids_np, device="cuda")
     rng = np.random.default_rng(7)
     if form == "1-D":
         X, layout = _f32(rng, n), "kr"
@@ -728,9 +749,18 @@ def test_row_gather_kernel_matches_plain(shape, form):
         X, layout = _f32(rng, int(form[2:]), n), "rk"
     else:
         X, layout = _f32(rng, n, int(form[2:])), "kr"
+    plain = gather.row_gather_plain(X, ids, layout)
     got = gather.row_gather(X, ids, layout)
     torch.cuda.synchronize()
-    assert torch.equal(got, gather.row_gather_plain(X, ids, layout))
+    assert torch.equal(got, plain)
+    if layout == "rk":
+        fit = gather._smem_optin(torch.cuda.current_device()) // (
+            -(-n // 4) * 16)
+        assert (fit == 0) == (n == 60000)
+        for rb in (0, 1, 2)[:fit + 1]:
+            got = gather.row_gather(X, ids, layout, rb=rb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), rb
     with pytest.raises(IndexError):
         gather.row_gather(X, torch.full_like(ids, n), layout)
 

@@ -156,6 +156,30 @@ def test_sorted_gather_matches_reference(mode):
             np.testing.assert_array_equal(got, X[ids])
 
 
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16x2"])
+def test_sorted_gather_edges_match_reference(mode):
+    """The gather kernel's edge shapes: r = 40 (two 32-column groups), K
+    not a multiple of 16, 16-id spans of ~60 rows (several 16-row
+    chunks), repeated ids, and X at an offset of 4 bytes in its storage
+    (not 16-byte aligned)."""
+    rng = np.random.default_rng(11)
+    n, K, r = 5000, 1237, 40
+    ids = np.sort(np.concatenate([rng.integers(0, n, K - 40),
+                                  np.full(40, 700)])).astype(np.int32)
+    X = rng.standard_normal((n, r)).astype(np.float32)
+    ref = np.asarray(REF.sorted_gather(
+        jnp.asarray(X), REF.plan_sorted_gather(ids, n), mode=mode,
+        interpret=True))
+    plan = oh.plan_sorted_gather(ids, n, device="cpu")
+    store = torch.zeros(n * r + 1)
+    Xo = store[1:].view(n, r)
+    Xo.copy_(torch.as_tensor(X))
+    assert Xo.is_contiguous() and Xo.data_ptr() % 16 != 0
+    got = oh.sorted_gather(Xo, plan, mode).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert K % 16 and np.max(ids[15::16] - ids[::16][:K // 16]) > 16
+
+
 @pytest.mark.parametrize("mode", ["f32", "bf16x3", "bf16x2"])
 def test_scatter_rk_layout_matches_kr(mode):
     for ids, n, v in _ids_vals(3, "scatter"):
@@ -181,6 +205,9 @@ def test_wrappers_refuse_bad_arguments():
     with pytest.raises(IndexError):
         gather.row_gather(torch.zeros(5), torch.tensor([0, 5],
                                                        dtype=torch.int32))
+    with pytest.raises(ValueError):          # no schedule stages 3 rows
+        gather.row_gather(torch.zeros((3, 5)), torch.tensor(
+            [0, 4], dtype=torch.int32), "rk", rb=3)
     with pytest.raises(IndexError):
         gather.scatter_add(torch.zeros(2), torch.tensor([-1, 0],
                                                         dtype=torch.int32),
@@ -259,6 +286,57 @@ def test_row_gather_matches_jnp_take(probe):
     got = gather.row_gather(torch.as_tensor(X), torch.as_tensor(ids),
                             layout).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("R,n,K", [(1, 2000, 1), (3, 2000, 8001),
+                                   (24, 2000, 8000), (40, 517, 999)])
+def test_transposed_gather_edges_match_take_along_axis(R, n, K):
+    """gT's lane gather (microbench_pallas_gather3.py:64-66, ids broadcast
+    over the R rows) at the transposed kernel's edge shapes: one id, K
+    past a multiple of 4, R = 1, 3, 24 and 40 (odd row groups of the
+    staged schedule), repeated ids and ids at 0 and n - 1."""
+    rng = np.random.default_rng(R)
+    X = rng.standard_normal((R, n)).astype(np.float32)
+    ids = rng.integers(0, n, K).astype(np.int32)
+    ids[:3] = [0, n - 1, n - 1][:K]
+    ref = np.asarray(jnp.take_along_axis(
+        jnp.asarray(X), jnp.broadcast_to(jnp.asarray(ids), (R, K)), axis=1))
+    got = gather.row_gather(torch.as_tensor(X), torch.as_tensor(ids), "rk")
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jnp.take(jnp.asarray(X), jnp.asarray(ids), axis=1)))
+
+
+H100_SMEM_OPTIN = 232448      # bytes a block may opt in to (227 KB)
+
+
+def test_cols_schedule_stages_rows_that_fit():
+    """The transposed gather's schedule: rows staged at the probes' shapes
+    (one wave of 132 blocks at two rows a block), the L2 schedule past
+    the shared memory's fit and for ids too few to pay for a row; every
+    slice a multiple of 4 that a block's threads can hold."""
+    sched = gather.cols_schedule
+    s = sched(20000, 24, 100000, H100_SMEM_OPTIN)
+    assert s == (gather.STAGED_RB, 9092)
+    assert -(-100000 // s.slice) * -(-24 // s.rb) == 132
+    one = sched(20000, 24, 100000, H100_SMEM_OPTIN, rb=1)
+    assert one.rb == 1 and -(-100000 // one.slice) * 24 <= 2 * 132
+    assert sched(2000, 24, 10000, H100_SMEM_OPTIN).rb > 0   # forms --small
+    assert sched(58112, 3, 100000, H100_SMEM_OPTIN).rb == 1  # one row fits
+    assert sched(58113, 3, 100000, H100_SMEM_OPTIN) == (0, 0)
+    assert sched(60000, 40, 100000, H100_SMEM_OPTIN) == (0, 0)
+    assert sched(20000, 24, 2000, H100_SMEM_OPTIN) == (0, 0)  # 8K < n
+    with pytest.raises(ValueError):
+        sched(60000, 3, 100000, H100_SMEM_OPTIN, rb=1)
+    with pytest.raises(ValueError):
+        sched(2000, 3, 100, H100_SMEM_OPTIN, rb=3)
+    for n, R, K in ((20000, 1, 1), (20000, 3, 99997), (2000, 40, 10 ** 6),
+                    (517, 24, 7), (30000, 24, 100000)):
+        for rb in (1, 2)[:H100_SMEM_OPTIN // (-(-n // 4) * 16)]:
+            s = sched(n, R, K, H100_SMEM_OPTIN, rb=rb)
+            assert s.slice % 4 == 0 and 0 < s.slice
+            assert s.slice <= rb * gather.STAGED_THREADS * gather.STAGED_IDS
+            assert -(-K // s.slice) * s.slice >= K
 
 
 @pytest.mark.parametrize("r", [24, 1])
