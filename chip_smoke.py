@@ -94,11 +94,16 @@ Phases, each reported on its own lines:
      kernels of tools/probes/): phase 3 holds P1 onehot_scatter and P2
      onehot_gather (tensor-core one-hot window products), P3 row_gather
      and P4 scatter_add to their plain versions at the probes' shapes
-     (n=20000, K=80000-160000, r=20-24), P2 and P3's transposed layout
+     (n=20000, K=80000-160000, r=20-24; P3's 1-D gather also at gE's
+     [100000] table by 20000 ids; P4 on unsorted ids, on sorted ids and
+     on sorted ids with a hub of 5000), P2 and P3's transposed layout
      at their edge shapes too (P3 under each of its schedules: R = 1, 3,
-     24, 40, K = 1, n past a block's shared memory; P2 at r = 3-40, K
-     not a multiple of 16, spans past a 16-row chunk, X not 16-byte
-     aligned), bit for bit, and K3 at the fused uvT probe's
+     24, 40, K = 1, n past a block's shared memory; its 1-D gather under
+     each way at K = 1-7, ids not 16-byte aligned, [n] and [n, 1]; P2 at
+     r = 3-40, K not a multiple of 16, spans past a 16-row chunk, X not
+     16-byte aligned), bit for bit, P4 at its edges (r = 1, 2, 5, 24, K
+     = 0-5000, values not 16-byte aligned, a hub; rows no id touches
+     exactly 0 from memory that held NaN), and K3 at the fused uvT probe's
      shape (R=24, n=20000, K=100000, f32); the path is the probe driver,
      `python -m lorads_torch.probes --small`, run in this process.
 
@@ -1336,37 +1341,48 @@ def probe_kernel_checks(rng, measure):
                 flops=oh.gather_mma_flops(gplan, r, mode), exact=True,
                 tol=0.0, library=lambda: X.index_select(0, ids))
     # ---- P3 row_gather: pallas_gather's rows, gT's transposed table, gE's
-    # 1-D gather (exact)
+    # 1-D gather at chip_smoke's shape and at gE / gE2's ([5 n3] by n3
+    # ids, past a block's shared memory) (exact)
     n3, K3, r3, R = 20000, 100000, 20, 24
     ids3 = i32(rng.integers(0, n3, K3))
     ids3l = ids3.long()
-    for label, T, layout, width, lib in (
-            (f"rows [{n3},{r3}]", f32(n3, r3), "kr", r3,
+    idsE = i32(rng.integers(0, 5 * n3, n3))
+    idsEl = idsE.long()
+    for label, T, ids, layout, width, lib in (
+            (f"rows [{n3},{r3}] K={K3}", f32(n3, r3), ids3, "kr", r3,
              lambda T: T.index_select(0, ids3)),
-            (f"transposed [{R},{n3}]", f32(R, n3), "rk", R,
+            (f"transposed [{R},{n3}] K={K3}", f32(R, n3), ids3, "rk", R,
              lambda T: T.index_select(1, ids3)),
-            (f"1-D [{n3}]", f32(n3), "kr", 1,
-             lambda T: torch.take(T, ids3l))):
-        ref = gather.row_gather_plain(T, ids3, layout)
-        measure("row_gather", f"{label} K={K3}", "f32",
-                lambda: gather.row_gather(T, ids3, layout, check=False),
-                lambda: gather.row_gather_plain(T, ids3, layout), ref.abs(),
-                nbytes=gather_bytes(ids3, width), flops=0, exact=True,
+            (f"1-D [{n3}] K={K3}", f32(n3), ids3, "kr", 1,
+             lambda T: torch.take(T, ids3l)),
+            (f"1-D [{5 * n3}] K={n3}", f32(5 * n3), idsE, "kr", 1,
+             lambda T: torch.take(T, idsEl))):
+        ref = gather.row_gather_plain(T, ids, layout)
+        measure("row_gather", label, "f32",
+                lambda: gather.row_gather(T, ids, layout, check=False),
+                lambda: gather.row_gather_plain(T, ids, layout), ref.abs(),
+                nbytes=gather_bytes(ids, width), flops=0, exact=True,
                 tol=0.0, library=lambda: lib(T))
     probe_edge_checks(dev)
     # ---- P4 scatter_add: gather9 fC's unsorted segment sum (f32
-    # atomics in no fixed order; library: index_add_)
+    # reductions in no fixed order; library: index_add_), then the same
+    # values at sorted ids and at sorted ids with a hub of 5000 equal ids
     n4, K4, r4 = 20000, 160000, 24
-    ids4 = i32(rng.integers(0, n4, K4))
+    i4 = rng.integers(0, n4, K4)
     v4 = f32(K4, r4)
-    measure("scatter_add", f"unsorted n={n4} K={K4} r={r4}", "f32",
-            lambda: gather.scatter_add(v4, ids4, n4, check=False),
-            lambda: gather.scatter_add_plain(v4, ids4, n4),
-            gather.scatter_add_plain(v4.abs(), ids4, n4),
-            nbytes=K4 * r4 * 4 + K4 * 4 + n4 * r4 * 4, flops=K4 * r4,
-            tol=4 * eps32,
-            library=lambda: torch.zeros((n4, r4), device=dev).index_add_(
-                0, ids4, v4))
+    hub4 = np.concatenate([rng.integers(0, n4, K4 - 5000),
+                           np.full(5000, n4 // 3)])
+    for label, ids4 in (("unsorted", i32(i4)), ("sorted", i32(np.sort(i4))),
+                        ("sorted, a hub of 5000", i32(np.sort(hub4)))):
+        measure("scatter_add", f"{label} n={n4} K={K4} r={r4}", "f32",
+                lambda: gather.scatter_add(v4, ids4, n4, check=False),
+                lambda: gather.scatter_add_plain(v4, ids4, n4),
+                gather.scatter_add_plain(v4.abs(), ids4, n4),
+                nbytes=K4 * r4 * 4 + K4 * 4 + n4 * r4 * 4, flops=K4 * r4,
+                tol=4 * eps32,
+                library=lambda: torch.zeros((n4, r4),
+                                            device=dev).index_add_(
+                    0, ids4, v4))
     # ---- K3 at the uvT probe's shape: X, D [R, n] transposed once to the
     # [1, n, R] factors K3 takes (library: the probe's unfused form, four
     # index_selects, a product and a sum over R)
@@ -1448,8 +1464,96 @@ def probe_edge_checks(dev):
                                          f"offset {offset} {mode}: not "
                                          "exact")
                 cases += 1
-    print(f"probe edges: row_gather transposed and onehot_gather, {cases} "
-          "cases, each bit for bit its plain version")
+    # P3's 1-D gather: K = 1-7 (no 4-id vector), ids 4 bytes into their
+    # storage, the [n, 1] form, under each way that fits (the direct
+    # kernel, the table staged as one row)
+    fit = (gather._smem_optin(torch.cuda.current_device())
+           // (-(-20000 // 4) * 16)) if staged else 0
+    for n, K in ((20000, 1), (20000, 3), (20000, 7), (20000, 100001),
+                 (100000, 20000)):
+        X = torch.as_tensor(rng.standard_normal(n).astype(np.float32),
+                            device=dev)
+        store = torch.as_tensor(rng.integers(0, n, K + 1).astype(np.int32),
+                                device=dev)
+        for ids in (store[:K], store[1:]):
+            ref = torch.take(X, ids.long())
+            for rb in (0, 1)[:(fit if n == 20000 else 0) + 1] \
+                    if staged else (None,):
+                kw = {} if rb is None else {"rb": rb}
+                for T, want in ((X, ref), (X[:, None], ref[:, None])):
+                    got = gather.row_gather(T, ids, check=False, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"row_gather 1-D n={n} K={K} rb={rb} "
+                            f"{tuple(T.shape)}: not exact")
+                    cases += 1
+    print(f"probe edges: row_gather transposed and 1-D, onehot_gather, "
+          f"{cases} cases, each bit for bit its plain version")
+    scatter_edge_checks(dev, rng)
+
+
+def scatter_edge_checks(dev, rng):
+    """P4 at its edge shapes against its plain version on the card, each
+    output within 4 eps32 x sum |values| and every row no id touches
+    exactly 0 from an output whose memory held NaN: r = 1 (1-D values),
+    2, 5 and 24 (the float2, scalar and float4 forms), K = 0, 1, 7 and
+    5000, values 4 bytes into their storage (scalar reductions), and
+    sorted ids with a hub of 5000 equal ids."""
+    import numpy as np
+    import torch
+
+    from lorads_torch.probes import gather
+
+    eps32 = float(np.finfo(np.float32).eps)
+    n, cases = 1000, 0
+
+    def one(vals, ids, label):
+        # the output takes this block: freed, it is the caching
+        # allocator's fit for the next request of its size, and nothing
+        # asks in between
+        width = math.prod(vals.shape[1:])
+        garbage = torch.full((n * width,), float("nan"), device=dev)
+        at = garbage.data_ptr()
+        del garbage
+        got = gather.scatter_add(vals, ids, n, check=False)
+        if got.data_ptr() != at:
+            raise AssertionError(f"scatter_add {label}: the output did not "
+                                 "take the NaN block")
+        ref = gather.scatter_add_plain(vals, ids, n)
+        l1 = gather.scatter_add_plain(vals.abs(), ids, n)
+        torch.cuda.synchronize()
+        err = check(f"scatter_add {label}", got, ref, 4 * eps32
+                    * l1.double() + 1e-300)
+        idle = torch.ones(n, dtype=torch.bool, device=dev)
+        idle[ids.long()] = False
+        if not torch.equal(got[idle], ref[idle]) or bool(got[idle].any()):
+            raise AssertionError(f"scatter_add {label}: a row no id "
+                                 "touches is not 0")
+        return err
+
+    for r in (1, 2, 5, 24):
+        for K in (0, 1, 7, 5000):
+            shape = (K,) if r == 1 else (K, r)
+            for offset in (0, 1):
+                store = torch.as_tensor(rng.standard_normal(
+                    math.prod(shape) + offset).astype(np.float32),
+                    device=dev)
+                vals = store[offset:].view(shape)
+                ids = torch.as_tensor(rng.integers(0, n // 2, K).astype(
+                    np.int32), device=dev)
+                one(vals, ids, f"r={r} K={K} offset {offset}")
+                cases += 1
+    K = 20000
+    vals = torch.as_tensor(rng.standard_normal((K, 24)).astype(np.float32),
+                           device=dev)
+    hub = np.sort(np.concatenate([rng.integers(0, n // 2, K - 5000),
+                                  np.full(5000, 7)])).astype(np.int32)
+    err = one(vals, torch.as_tensor(hub, device=dev), "hub of 5000")
+    cases += 1
+    print(f"probe edges: scatter_add, {cases} cases, each within 4 eps32 x "
+          f"sum |values| (hub max err {err:.3e}), rows no id touches "
+          "exactly 0")
 
 
 def _devloop_cg(name):

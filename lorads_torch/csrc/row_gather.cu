@@ -15,7 +15,16 @@
 // index of the output, so a warp covers a group of consecutive output
 // rows, writes 32 consecutive vectors and reads each source row as
 // contiguous vectors: 16-byte float4 loads when r % 4 == 0 (and the
-// pointers allow), else 4-byte loads.  r = 1 is the 1-D gather.
+// pointers allow), else 4-byte loads.
+//
+// Width 1 (a [n] table, [n, 1] or [1, n]): the wrapper passes it as the
+// transposed layout at R = 1, a [1, n] row, to the direct kernel (rb =
+// 0): a thread 4 ids from one int4 load, 4 independent gathers through
+// the read-only path and one float4 store, 64 threads a block over at
+// most one wave with a grid-stride loop (a thread an id where K % 4 != 0
+// or ids or out is not 16-byte aligned).  A caller's rb = 1 forces the
+// staged schedule below with the table as its one row (gE's own design),
+// which wins from ~10 ids a table entry (PERF.md §6, PR 13).
 //
 // Transposed layout, staged schedule: what gT keeps in VMEM, a block
 // keeps in shared memory.  A block takes RB table rows (RB = 1 or 2, a
@@ -37,11 +46,17 @@
 // What bounds it: device memory (or L2, for a table that fits its 50 MB)
 // -- each gathered row is read once and written once; the ids are read
 // once.  Staged, the rows' copies from L2 (RB x n x 4 bytes a block)
-// come first and the output's writes after.  Ids are checked against
-// [0, n) by the wrapper, not here.
+// come first and the output's writes after.  At width 1 the bytes are
+// too few to matter: the direct kernel is bound by its random 4-byte
+// gathers, one L1 request each, after the launch and two dependent
+// reads (ids, then the table); staged, by the table's copy into each
+// block before its first gather (PERF.md §6, PR 13).  Ids are checked
+// against [0, n) by the wrapper, not here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "tiles.cuh"
 
@@ -49,6 +64,9 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int ROW_THREADS = 512;  // staged schedule: threads a staged row
+// the direct 1-D gather: small blocks, so that a few thousand ids still
+// spread over every SM (its random gathers queue in each SM's L1)
+constexpr int FLAT_THREADS = 64;
 constexpr int IDS = 24;           // staged schedule: ids a thread holds
 
 template <typename V>
@@ -71,6 +89,30 @@ __global__ void gather_cols_kernel(const float* __restrict__ X,
   const long id = __ldg(ids + k);
   for (int c = 0; c < r; ++c)
     out[(long)c * K + k] = __ldg(X + (long)c * n + id);
+}
+
+// The 1-D gather (r = 1), direct: a thread takes 4 ids from one int4
+// load, issues 4 independent gathers and writes one float4 (VEC: K % 4
+// == 0, ids and out 16-byte aligned; else a thread an id), over a grid
+// of at most one wave with a grid-stride loop.
+template <bool VEC>
+__global__ void __launch_bounds__(FLAT_THREADS)
+    gather_flat_kernel(const float* __restrict__ X,
+                       const int* __restrict__ ids, float* __restrict__ out,
+                       int K) {
+  const long tid = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  const long stride = gridDim.x * (long)blockDim.x;
+  if constexpr (VEC) {
+    const int4* i4 = reinterpret_cast<const int4*>(ids);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long q = tid; q < K / 4; q += stride) {
+      const int4 i = __ldg(i4 + q);
+      o4[q] = make_float4(__ldg(X + i.x), __ldg(X + i.y), __ldg(X + i.z),
+                          __ldg(X + i.w));
+    }
+  } else {
+    for (long k = tid; k < K; k += stride) out[k] = __ldg(X + __ldg(ids + k));
+  }
 }
 
 template <int N>
@@ -168,13 +210,38 @@ unsigned blocks_for(long threads) {
   return (unsigned)((threads + THREADS - 1) / THREADS);
 }
 
+// The direct 1-D gather over at most one wave: the blocks an SM holds
+// (queried once) times the SMs.
+template <bool VEC>
+int launch_flat(const float* X, const int* ids, float* out, int K,
+                cudaStream_t s) {
+  static int per_sm = 0;
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err == 0 && per_sm == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gather_flat_kernel<VEC>, FLAT_THREADS, 0);
+  if (err != 0) return err;
+  const long work = VEC ? K / 4 : K;
+  const long blocks = std::min<long>((work + FLAT_THREADS - 1) / FLAT_THREADS,
+                                     (long)std::max(per_sm, 1) * sms);
+  if (blocks > 0)
+    gather_flat_kernel<VEC><<<(unsigned)blocks, FLAT_THREADS, 0, s>>>(
+        X, ids, out, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// transposed: 0 for X [n, r] -> out [K, r] (r = 1: 1-D), 1 for X [r, n]
-// -> out [r, K]; ids int32 [K] in [0, n); all contiguous float32.  For
-// the transposed layout rb (the rows a block stages, 1 or 2; 0: the L2
-// schedule) and slice (the ids a block takes, at most rb * 512 * 24, a
-// multiple of 4) come from the host.  Returns cudaGetLastError(), or
+// transposed: 0 for X [n, r] -> out [K, r], 1 for X [r, n] -> out [r, K]
+// (at r = 1 the 1-D gather); ids int32 [K] in [0, n); all contiguous
+// float32.  For the transposed layout rb (the rows a block stages, 1 or
+// 2; 0: the L2 schedule, at r = 1 the direct kernel) and slice (the ids a
+// block takes, at most rb * 512 * 24, a multiple of 4) come from the
+// host.  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a schedule the kernels cannot run.
 extern "C" int lt_row_gather(int transposed, const void* X, const void* ids,
                              void* out, int n, int K, int r, int rb,
@@ -196,6 +263,15 @@ extern "C" int lt_row_gather(int transposed, const void* X, const void* ids,
                  : launch_staged<2, false>(x, id, o, n, K, r, slice, s);
     return vec ? launch_staged<1, true>(x, id, o, n, K, r, slice, s)
                : launch_staged<1, false>(x, id, o, n, K, r, slice, s);
+  }
+  if (transposed && r == 1) {
+    const bool vec =
+        K % 4 == 0 && ((reinterpret_cast<uintptr_t>(ids) |
+                        reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    const float* x = static_cast<const float*>(X);
+    float* o = static_cast<float*>(out);
+    return vec ? launch_flat<true>(x, id, o, K, s)
+               : launch_flat<false>(x, id, o, K, s);
   }
   if (transposed) {
     gather_cols_kernel<<<blocks_for(K), THREADS, 0, s>>>(

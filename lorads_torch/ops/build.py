@@ -54,7 +54,7 @@ _SIGNATURES = {
     "lt_onehot_gather": [_I, _VP, _VP, _VP, _I, _I, _VP],
     "lt_row_gather": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     "lt_smem_optin": [],
-    "lt_scatter_add": [_VP, _VP, _VP, _I, _I, _VP],
+    "lt_scatter_add": [_VP, _VP, _VP, _I, _I, _I, _VP],
     # measuring instruments (csrc/floor.cu), read by chip_smoke.py
     "lt_empty": [_VP],
     "lt_smem_chase": [_I, _VP, _VP],

@@ -19,8 +19,8 @@ and the probes' kernels, whose wrappers live in ``lorads_torch/probes``
 |-------------------------|----------------------|---------------------------------------|
 | onehot.sorted_scatter   | csrc/onehot_mma.cu   | onehot.py: sorted_scatter and the one-hot window scatters (P1) |
 | onehot.sorted_gather    | csrc/onehot_mma.cu   | onehot.py: sorted_gather (P2)         |
-| gather.row_gather       | csrc/row_gather.cu   | the Pallas row / transposed / scalar gathers (P3); the transposed layout (gT) stages table rows in shared memory (``gather.cols_schedule``) |
-| gather.scatter_add      | csrc/scatter_add.cu  | microbench_gather9.py: fC (P4)        |
+| gather.row_gather       | csrc/row_gather.cu   | the Pallas row / transposed / scalar gathers (P3); the transposed layout (gT) stages table rows in shared memory (``gather.cols_schedule``); the 1-D gather (gE) takes 4 ids a thread (``rb`` forces its table staged) |
+| gather.scatter_add      | csrc/scatter_add.cu  | microbench_gather9.py: fC (P4); a zeroing kernel the adds start beside, float4 reductions of runs of equal ids over 4 rows a thread |
 
 K4 and K2 at r = 1 share one segment-sum schedule (csrc/segsum.cuh);
 K5 at r = 1 takes it too, its values read through the slots.  K3, K3p,

@@ -17,14 +17,16 @@ data drawn from ``numpy.random.default_rng(0)`` as the probes draw it:
   microbench_pallas_gather3 gT): P3 in the row, transposed and 1-D
   layouts, against ``index_select`` and ``torch.take``; the transposed
   layout under each of its schedules (L2, 1 or 2 staged rows a block)
-  and beside the row layout of the same table;
+  and beside the row layout of the same table; the 1-D gather's two
+  ways (direct, staged) at 1-50 ids a table entry;
 - ``onehot`` (onehot, microbench_gather5/6/7, onehot_nn, onehot_r,
   onehot_bisect): P1 over the (CT, WT) grid, the three modes, both
   layouts and the r sweep, beside K1 (``kernels.segment_sum`` on the CSR
   bounds of the same ids), ``torch.segment_reduce`` and ``index_add_``;
   P2 over KT and the modes against P3 and ``index_select``;
 - ``scatter`` (microbench_gather9 fC): P4 on unsorted ids against
-  ``index_add_``, and on the same values with sorted ids P4, P1 and K1;
+  ``index_add_``, and on the same values with sorted ids (and sorted
+  ids with a hub of 5000 equal ids) P4, P1 and K1;
 - ``uvt`` (microbench_pallas_gather3/4 uvT): K3 ``uvt_split`` on the
   probe's [R, n] inputs, transposed once, against four ``index_select``s,
   a product and a sum.
@@ -273,6 +275,20 @@ def forms(p: Probe):
                nbytes=gather_bytes(pos, 1),
                library=lambda: col.index_select(0, pos),
                lib_name="index_select")
+    # the 1-D gather's two ways, each forced (the direct kernel, 4 ids a
+    # thread; the table staged as one row a block), on a table that fits
+    # a block, over the ids a table entry
+    n1 = n
+    vec1 = p.t(rng.standard_normal(n1).astype(np.float32))
+    ways = {}
+    for per in (1, 5, 10, 20, 50):
+        pos = p.t(rng.integers(0, n1, per * n1).astype(np.int32))
+        for rb, what in ((0, "direct"), (1, "staged")):
+            ways[per, rb] = p.case(
+                "forms", f"P3 1-D {what}", f"n={n1} K={per * n1}",
+                lambda: gather.row_gather(vec1, pos, check=False, rb=rb),
+                lambda: gather.row_gather_plain(vec1, pos),
+                nbytes=gather_bytes(pos, 1))
     # gather9 fA/fB: n=20000, K=160000, r=24
     n9, K9, r9 = (2000, 16000, 24) if p.small else (20000, 160000, 24)
     X9 = p.t(rng.standard_normal((n9, r9)).astype(np.float32))
@@ -291,7 +307,11 @@ def forms(p: Probe):
                   + f"; the row layout of the same table "
                   f"{_d(trow['device_ms'])}); 1-D " + ", ".join(
                       f"{_d(v['device_ms'])} (take "
-                      f"{_d(v['library_device_ms'])})" for v in one))
+                      f"{_d(v['library_device_ms'])})" for v in one)
+                  + "; 1-D direct / staged at K = " + ", ".join(
+                      f"{per}n {_d(ways[per, 0]['device_ms'])} / "
+                      f"{_d(ways[per, 1]['device_ms'])}"
+                      for per in (1, 5, 10, 20, 50)))
 
 
 def _seg_yardsticks(p, section, label, vals, ids_np, n):
@@ -443,6 +463,18 @@ def scatter(p: Probe):
                 flops=K * r, library=lambda: torch.zeros(
                     (n, r), device=p.dev).index_add_(0, si, sv),
                 lib_name="index_add_", l1=l1)
+    # sorted ids with one hub of 5000 (500 at --small) equal ids
+    hub = 500 if p.small else 5000
+    h_np = np.sort(np.concatenate([rng.integers(0, n, K - hub),
+                                   np.full(hub, n // 3)])).astype(np.int32)
+    hi = p.t(h_np)
+    hb = p.case("scatter", f"P4 sorted ids, a hub of {hub}", shapes,
+                lambda: gather.scatter_add(sv, hi, n, check=False),
+                lambda: gather.scatter_add_plain(sv, hi, n), nbytes,
+                flops=K * r, library=lambda: torch.zeros(
+                    (n, r), device=p.dev).index_add_(0, hi, sv),
+                lib_name="index_add_",
+                l1=gather.add_rows_f64(sv.abs(), hi, n))
     plan = oh.plan_sorted_scatter(s_np, n, CT=256, device=p.dev)
     p1 = p.case("scatter", f"P1 CT=256 WT={plan.WT} bf16x3 sorted ids",
                 shapes, lambda: oh.sorted_scatter(sv, plan, "bf16x3"),
@@ -453,7 +485,9 @@ def scatter(p: Probe):
     if p.timed:
         p.verdict(f"unsorted P4 {_d(un['device_ms'])} ms (index_add_ "
                   f"{_d(un['library_device_ms'])}); sorted P4 "
-                  f"{_d(so['device_ms'])}, P1 {_d(p1['device_ms'])}, K1 "
+                  f"{_d(so['device_ms'])} (hub {_d(hb['device_ms'])}, "
+                  f"index_add_ {_d(hb['library_device_ms'])}), P1 "
+                  f"{_d(p1['device_ms'])}, K1 "
                   f"{_d(k1['device_ms'])}, segment_reduce "
                   f"{_d(k1['library_device_ms'])}")
 

@@ -16,14 +16,25 @@ Ports of the gather probes of ``tools/probes/``:
 The transposed layout runs one of two schedules (``cols_schedule``): a
 block stages one or two whole table rows in shared memory and gathers
 from there, or, where a row does not fit or the ids are too few to pay
-for it, a thread an id reads the table from L2.
+for it, a thread an id reads the table from L2.  A table of width 1 (1-D,
+[n, 1] or [1, n]) goes through the transposed layout's kernels as a
+[1, n] row: the direct kernel, 4 ids a thread, unless ``rb`` forces the
+table staged as one row a block.
+
+``scatter_add`` zeroes its output in a kernel that lets the add kernel
+start beside it (programmatic dependent launch): the adds load their
+first ids and values while the zeroing runs and wait for it before
+their first reduction.  A thread sums a column group of 4, 2 or 1
+floats over 4 consecutive rows while the id repeats and issues one
+vector reduction per run; the kernel picks the width from r and the
+values' alignment, and its grid from its occupancy.
 
 Ids are int32 and values float32, as in the probes.  Ids out of
 [0, n) raise in the wrapper (one host read of their range; pass
 ``check=False`` for ids already checked), never in the kernel.  The
 plain versions are ``index_select`` and ``index_add_`` (f64
 accumulation, rounded once); CPU tensors take them, CUDA tensors launch
-the kernel or raise.
+the kernels or raise.
 """
 
 from __future__ import annotations
@@ -116,8 +127,9 @@ def row_gather(X: torch.Tensor, ids: torch.Tensor, layout="kr",
                check=True, rb=None) -> torch.Tensor:
     """P3.  X f32 [n, r] ("kr") -> X[ids] [K, r]; X [r, n] ("rk") ->
     X[:, ids] [r, K]; a 1-D X [n] -> X[ids] [K] (layout ignored).  ``rb``
-    (transposed layout): the rows a block stages, 0 for the L2 schedule,
-    None to let ``cols_schedule`` choose."""
+    (the transposed layout and every form of width 1): the rows a block
+    stages, 0 for the L2 schedule (at width 1 the direct kernel), None to
+    let ``cols_schedule`` choose (at width 1 the direct kernel)."""
     if layout not in ("kr", "rk"):
         raise ValueError(f"row_gather: layout {layout!r}")
     if rb not in (None, 0, 1, 2):
@@ -136,13 +148,18 @@ def row_gather(X: torch.Tensor, ids: torch.Tensor, layout="kr",
     K = ids.shape[0]
     shape = (K,) if X.dim() == 1 else ((r, K) if rk else (K, r))
     out = torch.empty(shape, dtype=torch.float32, device=X.device)
+    # width 1 (a [n] table, [n, 1] or [1, n]): the same storage as a
+    # [1, n] table, gathered by the transposed layout's kernels
+    flat = r == 1
     sched = ColsSchedule(0, 0)
-    if rk:
+    if rk or flat:
         index = X.device.index if X.device.index is not None \
             else torch.cuda.current_device()
+        if flat and rb is None:
+            rb = 0
         sched = cols_schedule(n, r, K, _smem_optin(index),
                               _sm_count(X.device), rb)
-    _launch("row_gather", "lt_row_gather", int(rk), X.data_ptr(),
+    _launch("row_gather", "lt_row_gather", int(rk or flat), X.data_ptr(),
             ids.data_ptr(), out.data_ptr(), n, K, r, sched.rb, sched.slice)
     return out
 
@@ -171,8 +188,9 @@ def scatter_add_plain(vals, ids, n):
 def scatter_add(vals: torch.Tensor, ids: torch.Tensor, n: int,
                 check=True) -> torch.Tensor:
     """P4.  out[ids[k]] += vals[k] over unsorted ids: vals f32 [K, r] or
-    [K] -> [n, r] or [n].  The kernel adds with f32 atomics in no fixed
-    order, so two runs may differ in the last bits."""
+    [K] -> [n, r] or [n].  The kernel zeroes its output, sums runs of
+    equal ids in registers and adds them with f32 vector reductions in no
+    fixed order, so two runs may differ in the last bits."""
     if vals.dtype != torch.float32 or vals.dim() not in (1, 2) \
             or ids.shape != vals.shape[:1]:
         raise TypeError("scatter_add: vals float32 [K] or [K, r], ids [K]")
@@ -182,8 +200,9 @@ def scatter_add(vals: torch.Tensor, ids: torch.Tensor, n: int,
     if not cuda:
         return scatter_add_plain(vals, ids, n)
     r = 1 if vals.dim() == 1 else vals.shape[1]
-    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=torch.float32,
+    # zeroed by the kernel's launch
+    out = torch.empty((n,) + tuple(vals.shape[1:]), dtype=torch.float32,
                       device=vals.device)
     _launch("scatter_add", "lt_scatter_add", vals.data_ptr(), ids.data_ptr(),
-            out.data_ptr(), vals.shape[0], r)
+            out.data_ptr(), vals.shape[0], n, r)
     return out

@@ -727,7 +727,8 @@ def test_onehot_gather_kernel_matches_plain(shape, r, mode, offset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1000, 5000), (20000, 100000), (20000, 1),
-                                   (20000, 99997), (60000, 50000)])
+                                   (20000, 99997), (60000, 50000),
+                                   (5000, 3), (5000, 6), (100000, 20000)])
 @pytest.mark.parametrize("form", ["kr1", "kr20", "kr128", "rk1", "rk3",
                                   "rk24", "rk40", "1-D"])
 def test_row_gather_kernel_matches_plain(shape, form):
@@ -735,7 +736,11 @@ def test_row_gather_kernel_matches_plain(shape, form):
     schedule whose rows fit (the L2 schedule, 1 and 2 staged rows a
     block): K = 1, K not a multiple of 4 or of a block's slice, R = 1, 3
     (a group of one row at 2 rows a block), 24 and 40, and n = 60000,
-    past the shared memory of a block (the L2 schedule alone)."""
+    past the shared memory of a block (the L2 schedule alone).  Width 1
+    ([n], [n, 1], [1, n]): K = 1, 3, 6 and 99997 (no 4-id vector), ids
+    4 bytes into their storage, gE's [100000] table by 20000 ids, under
+    each way that fits (rb 0: the direct kernel; 1, 2: the table
+    staged)."""
     _need_cuda()
     from lorads_torch.probes import gather
     n, _ = shape
@@ -753,34 +758,67 @@ def test_row_gather_kernel_matches_plain(shape, form):
     got = gather.row_gather(X, ids, layout)
     torch.cuda.synchronize()
     assert torch.equal(got, plain)
+    fit = gather._smem_optin(torch.cuda.current_device()) // (
+        -(-n // 4) * 16)
     if layout == "rk":
-        fit = gather._smem_optin(torch.cuda.current_device()) // (
-            -(-n // 4) * 16)
-        assert (fit == 0) == (n == 60000)
+        assert (fit == 0) == (n >= 60000)
+    if layout == "rk" or form in ("1-D", "kr1"):
         for rb in (0, 1, 2)[:fit + 1]:
             got = gather.row_gather(X, ids, layout, rb=rb)
             torch.cuda.synchronize()
             assert torch.equal(got, plain), rb
+    if form in ("1-D", "kr1", "rk1") and ids.numel() > 1:
+        tail = ids[1:]                      # not 16-byte aligned
+        assert tail.data_ptr() % 16
+        for rb in (0, 1, 2)[:fit + 1]:
+            got = gather.row_gather(X, tail, layout, rb=rb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, gather.row_gather_plain(X, tail,
+                                                            layout)), rb
     with pytest.raises(IndexError):
         gather.row_gather(X, torch.full_like(ids, n), layout)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1000, 5000), (20000, 160000)])
-@pytest.mark.parametrize("r", [0, 1, 24, 128])
-def test_scatter_add_kernel_matches_plain(shape, r):
+@pytest.mark.parametrize("shape", [(1000, 0), (1000, 1), (1000, 7),
+                                   (1000, 5000), (20000, 160000)])
+@pytest.mark.parametrize("r", [0, 1, 2, 5, 24, 128])
+@pytest.mark.parametrize("case", ["unsorted", "hub", "offset"])
+def test_scatter_add_kernel_matches_plain(shape, r, case):
+    """r = 0: 1-D values; r = 2 (float2 reductions), 5 (scalar), 24 and
+    128 (float4); K = 0, 1 and 7; "hub": sorted ids, min(K, 5000) of them
+    equal; "offset": the values 4 bytes into their storage (scalar
+    reductions).  Ids in [0, 3n/4): the rows past them, which no id
+    touches, come out exactly 0 from an output whose memory held NaN."""
     _need_cuda()
     from lorads_torch.probes import gather
-    n, _ = shape
-    ids = torch.as_tensor(_probe_ids(shape, sort=False), device="cuda")
-    rng = np.random.default_rng(r)
-    vals = _f32(rng, ids.shape[0]) if r == 0 else _f32(rng, ids.shape[0], r)
-    got = gather.scatter_add(vals, ids, n)
+    n, K = shape
+    rng = np.random.default_rng(K + r)
+    ids_np = rng.integers(0, 3 * n // 4, K)
+    if case == "hub":
+        ids_np[:min(K, 5000)] = n // 3
+        ids_np = np.sort(ids_np)
+    ids = torch.as_tensor(ids_np.astype(np.int32), device="cuda")
+    vshape = (K,) if r == 0 else (K, r)
+    offset = int(case == "offset")
+    store = _f32(rng, int(np.prod(vshape)) + offset)
+    vals = store[offset:].view(vshape)
+    assert K == 0 or (vals.data_ptr() % 16 == 0) == (offset == 0)
+    # the output takes this block: freed, it is the caching allocator's
+    # fit for the next request of its size, and nothing asks in between
+    garbage = torch.full((n * max(r, 1),), float("nan"), device="cuda")
+    at = garbage.data_ptr()
+    del garbage
+    got = gather.scatter_add(vals, ids, n, check=False)
+    assert got.data_ptr() == at
     ref = gather.scatter_add_plain(vals, ids, n)
     l1 = gather.scatter_add_plain(vals.abs(), ids, n)
     torch.cuda.synchronize()
     assert got.shape == ref.shape
     assert _close(got.double(), ref.double(), l1.double(), torch.float32)
+    idle = slice(3 * n // 4, None)
+    assert torch.equal(got[idle], ref[idle])
+    assert not bool(got[idle].any())
 
 
 def _skewed_rows(rng, B, n=6000):

@@ -340,12 +340,17 @@ def test_cols_schedule_stages_rows_that_fit():
 
 
 @pytest.mark.parametrize("r", [24, 1])
-def test_scatter_add_matches_segment_sum(r):
-    """gather9 fC's unsorted segment sum (n=2000, K=8000)."""
+@pytest.mark.parametrize("order", ["unsorted", "hub"])
+def test_scatter_add_matches_segment_sum(r, order):
+    """gather9 fC's unsorted segment sum (n=2000, K=8000); "hub": the
+    ids sorted, 5000 of them equal."""
     rng = np.random.default_rng(0)
     n, K = 2000, 8000
     ids = rng.integers(0, n, K).astype(np.int32)
     rng.standard_normal((n, r))
+    if order == "hub":
+        ids[:5000] = n // 3
+        ids = np.sort(ids)
     vals = rng.standard_normal((K, r) if r > 1 else (K,)).astype(np.float32)
     ref = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(ids),
                                          num_segments=n))
