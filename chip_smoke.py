@@ -87,6 +87,7 @@ Phases, each reported on its own lines:
    dependent-step bound: n x one dependent shared-memory load) at
    random_multiblock(8, 40, 120, 400 LP columns)'s LP block and at
    m=30000 (csum in global memory; the label names the instantiation),
+   each without and with the DUAL_U_V term s (a random signed [n]),
    K4's scatter of its 8 blocks' local constraint values, and K2 / K3 at
    the maxcut batch's B = 4 (K3 with U is V against
    torch.sparse.sampled_addmm, the same off values);
@@ -105,7 +106,26 @@ Phases, each reported on its own lines:
      = 0-5000, values not 16-byte aligned, a hub; rows no id touches
      exactly 0 from memory that held NaN), and K3 at the fused uvT probe's
      shape (R=24, n=20000, K=100000, f32); the path is the probe driver,
-     `python -m lorads_torch.probes --small`, run in this process.
+     `python -m lorads_torch.probes --small`, run in this process;
+5. the extras, with the launch counts reset just before and read just
+   after (their launches add to the kernels line): maxcut20000 solved
+   with checkpoints at both phase boundaries (their host reads
+   counted), then resumed from the checkpoint and warm-started from
+   ``save_solution``'s file, each certified within 1e-4 of the first
+   solve, with walls and ALM inner counts; one solve inside
+   ``utils.profiling.device_trace``, its trace's kernel events of the
+   port counted (and whether a kernel event names its graph);
+   ``fix_init_point`` on maxcut20000 (max_alm_iter=2: one nrm2U line
+   per inner step, all finite) and its trace on the card against the
+   CPU run in this process: maxcut300's first 2 values (after that step
+   the all-ones factor sits where the gradient is rounding noise) and
+   matcomp500's first 10, within 1e-9; ``dual_uv`` on multiblock_lp
+   (the Gauss-Seidel LP sweep: K8c with s) and hand_multiblock (the LP
+   Jacobi update), held to lorads_tpu's CPU status and pObj
+   (REFERENCE_DUAL_UV); the CLI in this process on
+   tests/fixtures/maxcut2000.dat-s: --dualUV 1 --checkpoint --solOut,
+   --resume, --warmStart, a corrupt warm-start file (exit 2), --traceDir,
+   with the SDPA reader that ran.
 
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.  Any failed phase raises and exits
@@ -202,6 +222,12 @@ REFERENCE_SPLIT = {"maxcut20000x4": (-62097.25666, -62076.14471913608,
 # the CGNR refinement rejects its step (dinf 3.28e-04 before and after),
 # two level-2 reopts leave dinf at 2.58e-04, outside its band
 REFERENCE_CGNR = {"theta_gtoy60": ("primal_optimal", -24.214264131151737)}
+# lorads_tpu on the CPU at f64 with dual_uv=True (multiblock_lp with
+# lp_gauss_seidel, as PARAMS): status and pObj
+REFERENCE_DUAL_UV = {
+    "hand_multiblock": ("primal_dual_optimal", 0.2177524570925113),
+    "multiblock_lp": ("primal_dual_optimal", 191.50494275108673),
+}
 # the kernels each main path must launch
 PATH_KERNELS = {
     "maxcut": ("cmul_csr", "uvt_split"),
@@ -211,6 +237,7 @@ PATH_KERNELS = {
     "cgnr": ("gather_segsum", "adj_a_dense"),
     "lp": ("gather_segsum", "lp_gs_sweep"),
     "batch": ("cmul_csr", "uvt_split"),
+    "extras": ("cmul_csr", "uvt_split", "gather_segsum", "lp_gs_sweep"),
     "probes": ("onehot_scatter", "onehot_gather", "row_gather",
                "scatter_add", "uvt_split"),
 }
@@ -1184,8 +1211,10 @@ def multiblock_kernel_checks(rng, measure):
     # columns of 43-74 increasing ids, as the LP block's)
     u, v = rand(n), rand(n)
     csum, dual = rand(m), rand(m)
-    lp_gs_case(measure, (lpd.pc_con, lpd.pc_val, lpd.obj, lpd.col_nrm2sq, u,
-                         v, csum, rand(m), dual, 5.0), N)
+    a8c = (lpd.pc_con, lpd.pc_val, lpd.obj, lpd.col_nrm2sq, u, v, csum,
+           rand(m), dual, 5.0)
+    lp_gs_case(measure, a8c, N)
+    lp_gs_case(measure, a8c, N, s=rand(n))
     mb = 30000
     gen = np.random.default_rng(5)
     pc = np.full((n, L), mb, np.int32)
@@ -1194,10 +1223,11 @@ def multiblock_kernel_checks(rng, measure):
         pc[j, :k] = np.sort(gen.choice(mb, k, replace=False))
     pv = np.where(pc < mb, gen.standard_normal((n, L)) / np.sqrt(L), 0.0)
     nrm2 = torch.as_tensor((pv ** 2).sum(axis=1), device=dev)
-    lp_gs_case(measure, (torch.as_tensor(pc, device=dev),
-                         torch.as_tensor(pv, device=dev), rand(n), nrm2,
-                         rand(n), 0.5 * rand(n).abs(), rand(mb), rand(mb),
-                         rand(mb), 5.0), int((pc < mb).sum()))
+    a8c = (torch.as_tensor(pc, device=dev), torch.as_tensor(pv, device=dev),
+           rand(n), nrm2, rand(n), 0.5 * rand(n).abs(), rand(mb), rand(mb),
+           rand(mb), 5.0)
+    lp_gs_case(measure, a8c, int((pc < mb).sum()))
+    lp_gs_case(measure, a8c, int((pc < mb).sum()), s=rand(n))
     # ---- K4: scatter_constr of the bucket's local values into [m]
     vals = rand(bk.B, bk.m_loc)
     sc = (bk.scat_idx, bk.scat_val, bk.bnd_scat)
@@ -1248,32 +1278,45 @@ def multiblock_kernel_checks(rng, measure):
                   bk.off_cols, kw, nb, Ko, Poff, B)
 
 
-def lp_gs_case(measure, a8c, N):
+def lp_gs_case(measure, a8c, N, s=None):
     """K8c on the card against its plain version, bit for bit (f64 inputs
     a8c = (pc_con, pc_val, obj, nrm2, u, v, csum, rhs, dual, rho), N
-    entries), its time per dependent step beside the dependent-step bound
-    (n x one dependent shared-memory load, measured by launch_floors);
-    the label names the instantiation lt_lp_gs_sweep picks."""
+    entries; ``s`` the DUAL_U_V term [n] or None), its time per dependent
+    step beside the dependent-step bound (n x one dependent shared-memory
+    load, measured by launch_floors); the label names the instantiation
+    lt_lp_gs_sweep picks.  A checkout whose K8c takes no s skips the s
+    case (--kernels-of on an older checkout)."""
+    import inspect
+
     import torch
 
     from lorads_torch.ops import build, kernels
+    if s is not None and "s" not in inspect.signature(
+            kernels.lp_gs_sweep).parameters:
+        print("lp_gs_sweep [with s]: this checkout's K8c takes no s")
+        return
     n, L = a8c[0].shape
     m = a8c[6].shape[0]
     lib = build.load()
     where = ("" if not hasattr(lib, "lt_lp_gs_smem_max_m") else
-             ", csum in shared memory" if m <= lib.lt_lp_gs_smem_max_m(1)
+             ", csum in shared memory"
+             if m <= lib.lt_lp_gs_smem_max_m(1, int(s is not None))
              else ", csum in global memory")
     dev = a8c[6].device
-    s = 8
+    b = 8
+    kw = {} if s is None else {"s": s}
+    with_s = "" if s is None else " with s"
     measure("lp_gs_sweep",
-            f"f64 K8c n_lp={n} L={L} m={m}{where} (dependent steps: {n})",
-            "f64", lambda: kernels.lp_gs_sweep(*a8c),
-            lambda: kernels.lp_gs_sweep_plain(*a8c),
+            f"f64 K8c{with_s} n_lp={n} L={L} m={m}{where} (dependent "
+            f"steps: {n})",
+            "f64", lambda: kernels.lp_gs_sweep(*a8c, **kw),
+            lambda: kernels.lp_gs_sweep_plain(*a8c, **kw),
             (torch.ones(n, dtype=torch.float64, device=dev),
              torch.ones(m, dtype=torch.float64, device=dev)),
-            nbytes=n * L * (4 + s) + 5 * n * s + 4 * m * s,
-            flops=9 * N + 12 * n, exact=True, tol=0.0, steps=n,
-            step_ns=measure.floors["hop_ns"])
+            nbytes=n * L * (4 + b) + (5 + (s is not None)) * n * b
+            + 4 * m * b,
+            flops=9 * N + (12 + (s is not None)) * n, exact=True, tol=0.0,
+            steps=n, step_ns=measure.floors["hop_ns"])
 
 
 def _p1_flops(oh, plan, r, mode, layout):
@@ -1871,6 +1914,281 @@ def main_path(card):
     return total
 
 
+# the port's kernel functions, as a device trace names them
+PORT_KERNEL_RE = (r"\b(adj_a_dense|cmul_pairs|gather_cols|gather_cols_staged|"
+                  r"gather_flat|gather_rows|lp_gs|onehot_gather|"
+                  r"onehot_scatter|scatter_add|sddmm_l2|sddmm_off|"
+                  r"sddmm_staged|segment_sum|segsum|wmul_combine|wmul_rows|"
+                  r"wmul_tiled|zero)_kernel\b")
+
+
+def _solve_timed(problem, device="cuda", load=None, warm=None, **params):
+    """(solver, result, wall s) of one solve through LoradsSolver; ``load``
+    a checkpoint to resume from, ``warm`` a solution file to warm-start
+    from."""
+    import numpy as np
+    import torch
+
+    from lorads_torch import LoradsParams, LoradsSolver
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    solver = LoradsSolver(problem, LoradsParams(verbose=False, **params),
+                          device=device)
+    if load is not None:
+        solver.load(load)
+    if warm is not None:
+        with np.load(warm) as z:
+            fs = [z[f"f{i}"] for i in range(problem.n_sdp_blocks)]
+            lp = z["lp"] if "lp" in z.files else None
+            solver.set_initial_factors(fs, lp, dual=z["y"])
+    res = solver.solve()
+    torch.cuda.synchronize()
+    return solver, res, time.time() - t0
+
+
+def _certified(name, res, ref):
+    rel = abs(res.pobj - ref) / abs(ref)
+    if res.status.value != "primal_dual_optimal":
+        raise AssertionError(f"{name}: status {res.status.value}")
+    if not (math.isfinite(res.pobj) and rel <= POBJ_RTOL):
+        raise AssertionError(f"{name}: pObj {res.pobj!r} vs {ref!r}")
+    return rel
+
+
+def _fix_ini_lines(fn):
+    """The FIX_INI trace lines fn() prints, as (key, value) pairs."""
+    import contextlib
+    import io
+    import re
+
+    from lorads_torch.alg import alm
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    finally:
+        alm.TRACE_FIX_INI = False
+    lines = re.findall(r"^(nrm2U|tau): (\S+)$", buf.getvalue(), re.M)
+    return [(k, float(v)) for k, v in lines], out
+
+
+def _fix_ini_outer(name, device):
+    """The FIX_INI lines of the first ALM outer iteration of ``name``
+    from the all-ones start, on ``device``."""
+    from lorads_torch import LoradsParams, LoradsSolver
+    from lorads_torch.alg import alm
+
+    def run():
+        s = LoradsSolver(INSTANCES[name](), LoradsParams(
+            verbose=False, fix_init_point=True), device=device)
+        return s.alm_phase(alm.ALMStats(rho=s.ps.rho0), time.time(),
+                           max_alm_iter=1)
+    return _fix_ini_lines(run)
+
+
+def _trace_counts(logdir):
+    """(kernel events, the port's kernel events, cudaGraphLaunch calls,
+    kernel events that name a graph, the file's bytes) of the trace in
+    ``logdir``."""
+    import glob
+    import re
+
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"device_trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    port = re.compile(PORT_KERNEL_RE)
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    mine = sum(1 for e in kern if port.search(e.get("name", "")))
+    graph_calls = sum(1 for e in events
+                      if e.get("name", "").startswith("cudaGraphLaunch"))
+    in_graph = sum(1 for e in kern
+                   if any("graph" in k.lower() for k in e.get("args", {})))
+    return len(kern), mine, graph_calls, in_graph, os.path.getsize(files[0])
+
+
+def extras_path(card):
+    """Phase 5: the solver's extras on the card, with the launch counts
+    reset just before and read just after: checkpoint and resume, the
+    warm start from a solution file, a device trace, the FIX_INI trace,
+    the DUAL_U_V variant (K8c with s) and the CLI's sequence of those
+    flags.  Returns the launch counts."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from lorads_torch import device as tdev
+    from lorads_torch.io import sdpa
+    from lorads_torch.ops import kernels
+    from lorads_torch.utils.profiling import device_trace
+
+    mc = INSTANCES["maxcut20000"]()
+    ref = REFERENCE_POBJ["maxcut20000"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    tdev.reset_host_syncs()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- checkpoint at both phase boundaries, then resume
+        ck = os.path.join(tmp, "maxcut20000.ckpt")
+        saved = []
+        from lorads_torch.alg.solver import LoradsSolver
+        save = LoradsSolver.save
+
+        def counted_save(self, path, *a, **k):
+            saved.append(a[2] if len(a) > 2 else k.get("phase"))
+            other = tdev.HOST_SYNCS_BY["other"]
+            save(self, path, *a, **k)
+            saved.append(tdev.HOST_SYNCS_BY["other"] - other)
+
+        LoradsSolver.save = counted_save
+        try:
+            s1, r1, w1 = _solve_timed(mc, checkpoint_path=ck)
+        finally:
+            LoradsSolver.save = save
+        rel1 = _certified("maxcut20000 (checkpointed)", r1, ref)
+        with open(ck + ".meta.json") as f:
+            meta = json.load(f)
+        if saved[0::2] != ["post_alm", "post_admm"] or \
+                meta["phase"] != "post_admm":
+            raise AssertionError(f"checkpoint saves {saved}, meta {meta}")
+        s2, r2, w2 = _solve_timed(mc, load=ck)
+        rel2 = _certified("maxcut20000 (resumed)", r2, r1.pobj)
+        print(f"extras checkpoint: maxcut20000 saved at {saved[0::2]} "
+              f"({saved[1::2]} host reads each, label other), "
+              f"{os.path.getsize(ck)} B; cold solve with checkpoints wall "
+              f"{w1:.3f} s ALM inner {r1.alm_stats.inner_iter} pObj "
+              f"{r1.pobj!r} (rel {rel1:.2e}); resumed wall {w2:.3f} s "
+              f"ALM inner {r2.alm_stats.inner_iter} pObj {r2.pobj!r} "
+              f"(rel to the cold solve {rel2:.2e})  [{card}]")
+        # ---- warm start from the solution file
+        sol = os.path.join(tmp, "maxcut20000_sol.npz")
+        s1.save_solution(sol)
+        s3, r3, w3 = _solve_timed(mc, warm=sol)
+        rel3 = _certified("maxcut20000 (warm start)", r3, r1.pobj)
+        print(f"extras warm start: maxcut20000 from {os.path.getsize(sol)} "
+              f"B wall {w3:.3f} s ALM inner {r3.alm_stats.inner_iter} "
+              f"pObj {r3.pobj!r} (rel to the cold solve {rel3:.2e})  "
+              f"[{card}]")
+        # ---- a device trace around one solve
+        tdir = os.path.join(tmp, "trace")
+        t0 = time.time()
+        with device_trace(tdir, "cuda"):
+            _, r4, w4 = _solve_timed(mc)
+        w4x = time.time() - t0
+        _certified("maxcut20000 (traced)", r4, ref)
+        n_kern, n_mine, n_graph, n_in_graph, size = _trace_counts(tdir)
+        print(f"extras device_trace: maxcut20000 solve wall {w4:.3f} s "
+              f"({w4x:.3f} s with the trace's export), trace {size} B: "
+              f"{n_kern} kernel events, {n_mine} of them the port's "
+              f"kernels, {n_graph} cudaGraphLaunch calls, {n_in_graph} "
+              f"kernel events naming a graph  [{card}]")
+        if n_graph and not n_in_graph:
+            print("extras device_trace: no kernel event names its graph: "
+                  "kernel events inside graph replays are not told apart "
+                  "from eager launches in this trace")
+        if n_kern <= 0 or n_mine <= 0:
+            raise AssertionError("the device trace holds no kernel of the "
+                                 "port")
+    # ---- FIX_INI_POINT
+    trace, (_, r5, w5) = _fix_ini_lines(lambda: _solve_timed(
+        mc, fix_init_point=True, max_alm_iter=2, max_admm_iter=5))
+    keys = [k for k, _ in trace]
+    n_u, n_t = keys.count("nrm2U"), keys.count("tau")
+    print(f"extras fix_init_point: maxcut20000 max_alm_iter=2: "
+          f"{len(trace)} trace lines ({n_u} nrm2U, {n_t} tau) for "
+          f"{r5.alm_stats.inner_iter} inner steps; status "
+          f"{r5.status.value} wall {w5:.3f} s  [{card}]")
+    if (n_u != r5.alm_stats.inner_iter or n_u == 0 or n_t > n_u
+            or not all(math.isfinite(v) for _, v in trace)):
+        raise AssertionError("fix_init_point: the trace does not count "
+                             "the inner steps")
+    # the card against the CPU: maxcut300's first step (from there on its
+    # gradient is rounding noise: the all-ones start keeps R's columns
+    # equal and lands on x = 1/sqrt(r)), matcomp500's first 10 values
+    for name, n in (("maxcut300", 2), ("matcomp500", 10)):
+        got, _ = _fix_ini_outer(name, "cuda")
+        ref_lines, _ = _fix_ini_outer(name, "cpu")
+        worst = max(abs(a - b) / abs(b) for (_, a), (_, b) in
+                    zip(got[:n], ref_lines[:n]))
+        print(f"extras fix_init_point: {name} ALM outer 1 ({len(got)} "
+              f"lines on the card, {len(ref_lines)} on the CPU): first {n}"
+              f" values {[v for _, v in got[:n]]}, worst relative "
+              f"difference to the CPU run {worst:.2e}")
+        if ([k for k, _ in got[:n]] != [k for k, _ in ref_lines[:n]]
+                or len(got) < n or worst > 1e-9):
+            raise AssertionError(f"fix_init_point: {name}'s trace on the "
+                                 "card parts from the CPU run")
+    # ---- DUAL_U_V: K8c with s (multiblock_lp), the LP Jacobi update
+    # (hand_multiblock)
+    for name, (st_ref, p_ref) in REFERENCE_DUAL_UV.items():
+        s0 = kernels.WITH_S_LAUNCHES["lp_gs_sweep"]
+        solver, res, wall = _solve_timed(INSTANCES[name](), dual_uv=True,
+                                         **PARAMS.get(name, {}))
+        rel = abs(res.pobj - p_ref) / abs(p_ref)
+        with_s = kernels.WITH_S_LAUNCHES["lp_gs_sweep"] - s0
+        print(f"extras dual_uv: {name} status {res.status.value} pObj "
+              f"{res.pobj!r} (lorads_tpu CPU f64 {p_ref!r}, rel {rel:.2e})"
+              f" ALM inner {res.alm_stats.inner_iter} ADMM "
+              f"{res.admm_stats.iter} CG {solver.admm_cg_total} wall "
+              f"{wall:.3f} s; K8c launches with s {with_s}  [{card}]")
+        if res.status.value != st_ref or rel > POBJ_RTOL:
+            raise AssertionError(f"dual_uv {name}: {res.status.value} "
+                                 f"{res.pobj!r}")
+        if (with_s > 0) != (name == "multiblock_lp"):
+            raise AssertionError(f"dual_uv {name}: K8c with s launched "
+                                 f"{with_s} times")
+    # ---- the CLI, in this process
+    from lorads_torch.__main__ import main as cli
+    fx = os.path.join(FIX, "maxcut2000.dat-s")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, sol = os.path.join(tmp, "ck"), os.path.join(tmp, "sol.npz")
+        bad = os.path.join(tmp, "bad.npz")
+        with open(bad, "wb") as f:
+            f.write(b"not an npz")
+        runs = (("--dualUV 1 --checkpoint --solOut",
+                 ["--dualUV", "1", "--checkpoint", ck, "--solOut", sol], 0,
+                 f"solution written to {sol}"),
+                ("--resume", ["--resume", ck], 0,
+                 f"resumed from {ck} (phase post_admm)"),
+                ("--warmStart", ["--warmStart", sol], 0,
+                 f"warm started from {sol}"),
+                ("--warmStart (corrupt file)", ["--warmStart", bad], 2,
+                 "could not warm-start"),
+                ("--traceDir", ["--traceDir", os.path.join(tmp, "tr")], 0,
+                 "primal_dual_optimal"))
+        for label, flags, rc_ref, line in runs:
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli([fx, "--quiet"] + flags)
+            text = out.getvalue() + err.getvalue()
+            ok = rc == rc_ref and line in text and (
+                rc != 0 or "primal_dual_optimal" in text)
+            print(f"extras cli {label}: exit {rc} in "
+                  f"{time.time() - t0:.3f} s, {sdpa.LAST_READER} SDPA "
+                  f"reader, '{line}' {'found' if line in text else 'MISSING'}"
+                  f"  [{card}]")
+            if not ok:
+                raise AssertionError(f"cli {label}: exit {rc}\n{text}")
+        if not os.listdir(os.path.join(tmp, "tr")):
+            raise AssertionError("cli --traceDir wrote no trace")
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    print(f"main path extras: kernel launches {counts} (lp_gs_sweep with "
+          f"s: {kernels.WITH_S_LAUNCHES['lp_gs_sweep']}), host syncs "
+          f"{tdev.HOST_SYNCS} {dict(tdev.HOST_SYNCS_BY)}")
+    for k in PATH_KERNELS["extras"]:
+        if counts[k] <= 0:
+            raise AssertionError(f"the extras path never launched {k}")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1915,6 +2233,8 @@ def main(argv=None) -> int:
         return 0
     devloop_checks(card)
     counts = main_path(card)
+    for k, n in extras_path(card).items():
+        counts[k] += n
 
     src = {"segment_sum": ("lorads_torch/csrc/segment_sum.cu",
                            "lorads_tpu/ops/pattern.py:138"),

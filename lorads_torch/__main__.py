@@ -6,10 +6,11 @@ Flag names and defaults are lorads_tpu/__main__.py's (the reference
 binary's getopt table, main.c:19-80) plus ``--device`` (default cuda), the
 counterpart of JAX's platform choice.  Several input files merge
 block-diagonally (``merge_problems``) into one batch solve, and each
-instance's objective is reported at the end.  Flags of configurations
-the port does not run yet -- --checkpoint, --resume, --warmStart,
---solOut, --traceDir, --shard, --dtype f32, --dualUV -- raise
-NotImplementedError.
+instance's objective is reported at the end.  --checkpoint / --resume,
+--warmStart / --solOut, --traceDir (a torch.profiler trace) and --dualUV
+do what lorads_tpu's do (lorads_tpu/__main__.py:183-229); the flags of
+configurations the port does not run yet -- --shard other than off and
+--dtype f32 -- raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-device placement (only off is ported; "
                         "auto, dp, sp and tp raise)")
     p.add_argument("--dualUV", type=int, default=0,
-                   help="DUAL_U_V build variant (not yet ported)")
+                   help="DUAL_U_V build variant: +/-S terms in the "
+                        "ADMM subproblems")
     p.add_argument("--lpGaussSeidel", type=int, default=0,
                    help="update ADMM LP columns sequentially in the "
                         "exact reference order (lorads_admm.c:595-628; "
@@ -72,13 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=925)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
-                   help="save solver state at phase boundaries (not "
-                        "yet ported)")
+                   help="save solver state at phase boundaries")
     p.add_argument("--resume", default=None, metavar="PATH",
-                   help="restore state from a checkpoint before solving"
-                        " (not yet ported)")
+                   help="restore state from a checkpoint before solving")
     p.add_argument("--traceDir", default=None, metavar="DIR",
-                   help="capture a device trace (not yet ported)")
+                   help="capture a torch.profiler trace (CPU and, on "
+                        "the card, CUDA activity) into DIR")
     p.add_argument("--admmGapContinue", type=int, default=1,
                    help="after pinf converges, keep the initial ADMM "
                         "running with gap-inclusive convergence while "
@@ -99,38 +100,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "level-2 reopt")
     p.add_argument("--warmStart", default=None, metavar="PATH",
                    help="seed the solve from a previous --solOut .npz "
-                        "(not yet ported)")
+                        "(per-block factors, LP values, dual); see "
+                        "LoradsSolver.set_initial_factors")
     p.add_argument("--probInfo", action="store_true",
                    help="print the problem-information dump "
                         "(printfProbInfo equivalent) before solving")
     p.add_argument("--solOut", default=None, metavar="PATH",
-                   help="write the solution to an .npz (not yet "
-                        "ported)")
+                   help="write the solution to an .npz: per-block "
+                        "factors f<i> (X_i = f_i f_i^T), LP values, "
+                        "dual vector y")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; a missing GPU "
                         "raises) or cpu")
     return p
 
 
-def _check_slice(args) -> None:
-    def no(what):
-        raise NotImplementedError(f"{what} not yet ported to lorads_torch")
-    for flag, what in ((args.resume, "--resume"),
-                       (args.warmStart, "--warmStart"),
-                       (args.solOut, "--solOut")):
-        if flag:
-            no(what)
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_slice(args)
 
     from lorads_torch.config import LoradsParams
     from lorads_torch.core.problem import (merge_problems,
                                            split_objectives_factors)
     from lorads_torch.io.sdpa import read_sdpa
     from lorads_torch.alg.solver import LoradsSolver
+    from lorads_torch.utils.profiling import device_trace
 
     print("-" * 59)
     print(" LoRADS-torch  |  low-rank SDP solver on PyTorch/CUDA")
@@ -184,7 +177,29 @@ def main(argv=None) -> int:
     solver = LoradsSolver(problem, params, device=args.device)
     if args.probInfo:
         print(solver.prob_info())
-    res = solver.solve()
+    if args.resume:
+        meta = solver.load(args.resume)
+        print(f"resumed from {args.resume} (phase {meta['phase']})")
+    if args.warmStart:
+        import zipfile
+
+        import numpy as np
+        try:
+            with np.load(args.warmStart) as z:
+                fs = [z[f"f{i}"] for i in range(problem.n_sdp_blocks)]
+                lp_vals = z["lp"] if "lp" in z.files else None
+                dual = z["y"] if "y" in z.files else None
+            solver.set_initial_factors(fs, lp_vals, dual=dual)
+        except (OSError, KeyError, ValueError,
+                zipfile.BadZipFile) as e:
+            # BadZipFile: np.load raises it (not OSError) for a
+            # corrupt or truncated archive that still has the PK magic
+            print(f"error: could not warm-start from "
+                  f"{args.warmStart}: {e}", file=sys.stderr)
+            return 2
+        print(f"warm started from {args.warmStart}")
+    with device_trace(args.traceDir, solver.device):
+        res = solver.solve()
 
     print(f"final ranks: {res.ranks}")
     print("-" * 71)
@@ -202,6 +217,9 @@ def main(argv=None) -> int:
     print("-" * 71)
     print(f"solve time (s): {res.solve_time:.6f}")
     print(f"dual infeasibility time (s): {res.dual_infeas_time:.6f}")
+    if args.solOut:
+        solver.save_solution(args.solOut)
+        print(f"solution written to {args.solOut}")
     if len(problems) > 1:
         fs, lp_vals = solver.factor_blocks()
         objs = split_objectives_factors(problems, fs, lp_vals)

@@ -13,7 +13,11 @@ Gauss-Seidel scan, ``_update_sdp_var_bucket_gs``, over
 ``pattern.bucket_slice`` views) unless the solver marks the bucket
 Jacobi (its blocks touch disjoint constraints, so updating them at once
 is the same update); the LP columns in closed form, all at once
-(Jacobi) or in order with ``lp_gauss_seidel`` (kernel K8c).
+(Jacobi) or in order with ``lp_gauss_seidel`` (kernel K8c).  With
+``dual_uv`` (the reference's DUAL_U_V build) every U-side subproblem
+adds the solver's consensus term S to M2 and every V-side one subtracts
+it (lorads_admm.c:401-420, 658-660; admm.py:130-133, 233-234, 253):
+the SDP cones of S are zero, its LP columns random.
 
 Each side's subproblem (I + N) x = rhs, N the normal operator of the
 fixed factor, is solved
@@ -117,7 +121,7 @@ def _cg_operator(bk, F=None):
 
 def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
                         fixed_var, local_vals, constr_sum, dual, rho,
-                        cg_tol=1e-8, fcache=None, bk_lo=None):
+                        cg_tol=1e-8, fcache=None, bk_lo=None, s_term=None):
     """One side of the splitting for one bucket (LORADSUpdateSDPVarOne,
     lorads_admm.c:428-480): solve (I + N) x = rhs for U with V fixed.
 
@@ -129,7 +133,8 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
     (at most CG_MAX_ITER iterations; ``cg_tol`` a number or a 0-d
     tensor); with ``bk_lo`` (the bucket's f32 cast) the CG is the
     mixed-precision cg_solve_ir.  A CG loop's graphs are keyed by the
-    bucket (or block slice) it runs on.
+    bucket (or block slice) it runs on.  ``s_term`` (the signed DUAL_U_V
+    term, [B, n, r]) is added to M2 = W @ fixed - rho fixed.
     Returns (new_var, new_local_vals, new_constr_sum, cg_iters,
     new_cache)."""
     base = rho * (constr_sum - pd.rhs) - dual
@@ -137,8 +142,9 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
     if aop._diag_fast(bk):
         if fcache is None:
             fcache = _admm_cache(bk, fixed_var)
-        rhs = -(fcache.cr + (bk.a_val_d * w_loc)[:, :, None] * fixed_var
-                - rho * fixed_var) / rho
+        M2 = (fcache.cr + (bk.a_val_d * w_loc)[:, :, None] * fixed_var
+              - rho * fixed_var)
+        rhs = -(M2 if s_term is None else M2 + s_term) / rho
         a2 = bk.a_val_d * bk.a_val_d
         vr = torch.sum(fixed_var * rhs, -1)
         vv = torch.sum(fixed_var * fixed_var, -1)
@@ -148,7 +154,8 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
         new_local = bk.a_val_d * torch.sum(new_var * fixed_var, -1)
     else:
         W = pat.build_w(bk, w_loc)                        # C + A*(M1)
-        rhs = -(pat.w_mul(bk, W, fixed_var) - rho * fixed_var) / rho
+        M2 = pat.w_mul(bk, W, fixed_var) - rho * fixed_var
+        rhs = -(M2 if s_term is None else M2 + s_term) / rho
         if bk_lo is not None:
             op_lo = Bound(_cg_operator(bk_lo),
                           (fixed_var.to(torch.float32),),
@@ -166,26 +173,28 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
 
 
 def _update_lp_var(pd: ProblemData, upd, fixed, lp_contrib, constr_sum,
-                   dual, rho):
+                   dual, rho, s_lp=None):
     """Closed-form LP column updates, Jacobi over the columns
     (LORADSUpdateLPVarOne, lorads_admm.c:595-628; admm.py:211-236):
     wsum_j = c_j + a_j^T (rho (csum - b) - lambda) - rho ||a_j||^2 u_j v_j,
     the last term removing column j's own contribution.  ``lp_contrib``
-    is the cached A_lp(uv).  Returns (new u, new A_lp(u v), new
-    constr_sum)."""
+    is the cached A_lp(uv); ``s_lp`` the signed DUAL_U_V term, added to
+    m2.  Returns (new u, new A_lp(u v), new constr_sum)."""
     lpd = pd.lp
     base_w = rho * (constr_sum - pd.rhs) - dual
     base = lp_ops.adjoint_cols(lpd, base_w)
     corr = rho * lpd.col_nrm2sq * upd * fixed
     wsum = lpd.obj + base - corr
     m2 = wsum * fixed - rho * fixed
+    if s_lp is not None:
+        m2 = m2 + s_lp
     new = (-m2 / rho) / (1.0 + lpd.col_nrm2sq * fixed * fixed)
     new_contrib = lp_ops.constr_vals(lpd, new * fixed)
     return new, new_contrib, constr_sum + new_contrib - lp_contrib
 
 
 def _update_lp_var_gs(pd: ProblemData, upd, fixed, lp_contrib, constr_sum,
-                      dual, rho):
+                      dual, rho, s_lp=None):
     """The same closed form swept over the columns in order, each
     reading the constr_sum the previous columns updated
     (lorads_admm.c:595-628 driven by lorads_alg_common.c:229-247;
@@ -193,25 +202,27 @@ def _update_lp_var_gs(pd: ProblemData, upd, fixed, lp_contrib, constr_sum,
     lpd = pd.lp
     new, new_sum = kernels.lp_gs_sweep(
         lpd.pc_con, lpd.pc_val, lpd.obj, lpd.col_nrm2sq, upd, fixed,
-        constr_sum, pd.rhs, dual, rho)
+        constr_sum, pd.rhs, dual, rho, s=s_lp)
     return new, lp_ops.constr_vals(lpd, new * fixed), new_sum
 
 
 def _update_sdp_var_bucket_gs(pd: ProblemData, slices, slices_lo, upd,
                               fixed, local_vals, constr_sum, dual, rho,
-                              cg_tol):
+                              cg_tol, s=None):
     """One side of the splitting over a bucket's blocks in sequence, each
     block seeing the constr_sum the previous ones updated -- the
     reference's sweep (lorads_alg_common.c:190-214; admm.py:279-299,
     a lax.scan there, a host loop over ``slices`` here, the
-    bucket_slice views of each block).  Returns (new_var [B, n, r],
+    bucket_slice views of each block); ``s`` the signed DUAL_U_V term
+    [B, n, r], block b's slice to block b.  Returns (new_var [B, n, r],
     new_local_vals [B, m_loc], new_constr_sum, cg_iters, None)."""
     new_var, new_local, iters = [], [], 0
     for b, bk1 in enumerate(slices):
         u1, loc1, constr_sum, it, _ = _update_sdp_var_one(
             pd, bk1, upd[b:b + 1], fixed[b:b + 1], local_vals[b:b + 1],
             constr_sum, dual, rho, cg_tol,
-            bk_lo=None if slices_lo is None else slices_lo[b])
+            bk_lo=None if slices_lo is None else slices_lo[b],
+            s_term=None if s is None else s[b:b + 1])
         new_var.append(u1)
         new_local.append(loc1)
         iters += it
@@ -244,7 +255,7 @@ def sweep_plan(pd: ProblemData, jacobi=(), mixed: bool = False):
 def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
                     constr_sum, dual, rho, u_caches=None, v_caches=None,
                     cg_tol=1e-8, buckets_lo=None, slices=None,
-                    slices_lo=None, lp_gs=False):
+                    slices_lo=None, lp_gs=False, S: FactorVec = None):
     """One sweep: each bucket U then V, then the LP columns U then V
     (LORADSUpdateSDPVar / LORADSUpdateSDPLPVar,
     lorads_alg_common.c:187-248; admm.py:302-368).  ``locals_`` holds
@@ -252,7 +263,9 @@ def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
     contribution A_lp(uv) last.  ``buckets_lo``: the buckets' f32 casts
     for the mixed-precision CG; ``slices`` / ``slices_lo``: per bucket
     its block slices (sweep_plan) for the Gauss-Seidel scan, None for
-    a bucket updated at once; ``lp_gs``: the LP columns in order (K8c).
+    a bucket updated at once; ``lp_gs``: the LP columns in order (K8c);
+    ``S``: the DUAL_U_V term (None: none), +S on the U side, -S on the V
+    side.
     Returns (U, V, locals, constr_sum, u_caches, v_caches, cg_iters)."""
     nb = len(pd.buckets)
     u_cones, v_cones = list(U.cones), list(V.cones)
@@ -264,20 +277,23 @@ def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
     slices_lo = slices_lo if slices_lo is not None else [None] * nb
     cg_total = 0
     for j, bk in enumerate(pd.buckets):
+        s_j = None if S is None else S.cones[j]
+        s_n = None if S is None else -s_j
         if slices[j] is None:
             u_new, loc, constr_sum, it1, uc = _update_sdp_var_one(
                 pd, bk, u_cones[j], v_cones[j], locals_[j], constr_sum,
-                dual, rho, cg_tol, fcache=v_caches[j], bk_lo=lo[j])
+                dual, rho, cg_tol, fcache=v_caches[j], bk_lo=lo[j],
+                s_term=s_j)
             v_new, loc, constr_sum, it2, vc = _update_sdp_var_one(
                 pd, bk, v_cones[j], u_new, loc, constr_sum, dual, rho,
-                cg_tol, fcache=uc, bk_lo=lo[j])
+                cg_tol, fcache=uc, bk_lo=lo[j], s_term=s_n)
         else:
             u_new, loc, constr_sum, it1, uc = _update_sdp_var_bucket_gs(
                 pd, slices[j], slices_lo[j], u_cones[j], v_cones[j],
-                locals_[j], constr_sum, dual, rho, cg_tol)
+                locals_[j], constr_sum, dual, rho, cg_tol, s=s_j)
             v_new, loc, constr_sum, it2, vc = _update_sdp_var_bucket_gs(
                 pd, slices[j], slices_lo[j], v_cones[j], u_new, loc,
-                constr_sum, dual, rho, cg_tol)
+                constr_sum, dual, rho, cg_tol, s=s_n)
         u_cones[j], v_cones[j] = u_new, v_new
         u_caches[j], v_caches[j] = uc, vc
         locals_[j] = loc
@@ -285,10 +301,12 @@ def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
     lp_u, lp_v = U.lp, V.lp
     if pd.lp is not None:
         upd_fn = _update_lp_var_gs if lp_gs else _update_lp_var
+        s_lp = None if S is None else S.lp
         lp_u, lpc, constr_sum = upd_fn(pd, lp_u, lp_v, locals_[nb],
-                                       constr_sum, dual, rho)
+                                       constr_sum, dual, rho, s_lp)
         lp_v, lpc, constr_sum = upd_fn(pd, lp_v, lp_u, lpc, constr_sum,
-                                       dual, rho)
+                                       dual, rho,
+                                       None if S is None else -s_lp)
         locals_[nb] = lpc
     return (FactorVec(tuple(u_cones), lp_u), FactorVec(tuple(v_cones), lp_v),
             tuple(locals_), constr_sum, tuple(u_caches), tuple(v_caches),
@@ -333,7 +351,8 @@ def admm_init_eval(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
 
 def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
                iter_celling: int, n_steps: int, reopt: bool = False,
-               gap_stop: bool = False, jacobi=()) -> dict:
+               gap_stop: bool = False, jacobi=(), S: FactorVec = None
+               ) -> dict:
     """Up to ``n_steps`` ADMM iterations (lorads_tpu's _make_admm_chunk
     body).  ``c`` carries the device tensors U, V, locals, constr_sum,
     dual and the host state rho, cur_rho_max, pinf_buf (10 floats),
@@ -343,7 +362,8 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
     and ``plan`` (sweep_plan, built on the phase's first chunk and kept).
     ``jacobi``: per-bucket flags, True for a bucket whose blocks update
     at once (LoradsParams.admm_jacobi sets them all).  The chunk also
-    returns once its CG count crosses the per-chunk budget.
+    returns once its CG count crosses the per-chunk budget.  ``S``: the
+    DUAL_U_V term, used only with ``params.dual_uv`` (admm.py:474).
 
     ``reopt`` tightens the bad_pd limit, shifts the rho schedule and
     converges on pinf_l1; ``gap_stop`` is the gap-continuation variant
@@ -359,6 +379,7 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
     cg_tol_mult = 1e-4 if reopt else 1e-2
     cg_budget = CG_BUDGET_MIXED if mixed else CG_BUDGET_F64
     c = dict(c)
+    S_used = S if params.dual_uv else None
     if "plan" not in c:
         if params.admm_jacobi:
             jacobi = (True,) * len(pd.buckets)
@@ -381,7 +402,7 @@ def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
             pd, c["U"], c["V"], c["locals"], c["constr_sum"], c["dual"],
             c["rho"], c["u_caches"], c["v_caches"], cg_tol=cg_tol,
             buckets_lo=buckets_lo, slices=slices, slices_lo=slices_lo,
-            lp_gs=params.lp_gauss_seidel)
+            lp_gs=params.lp_gauss_seidel, S=S_used)
         cg_iter += cg_it
         pobj, dobj, pinf, gap, locals_, csum = _obj_dimacs_xbar(
             pd, U, V, c["dual"], scale, ucs, vcs)

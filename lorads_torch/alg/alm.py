@@ -14,6 +14,14 @@ and is counted); their decisions are those of LORADS_ALMOptimize and
 its reopt variant (lorads_alm.c:745-1255) in the same order, on Python
 floats.
 
+With ``TRACE_FIX_INI`` (set by the solver from
+``LoradsParams.fix_init_point``) each inner step also writes its
+direction norm, tau and its "accepted" and "ran" flags into its slot of
+the chunk's state; the host prints them after the chunk's read, in step
+order, for the steps that ran: ``nrm2U: %.20f`` every step and
+``tau: %.20f`` every accepted step, as lorads_tpu's jax.debug.print
+trace (alm.py:36-43, 171-189; lorads_alm.c:1081-1089, 1116-1118).
+
 The outer loop hands control back to the host after every outer
 iteration (lorads_tpu batches several per dispatch and sizes the batch
 against a TPU worker's time limit, which the port does not need), so the
@@ -33,10 +41,16 @@ from lorads_torch import device as dev
 from lorads_torch.alg import aop, devloop
 from lorads_torch.alg.aop import ProblemData
 from lorads_torch.alg.linesearch import alm_line_search
-from lorads_torch.alg.state import (FactorVec, LBFGSHistory, history_push,
-                                    history_reset, lbfgs_direction)
+from lorads_torch.alg.state import (FactorVec, LBFGSHistory, fv_norm2sq,
+                                    history_push, history_reset,
+                                    lbfgs_direction)
 
 EASY, MEDIUM, HARD, SUPER = 0, 1, 2, 3
+
+# The FIX_INI_POINT step trace (see the module docstring); read when an
+# inner loop is built, and part of its key, so a graph of one setting is
+# never replayed under the other.
+TRACE_FIX_INI = False
 
 
 @dataclasses.dataclass
@@ -106,13 +120,15 @@ def alm_obj_dimacs(pd: ProblemData, R: FactorVec, dual, scale):
     return total, [pobj, dobj, pinf, gap]
 
 
-def _inner_step(pd: ProblemData, check_pinf_conv: bool):
+def _inner_step(pd: ProblemData, check_pinf_conv: bool, trace: bool = False):
     """The masked inner L-BFGS step and the loop's exit test
     (lorads_alm.c:1073-1150; lorads_tpu alm.py:150-233) ->
     (running, step): ``running(inputs, state)`` is the loop condition
-    on the device; ``step(inputs, state, refresh)`` one iteration, the
-    state unchanged where the condition fails.  ``refresh``: this step
-    recomputes the caches and A(RR^T) (every refresh_every steps)."""
+    on the device; ``step(inputs, state, kind)`` one iteration, the
+    state unchanged where the condition fails.  ``kind`` is ``refresh``
+    (this step recomputes the caches and A(RR^T), every refresh_every
+    steps), or with ``trace`` (refresh, j): the step also writes
+    [||D||, tau, accepted, ran] into row j of the state's last tensor."""
     pinf_scale = (1.0 + pd.b_nrm1) / (1.0 + pd.b_nrm_inf)
 
     def running(inp, st):
@@ -125,10 +141,11 @@ def _inner_step(pd: ProblemData, check_pinf_conv: bool):
             run = run & ~((pinf * pinf_scale <= phase1_tol) & gap_ok)
         return run
 
-    def step(inp, st, refresh):
+    def step(inp, st, kind):
         dual, rho, _, _, end_tau_tol = inp[:5]
+        refresh, j = kind if trace else (kind, None)
         R, grad, hist, caches, cs, cert, pinf, it, tau, num_err, \
-            tau_small = st
+            tau_small = st[:11]
         run = running(inp, st)
         hist = history_reset(hist, run & (it % 300 == 0))
         D = lbfgs_direction(hist, grad)
@@ -163,12 +180,30 @@ def _inner_step(pd: ProblemData, check_pinf_conv: bool):
             tuple(map(sel, a.cones, b.cones)), sel(a.lp, b.lp))
         caches = tuple(c if c is None else aop.CRCache(sel(n.cr, c.cr))
                        for n, c in zip(can, caches))
-        return (fv(Rn, R), fv(gn, grad), hist, caches, sel(total, cs),
-                sel(cert_n, cert), sel(pinf_n, pinf),
-                it + run.to(it.dtype), torch.where(run, tau_n, tau),
-                torch.where(run, err_n, num_err),
-                torch.where(run, small_n, tau_small))
+        out = (fv(Rn, R), fv(gn, grad), hist, caches, sel(total, cs),
+               sel(cert_n, cert), sel(pinf_n, pinf),
+               it + run.to(it.dtype), torch.where(run, tau_n, tau),
+               torch.where(run, err_n, num_err),
+               torch.where(run, small_n, tau_small))
+        if not trace:
+            return out
+        tr = st[11].clone()
+        tr[j] = torch.stack([torch.sqrt(fv_norm2sq(D)), tau_n,
+                             ok.to(tau_n.dtype), run.to(tau_n.dtype)]
+                            ).to(tr.dtype)
+        return out + (tr,)
     return running, step
+
+
+def _print_trace(out, positions, K):
+    """The FIX_INI lines of the steps at ``positions`` from a pack
+    ``out`` (its slots after the loop's seven values)."""
+    for p in positions:
+        nrm, tau, ok, ran = out[7 + 4 * (p % K): 11 + 4 * (p % K)]
+        if ran:
+            print(f"nrm2U: {nrm:.20f}")
+            if ok:
+                print(f"tau: {tau:.20f}")
 
 
 # ALM inner steps a chunk on the card, a divisor of the cache refresh
@@ -192,7 +227,8 @@ def inner_loop(pd: ProblemData, R: FactorVec, grad: FactorVec,
     (device head and valid count), the caches, A(RR^T), cert, pinf and
     the step's it, tau, num_err and tau_small.  The history reset at
     it % 300 == 0 is a device select in the step.  The pack: (running,
-    cert, pinf, it, tau, num_err, tau_small)."""
+    cert, pinf, it, tau, num_err, tau_small), and with TRACE_FIX_INI the
+    chunk's [K, 4] trace slots, printed after each read."""
     if caches is None:
         caches = aop.gather_caches(pd, R)
     dt, dv = pd.rhs.dtype, pd.rhs.device
@@ -200,7 +236,8 @@ def inner_loop(pd: ProblemData, R: FactorVec, grad: FactorVec,
     def scalar(v, dtype=dt):
         return devloop.scalar(v, dtype, dv)
 
-    running, step = _inner_step(pd, check_pinf_conv)
+    trace, K = TRACE_FIX_INI, INNER_CHUNK
+    running, step = _inner_step(pd, check_pinf_conv, trace)
     inputs = (dual, scalar(rho), scalar(cert_tol), scalar(end_sub_tol),
               scalar(end_tau_tol), scalar(phase1_tol),
               scalar(gap_ok, torch.bool), scalar(max_local, torch.int64))
@@ -209,17 +246,25 @@ def inner_loop(pd: ProblemData, R: FactorVec, grad: FactorVec,
              aop.primal_infeas_l1(pd, constr_sum),
              torch.zeros((), dtype=torch.int64, device=dv),
              torch.zeros((), dtype=dt, device=dv), false, false)
+    if trace:
+        state += (torch.zeros((K, 4), dtype=torch.float64, device=dv),)
 
     def pack(inp, st):
-        return torch.stack([x.to(torch.float64) for x in (
+        out = torch.stack([x.to(torch.float64) for x in (
             running(inp, st), st[5], st[6], st[7], st[8], st[9], st[10])])
+        return torch.cat([out, st[11].reshape(-1)]) if trace else out
+
+    def kind(it):
+        refresh = it % refresh_every == refresh_every - 1
+        return (refresh, it % K) if trace else refresh
 
     return devloop.Loop(
         key=("alm_inner", devloop.ident(pd), check_pinf_conv,
-             refresh_every),
-        step=step, pack=pack, inputs=inputs, state=state, K=INNER_CHUNK,
-        label="alm_inner",
-        kind=lambda it: it % refresh_every == refresh_every - 1)
+             refresh_every, trace),
+        step=step, pack=pack, inputs=inputs, state=state, K=K,
+        label="alm_inner", kind=kind,
+        on_read=(lambda out, pos: _print_trace(out, pos, K)) if trace
+        else None)
 
 
 def _inner_loop(pd: ProblemData, R: FactorVec, grad: FactorVec,

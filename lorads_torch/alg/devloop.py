@@ -91,7 +91,9 @@ def scalar(v, dtype, device) -> torch.Tensor:
 @dataclasses.dataclass
 class Loop:
     """One run of a masked loop: its key, step, pack, inputs (read, not
-    changed), initial state, chunk length K, host-read label and kind."""
+    changed), initial state, chunk length K, host-read label and kind;
+    ``on_read(out, positions)``, if given, is called after each host
+    read with the pack read and the positions of the steps it covers."""
 
     key: Any
     step: Callable
@@ -101,6 +103,7 @@ class Loop:
     K: int
     label: str
     kind: Callable = _no_kind
+    on_read: Callable = None
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +272,11 @@ def graph_chunk(loop: Loop, start: int = 0):
     return g, lambda: bufs.load(in_leaves, st_leaves), bufs
 
 
+def _read(loop: Loop, out, start: int, end: int) -> None:
+    if loop.on_read is not None:
+        loop.on_read(out, range(start, end))
+
+
 def run(loop: Loop):
     """Run the loop to its exit -> (final state, the last pack read to
     the host as a list)."""
@@ -280,8 +288,9 @@ def run(loop: Loop):
         while True:
             for p in range(pos, pos + n):
                 state = loop.step(loop.inputs, state, loop.kind(p))
-            pos += n
             out = dev.host_read(loop.pack(loop.inputs, state), loop.label)
+            _read(loop, out, pos, pos + n)
+            pos += n
             if not out[0]:
                 return state, out
     key = _full_key(loop, in_leaves, in_layout, st_leaves, st_layout)
@@ -290,6 +299,7 @@ def run(loop: Loop):
     if bufs is None:
         state = eager_chunk(loop)
         out = dev.host_read(loop.pack(loop.inputs, state), loop.label)
+        _read(loop, out, 0, loop.K)
         st_leaves, _ = flatten(state)
         bufs = _LOOPS[key] = _Buffers(in_layout, st_layout, in_leaves,
                                       st_leaves)
@@ -305,6 +315,7 @@ def run(loop: Loop):
             g = bufs.graphs[kinds] = _capture(bufs, loop, kinds)
         g.replay()
         out = dev.host_read(g.pack, loop.label)
+        _read(loop, out, pos, pos + loop.K)
         pos += loop.K
         if not out[0]:
             return unflatten(st_layout, [t.clone() for t in bufs.state]), out

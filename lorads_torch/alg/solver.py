@@ -15,8 +15,13 @@ as one batch.  Buckets whose blocks touch disjoint constraints sweep
 their blocks at once in ADMM (``_bucket_jacobi``), the others in
 sequence.  A failing dinf without an LP block takes the spectral dual
 repair (alg/spectral_repair.py), then, if that is not accepted, the
-CGNR dual refinement (alg/dualrefine.py).  Everything else raises
-NotImplementedError at construction rather than taking another path.
+CGNR dual refinement (alg/dualrefine.py).  The DUAL_U_V ADMM variant
+(``dual_uv``), the FIX_INI_POINT start and step trace
+(``fix_init_point``), checkpoints at the phase boundaries
+(``checkpoint_path``, utils/checkpoint.py), solution export and warm
+starts (``save_solution``, ``set_initial_factors``) are lorads_tpu's.
+Sharded placement and f32 solves raise NotImplementedError at
+construction rather than taking another path.
 Initial factors and certificate start vectors come from the same
 ``np.random.default_rng`` stream, in the same order, as in lorads_tpu,
 so both packages start from the same point.
@@ -75,14 +80,6 @@ def _not_ported(what: str):
 def _check_params(p: LoradsParams) -> None:
     if p.shard != "off":
         raise _not_ported(f"shard={p.shard!r}")
-    if p.dual_uv:
-        raise _not_ported("the DUAL_U_V ADMM variant (dual_uv)")
-    if p.fix_init_point:
-        raise _not_ported("fix_init_point")
-    if p.checkpoint_path:
-        raise _not_ported("checkpoints")
-    if p.trace_dir:
-        raise _not_ported("device traces (trace_dir)")
 
 
 class LoradsSolver:
@@ -94,6 +91,10 @@ class LoradsSolver:
                  device="cuda"):
         self.params = params or LoradsParams()
         _check_params(self.params)
+        # the FIX_INI_POINT step trace (alm.TRACE_FIX_INI; solver.py:70);
+        # trace_dir is read by the CLI alone (__main__.py), as in
+        # lorads_tpu
+        alm_mod.TRACE_FIX_INI = bool(self.params.fix_init_point)
         self.problem = problem
         self.device = dev.resolve_device(device)
         self.dtype = dev.resolve_dtype(self.params.dtype)
@@ -169,8 +170,12 @@ class LoradsSolver:
     def _rand_factor(self, B, n, r, dims) -> torch.Tensor:
         """U(-1,1) triangular-distribution init (difference of two
         uniforms, LORADS_RANDOM_rk_MAT, lorads_solver.c:361-371);
-        padded rows zeroed."""
-        x = self._rng.random((B, n, r)) - self._rng.random((B, n, r))
+        padded rows zeroed.  With fix_init_point all ones (FIX_INI_POINT,
+        lorads_solver.c:441-445)."""
+        if self.params.fix_init_point:
+            x = np.ones((B, n, r))
+        else:
+            x = self._rng.random((B, n, r)) - self._rng.random((B, n, r))
         for b, d in enumerate(dims):
             x[b, d:, :] = 0.0
         return self._tensor(x)
@@ -179,6 +184,11 @@ class LoradsSolver:
         cones = tuple(self._rand_factor(bp.B, bp.n, r, bp.dims)
                       for bp, r in zip(self.ps.buckets, self.ranks))
         n_lp = self.problem.n_lp_cols
+        if self.params.fix_init_point:
+            # lpFix: e_1 (lorads_solver.c:391-404)
+            lp_np = np.zeros(n_lp)
+            lp_np[:1] = 1.0
+            return FactorVec(cones, self._tensor(lp_np))
         lp = self._tensor(self._rng.random(n_lp) - self._rng.random(n_lp))
         return FactorVec(cones, lp)
 
@@ -188,10 +198,13 @@ class LoradsSolver:
         # ADMM reads them, LORADS_ALMtoADMM, lorads_solver.c:968-1004)
         self.U = self.R
         self.V = self.R
-        # the DUAL_U_V consensus draw, kept so the rng stream matches
+        # the DUAL_U_V consensus term S: SDP cones zero, LP columns drawn
+        # after R (lorads_solver.c:588-606, 659-667), never updated; only
+        # dual_uv's ADMM reads it
         n_lp = self.problem.n_lp_cols
-        self._rng.random(n_lp)
-        self._rng.random(n_lp)
+        self.S = FactorVec(
+            tuple(torch.zeros_like(x) for x in self.R.cones),
+            self._tensor(self._rng.random(n_lp) - self._rng.random(n_lp)))
         self.dual = torch.zeros((self.m,), dtype=self.dtype,
                                 device=self.device)
         self.hist = make_history(self.R, self.lbfgs_len)
@@ -231,6 +244,11 @@ class LoradsSolver:
                                    in zip(fv.cones, new_ranks)), fv.lp)
 
         self.R, self.U, self.V = pad(self.R), pad(self.U), pad(self.V)
+        # S grows by zero columns
+        self.S = FactorVec(tuple(
+            torch.cat([x, x.new_zeros(x.shape[:2] + (nr - x.shape[2],))],
+                      dim=2)
+            for x, nr in zip(self.S.cones, new_ranks)), self.S.lp)
         self.ranks = new_ranks
         self.hist = make_history(self.R, self.lbfgs_len)
         return self.is_rank_max()
@@ -361,7 +379,7 @@ class LoradsSolver:
             c = admm_mod.admm_chunk(p, self.pd, c, self.scale_obj_his,
                                     celling, self._admm_n_dev, reopt=reopt,
                                     gap_stop=gap_stop,
-                                    jacobi=self._bucket_jacobi)
+                                    jacobi=self._bucket_jacobi, S=self.S)
             self._admm_n_dev = min(self.device_chunk_iters,
                                    2 * self._admm_n_dev)
             stats.iter = c["it"]
@@ -480,6 +498,72 @@ class LoradsSolver:
         the LP column values (solver.py:784-805)."""
         fs, lp_vals = self.factor_blocks(R)
         return [F @ F.T for F in fs], lp_vals
+
+    def save_solution(self, path: str) -> None:
+        """Write the solution to an .npz (solver.py:827-841): per-block
+        factors ``f<i>`` (X_i = f_i f_i^T), the LP values ``lp`` (if
+        any) and the unscaled dual ``y``."""
+        dual = dev.host_array(self.dual, "other").astype(np.float64)
+        arrs = {"y": dual / self.scale_obj_his}
+        fs, lp_vals = self.factor_blocks()
+        for i, f in enumerate(fs):
+            arrs[f"f{i}"] = f
+        if lp_vals is not None:
+            arrs["lp"] = lp_vals
+        np.savez_compressed(path, **arrs)
+
+    def set_initial_factors(self, factors, lp_vals=None,
+                            dual=None) -> None:
+        """Warm start (solver.py:843-891): seed R/U/V from per-ORIGINAL
+        block factors (factor_blocks' format) before solve().  Columns
+        past the bucket's rank are truncated; missing columns are filled
+        with the scaled identity (AUG_RANK's fill,
+        lorads_solver.c:776-786).  ``lp_vals``: nonnegative LP column
+        values x (factored as u = sqrt(x)); ``dual``: the UNSCALED dual
+        (SolveResult.dual)."""
+        cones = []
+        for bp, Rb in zip(self.ps.buckets, self.R.cones):
+            new = np.zeros(tuple(Rb.shape))
+            r = Rb.shape[2]
+            for b, plan in enumerate(bp.plans):
+                F = np.asarray(factors[plan.index], dtype=np.float64)
+                if F.ndim != 2 or F.shape[0] != plan.dim:
+                    raise ValueError(
+                        f"block {plan.index}: factor shape {F.shape} "
+                        f"!= ({plan.dim}, r)")
+                k = min(F.shape[1], r)
+                new[b, :plan.dim, :k] = F[:, :k]
+                if F.shape[1] < r:
+                    aug = r - F.shape[1]
+                    rr = min(plan.dim, aug)
+                    new[b, :plan.dim, F.shape[1]:] = (
+                        np.eye(plan.dim, aug) / math.sqrt(max(rr, 1)))
+            cones.append(self._tensor(new))
+        lp = self.R.lp
+        if lp_vals is not None and self.pd.lp is not None:
+            x = np.asarray(lp_vals, dtype=np.float64)
+            if np.any(x < -1e-12):
+                raise ValueError("lp_vals must be nonnegative")
+            lp = self._tensor(np.sqrt(np.maximum(x, 0.0)))
+        fv = FactorVec(tuple(cones), lp)
+        self.R = fv
+        self.U = fv
+        self.V = fv
+        if dual is not None:
+            self.dual = self._tensor(np.asarray(dual, np.float64)
+                                     * self.scale_obj_his)
+        self.hist = make_history(self.R, self.lbfgs_len)
+
+    def save(self, path: str, alm_stats=None, admm_stats=None,
+             phase: str = "alm") -> None:
+        """Checkpoint: utils/checkpoint.save_checkpoint."""
+        from lorads_torch.utils.checkpoint import save_checkpoint
+        save_checkpoint(path, self, alm_stats, admm_stats, phase)
+
+    def load(self, path: str) -> dict:
+        """Restore a checkpoint (either package's): returns its meta."""
+        from lorads_torch.utils.checkpoint import load_checkpoint
+        return load_checkpoint(path, self)
 
     # ------------------------------------------------------------------
     # Dual infeasibility certificate.
@@ -728,11 +812,16 @@ class LoradsSolver:
         self.log("Start solving by ALM and ADMM")
         self.log(dev.backend_report(self.device, self.dtype))
         action = self.alm_phase(alm_stats, t_start)
+        if p.checkpoint_path:
+            self.save(p.checkpoint_path, alm_stats, admm_stats, "post_alm")
         if action == "time_out" or time.time() - t_start > p.time_sec_limit:
             status = SolverStatus.TIME_LIMIT
         else:
             self.alm_to_admm(alm_stats, admm_stats)
             st = self.admm_phase(admm_stats, p.max_admm_iter, t_start)
+            if p.checkpoint_path:
+                self.save(p.checkpoint_path, alm_stats, admm_stats,
+                          "post_admm")
             if st == "time_out":
                 status = SolverStatus.TIME_LIMIT
 

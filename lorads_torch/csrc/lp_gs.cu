@@ -6,7 +6,7 @@
 //
 //   base  = sum_k val_k * (rho * (csum[con_k] - rhs[con_k]) - dual[con_k])
 //   wsum  = (c_j + base) - ((rho * nrm2_j) * u_j) * v_j
-//   m2    = (wsum * v_j) - rho * v_j
+//   m2    = (wsum * v_j) - rho * v_j        [+ s_j, with s]
 //   new_j = ((-m2) / rho) / (1 + (nrm2_j * v_j) * v_j)
 //   csum[con_k] += (val_k * (new_j - u_j)) * v_j      for every entry k
 //
@@ -60,8 +60,14 @@
 //   1170 cycles (0.59 us) a step on an NVIDIA H100 80GB HBM3 at 700 W,
 //   where one dependent shared-memory load takes 29.
 //
-// Both instantiations give the same bits; lt_lp_gs_sweep picks one by m
-// and the dtype.
+// s, when given, is the DUAL_U_V variant's signed consensus term
+// (lorads_tpu/alg/admm.py:253, lorads_admm.c:658-660): a fifth scalar of
+// the column, copied into its piece with the other four, added to m2 as
+// one rounded add.  A null s takes the kernel without the term (HAS_S
+// false), today's code.
+//
+// Both csum instantiations give the same bits; lt_lp_gs_sweep picks one
+// by m, the dtype and whether s is given.
 
 #include <cstdint>
 
@@ -99,10 +105,11 @@ struct Rn<float> {
 
 // Up to SR rounds of a column (its entries PE q .. PE q + PE - 1, lane l
 // of round i holding entry PE q + 32 i + l) in the ring.
-template <typename T>
+template <typename T, bool HAS_S>
 struct Piece {
   T val[PE], rhs[PE], dual[PE];
-  T scal[4];   // obj, nrm2, upd, fixed of the column (its first piece)
+  // obj, nrm2, upd, fixed (and s) of the column (its first piece)
+  T scal[HAS_S ? 5 : 4];
   int con[PE];
   int sorted;  // (the column's last piece) its ids strictly increase
 };
@@ -207,15 +214,16 @@ struct RingPos {
 // its full barrier.  Rounds past the column's last entry are skipped.
 // With short columns (np == 1) the PRODUCERS warps take alternate
 // columns (first, first + stride, ...); longer columns take one warp.
-template <typename T>
-__device__ void produce(Piece<T>* ring, uint64_t* full, uint64_t* empty,
-                        const int* __restrict__ pc_con,
+template <typename T, bool HAS_S>
+__device__ void produce(Piece<T, HAS_S>* ring, uint64_t* full,
+                        uint64_t* empty, const int* __restrict__ pc_con,
                         const T* __restrict__ pc_val,
                         const T* __restrict__ obj, const T* __restrict__ nrm2,
                         const T* __restrict__ upd,
                         const T* __restrict__ fixed,
                         const T* __restrict__ rhs, const T* __restrict__ dual,
-                        int n, int L, int m, int np, int first, int stride) {
+                        const T* __restrict__ sv, int n, int L, int m, int np,
+                        int first, int stride) {
   const int lane = threadIdx.x & 31;
   RingPos fill, pub;       // the piece being copied, the piece published
   fill.advance(first);
@@ -229,7 +237,7 @@ __device__ void produce(Piece<T>* ring, uint64_t* full, uint64_t* empty,
                            : (long)n * np;
   for (long s = 0; s < own + LAG; ++s) {
     if (s < own) {
-      Piece<T>& P = ring[fill.slot];
+      Piece<T, HAS_S>& P = ring[fill.slot];
       if (!mbar_test(&empty[fill.slot], fill.parity ^ 1u))
         mbar_wait(&empty[fill.slot], fill.parity ^ 1u);
       const long col = (long)fj * L;
@@ -244,9 +252,9 @@ __device__ void produce(Piece<T>* ring, uint64_t* full, uint64_t* empty,
           P.con[e] = m;
         }
       }
-      if (fq == 0 && lane < 4) {
+      if (fq == 0 && lane < (HAS_S ? 5 : 4)) {
         const T* src = lane == 0 ? obj : lane == 1 ? nrm2 : lane == 2 ? upd
-                                                                      : fixed;
+                       : lane == 3 ? fixed : sv;
         copy_async(&P.scal[lane], src + fj);
       }
       fill.advance(stride);
@@ -259,7 +267,7 @@ __device__ void produce(Piece<T>* ring, uint64_t* full, uint64_t* empty,
     }
     copies_commit();
     if (s < LAG) continue;
-    Piece<T>& P = ring[pub.slot];
+    Piece<T, HAS_S>& P = ring[pub.slot];
     copies_wait_lag();
     bool up = true;  // this lane's entries follow their predecessors
 #pragma unroll
@@ -287,15 +295,16 @@ __device__ void produce(Piece<T>* ring, uint64_t* full, uint64_t* empty,
 
 // the column's scalars and the parts of its update that do not depend on
 // the chain: q = ((rho nrm2) u) v, rv = rho v, den = 1 + (nrm2 v) v
-template <typename T>
+template <typename T, bool HAS_S>
 struct Scalars {
-  T obj, u, v, q, rv, den;
+  T obj, u, v, q, rv, den, s;
   __device__ __forceinline__ void load(const T* scal, T rho) {
     using R = Rn<T>;
     const T nr2 = scal[1];
     obj = scal[0];
     u = scal[2];
     v = scal[3];
+    if (HAS_S) s = scal[HAS_S ? 4 : 0];
     q = R::mul(R::mul(R::mul(rho, nr2), u), v);
     rv = R::mul(rho, v);
     den = R::add(T(1), R::mul(R::mul(nr2, v), v));
@@ -307,14 +316,15 @@ struct Scalars {
 // lanes (in either order: addition commutes exactly), so every lane ends
 // with the sum lane 0 forms in the shuffle-down tree of the plain
 // version (offsets 16, 8, 4, 2, 1), and computes new_j from it alike.
-template <typename T>
-__device__ __forceinline__ T column_value(T acc, const Scalars<T>& S,
+template <typename T, bool HAS_S>
+__device__ __forceinline__ T column_value(T acc, const Scalars<T, HAS_S>& S,
                                           T rho) {
   using R = Rn<T>;
   for (int off = 16; off > 0; off >>= 1)
     acc = R::add(acc, __shfl_xor_sync(FULL, acc, off));
   const T wsum = R::sub(R::add(S.obj, acc), S.q);
-  const T m2 = R::sub(R::mul(wsum, S.v), S.rv);
+  T m2 = R::sub(R::mul(wsum, S.v), S.rv);
+  if (HAS_S) m2 = R::add(m2, S.s);
   return R::div(R::div(-m2, rho), S.den);
 }
 
@@ -334,17 +344,18 @@ __device__ __forceinline__ void add_in_order(T* cs, int c, T d, int m,
 }
 
 // A column of at most SR rounds (one piece), in registers.
-template <typename T>
+template <typename T, bool HAS_S>
 struct Col {
   int c[SR];
   T val[SR], rhs[SR], dual[SR];
   bool sorted;
-  Scalars<T> S;
+  Scalars<T, HAS_S> S;
 };
 
 // Read a piece into registers as column C (its first nr rounds).
-template <typename T>
-__device__ __forceinline__ void read_col(Col<T>& C, const Piece<T>& P,
+template <typename T, bool HAS_S>
+__device__ __forceinline__ void read_col(Col<T, HAS_S>& C,
+                                         const Piece<T, HAS_S>& P,
                                          int nr, int m, T rho, int lane) {
 #pragma unroll
   for (int i = 0; i < SR; ++i) {
@@ -363,13 +374,13 @@ __device__ __forceinline__ void read_col(Col<T>& C, const Piece<T>& P,
 // whose ids increase (so are distinct) updates csum from the values its
 // sum read, with no second read; new_j is kept by lane j % 32 and the
 // outputs are stored 32 at a time.
-template <typename T>
-__device__ void consume_short(Piece<T>* ring, uint64_t* full,
+template <typename T, bool HAS_S>
+__device__ void consume_short(Piece<T, HAS_S>* ring, uint64_t* full,
                               uint64_t* empty, T* cs, T* __restrict__ out,
                               int n, int m, int nr, T rho) {
   using R = Rn<T>;
   const int lane = threadIdx.x & 31;
-  Col<T> cur;
+  Col<T, HAS_S> cur;
   mbar_wait(&full[0], 0);
   read_col(cur, ring[0], nr, m, rho, lane);
   T mine = T(0);  // new_j of the column j with j % 32 == lane
@@ -379,7 +390,7 @@ __device__ void consume_short(Piece<T>* ring, uint64_t* full,
     for (int i = 0; i < SR; ++i) cv[i] = cur.c[i] < m ? cs[cur.c[i]] : T(0);
     __syncwarp(FULL);  // every lane has read column j's piece
     if (lane == 0) mbar_arrive(&empty[slot_of(j)]);
-    Col<T> nxt;
+    Col<T, HAS_S> nxt;
     const bool more = j + 1 < n;
     bool ready = true;
     if (more) {
@@ -430,9 +441,10 @@ __device__ void consume_short(Piece<T>* ring, uint64_t* full,
 // Warp 0, longer columns (np pieces): round by round.  Each piece is
 // released after the column's sum has read it, and the update reads the
 // column's ids and values again from global memory.
-template <typename T>
-__device__ void consume_long(Piece<T>* ring, uint64_t* full, uint64_t* empty,
-                             T* cs, const int* __restrict__ pc_con,
+template <typename T, bool HAS_S>
+__device__ void consume_long(Piece<T, HAS_S>* ring, uint64_t* full,
+                             uint64_t* empty, T* cs,
+                             const int* __restrict__ pc_con,
                              const T* __restrict__ pc_val,
                              T* __restrict__ out, int n, int L, int m, int np,
                              T rho) {
@@ -441,12 +453,12 @@ __device__ void consume_long(Piece<T>* ring, uint64_t* full, uint64_t* empty,
   const int nr = (L + 31) / 32;
   for (int j = 0; j < n; ++j) {
     const unsigned q0 = (unsigned)j * np;
-    Scalars<T> S;
+    Scalars<T, HAS_S> S;
     bool sorted = false;
     T acc = T(0);
     for (int i = 0; i < nr; ++i) {
       const unsigned q = q0 + i / SR;
-      const Piece<T>& P = ring[slot_of(q)];
+      const Piece<T, HAS_S>& P = ring[slot_of(q)];
       const int e = 32 * (i % SR) + lane;
       if (i % SR == 0) {
         mbar_wait(&full[slot_of(q)], parity_of(q));
@@ -482,18 +494,18 @@ __device__ void consume_long(Piece<T>* ring, uint64_t* full, uint64_t* empty,
   }
 }
 
-template <typename T, bool SMEM_CSUM>
+template <typename T, bool SMEM_CSUM, bool HAS_S>
 __global__ void __launch_bounds__(THREADS, 1)
     lp_gs_kernel(const int* __restrict__ pc_con, const T* __restrict__ pc_val,
                  const T* __restrict__ obj, const T* __restrict__ nrm2,
                  const T* __restrict__ upd, const T* __restrict__ fixed,
                  T* csum, const T* __restrict__ rhs,
-                 const T* __restrict__ dual, T* __restrict__ out, int n, int L,
-                 int m, T rho) {
+                 const T* __restrict__ dual, const T* __restrict__ s,
+                 T* __restrict__ out, int n, int L, int m, T rho) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + RING;
-  Piece<T>* ring = reinterpret_cast<Piece<T>*>(empty + RING);
+  auto* ring = reinterpret_cast<Piece<T, HAS_S>*>(empty + RING);
   T* cs = SMEM_CSUM ? reinterpret_cast<T*>(ring + RING) : csum;
   const int nr = L > 32 ? (L + 31) / 32 : 1;  // rounds per column
   const int np = (nr + SR - 1) / SR;          // pieces per column
@@ -511,7 +523,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int w = threadIdx.x / 32 - 1;  // producer w of PRODUCERS
     if (np == 1 || w == 0)
       produce(ring, full, empty, pc_con, pc_val, obj, nrm2, upd, fixed, rhs,
-              dual, n, L, m, np, w, np == 1 ? PRODUCERS : 1);
+              dual, s, n, L, m, np, w, np == 1 ? PRODUCERS : 1);
   }
   else if (np == 1)
     consume_short(ring, full, empty, cs, out, n, m, nr, rho);
@@ -523,78 +535,97 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int k = threadIdx.x; k < m; k += THREADS) csum[k] = cs[k];
 }
 
-template <typename T>
+template <typename T, bool HAS_S>
 size_t smem_bytes(int m, bool smem_csum) {
-  return 2 * RING * sizeof(uint64_t) + RING * sizeof(Piece<T>) +
+  return 2 * RING * sizeof(uint64_t) + RING * sizeof(Piece<T, HAS_S>) +
          (smem_csum ? (size_t)m * sizeof(T) : 0);
 }
 
 // the largest m whose csum fits in shared memory beside the ring
-template <typename T>
+template <typename T, bool HAS_S>
 int smem_max_m() {
-  return (int)((SMEM_MAX - smem_bytes<T>(0, false)) / sizeof(T));
+  return (int)((SMEM_MAX - smem_bytes<T, HAS_S>(0, false)) / sizeof(T));
 }
 
-template <typename T, bool SMEM_CSUM>
+template <typename T, bool SMEM_CSUM, bool HAS_S>
 int launch_as(const void* pc_con, const void* pc_val, const void* obj,
               const void* nrm2, const void* upd, const void* fixed,
-              void* csum, const void* rhs, const void* dual, void* out, int n,
-              int L, int m, double rho, cudaStream_t stream) {
+              void* csum, const void* rhs, const void* dual, const void* s,
+              void* out, int n, int L, int m, double rho,
+              cudaStream_t stream) {
   static bool raised = false;  // the dynamic shared memory limit, once
   if (!raised) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lp_gs_kernel<T, SMEM_CSUM>,
+        lp_gs_kernel<T, SMEM_CSUM, HAS_S>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     raised = true;
   }
-  lp_gs_kernel<T, SMEM_CSUM><<<1, THREADS, smem_bytes<T>(m, SMEM_CSUM),
-                               stream>>>(
-      static_cast<const int*>(pc_con), static_cast<const T*>(pc_val),
-      static_cast<const T*>(obj), static_cast<const T*>(nrm2),
-      static_cast<const T*>(upd), static_cast<const T*>(fixed),
-      static_cast<T*>(csum), static_cast<const T*>(rhs),
-      static_cast<const T*>(dual), static_cast<T*>(out), n, L, m, (T)rho);
+  lp_gs_kernel<T, SMEM_CSUM, HAS_S>
+      <<<1, THREADS, smem_bytes<T, HAS_S>(m, SMEM_CSUM), stream>>>(
+          static_cast<const int*>(pc_con), static_cast<const T*>(pc_val),
+          static_cast<const T*>(obj), static_cast<const T*>(nrm2),
+          static_cast<const T*>(upd), static_cast<const T*>(fixed),
+          static_cast<T*>(csum), static_cast<const T*>(rhs),
+          static_cast<const T*>(dual), static_cast<const T*>(s),
+          static_cast<T*>(out), n, L, m, (T)rho);
   return (int)cudaGetLastError();
 }
 
 // csum in shared memory when m fits (smem_max_m), else in global memory
-template <typename T>
+template <typename T, bool HAS_S>
 int launch(const void* pc_con, const void* pc_val, const void* obj,
            const void* nrm2, const void* upd, const void* fixed, void* csum,
-           const void* rhs, const void* dual, void* out, int n, int L, int m,
-           double rho, cudaStream_t stream) {
+           const void* rhs, const void* dual, const void* s, void* out, int n,
+           int L, int m, double rho, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  return m <= smem_max_m<T>()
-             ? launch_as<T, true>(pc_con, pc_val, obj, nrm2, upd, fixed, csum,
-                                  rhs, dual, out, n, L, m, rho, stream)
-             : launch_as<T, false>(pc_con, pc_val, obj, nrm2, upd, fixed,
-                                   csum, rhs, dual, out, n, L, m, rho,
-                                   stream);
+  return m <= smem_max_m<T, HAS_S>()
+             ? launch_as<T, true, HAS_S>(pc_con, pc_val, obj, nrm2, upd,
+                                         fixed, csum, rhs, dual, s, out, n, L,
+                                         m, rho, stream)
+             : launch_as<T, false, HAS_S>(pc_con, pc_val, obj, nrm2, upd,
+                                          fixed, csum, rhs, dual, s, out, n,
+                                          L, m, rho, stream);
+}
+
+template <typename T>
+int launch_s(const void* pc_con, const void* pc_val, const void* obj,
+             const void* nrm2, const void* upd, const void* fixed,
+             void* csum, const void* rhs, const void* dual, const void* s,
+             void* out, int n, int L, int m, double rho,
+             cudaStream_t stream) {
+  return s ? launch<T, true>(pc_con, pc_val, obj, nrm2, upd, fixed, csum,
+                             rhs, dual, s, out, n, L, m, rho, stream)
+           : launch<T, false>(pc_con, pc_val, obj, nrm2, upd, fixed, csum,
+                              rhs, dual, s, out, n, L, m, rho, stream);
 }
 
 }  // namespace
 
 // pc_con int32 [n, L] (padding = m), pc_val [n, L], obj / nrm2 / upd /
-// fixed [n], csum [m] updated in place, rhs / dual [m], out [n]; all
-// contiguous.  is_f64: 1 for float64, 0 for float32.  csum stays in
-// shared memory during the sweep when m <= lt_lp_gs_smem_max_m(is_f64),
-// else in global memory.  Returns cudaGetLastError().
+// fixed [n], csum [m] updated in place, rhs / dual [m], s [n] or null (no
+// DUAL_U_V term), out [n]; all contiguous.  is_f64: 1 for float64, 0 for
+// float32.  csum stays in shared memory during the sweep when
+// m <= lt_lp_gs_smem_max_m(is_f64, s != null), else in global memory.
+// Returns cudaGetLastError().
 extern "C" int lt_lp_gs_sweep(int is_f64, const void* pc_con,
                               const void* pc_val, const void* obj,
                               const void* nrm2, const void* upd,
                               const void* fixed, void* csum,
-                              const void* rhs, const void* dual, void* out,
-                              int n, int L, int m, double rho,
-                              void* stream) {
+                              const void* rhs, const void* dual,
+                              const void* s, void* out, int n, int L, int m,
+                              double rho, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(pc_con, pc_val, obj, nrm2, upd, fixed, csum,
-                                 rhs, dual, out, n, L, m, rho, st)
-                : launch<float>(pc_con, pc_val, obj, nrm2, upd, fixed, csum,
-                                rhs, dual, out, n, L, m, rho, st);
+  return is_f64 ? launch_s<double>(pc_con, pc_val, obj, nrm2, upd, fixed,
+                                   csum, rhs, dual, s, out, n, L, m, rho, st)
+                : launch_s<float>(pc_con, pc_val, obj, nrm2, upd, fixed, csum,
+                                  rhs, dual, s, out, n, L, m, rho, st);
 }
 
-// The largest m whose csum lt_lp_gs_sweep keeps in shared memory.
-extern "C" int lt_lp_gs_smem_max_m(int is_f64) {
-  return is_f64 ? smem_max_m<double>() : smem_max_m<float>();
+// The largest m whose csum lt_lp_gs_sweep keeps in shared memory, without
+// s (has_s 0) and with it (has_s 1: a piece holds one more scalar).
+extern "C" int lt_lp_gs_smem_max_m(int is_f64, int has_s) {
+  if (has_s)
+    return is_f64 ? smem_max_m<double, true>() : smem_max_m<float, true>();
+  return is_f64 ? smem_max_m<double, false>() : smem_max_m<float, false>();
 }

@@ -57,17 +57,29 @@ def resolve_dtype(name: str) -> torch.dtype:
         f"dtype={name!r} not yet ported to lorads_torch")
 
 
-def host_read(t: torch.Tensor, label: str):
-    """Copy a (small) device tensor to the host as Python numbers,
-    counting the sync under ``label`` (one of LABELS).  0-d tensors give
-    a float, others a list."""
+def _count_read(t: torch.Tensor, label: str) -> None:
     global HOST_SYNCS
     if t.is_cuda and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(f"host read ({label}) inside a CUDA graph "
                            "capture")
     HOST_SYNCS_BY[label] += 1
     HOST_SYNCS += 1
+
+
+def host_read(t: torch.Tensor, label: str):
+    """Copy a (small) device tensor to the host as Python numbers,
+    counting the sync under ``label`` (one of LABELS).  0-d tensors give
+    a float, others a list."""
+    _count_read(t, label)
     return t.item() if t.dim() == 0 else t.tolist()
+
+
+def host_array(t: torch.Tensor, label: str):
+    """Copy a device tensor to the host as a NumPy array, counted as one
+    read under ``label`` as host_read is (checkpoints and solution
+    files, which need the bits and the shape, not Python numbers)."""
+    _count_read(t, label)
+    return t.detach().cpu().numpy()
 
 
 def reset_host_syncs() -> None:

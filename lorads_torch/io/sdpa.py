@@ -17,9 +17,12 @@ Reproduces the semantics of the reference reader `LReadSDPA`
 
 The output is a host-side :class:`~lorads_torch.core.problem.SDPProblem`.
 
-A copy of ``lorads_tpu/io/sdpa.py`` without its C tokenizer fast path:
-the pure-Python reader below is the only one (the native reader is
-queued for a later slice of the port).
+A copy of ``lorads_tpu/io/sdpa.py``: the C++ tokenizer
+(lorads_torch/native, built with g++ on first use) reads the file and
+``_from_raw`` applies the rules above as NumPy ops; without g++ (or if
+the build fails) the pure-Python reader below takes the file.
+``LAST_READER`` names the reader of the last file read ("native" or
+"python").
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ import numpy as np
 from lorads_torch.core.problem import LPBlockData, SDPBlockData, SDPProblem
 
 TINY_ENTRY_TOL = 1e-12  # lorads_file_io.c:250
+
+# the reader that took the last file: "native" or "python"
+LAST_READER = None
 
 
 def _data_lines(path):
@@ -50,9 +56,90 @@ def _parse_int_list(tokens):
     return out
 
 
-def read_sdpa(path: str) -> SDPProblem:
-    """Parse an SDPA .dat-s file into an SDPProblem (pure Python)."""
-    return _read_sdpa_python(path)
+def read_sdpa(path: str, native: bool = True) -> SDPProblem:
+    """Parse an SDPA .dat-s file into an SDPProblem: the C++ tokenizer
+    first (``native``), else the pure-Python reader."""
+    global LAST_READER
+    if native:
+        problem = _read_sdpa_native(path)
+        if problem is not None:
+            LAST_READER = "native"
+            return problem
+    problem = _read_sdpa_python(path)
+    LAST_READER = "python"
+    return problem
+
+
+def _read_sdpa_native(path: str):
+    """The file through the native tokenizer, or None without it."""
+    from lorads_torch import native as native_mod
+
+    lib = native_mod.load()
+    if lib is None:
+        return None
+    h = lib.sdpa_parse(str(path).encode())
+    try:
+        err = lib.sdpa_error(h)
+        if err:
+            raise ValueError(
+                f"SDPA parse error: {err.decode()} ({path})")
+        m = int(lib.sdpa_m(h))
+        nb = int(lib.sdpa_n_blocks(h))
+        ne = int(lib.sdpa_n_entries(h))
+        dims = np.zeros(nb, dtype=np.int64)
+        rhs = np.zeros(m, dtype=np.float64)
+        lib.sdpa_copy_header(h, dims.ctypes.data, rhs.ctypes.data)
+        con = np.zeros(ne, dtype=np.int32)
+        blk = np.zeros(ne, dtype=np.int32)
+        row = np.zeros(ne, dtype=np.int32)
+        col = np.zeros(ne, dtype=np.int32)
+        val = np.zeros(ne, dtype=np.float64)
+        lib.sdpa_copy_entries(h, con.ctypes.data, blk.ctypes.data,
+                              row.ctypes.data, col.ctypes.data,
+                              val.ctypes.data)
+    finally:
+        lib.sdpa_free(h)
+    return _from_raw(m, list(dims), rhs, con, blk, row, col, val)
+
+
+def _from_raw(m, dims, rhs, con, blk, row, col, val) -> SDPProblem:
+    """Apply the reference reader's semantic rules to raw 1-based
+    5-tuples (vectorized): tiny-entry drop, objective negation, LP
+    block split, lower-tri normalization, dedup."""
+    keep = np.abs(val) >= TINY_ENTRY_TOL
+    con, blk = con[keep], blk[keep]
+    row, col, val = row[keep], col[keep], val[keep].copy()
+    val[con == 0] = -val[con == 0]
+
+    n_lp = 0
+    sdp_dims = []
+    for i, d in enumerate(dims):
+        if d < 0:
+            if i != len(dims) - 1:
+                raise ValueError("LP (negative-dim) block must be last")
+            n_lp = -int(d)
+        else:
+            sdp_dims.append(int(d))
+    n_sdp = len(sdp_dims)
+    lp_block_id = n_sdp + 1  # 1-based block id of the LP block
+
+    blocks = []
+    for j in range(n_sdp):
+        sel = blk == (j + 1)
+        r = np.maximum(row[sel], col[sel]) - 1
+        c = np.minimum(row[sel], col[sel]) - 1
+        blocks.append(_make_block(
+            sdp_dims[j], m, con[sel].astype(np.int64),
+            r.astype(np.int64), c.astype(np.int64), val[sel]))
+
+    lp = None
+    if n_lp > 0:
+        sel = blk == lp_block_id
+        lp = _make_lp_block(
+            n_lp, m, con[sel].astype(np.int64),
+            (row[sel] - 1).astype(np.int64), val[sel])
+
+    return SDPProblem(m=m, rhs=rhs, blocks=blocks, lp=lp)
 
 
 def _read_sdpa_python(path: str) -> SDPProblem:

@@ -47,9 +47,8 @@ _SIGNATURES = {
     "lt_wmul_tiled": [_I, *[_VP] * 11, *[_I] * 9, _VP],
     "lt_adj_a_offdiag": [_I, *[_VP] * 12, *[_I] * 8, _VP],
     "lt_adj_a_dense": [_I, _VP, _VP, _VP, _VP, _I, _I, _VP],
-    "lt_lp_gs_sweep": [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                       _I, _I, _I, ctypes.c_double, _VP],
-    "lt_lp_gs_smem_max_m": [_I],
+    "lt_lp_gs_sweep": [_I, *[_VP] * 11, _I, _I, _I, ctypes.c_double, _VP],
+    "lt_lp_gs_smem_max_m": [_I, _I],
     "lt_onehot_scatter": [_I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "lt_onehot_gather": [_I, _VP, _VP, _VP, _I, _I, _VP],
     "lt_row_gather": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],

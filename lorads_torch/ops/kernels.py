@@ -70,9 +70,12 @@ KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # of LAUNCHES["uvt_split"], those with V is U (one dot an entry)
 ONE_DOT_LAUNCHES = {"uvt_split": 0}
+# of LAUNCHES["lp_gs_sweep"], those with the DUAL_U_V term s
+WITH_S_LAUNCHES = {"lp_gs_sweep": 0}
 # devloop's graphs captured and replayed, and the launches of the replays
 GRAPHS = {"captured": 0, "replayed": 0, "launches": 0}
-_TABLES = {"launches": LAUNCHES, "one_dot": ONE_DOT_LAUNCHES}
+_TABLES = {"launches": LAUNCHES, "one_dot": ONE_DOT_LAUNCHES,
+           "with_s": WITH_S_LAUNCHES}
 # the launches of the graph being captured, (table, name) -> count
 _TALLY = None
 
@@ -664,11 +667,12 @@ def adj_a_dense(X: torch.Tensor, a2: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def lp_gs_sweep_plain(pc_con, pc_val, obj, nrm2, upd, fixed, csum, rhs, dual,
-                      rho):
+                      rho, s=None):
     """A Python loop over the columns, in the kernel's order of
     operations: each lane l of 32 sums the terms k = l, l+32, ... in
     order, the partial sums combine as the shuffle tree does, and the
-    deltas are added one per constraint slot."""
+    deltas are added one per constraint slot.  ``s`` [n]: the DUAL_U_V
+    term, added to m2 last."""
     n, L = pc_con.shape
     m = csum.shape[0]
     csum = csum.clone()
@@ -693,6 +697,8 @@ def lp_gs_sweep_plain(pc_con, pc_val, obj, nrm2, upd, fixed, csum, rhs, dual,
         u, v, nr = upd[j], fixed[j], nrm2[j]
         wsum = (obj[j] + acc[0]) - rho * nr * u * v
         m2 = wsum * v - rho * v
+        if s is not None:
+            m2 = m2 + s[j]
         nj = (-m2 / rho_t) / (1.0 + nr * v * v)
         new[j] = nj
         csum.index_add_(0, con[ok], pc_val[j][ok] * (nj - u) * v)
@@ -702,26 +708,31 @@ def lp_gs_sweep_plain(pc_con, pc_val, obj, nrm2, upd, fixed, csum, rhs, dual,
 def lp_gs_sweep(pc_con: torch.Tensor, pc_val: torch.Tensor,
                 obj: torch.Tensor, nrm2: torch.Tensor, upd: torch.Tensor,
                 fixed: torch.Tensor, csum: torch.Tensor, rhs: torch.Tensor,
-                dual: torch.Tensor, rho: float):
+                dual: torch.Tensor, rho: float,
+                s: Optional[torch.Tensor] = None):
     """K8c.  pc_con int32 [n, L] (padding ids = m) and pc_val [n, L]: the
     columns' padded entries; obj, nrm2 (||a_j||^2), upd (u), fixed (v)
-    [n]; csum, rhs, dual [m] -> (new u [n], csum after the sweep [m]).
-    ``csum`` itself is not modified."""
+    [n]; csum, rhs, dual [m]; ``s`` [n] or None: the DUAL_U_V variant's
+    signed term, m2 + s_j (admm.py:253) -> (new u [n], csum after the
+    sweep [m]).  ``csum`` itself is not modified."""
     n, L = pc_con.shape
     m = csum.shape[0]
     if (pc_val.shape != pc_con.shape or rhs.shape != (m,)
             or dual.shape != (m,)
-            or any(t.shape != (n,) for t in (obj, nrm2, upd, fixed))):
+            or any(t.shape != (n,) for t in (obj, nrm2, upd, fixed))
+            or (s is not None and s.shape != (n,))):
         raise ValueError("lp_gs_sweep: inconsistent shapes")
     if not _check("lp_gs_sweep", [csum, pc_val, obj, nrm2, upd, fixed, rhs,
-                                  dual], [pc_con]):
+                                  dual, s], [pc_con]):
         return lp_gs_sweep_plain(pc_con, pc_val, obj, nrm2, upd, fixed,
-                                 csum, rhs, dual, float(rho))
+                                 csum, rhs, dual, float(rho), s)
     out_sum = csum.clone()
     new = torch.empty_like(upd)
     _launch("lp_gs_sweep", "lt_lp_gs_sweep", _is_f64(csum), pc_con.data_ptr(),
             pc_val.data_ptr(), obj.data_ptr(), nrm2.data_ptr(),
             upd.data_ptr(), fixed.data_ptr(), out_sum.data_ptr(),
-            rhs.data_ptr(), dual.data_ptr(), new.data_ptr(), n, L, m,
-            float(rho))
+            rhs.data_ptr(), dual.data_ptr(), _ptr(s), new.data_ptr(), n, L,
+            m, float(rho))
+    if s is not None:
+        _bump("with_s", "lp_gs_sweep")
     return new, out_sum

@@ -20,6 +20,14 @@ so the kernels are built and loaded):
   device items by name.  (A whole theta solve launches ~10^6 kernels,
   whose trace takes longer to process than the solve takes to run.)
 
+With ``--resume`` each instance instead gets ``--walls`` rounds, in
+turns, of a cold solve, a solve that checkpoints at its phase
+boundaries (``checkpoint_path``), a solve resumed from that checkpoint
+(``LoradsSolver.load``) and one warm-started from the checkpointed
+solve's solution file (``save_solution``, ``set_initial_factors``):
+walls (construction, load or warm start included), ALM inner steps,
+ADMM iterations and host syncs of each.
+
 The instances are chip_smoke.py's main-path instances, solved with
 its options for each (``PARAMS``).  ``--cg-chunk`` and ``--alm-chunk``
 set the device loops' chunk lengths (``cg.CHUNK``, ``alm.INNER_CHUNK``)
@@ -33,8 +41,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from chip_smoke import INSTANCES, PARAMS
@@ -186,6 +197,48 @@ def profile_instance(name, walls, window):
     return out
 
 
+def resume_walls(name, walls):
+    """{kind: [wall, ...]} of cold, checkpointed, resumed and warm-started
+    solves of one instance, ``walls`` rounds in turns, with each kind's
+    last ALM inner steps, ADMM iterations, host syncs and pObj."""
+    problem = INSTANCES[name]()
+    kinds = ("cold", "checkpointed", "resumed", "warm")
+    out = dict(instance=name, walls={k: [] for k in kinds})
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, sol = os.path.join(tmp, "state.ckpt"), os.path.join(tmp,
+                                                                 "sol.npz")
+        for _ in range(walls):
+            for kind in kinds:
+                extra = dict(checkpoint_path=ck) if kind == \
+                    "checkpointed" else {}
+                torch.cuda.synchronize()
+                dev.reset_host_syncs()
+                t0 = time.time()
+                solver = LoradsSolver(problem, LoradsParams(
+                    verbose=False, **PARAMS.get(name, {}), **extra),
+                    device="cuda")
+                if kind == "resumed":
+                    solver.load(ck)
+                elif kind == "warm":
+                    with np.load(sol) as z:
+                        fs = [z[f"f{i}"]
+                              for i in range(problem.n_sdp_blocks)]
+                        solver.set_initial_factors(
+                            fs, z["lp"] if "lp" in z.files else None,
+                            dual=z["y"])
+                res = solver.solve()
+                torch.cuda.synchronize()
+                out["walls"][kind].append(time.time() - t0)
+                out[kind] = dict(
+                    status=res.status.value, pobj=res.pobj,
+                    alm_inner=res.alm_stats.inner_iter,
+                    admm=res.admm_stats.iter, host_syncs=dev.HOST_SYNCS,
+                    host_syncs_by=dict(dev.HOST_SYNCS_BY))
+                if kind == "checkpointed":
+                    solver.save_solution(sol)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("instances", nargs="+", choices=sorted(INSTANCES))
@@ -194,6 +247,9 @@ def main(argv=None) -> int:
                     help="host syncs traced per phase")
     ap.add_argument("--cg-chunk", type=int, help="cg.CHUNK")
     ap.add_argument("--alm-chunk", type=int, help="alm.INNER_CHUNK")
+    ap.add_argument("--resume", action="store_true",
+                    help="walls of cold, checkpointed, resumed and "
+                    "warm-started solves in turns")
     args = ap.parse_args(argv)
     if args.cg_chunk:
         cg_mod.CHUNK = args.cg_chunk
@@ -207,8 +263,9 @@ def main(argv=None) -> int:
                       "alm_chunk": alm_mod.INNER_CHUNK}))
     _solve(INSTANCES["maxcut300"]())        # build, load, warm up
     for name in args.instances:
-        print(json.dumps(profile_instance(name, args.walls, args.window)),
-              flush=True)
+        out = (resume_walls(name, args.walls) if args.resume else
+               profile_instance(name, args.walls, args.window))
+        print(json.dumps(out), flush=True)
     print(f"card: {card}")
     return 0
 

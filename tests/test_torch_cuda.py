@@ -927,7 +927,8 @@ def test_lp_gs_sweep_kernel_cases_bit_for_bit(case, dtype):
     cpu = _lp_sweep_case(case, dtype, rng)
     m = cpu[6].shape[0]
     from lorads_torch.ops import build
-    smem_max_m = build.load().lt_lp_gs_smem_max_m(int(dtype == torch.float64))
+    smem_max_m = build.load().lt_lp_gs_smem_max_m(int(dtype == torch.float64),
+                                                  0)
     assert (m <= smem_max_m) == (case != "global_m")
     dev = tuple(t.to("cuda") for t in cpu[:-1]) + (cpu[-1],)
     before = kernels.LAUNCHES["lp_gs_sweep"]
@@ -936,6 +937,37 @@ def test_lp_gs_sweep_kernel_cases_bit_for_bit(case, dtype):
     ref = kernels.lp_gs_sweep_plain(*cpu)
     for g, e in zip(got, ref):
         assert torch.equal(g.cpu(), e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["global_m", "repeated_id", "odd_L",
+                                  "one_column", "past_ring",
+                                  "long_10_rounds"])
+def test_lp_gs_sweep_kernel_with_s_bit_for_bit(case, dtype):
+    """K8c with the DUAL_U_V term s (a random signed [n]) against its
+    plain version on the CPU, bit for bit, in both csum instantiations
+    (the s kernel's shared-memory room is its own); and s moves the
+    result."""
+    _need_cuda()
+    rng = np.random.default_rng(23)
+    cpu = _lp_sweep_case(case, dtype, rng)
+    n, m = cpu[0].shape[0], cpu[6].shape[0]
+    s = torch.as_tensor(rng.standard_normal(n), dtype=dtype)
+    from lorads_torch.ops import build
+    lib = build.load()
+    is64 = int(dtype == torch.float64)
+    assert lib.lt_lp_gs_smem_max_m(is64, 1) < lib.lt_lp_gs_smem_max_m(is64, 0)
+    assert (m <= lib.lt_lp_gs_smem_max_m(is64, 1)) == (case != "global_m")
+    dev = tuple(t.to("cuda") for t in cpu[:-1]) + (cpu[-1],)
+    before = kernels.LAUNCHES["lp_gs_sweep"]
+    got = kernels.lp_gs_sweep(*dev, s=s.to("cuda"))
+    assert kernels.LAUNCHES["lp_gs_sweep"] == before + 1
+    ref = kernels.lp_gs_sweep_plain(*cpu, s)
+    for g, e in zip(got, ref):
+        assert torch.equal(g.cpu(), e)
+    without = kernels.lp_gs_sweep(*dev)
+    assert not torch.equal(without[0].cpu(), ref[0])
 
 
 # ---------------------------------------------------------------------------

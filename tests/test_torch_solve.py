@@ -252,17 +252,12 @@ def test_device_cuda_without_gpu_raises():
                     LoradsParams(verbose=False))
 
 
-@pytest.mark.parametrize("case", ["dual_uv", "fix_init_point", "shard",
-                                  "f32", "checkpoint_path", "trace_dir"])
+@pytest.mark.parametrize("case", ["shard", "f32"])
 def test_out_of_slice_raises(case):
     problem = t_gen.maxcut(n=300, avg_degree=4, seed=3)
     params = LoradsParams(verbose=False, **{
-        "dual_uv": dict(dual_uv=True),
-        "fix_init_point": dict(fix_init_point=True),
         "shard": dict(shard="dp"),
         "f32": dict(dtype="f32"),
-        "checkpoint_path": dict(checkpoint_path="state.npz"),
-        "trace_dir": dict(trace_dir="traces"),
     }[case])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TorchSolver(problem, params, device="cpu")
