@@ -114,7 +114,10 @@ Phases, each reported on its own lines:
    ``save_solution``'s file, each certified within 1e-4 of the first
    solve, with walls and ALM inner counts; one solve inside
    ``utils.profiling.device_trace``, its trace's kernel events of the
-   port counted (and whether a kernel event names its graph);
+   port counted (and whether a kernel event names its graph), and a
+   hand_multiblock solve traced through its ADMM phase (the chunk
+   graphs run with the trace's CUDA collection paused, ROADMAP §3 F4:
+   its ``devloop.*`` ranges counted);
    ``fix_init_point`` on maxcut20000 (max_alm_iter=2: one nrm2U line
    per inner step, all finite) and its trace on the card against the
    CPU run in this process: maxcut300's first 2 values (after that step
@@ -233,9 +236,9 @@ PATH_KERNELS = {
     "maxcut": ("cmul_csr", "uvt_split"),
     "matcomp": ("uvt_split", "uvt_pair_split", "gather_segsum", "wmul_csr",
                 "adj_a_offdiag"),
-    "theta": ("gather_segsum", "adj_a_dense"),
+    "theta": ("gather_segsum", "adj_a_dense", "loop_cond"),
     "cgnr": ("gather_segsum", "adj_a_dense"),
-    "lp": ("gather_segsum", "lp_gs_sweep"),
+    "lp": ("gather_segsum", "lp_gs_sweep", "loop_cond"),
     "batch": ("cmul_csr", "uvt_split"),
     "extras": ("cmul_csr", "uvt_split", "gather_segsum", "lp_gs_sweep"),
     "probes": ("onehot_scatter", "onehot_gather", "row_gather",
@@ -1600,10 +1603,10 @@ def scatter_edge_checks(dev, rng):
 
 
 def _devloop_cg(name):
-    """(label, the CG loop) of the first ADMM-like solve of ``name``'s
-    first bucket: the mixed-precision CG's f32 inner loop as the solve
-    runs it (the bucket's f32 cast, the solver's initial factor as F, a
-    seeded right-hand side, from zero, inner_tol 1e-5)."""
+    """The CG loop (device-decided) of the first ADMM-like solve of
+    ``name``'s first bucket: the mixed-precision CG's f32 inner loop as
+    the solve runs it (the bucket's f32 cast, the solver's initial factor
+    as F, a seeded right-hand side, from zero, inner_tol 1e-5)."""
     import numpy as np
     import torch
 
@@ -1636,15 +1639,205 @@ def _devloop_alm(name):
                           p.phase1_tol, True, 801)
 
 
+def _admm_chunk_solver(name):
+    """(solver, ADMM stats) of ``name`` on the card right after its ALM
+    phase: the state its ADMM phase starts from."""
+    from lorads_torch import LoradsParams, LoradsSolver
+    from lorads_torch.alg.admm import ADMMStats
+    from lorads_torch.alg.alm import ALMStats
+
+    s = LoradsSolver(INSTANCES[name](),
+                     LoradsParams(verbose=False, **PARAMS.get(name, {})),
+                     device="cuda")
+    alm_stats = ALMStats(rho=s.ps.rho0)
+    s.alm_phase(alm_stats, time.time())
+    stats = ADMMStats(rho=s.ps.rho0)
+    s.alm_to_admm(alm_stats, stats)
+    return s, stats
+
+
+def admm_chunk_checks(card):
+    """The ADMM chunk (alg/admm.py) on a theta, a multi-block and an
+    LP-block instance from their post-ALM states, three chunks in a row
+    as the solver runs them (``admm.admm_chunk``'s loop through
+    ``devloop.run``: the first a warm-up and the capture of the graph, a
+    WHILE node of ADMM iterations with the CG and refinement loops WHILE
+    nodes inside it and the CG restart an IF node; then replays), each
+    against the same chunk run eagerly on the card from the same carry
+    (the host reading every exit test): pack and state bit for bit, and
+    the replays' launches, counted from their packs, equal to the eager
+    runs' but for the nodes' own kernel; with the last replay's device
+    ms and the eager runs' wall ms.  Then loop_cond (csrc/graph_cond.cu)
+    alone: a WHILE node whose body adds one until the device's test
+    fails, against the same loop decided by host reads.  Returns
+    loop_cond's kernel entry."""
+    import torch
+
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import admm, devloop
+    from lorads_torch.ops import kernels
+
+    for name, steps in (("theta800", (10, 20, 40)), ("multiblock22", (1, 1, 2)),
+                        ("multiblock_lp", (1, 2, 2))):
+        s, stats = _admm_chunk_solver(name)
+        e_ms, e_reads, lines = 0.0, {}, []
+        with devloop.phase():
+            locals_, total, vals = admm.admm_init_eval(
+                s.pd, s.U, s.V, s.dual, s.scale_obj_his)
+            s._set_admm_stats(stats, vals)
+            c = s._admm_start(stats, locals_, total)
+            for j, n in enumerate(steps):
+                c, loop = admm.prepare_chunk(
+                    s.params, s.pd, c, s.scale_obj_his,
+                    s.params.max_admm_iter, n, jacobi=s._bucket_jacobi,
+                    S=s.S)
+                kernels.reset_launches()
+                reads0 = dict(tdev.HOST_SYNCS_BY)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                eager = devloop.eager_chunk(loop)
+                want = loop.pack(loop.inputs, eager).tolist()
+                e_ms += (time.time() - t0) * 1e3
+                e_launch = dict(kernels.LAUNCHES)
+                for k, v in tdev.HOST_SYNCS_BY.items():
+                    if v > reads0[k]:
+                        e_reads[k] = e_reads.get(k, 0) + v - reads0[k]
+                kernels.reset_launches()
+                got_state, got = devloop.run(loop)
+                g_launch = dict(kernels.LAUNCHES)
+                same = [torch.equal(g, e) for g, e in zip(
+                    devloop.flatten(got_state)[0],
+                    devloop.flatten(eager)[0])]
+                if got != want or not all(same):
+                    raise AssertionError(
+                        f"admm chunk {name} #{j}: the graph differs from "
+                        f"the eager chunk (pack {got} vs {want}; tensors "
+                        f"{[i for i, ok in enumerate(same) if not ok]})")
+                nodes = g_launch.pop("loop_cond")
+                e_launch.pop("loop_cond")
+                if j and (g_launch != e_launch or nodes <= 0):
+                    raise AssertionError(
+                        f"admm chunk {name} #{j}: launches {g_launch} in "
+                        f"the replay vs {e_launch} eagerly")
+                lines.append(f"#{j} {int(got[6]) - stats.iter} iterations "
+                             f"to {int(got[6])}, {int(got[7])} CG, status "
+                             f"{int(got[8])}, {nodes} node kernels")
+                stats.iter = int(got[6])
+                c["carry"] = got_state
+            # the last chunk's replay alone, on the device (its key's
+            # graph, captured at the first chunk)
+            graph, load, _ = devloop.graph_chunk(loop)
+            load()
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            graph.replay()
+            t1.record()
+            torch.cuda.synchronize()
+            graph.read("admm")
+            g_ms = t0.elapsed_time(t1)
+        print(f"admm chunk {name}: 3 chunks ({'; '.join(lines)}): graph == "
+              f"eager, bit for bit ({len(same)} tensors, pack {len(got)} "
+              f"values); last chunk {g_ms:.3f} ms on the device "
+              f"({len(graph.bodies)} distinct bodies), the eager chunks "
+              f"{e_ms:.1f} ms wall with host reads {e_reads}; kernel "
+              f"launches of the last replay "
+              f"{ {k: n for k, n in g_launch.items() if n} }  [{card}]")
+        del s
+
+    # loop_cond alone: a WHILE node of N runs against N host reads
+    n = 1000
+    dev = torch.device("cuda")
+    loop = devloop.Loop(
+        key=("loop_cond",), step=lambda inp, st, kind: (st[0] + 1,),
+        pack=lambda inp, st: st[0].to(torch.float64).reshape(1),
+        inputs=(torch.full((), n, dtype=torch.int64, device=dev),),
+        state=(torch.zeros((), dtype=torch.int64, device=dev),),
+        K=None, label="other", running=lambda inp, st: st[0] < inp[0])
+    with devloop.phase():
+        graph, load, bufs = devloop.graph_chunk(loop)
+        load()
+        kernels.reset_launches()
+        graph.replay()
+        got = graph.read("other")
+        launches = kernels.LAUNCHES["loop_cond"]
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        ms = []
+        for _ in range(5):
+            load()
+            t0.record()
+            graph.replay()
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1) / n)
+        g_ms = sorted(ms)[2]
+        torch.cuda.synchronize()
+        t = time.time()
+        plain = devloop.eager_chunk(loop)
+        plain_ms = (time.time() - t) * 1e3 / n
+    err = abs(float(got[0]) - float(plain[0]))
+    if got != [float(n)] or err != 0.0 or launches != n + 1:
+        raise AssertionError(f"loop_cond: {got} after {launches} launches "
+                             f"(host loop {int(plain[0])})")
+    # a run reads the 1-byte test and reads and writes the 8-byte counter
+    bound_ms, bound_by = bound_of(17, 0, "f64")
+    print(f"loop_cond: a WHILE node of {n} runs (body: one add and the "
+          f"set-condition kernel) == the host-decided loop; "
+          f"{g_ms * 1e3:.3f} us a run on the device, host-decided "
+          f"{plain_ms * 1e3:.3f} us a run (a read each); bound "
+          f"{bound_ms:.3e} ms ({bound_by})  [{card}]")
+    return {"max_abs_err": err, "ms": g_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _devloop_solve(label, loop, card, cuda_time_ms):
+    """A device-decided solve (the CG) replayed from its graph, one WHILE
+    node, against the same solve decided by host reads on the card from
+    the same state: the state bit for bit, with the replay's device ms
+    (between CUDA events) and the eager solve's dispatched ms."""
+    import torch
+
+    from lorads_torch.alg import devloop
+
+    eager = devloop.flatten(devloop.eager_chunk(loop))[0]
+    graph, load, bufs = devloop.graph_chunk(loop)
+    load()
+    graph.replay()
+    out = graph.read(loop.label)
+    got = devloop.flatten(bufs.tree("state"))[0]
+    same = [torch.equal(g, e) for g, e in zip(got, eager)]
+    if not all(same):
+        raise AssertionError(
+            f"devloop {label}: the graph replay differs from the eager "
+            f"solve in tensors {[i for i, ok in enumerate(same) if not ok]}")
+    load()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    graph.read(loop.label)
+    g_ms = t0.elapsed_time(t1)
+    e_ms = cuda_time_ms(lambda: devloop.eager_chunk(loop), reps=3, warmup=1)
+    print(f"devloop {label}: the whole solve ({int(out[0])} iterations) "
+          f"one WHILE node: graph replay == eager (a host read an "
+          f"iteration), bit for bit ({len(got)} tensors); graph "
+          f"{g_ms:.4f} ms on the device, eager {e_ms:.4f} ms dispatched  "
+          f"[{card}]")
+
+
 def devloop_checks(card):
-    """The device loops' chunks (alg/devloop.py): each chunk replayed
-    from its CUDA graph against the same masked steps run eagerly on
-    the card from the same state, bit for bit, with the chunk's device
-    ms (graph replays between CUDA events) and the eager chunk's
-    dispatched ms: each loop's two graphs, CG's first two chunks (with
-    and without the true-residual restart), the ALM's first and the
-    one that holds step 24 (the cache refresh), reached by eager
-    chunks."""
+    """The device loops (alg/devloop.py), each replayed from its CUDA
+    graph against the same steps run eagerly on the card from the same
+    state, bit for bit, with the graph's device ms (replays between CUDA
+    events) and the eager run's dispatched ms: the CG, a device-decided
+    loop, as a whole solve (``_devloop_solve``); the ALM inner loop's
+    masked chunks, its first and the one that holds step 24 (the cache
+    refresh), reached by eager chunks."""
     import torch
 
     from lorads_torch.alg import devloop
@@ -1656,8 +1849,11 @@ def devloop_checks(card):
              ("matcomp2000 ALM inner (K3p, K4, K5)", "alm", "matcomp2000"))
     for label, kind, name in cases:
         with devloop.phase():
-            loop = (_devloop_cg if kind == "cg" else _devloop_alm)(name)
-            last = 1 if kind == "cg" else 24 // loop.K
+            if kind == "cg":
+                _devloop_solve(label, _devloop_cg(name), card, cuda_time_ms)
+                continue
+            loop = _devloop_alm(name)
+            last = 24 // loop.K
             for c in range(last + 1):
                 start = c * loop.K
                 if c not in (0, last):
@@ -1754,6 +1950,7 @@ def solve_path(card, path, instances):
                     for k in kernels.LAUNCHES}
         by = {k: tdev.HOST_SYNCS_BY[k] - by0[k] for k in by0
               if tdev.HOST_SYNCS_BY[k] > by0[k]}
+        admm_reads = {k: n for k, n in solver.admm_reads_by.items() if n}
         graphs = {k: kernels.GRAPHS[k] - graphs0[k] for k in graphs0}
         ref = REFERENCE_POBJ[name]
         rel = abs(res.pobj - ref) / abs(ref)
@@ -1775,12 +1972,16 @@ def solve_path(card, path, instances):
               f"divergence retries {solver.admm_retries} "
               f"rank {res.ranks} cert restarts {solver.last_cert_restarts} "
               f"spectral repair: {repair}; host syncs "
-              f"{tdev.HOST_SYNCS - syncs0} {by} graphs captured "
+              f"{tdev.HOST_SYNCS - syncs0} {by}, in ADMM {admm_reads} "
+              f"graphs captured "
               f"{graphs['captured']} replayed {graphs['replayed']} "
               f"(launches in replays {graphs['launches']}) launches "
               f"{launches}  [{card}]")
         if res.status is not SolverStatus.PRIMAL_DUAL_OPTIMAL:
             raise AssertionError(f"{name}: status {res.status.value}")
+        # the ADMM chunks' CG runs inside their graphs
+        if admm_reads.get("cg", 0) or admm_reads.get("cg_ir", 0):
+            raise AssertionError(f"{name}: CG reads in ADMM {admm_reads}")
         if not (math.isfinite(res.pobj) and rel <= POBJ_RTOL):
             raise AssertionError(f"{name}: pObj {res.pobj} vs {ref}")
         fs, lp_vals = solver.factor_blocks()
@@ -2010,6 +2211,22 @@ def _trace_counts(logdir):
     return len(kern), mine, graph_calls, in_graph, os.path.getsize(files[0])
 
 
+def _trace_ranges(logdir, prefix):
+    """{name: count} of the trace's events in ``logdir`` whose names start
+    with ``prefix``."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {}
+    for e in events:
+        name = e.get("name", "")
+        if name.startswith(prefix):
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
 def extras_path(card):
     """Phase 5: the solver's extras on the card, with the launch counts
     reset just before and read just after: checkpoint and resume, the
@@ -2094,6 +2311,24 @@ def extras_path(card):
         if n_kern <= 0 or n_mine <= 0:
             raise AssertionError("the device trace holds no kernel of the "
                                  "port")
+        # ---- a device trace around a solve that reaches the ADMM phase:
+        # its chunk graphs run with the trace's CUDA collection paused
+        # (ROADMAP §3 F4), each a devloop range of the trace
+        tdir = os.path.join(tmp, "trace_admm")
+        with device_trace(tdir, "cuda"):
+            _, r6, w6 = _solve_timed(INSTANCES["hand_multiblock"]())
+        _certified("hand_multiblock (traced)", r6,
+                   REFERENCE_POBJ["hand_multiblock"])
+        n_kern, n_mine, _, _, size = _trace_counts(tdir)
+        ranges = _trace_ranges(tdir, "devloop.")
+        print(f"extras device_trace: hand_multiblock solve wall {w6:.3f} s, "
+              f"ADMM {r6.admm_stats.iter} iterations, trace {size} B: "
+              f"{n_kern} kernel events, {n_mine} of them the port's, "
+              f"ranges {ranges}  [{card}]")
+        if r6.admm_stats.iter <= 0 or not ranges.get("devloop.replay") \
+                or n_mine <= 0:
+            raise AssertionError("the traced hand_multiblock solve ran no "
+                                 "ADMM graph, or its trace lacks them")
     # ---- FIX_INI_POINT
     trace, (_, r5, w5) = _fix_ini_lines(lambda: _solve_timed(
         mc, fix_init_point=True, max_alm_iter=2, max_admm_iter=5))
@@ -2232,6 +2467,7 @@ def main(argv=None) -> int:
                           "cases": results}))
         return 0
     devloop_checks(card)
+    results["loop_cond"] = [admm_chunk_checks(card)]
     counts = main_path(card)
     for k, n in extras_path(card).items():
         counts[k] += n
@@ -2261,7 +2497,9 @@ def main(argv=None) -> int:
            "row_gather": ("lorads_torch/csrc/row_gather.cu",
                           "tools/probes/microbench_pallas_gather.py:61"),
            "scatter_add": ("lorads_torch/csrc/scatter_add.cu",
-                           "tools/probes/microbench_gather9.py:146")}
+                           "tools/probes/microbench_gather9.py:146"),
+           "loop_cond": ("lorads_torch/csrc/graph_cond.cu",
+                         "lorads_tpu/alg/admm.py:658")}
     summary = []
     for name, (path, replaces) in src.items():
         first = results[name][0]

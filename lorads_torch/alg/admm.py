@@ -32,14 +32,19 @@ fixed factor, is solved
   (a_single_dense), else uvt -> constr_vals -> build_w (K4) -- and the
   product w_mul (K5, or torch.matmul on dense buckets).
 
-lorads_tpu runs up to ``n_steps`` iterations per device dispatch; here
-``admm_chunk`` runs them as a Python loop and reads the four DIMACS
-scalars of each iteration to the host (one counted read, label
-``admm``), where the status, rho schedule and stall detectors run on
-Python floats.  The CG solves inside run on the device in graphed
-chunks (alg/cg.py), ``cg_tol`` a device scalar, the fixed factor a
-graph input, the graphs keyed by the bucket or block slice and dropped
-with the phase.
+A chunk of up to ``n_steps`` iterations is one device-decided loop
+(``admm_chunk``, lorads_tpu's ``_make_admm_chunk`` while_loop): the
+iteration is a step on tensors, its decisions (the status codes, the
+pinf ring, dual ascent, the rho schedule and its escape, the stall
+detectors) ``torch.where``s as lorads_tpu writes them, and its CG solves
+nested loops (alg/cg.py).  On CUDA tensors a key's first chunk runs
+eagerly (the host reads each exit test); every later chunk replays one
+CUDA graph whose WHILE node runs the iterations, whose bucket scan is
+unrolled over the plan's block slices and whose CG and refinement loops
+are WHILE nodes inside, and the host reads one pack (PACK_F, PACK_I, then
+cur_rho_max; label ``admm``).  rho, cg_tol, the chunk's limits and the
+reopt / gap-continuation flags are device tensors, so one graph serves
+every chunk of a phase.
 """
 
 from __future__ import annotations
@@ -60,6 +65,11 @@ from lorads_torch.ops import pattern as pat
 
 # exit codes of a chunk
 RUNNING, CONVERGED, NUM_ERR, BAD_PD, EARLY_STOP, STALLED = 0, 1, 2, 3, 4, 5
+
+# the chunk's pack, in lorads_tpu's order (admm.py:52-53); the port adds
+# cur_rho_max after them
+PACK_F = ("rho", "pobj", "dobj", "pinf_l1", "pinf_inf", "gap")
+PACK_I = ("it", "cg_iter", "status")
 
 # Phase-II pinf exit margin: converge to 0.95*tol instead of 1.00*tol so
 # the reported pinf never rides the acceptance band's edge.
@@ -88,6 +98,15 @@ CG_BUDGET_MIXED = 24000
 CG_BUDGET_F64 = 4000
 # the CG iteration cap of every solve (admm.py:519)
 CG_MAX_ITER = 800
+
+
+def _over(x, d):
+    """x / d, d a number or a 0-d tensor, as a division by a number
+    rounds: on CUDA tensors PyTorch multiplies by the reciprocal of a
+    host scalar, so a device divisor does the same."""
+    if isinstance(d, torch.Tensor) and x.is_cuda:
+        return x * (1.0 / d)
+    return x / d
 
 
 def _admm_cache(bk: pat.BucketData, x):
@@ -144,7 +163,7 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
             fcache = _admm_cache(bk, fixed_var)
         M2 = (fcache.cr + (bk.a_val_d * w_loc)[:, :, None] * fixed_var
               - rho * fixed_var)
-        rhs = -(M2 if s_term is None else M2 + s_term) / rho
+        rhs = _over(-(M2 if s_term is None else M2 + s_term), rho)
         a2 = bk.a_val_d * bk.a_val_d
         vr = torch.sum(fixed_var * rhs, -1)
         vv = torch.sum(fixed_var * fixed_var, -1)
@@ -155,7 +174,7 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
     else:
         W = pat.build_w(bk, w_loc)                        # C + A*(M1)
         M2 = pat.w_mul(bk, W, fixed_var) - rho * fixed_var
-        rhs = -(M2 if s_term is None else M2 + s_term) / rho
+        rhs = _over(-(M2 if s_term is None else M2 + s_term), rho)
         if bk_lo is not None:
             op_lo = Bound(_cg_operator(bk_lo),
                           (fixed_var.to(torch.float32),),
@@ -188,7 +207,7 @@ def _update_lp_var(pd: ProblemData, upd, fixed, lp_contrib, constr_sum,
     m2 = wsum * fixed - rho * fixed
     if s_lp is not None:
         m2 = m2 + s_lp
-    new = (-m2 / rho) / (1.0 + lpd.col_nrm2sq * fixed * fixed)
+    new = _over(-m2, rho) / (1.0 + lpd.col_nrm2sq * fixed * fixed)
     new_contrib = lp_ops.constr_vals(lpd, new * fixed)
     return new, new_contrib, constr_sum + new_contrib - lp_contrib
 
@@ -332,8 +351,8 @@ def _obj_dimacs_xbar(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
         pobj, locals_, total = aop.obj_and_auv(pd, R, R)
     if pd.lp is not None:
         locals_ = locals_ + (lp_ops.constr_vals(pd.lp, R.lp * R.lp),)
-    pobj = pobj / scale
-    dobj = torch.dot(pd.rhs, dual) / scale
+    pobj = _over(pobj, scale)
+    dobj = _over(torch.dot(pd.rhs, dual), scale)
     pinf = aop.primal_infeas_l1(pd, total)
     gap = torch.abs(pobj - dobj) / (1.0 + torch.abs(pobj) + torch.abs(dobj))
     return pobj, dobj, pinf, gap, locals_, total
@@ -349,131 +368,253 @@ def admm_init_eval(pd: ProblemData, U: FactorVec, V: FactorVec, dual,
                                                       gap]), "admm")
 
 
+@dataclasses.dataclass
+class ADMMCarry:
+    """The chunk loop's state on the device: lorads_tpu's carry
+    (admm.py:617-657) as tensors, 0-d but for the factors, locals,
+    caches, constr_sum, dual and the pinf ring [10].  ``k`` counts the
+    chunk's iterations, ``cg_iter`` its CG iterations."""
+
+    U: FactorVec
+    V: FactorVec
+    locals: tuple
+    u_caches: tuple
+    v_caches: tuple
+    constr_sum: torch.Tensor
+    dual: torch.Tensor
+    rho: torch.Tensor
+    cur_rho_max: torch.Tensor
+    pinf_buf: torch.Tensor
+    old_pinf_mean: torch.Tensor
+    bad_pd: torch.Tensor
+    it: torch.Tensor
+    k: torch.Tensor
+    pinf_l1: torch.Tensor
+    pinf_inf: torch.Tensor
+    gap: torch.Tensor
+    pobj: torch.Tensor
+    dobj: torch.Tensor
+    best_gap: torch.Tensor
+    since_best: torch.Tensor
+    best_pinf: torch.Tensor
+    since_pinf: torch.Tensor
+    status: torch.Tensor
+    cg_iter: torch.Tensor
+
+
+_INTS = ("bad_pd", "it", "k", "since_best", "since_pinf", "status",
+         "cg_iter")
+
+
+def make_carry(pd: ProblemData, U, V, locals_, constr_sum, dual,
+               **scalars) -> ADMMCarry:
+    """A carry on pd's device from the factors, locals, constr_sum and
+    dual and the host numbers ``scalars`` (rho, cur_rho_max, pinf_buf,
+    old_pinf_mean, bad_pd, it, pinf_l1, gap, pobj, dobj, best_gap,
+    since_best, best_pinf, since_pinf; the rest start at 0 and the
+    caches are made by admm_chunk)."""
+    dt, device = pd.rhs.dtype, pd.rhs.device
+    nb = len(pd.buckets)
+
+    def tensor(name, v):
+        if isinstance(v, torch.Tensor):
+            return v
+        if name == "pinf_buf":
+            return torch.tensor(v, dtype=dt, device=device)
+        return torch.full((), v, device=device,
+                          dtype=torch.int64 if name in _INTS else dt)
+
+    vals = dict(k=0, pinf_inf=0.0, status=RUNNING, cg_iter=0, **scalars)
+    return ADMMCarry(U=U, V=V, locals=tuple(locals_),
+                     u_caches=(None,) * nb, v_caches=(None,) * nb,
+                     constr_sum=constr_sum, dual=dual,
+                     **{k: tensor(k, v) for k, v in vals.items()})
+
+
+def _with_caches(pd: ProblemData, c: ADMMCarry, slices) -> ADMMCarry:
+    """The carry with the caches of the buckets updated at once made from
+    its factors (the scan makes its own)."""
+    return dataclasses.replace(
+        c, u_caches=tuple(None if sl is not None else _admm_cache(bk, x)
+                          for bk, x, sl in zip(pd.buckets, c.U.cones,
+                                               slices)),
+        v_caches=tuple(None if sl is not None else _admm_cache(bk, x)
+                       for bk, x, sl in zip(pd.buckets, c.V.cones, slices)))
+
+
+def chunk_loop(params, pd: ProblemData, carry: ADMMCarry, plan, scale,
+               iter_celling: int, n_steps: int, reopt: bool = False,
+               gap_stop: bool = False, S: FactorVec = None) -> devloop.Loop:
+    """The chunk as a device-decided devloop.Loop (lorads_tpu's
+    _make_admm_chunk: ``init`` its carry's set-up, admm.py:630-657;
+    ``running`` its cond, :507-511; ``step`` its body, :513-628).  The
+    loop's inputs: scale, iter_celling, n_steps, the reopt and gap_stop
+    flags with what they select (the CG tolerance factor, the bad_pd
+    limit, the rho schedule's offset) and S; ``plan`` is sweep_plan's."""
+    tol2, tol1 = params.phase2_tol, params.phase1_tol
+    rho_freq, rho_factor = params.rho_freq, params.rho_factor
+    escape_pow = float(rho_factor ** round(
+        math.log(rho_freq * 100) / math.log(rho_freq)))
+    rho_celling = params.rho_celling_admm
+    pinf_scale = (1.0 + pd.b_nrm1) / (1.0 + pd.b_nrm_inf)
+    mixed = params.admm_mixed_cg and pd.rhs.dtype == torch.float64
+    cg_budget = CG_BUDGET_MIXED if mixed else CG_BUDGET_F64
+    lp_gs = params.lp_gauss_seidel
+    buckets_lo, slices, slices_lo = plan
+    dt, device = pd.rhs.dtype, pd.rhs.device
+
+    def full(v, dtype=dt):
+        return torch.full((), v, dtype=dtype, device=device)
+
+    i64 = torch.int64
+    inputs = (full(scale), full(iter_celling, i64), full(n_steps, i64),
+              full(reopt, torch.bool), full(gap_stop, torch.bool),
+              full(1e-4 if reopt else 1e-2), full(200 if reopt else 800, i64),
+              full(0 if reopt else 1, i64),
+              S if params.dual_uv else None)
+
+    def init(inp, c):
+        zero = torch.zeros_like(c.k)
+        return dataclasses.replace(
+            _with_caches(pd, c, slices), pinf_inf=c.pinf_l1 * pinf_scale,
+            k=zero, status=zero, cg_iter=zero)
+
+    def running(inp, c):
+        _, celling, n_steps_t = inp[:3]
+        return ((c.status == RUNNING) & (c.k < n_steps_t)
+                & (c.it < celling) & (c.cg_iter < cg_budget))
+
+    def step(inp, c, kind):
+        (scale_t, _, _, reopt_f, gap_stop_f, cg_tol_mult, bad_pd_limit,
+         it_shift, S_used) = inp
+        cg_tol = torch.minimum(c.pinf_l1 * cg_tol_mult, full(1e-8))
+        U, V, locals_, csum, ucs, vcs, cg_it = admm_update_all(
+            pd, c.U, c.V, c.locals, c.constr_sum, c.dual, c.rho, c.u_caches,
+            c.v_caches, cg_tol=cg_tol, buckets_lo=buckets_lo, slices=slices,
+            slices_lo=slices_lo, lp_gs=lp_gs, S=S_used)
+        pobj, dobj, pinf, gap, locals_, csum = _obj_dimacs_xbar(
+            pd, U, V, c.dual, scale_t, ucs, vcs)
+        pinf_inf = pinf * pinf_scale
+
+        def code(cond, new, status):
+            return torch.where((status == RUNNING) & cond, new, status)
+
+        status = torch.where((pinf_inf >= 1e10) | (gap >= 1 - 1e-8),
+                             NUM_ERR, RUNNING)
+        bad_pd = torch.where(gap <= tol2 * 5,
+                             torch.clamp(c.bad_pd - 5, min=0), c.bad_pd)
+        bad_pd = torch.where(gap >= tol1 * 1e2, bad_pd + 2, bad_pd)
+        status = code(bad_pd >= bad_pd_limit, BAD_PD, status)
+        slot = torch.arange(10, device=device)
+        buf = torch.where(slot == c.k % 10, pinf_inf, c.pinf_buf)
+        conv_now = (torch.where(reopt_f, pinf <= EXIT_MARGIN * tol2,
+                                pinf_inf <= EXIT_MARGIN * tol2)
+                    & (~gap_stop_f | (gap <= tol2)))
+        status = code(conv_now, CONVERGED, status)
+
+        # dual ascent at X_bar (lorads_admm.c:120)
+        dual = torch.where(status != CONVERGED,
+                           c.dual + c.rho * (pd.rhs - csum), c.dual)
+
+        # rho schedule (lorads_admm.c:121-138)
+        it_off = c.it + it_shift
+        sched = it_off % rho_freq == 0
+        rho_n = torch.where(sched, c.rho * rho_factor, c.rho)
+        hit_max = sched & (rho_n >= c.cur_rho_max)
+        rho_n = torch.where(hit_max, c.cur_rho_max, rho_n)
+        esc_hit = hit_max & (it_off % (rho_freq * 100) == 0)
+        # the ring's mean, summed in order (as the host did)
+        pinf_sum = torch.abs(buf[0])
+        for i in range(1, 10):
+            pinf_sum = pinf_sum + torch.abs(buf[i])
+        pinf_mean = pinf_sum / full(10.0)
+        escape = (esc_hit & (pinf_mean / c.old_pinf_mean >= 0.65)
+                  & (pinf_inf > tol2))
+        rho_n = torch.where(escape, rho_n * escape_pow, rho_n)
+        cur_rho_max = torch.where(escape, rho_n, c.cur_rho_max)
+        old_mean = torch.where(esc_hit, pinf_mean, c.old_pinf_mean)
+        rho_n = torch.minimum(rho_n, full(rho_celling))
+
+        status = code((gap <= tol2 * 1e-3) & (pinf <= tol2 * 1e-3),
+                      EARLY_STOP, status)
+        # no-progress detectors: gap (main phase: with pinf deep under
+        # tol) and, in the gap continuation, gap alone
+        since_best = torch.where(gap < c.best_gap * 0.9, 0,
+                                 c.since_best + 1)
+        since_pinf = torch.where(pinf < c.best_pinf * 0.9, 0,
+                                 c.since_pinf + 1)
+        stalled = torch.where(gap_stop_f, since_best >= 75,
+                              (since_best >= 50) & (pinf <= tol2 * 0.1))
+        status = code(stalled, STALLED, status)
+        return ADMMCarry(
+            U=U, V=V, locals=tuple(locals_), u_caches=ucs, v_caches=vcs,
+            constr_sum=csum, dual=dual, rho=rho_n, cur_rho_max=cur_rho_max,
+            pinf_buf=buf, old_pinf_mean=old_mean, bad_pd=bad_pd,
+            it=c.it + 1, k=c.k + 1, pinf_l1=pinf, pinf_inf=pinf_inf,
+            gap=gap, pobj=pobj, dobj=dobj,
+            best_gap=torch.minimum(gap, c.best_gap), since_best=since_best,
+            best_pinf=torch.minimum(pinf, c.best_pinf),
+            since_pinf=since_pinf, status=status,
+            cg_iter=c.cg_iter + cg_it)
+
+    def pack(inp, c):
+        return torch.stack([getattr(c, f).to(torch.float64)
+                            for f in PACK_F + PACK_I + ("cur_rho_max",)])
+
+    key = ("admm", devloop.ident(pd), devloop.ident(plan), tol2, tol1,
+           rho_freq, rho_factor, rho_celling, mixed, lp_gs)
+    return devloop.Loop(key=key, step=step, pack=pack, inputs=inputs,
+                        state=carry, K=None, label="admm", running=running,
+                        init=init)
+
+
+def chunk_start(params, pd: ProblemData, carry: ADMMCarry, jacobi=(),
+                plan=None) -> dict:
+    """A phase's first admm_chunk ``c``: the carry with its caches laid
+    out as the loop leaves them, and the sweep plan (``plan``, if given,
+    is kept: one sweep_plan made for this pd and flags, whose chunk
+    graph, keyed by it, a later phase on the same pd replays)."""
+    if plan is None:
+        mixed = params.admm_mixed_cg and pd.rhs.dtype == torch.float64
+        if params.admm_jacobi:
+            jacobi = (True,) * len(pd.buckets)
+        plan = sweep_plan(pd, jacobi, mixed)
+    return {"carry": _with_caches(pd, carry, plan[1]), "plan": plan}
+
+
+def prepare_chunk(params, pd: ProblemData, c: dict, scale, iter_celling,
+                  n_steps, reopt=False, gap_stop=False, jacobi=(), S=None):
+    """(c, the chunk's loop): ``c`` (chunk_start's, made here from a bare
+    ``{"carry": ...}``) and chunk_loop on it; admm_chunk's arguments."""
+    c = dict(c)
+    if "plan" not in c:
+        c = chunk_start(params, pd, c["carry"], jacobi)
+    return c, chunk_loop(params, pd, c["carry"], c["plan"], scale,
+                         iter_celling, n_steps, reopt, gap_stop, S)
+
+
 def admm_chunk(params, pd: ProblemData, c: dict, scale: float,
                iter_celling: int, n_steps: int, reopt: bool = False,
                gap_stop: bool = False, jacobi=(), S: FactorVec = None
                ) -> dict:
-    """Up to ``n_steps`` ADMM iterations (lorads_tpu's _make_admm_chunk
-    body).  ``c`` carries the device tensors U, V, locals, constr_sum,
-    dual and the host state rho, cur_rho_max, pinf_buf (10 floats),
-    old_pinf_mean, bad_pd, it, pinf_l1, gap, pobj, dobj, best_gap,
-    since_best, best_pinf, since_pinf; returns the updated carry with
-    ``status``, ``pinf_inf``, ``cg_iter`` (this chunk's CG iterations)
-    and ``plan`` (sweep_plan, built on the phase's first chunk and kept).
-    ``jacobi``: per-bucket flags, True for a bucket whose blocks update
-    at once (LoradsParams.admm_jacobi sets them all).  The chunk also
-    returns once its CG count crosses the per-chunk budget.  ``S``: the
-    DUAL_U_V term, used only with ``params.dual_uv`` (admm.py:474).
+    """Up to ``n_steps`` ADMM iterations as one device-decided loop
+    (chunk_loop).  ``c`` holds ``carry`` (an ADMMCarry) and ``plan``
+    (chunk_start's; made on a bare carry's first chunk); returns it with
+    the carry advanced and the pack read to host numbers under their
+    names (PACK_F, PACK_I and cur_rho_max; ``cg_iter`` this chunk's CG
+    iterations).  ``jacobi``: per-bucket flags, True for a
+    bucket whose blocks update at once (LoradsParams.admm_jacobi sets
+    them all).  The chunk also returns once its CG count crosses the
+    per-chunk budget.  ``S``: the DUAL_U_V term, used only with
+    ``params.dual_uv`` (admm.py:474).
 
     ``reopt`` tightens the bad_pd limit, shifts the rho schedule and
     converges on pinf_l1; ``gap_stop`` is the gap-continuation variant
     (convergence also needs gap <= tol, the stall detector watches the
     gap alone)."""
-    tol2, tol1 = params.phase2_tol, params.phase1_tol
-    rho_freq, rho_factor = params.rho_freq, params.rho_factor
-    escape_pow = float(rho_factor ** round(
-        math.log(rho_freq * 100) / math.log(rho_freq)))
-    bad_pd_limit = 200 if reopt else 800
-    pinf_scale = (1.0 + pd.b_nrm1) / (1.0 + pd.b_nrm_inf)
-    mixed = params.admm_mixed_cg and pd.rhs.dtype == torch.float64
-    cg_tol_mult = 1e-4 if reopt else 1e-2
-    cg_budget = CG_BUDGET_MIXED if mixed else CG_BUDGET_F64
-    c = dict(c)
-    S_used = S if params.dual_uv else None
-    if "plan" not in c:
-        if params.admm_jacobi:
-            jacobi = (True,) * len(pd.buckets)
-        c["plan"] = sweep_plan(pd, jacobi, mixed)
-    buckets_lo, slices, slices_lo = c["plan"]
-    # caches of the buckets updated at once; the scan makes its own
-    c["u_caches"] = tuple(None if sl is not None else _admm_cache(bk, x)
-                          for bk, x, sl in zip(pd.buckets, c["U"].cones,
-                                               slices))
-    c["v_caches"] = tuple(None if sl is not None else _admm_cache(bk, x)
-                          for bk, x, sl in zip(pd.buckets, c["V"].cones,
-                                               slices))
-    c["pinf_inf"] = c["pinf_l1"] * pinf_scale
-    status, count, cg_iter = RUNNING, 0, 0
-    while (status == RUNNING and count < n_steps and c["it"] < iter_celling
-           and cg_iter < cg_budget):
-        cg_tol = torch.full((), min(c["pinf_l1"] * cg_tol_mult, 1e-8),
-                            dtype=pd.rhs.dtype, device=pd.rhs.device)
-        U, V, locals_, csum, ucs, vcs, cg_it = admm_update_all(
-            pd, c["U"], c["V"], c["locals"], c["constr_sum"], c["dual"],
-            c["rho"], c["u_caches"], c["v_caches"], cg_tol=cg_tol,
-            buckets_lo=buckets_lo, slices=slices, slices_lo=slices_lo,
-            lp_gs=params.lp_gauss_seidel, S=S_used)
-        cg_iter += cg_it
-        pobj, dobj, pinf, gap, locals_, csum = _obj_dimacs_xbar(
-            pd, U, V, c["dual"], scale, ucs, vcs)
-        pobj, dobj, pinf, gap = dev.host_read(
-            torch.stack([pobj, dobj, pinf, gap]), "admm")
-        pinf_inf = pinf * pinf_scale
-
-        status = (NUM_ERR if (pinf_inf >= 1e10 or gap >= 1 - 1e-8)
-                  else RUNNING)
-        bad_pd = c["bad_pd"]
-        if gap <= tol2 * 5:
-            bad_pd = max(0, bad_pd - 5)
-        if gap >= tol1 * 1e2:
-            bad_pd = bad_pd + 2
-        if status == RUNNING and bad_pd >= bad_pd_limit:
-            status = BAD_PD
-        buf = list(c["pinf_buf"])
-        buf[count % 10] = pinf_inf
-        conv_now = ((pinf <= EXIT_MARGIN * tol2) if reopt
-                    else (pinf_inf <= EXIT_MARGIN * tol2))
-        if gap_stop:
-            conv_now = conv_now and gap <= tol2
-        if status == RUNNING and conv_now:
-            status = CONVERGED
-
-        # dual ascent at X_bar (lorads_admm.c:120)
-        rho = c["rho"]
-        dual = c["dual"]
-        if status != CONVERGED:
-            dual = dual + rho * (pd.rhs - csum)
-
-        # rho schedule (lorads_admm.c:121-138)
-        it_off = c["it"] + (0 if reopt else 1)
-        rho_n, cur_rho_max = rho, c["cur_rho_max"]
-        old_mean = c["old_pinf_mean"]
-        if it_off % rho_freq == 0:
-            rho_n = rho * rho_factor
-            if rho_n >= cur_rho_max:
-                rho_n = cur_rho_max
-                if it_off % (rho_freq * 100) == 0:
-                    pinf_mean = sum(abs(x) for x in buf) / 10.0
-                    if pinf_mean / old_mean >= 0.65 and pinf_inf > tol2:
-                        rho_n = rho_n * escape_pow
-                        cur_rho_max = rho_n
-                    old_mean = pinf_mean
-        rho_n = min(rho_n, params.rho_celling_admm)
-
-        if (status == RUNNING and gap <= tol2 * 1e-3
-                and pinf <= tol2 * 1e-3):
-            status = EARLY_STOP
-
-        # no-progress detectors: gap (main phase: with pinf deep under
-        # tol) and, in the gap continuation, gap alone
-        since_best = 0 if gap < c["best_gap"] * 0.9 else c["since_best"] + 1
-        since_pinf = (0 if pinf < c["best_pinf"] * 0.9
-                      else c["since_pinf"] + 1)
-        stalled = (since_best >= 75 if gap_stop
-                   else since_best >= 50 and pinf <= tol2 * 0.1)
-        if status == RUNNING and stalled:
-            status = STALLED
-
-        c.update(U=U, V=V, locals=tuple(locals_), u_caches=ucs,
-                 v_caches=vcs, constr_sum=csum, dual=dual, rho=rho_n,
-                 cur_rho_max=cur_rho_max, pinf_buf=buf,
-                 old_pinf_mean=old_mean, bad_pd=bad_pd, it=c["it"] + 1,
-                 pinf_l1=pinf, pinf_inf=pinf_inf, gap=gap, pobj=pobj,
-                 dobj=dobj, best_gap=min(gap, c["best_gap"]),
-                 since_best=since_best,
-                 best_pinf=min(pinf, c["best_pinf"]),
-                 since_pinf=since_pinf)
-        count += 1
-    c["status"] = status
-    c["cg_iter"] = cg_iter
+    c, loop = prepare_chunk(params, pd, c, scale, iter_celling, n_steps,
+                            reopt, gap_stop, jacobi, S)
+    c["carry"], out = devloop.run(loop)
+    c.update((k, int(v) if k in PACK_I else v)
+             for k, v in zip(PACK_F + PACK_I + ("cur_rho_max",), out))
     return c

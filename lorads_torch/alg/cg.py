@@ -17,17 +17,18 @@ mixed-precision variant: f32 inner sweeps, f64 true residuals.
 The operator is a closure x -> A(x) on [B, n, r], or a ``Bound``: a
 function op(x, *operands) with its operands, which a graph takes as
 inputs.  lorads_tpu runs the loop as a device while_loop; here it is a
-``devloop.Loop``: the body
-masked by the loop's exit test (no block active, or ``max_iter``
-reached), evaluated on the device in every iteration, run in chunks of
-``CHUNK`` iterations replayed from a CUDA graph with one host read per
-chunk (label ``cg``).  ``tol`` and ``max_iter`` ride in as device
-scalars and the operands as graph inputs, so one graph serves every
-solve of a key (the bucket or block slice, the dtype and the rank).  A
-masked iteration leaves x, r, p and the counters unchanged bit for bit
+device-decided ``devloop.Loop`` (its exit, no block active or
+``max_iter`` reached, tested on the device), and so are the refinement
+passes of ``cg_solve_ir`` (lorads_tpu's pass while_loop).  Inside
+another loop's step (the ADMM iteration, ``devloop.in_step()``) they
+run through ``devloop.nest``: WHILE nodes under capture, the CG restart
+an IF node, and the counts come back as device tensors.  Called at the
+top (the tests), through ``devloop.run``: on the card one graph replay
+runs the solve and the host reads its pack once (label ``cg`` or
+``cg_ir``); on the CPU the host reads the exit test before each
+iteration or pass.  A done block's iterates stay unchanged bit for bit
 (``torch.where``, never a product with a 0/1 mask, so an inf or NaN in
-a done block stays out of the others).  The refinement passes of
-``cg_solve_ir`` keep one read each (label ``cg_ir``).
+a done block stays out of the others).
 """
 
 from __future__ import annotations
@@ -36,15 +37,9 @@ from typing import Callable, Tuple
 
 import torch
 
-from lorads_torch import device as dev
 from lorads_torch.alg import devloop
 
 RESTART_FREQ = 20
-# CG iterations a chunk on the card, a divisor of RESTART_FREQ: the
-# restart then sits at a chunk's first position or nowhere (two graphs).
-# 2 read fastest on an H100 among 2, 5 and 10 (theta800, multiblock22;
-# PERF.md): a masked iteration costs more device time than a read.
-CHUNK = 2
 
 
 def _bdot(x, y):
@@ -74,8 +69,8 @@ class Bound:
 def cg_loop(op: Callable, x0: torch.Tensor, b: torch.Tensor, tol,
             max_iter) -> devloop.Loop:
     """The CG loop for op(x) = b from x0 (``op`` a closure or a Bound), as
-    a devloop.Loop; its prologue (the initial residual) is computed
-    here."""
+    a device-decided devloop.Loop; its prologue (the initial residual) is
+    computed here."""
     op = op if isinstance(op, Bound) else Bound(op)
     b_nrm1 = torch.sum(torch.abs(b), dim=(1, 2))             # [B]
     safe_b1 = torch.where(b_nrm1 == 0, 1.0, b_nrm1)
@@ -95,10 +90,10 @@ def cg_loop(op: Callable, x0: torch.Tensor, b: torch.Tensor, tol,
         return ~torch.all(done) & (k < inp[4])
 
     def step(inp, st, restart):
+        # runs while ``running`` holds
         operands, b, safe_b1, tol, _ = inp
         x, r, p, done, best, since, k = st
-        run = running(inp, st)
-        act = ~done & run
+        act = ~done
         a3 = act[:, None, None]
         Q = fn(p, *operands)
         qtr = _bdot(r, r)
@@ -106,8 +101,12 @@ def cg_loop(op: Callable, x0: torch.Tensor, b: torch.Tensor, tol,
         alpha = _safe_div(qtr, ptq)[:, None, None]
         x_n = torch.where(a3, x + alpha * p, x)
         r_n = r - alpha * Q
-        if restart:
-            # true-residual restart (lorads_cgs.c:195-211)
+        # true-residual restart (lorads_cgs.c:195-211); restart None: the
+        # device decides (an IF node on k)
+        if restart is None:
+            r_n = devloop.branch(k % RESTART_FREQ == 0,
+                                 lambda: b - fn(x_n, *operands), r_n)
+        elif restart:
             r_n = b - fn(x_n, *operands)
         qtr_new = _bdot(r_n, r_n)
         res_new = torch.sqrt(qtr_new)
@@ -122,25 +121,34 @@ def cg_loop(op: Callable, x0: torch.Tensor, b: torch.Tensor, tol,
         return (x_n, torch.where(a3, r_n, r), torch.where(a3, p_n, p),
                 torch.where(act, done_n, done),
                 torch.where(act, best_n, best),
-                torch.where(act, since_n, since), k + run.to(k.dtype))
+                torch.where(act, since_n, since), k + 1)
 
     def pack(inp, st):
-        return torch.stack([running(inp, st).to(torch.float64),
-                            st[6].to(torch.float64)])
+        return st[6].to(torch.float64).reshape(1)
 
     return devloop.Loop(
         key=("cg", op.key, RESTART_FREQ), step=step, pack=pack, inputs=inputs,
-        state=state, K=CHUNK, label="cg",
-        kind=lambda pos: pos % RESTART_FREQ == 0)
+        state=state, K=None, label="cg",
+        kind=lambda pos: pos % RESTART_FREQ == 0, running=running)
+
+
+def _solve(loop: devloop.Loop, count: int):
+    """Run a device-decided solve -> (x, the count at state[count]): nested
+    in a step (the count a 0-d tensor), else at the top (an int)."""
+    if devloop.in_step():
+        st = devloop.nest(loop)
+        return st[0], st[count]
+    st, out = devloop.run(loop)
+    return st[0], int(out[0])
 
 
 def cg_solve(op: Callable, x0: torch.Tensor, b: torch.Tensor, tol,
              max_iter) -> Tuple[torch.Tensor, int]:
     """Solve op(x) = b for each block (``op`` a closure or a Bound).
     Returns (x, iterations).  ``tol`` and ``max_iter``: numbers or 0-d
-    tensors."""
-    st, out = devloop.run(cg_loop(op, x0, b, tol, max_iter))
-    return st[0], int(out[1])
+    tensors.  Inside a device-decided loop's step the iterations come
+    back as a 0-d int64 tensor."""
+    return _solve(cg_loop(op, x0, b, tol, max_iter), 6)
 
 
 def cg_solve_ir(op_hi: Callable[[torch.Tensor], torch.Tensor],
@@ -149,45 +157,66 @@ def cg_solve_ir(op_hi: Callable[[torch.Tensor], torch.Tensor],
                 max_passes: int = 6) -> Tuple[torch.Tensor, int]:
     """Mixed-precision CG by iterative refinement (cg.py:94-159): each
     pass solves op_lo(d) ~= r at float32 from zero (relative
-    reduction ``inner_tol``; cg_solve, in chunks), sets x += d and
+    reduction ``inner_tol``; cg_solve, nested) sets x += d and
     recomputes r = b - op_hi(x) at the ambient float64.  Stops on the
     reference criterion ||r||_2 / ||b||_1 < tol of the true residual; a
     pass that worsens the residual is reverted, and one that does not
     halve it marks the block done.  Returns (x, total inner
-    iterations).  The host reads whether every block is done once a
-    pass, after it; where every block is done from the start (lorads_tpu
-    then runs no pass) the first pass solves for a zero right-hand side
-    (no inner iteration; x and the count stay)."""
+    iterations).  The passes are a device-decided loop whose first pass
+    always runs: where every block is done from the start (lorads_tpu
+    then runs no pass) it solves for a zero right-hand side (no inner
+    iteration; x and the count stay).  ``op_hi`` and ``op_lo`` (and
+    ``max_iter``, ``inner_tol``) are frozen into a graph: its key holds
+    them by identity.  Inside a device-decided loop's step the count
+    comes back as a 0-d int64 tensor."""
     b_nrm1 = torch.sum(torch.abs(b), dim=(1, 2))
     safe_b1 = torch.where(b_nrm1 == 0, 1.0, b_nrm1)
-
-    x = x0
     r = b - op_hi(x0)
     res = torch.sqrt(_bdot(r, r))
+    tol = devloop.scalar(tol, b.dtype, b.device)
     done = (res / safe_b1 < tol) | torch.isnan(res)
-    passes, total = 0, 0
-    while True:
-        r32 = r.to(torch.float32)
-        if passes == 0:
-            r32 = torch.where(torch.all(done), 0.0, r32)
-        d32, k = cg_solve(op_lo, torch.zeros_like(r32), r32, inner_tol,
-                          max_iter)
-        act = (~done).to(x.dtype)[:, None, None]
-        x_new = x + act * d32.to(x.dtype)
-        r_new = b - op_hi(x_new)
-        res_new = torch.sqrt(_bdot(r_new, r_new))
-        nan = torch.isnan(res_new)
-        # revert a pass that worsened the residual (cg.py:143-149); a NaN
-        # in a done block's d32 never passes keep
-        keep = (res_new <= res) & ~nan
-        x = torch.where(keep[:, None, None], x_new, x)
-        r = torch.where(keep[:, None, None], r_new, r)
-        res_kept = torch.where(keep, res_new, res)
-        # a pass that failed to halve the residual hit the IR floor
-        done = (done | (res_kept / safe_b1 < tol) | nan
-                | (res_new > 0.5 * res))
-        res = res_kept
-        passes += 1
-        total += k
-        if passes >= max_passes or dev.host_read(torch.all(done), "cg_ir"):
-            return x, total
+    zero = torch.zeros((), dtype=torch.int64, device=b.device)
+
+    def running(inp, st):
+        passes, done = st[4], st[3]
+        return (passes < max_passes) & ((passes == 0) | ~torch.all(done))
+
+    def step(inp, st, kind):
+        b, safe_b1, tol = inp
+        x, r, res, done, passes, total = st
+        x, r, res, done, k = _ir_pass(op_hi, op_lo, b, safe_b1, tol,
+                                      max_iter, inner_tol, x, r, res, done,
+                                      passes == 0)
+        return x, r, res, done, passes + 1, total + k
+
+    key = ("cg_ir", devloop.ident(op_hi),
+           op_lo.key if isinstance(op_lo, Bound) else devloop.ident(op_lo),
+           max_iter, inner_tol, max_passes)
+    return _solve(devloop.Loop(
+        key=key, step=step,
+        pack=lambda inp, st: st[5].to(torch.float64).reshape(1),
+        inputs=(b, safe_b1, tol), state=(x0, r, res, done, zero, zero),
+        K=None, label="cg_ir", running=running), 5)
+
+
+def _ir_pass(op_hi, op_lo, b, safe_b1, tol, max_iter, inner_tol, x, r, res,
+             done, first):
+    """One refinement pass of cg_solve_ir (``first``: a 0-d bool, the
+    first pass, whose right-hand side is zero where every block is done)
+    -> (x, r, res, done, inner iterations)."""
+    r32 = torch.where(first & torch.all(done), 0.0, r.to(torch.float32))
+    d32, k = cg_solve(op_lo, torch.zeros_like(r32), r32, inner_tol, max_iter)
+    act = (~done).to(x.dtype)[:, None, None]
+    x_new = x + act * d32.to(x.dtype)
+    r_new = b - op_hi(x_new)
+    res_new = torch.sqrt(_bdot(r_new, r_new))
+    nan = torch.isnan(res_new)
+    # revert a pass that worsened the residual (cg.py:143-149); a NaN in a
+    # done block's d32 never passes keep
+    keep = (res_new <= res) & ~nan
+    x = torch.where(keep[:, None, None], x_new, x)
+    r = torch.where(keep[:, None, None], r_new, r)
+    res_kept = torch.where(keep, res_new, res)
+    # a pass that failed to halve the residual hit the IR floor
+    done = (done | (res_kept / safe_b1 < tol) | nan | (res_new > 0.5 * res))
+    return x, r, res_kept, done, k

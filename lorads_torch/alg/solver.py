@@ -140,6 +140,8 @@ class LoradsSolver:
         # dispatch sizes whenever its per-iteration wall is small.  The
         # chunk sets the log cadence and the pinf ring buffer's index.
         self._admm_n_dev = min(self.device_chunk_iters, 10)
+        # (ProblemData, sweep plan) of the last ADMM phase (_admm_start)
+        self._admm_plan = (None, None)
         self._rng = np.random.default_rng(self.params.seed)
         self._ident_dirs = None
         self._gap_push_stalled = False
@@ -148,6 +150,8 @@ class LoradsSolver:
         # CG iterations of every ADMM chunk of the solve (ADMMStats.cg_iter
         # holds the last chunk's, as in lorads_tpu)
         self.admm_cg_total = 0
+        # host reads by label made inside the solve's ADMM phases
+        self.admm_reads_by = {}
         self._init_vars()
         # buckets whose blocks touch pairwise-disjoint constraint sets
         # (merged batches, block-diagonal problems) sweep their blocks
@@ -328,22 +332,23 @@ class LoradsSolver:
             return "ok"
         stats.rho = min(stats.rho, self.rho_max)
         entry = (self.U, self.V, self.dual, stats.rho)
-        for attempt in range(3):
-            st = self._admm_phase_once(stats, iter_celling,
-                                       time_solve_start, reopt)
-            if st == "stalled":
-                # f64 gap plateau: hand off to reopt
-                return "ok"
-            if st != "num_err":
-                return st
-            self.U, self.V, self.dual, entry_rho = entry
-            if attempt == 2:
-                break
-            stats.rho = min(entry_rho * 5.0, p.rho_celling_admm)
-            entry = (self.U, self.V, self.dual, stats.rho)
-            self.admm_retries += 1
-            self.log(f"ADMM diverged; restored entry state, retrying "
-                     f"at rho {stats.rho:.3f}")
+        with devloop.phase():     # the graphs of its chunks, retries too
+            for attempt in range(3):
+                st = self._admm_phase_once(stats, iter_celling,
+                                           time_solve_start, reopt)
+                if st == "stalled":
+                    # f64 gap plateau: hand off to reopt
+                    return "ok"
+                if st != "num_err":
+                    return st
+                self.U, self.V, self.dual, entry_rho = entry
+                if attempt == 2:
+                    break
+                stats.rho = min(entry_rho * 5.0, p.rho_celling_admm)
+                entry = (self.U, self.V, self.dual, stats.rho)
+                self.admm_retries += 1
+                self.log(f"ADMM diverged; restored entry state, retrying "
+                         f"at rho {stats.rho:.3f}")
         _, _, vals = admm_mod.admm_init_eval(
             self.pd, self.U, self.V, self.dual, self.scale_obj_his)
         self._set_admm_stats(stats, vals)
@@ -353,9 +358,36 @@ class LoradsSolver:
 
     def _admm_phase_once(self, stats: ADMMStats, iter_celling: int,
                          time_solve_start: float, reopt: bool) -> str:
-        with devloop.phase():         # the CG graphs of its sweep plan
-            return self._admm_chunks(stats, iter_celling,
-                                     time_solve_start, reopt)
+        by0 = dict(dev.HOST_SYNCS_BY)
+        try:
+            return self._admm_chunks(stats, iter_celling, time_solve_start,
+                                     reopt)
+        finally:
+            for k, n in dev.HOST_SYNCS_BY.items():
+                self.admm_reads_by[k] = (self.admm_reads_by.get(k, 0) + n
+                                         - by0[k])
+
+    def _admm_start(self, stats: ADMMStats, locals_, total) -> dict:
+        """The ADMM phase's first chunk input (admm_chunk's ``c``) from the
+        solver's factors and dual and the entry evaluation in ``stats``
+        (locals and constr_sum from admm_init_eval), with the sweep plan
+        of the last phase on the same ProblemData (a divergence retry's:
+        its chunk graph is replayed, not captured again; a reopt scales
+        the objective into a new ProblemData, which the graph would read
+        at the old one's addresses)."""
+        carry = admm_mod.make_carry(
+            self.pd, self.U, self.V, locals_, total, self.dual,
+            rho=stats.rho, cur_rho_max=self.rho_max, pinf_buf=[0.0] * 10,
+            old_pinf_mean=1e30, bad_pd=0, it=stats.iter,
+            pinf_l1=stats.pinf_l1, gap=stats.gap, pobj=stats.pobj,
+            dobj=stats.dobj, best_gap=stats.gap, since_best=0,
+            best_pinf=stats.pinf_l1, since_pinf=0)
+        pd, plan = self._admm_plan
+        c = admm_mod.chunk_start(self.params, self.pd, carry,
+                                 self._bucket_jacobi,
+                                 plan if pd is self.pd else None)
+        self._admm_plan = (self.pd, c["plan"])
+        return c
 
     def _admm_chunks(self, stats: ADMMStats, iter_celling: int,
                      time_solve_start: float, reopt: bool) -> str:
@@ -368,12 +400,7 @@ class LoradsSolver:
             self.log("enter admm reopt")
         celling = iter_celling
         gap_stop = False     # in the gap continuation
-        c = dict(U=self.U, V=self.V, locals=locals_, constr_sum=total,
-                 dual=self.dual, rho=stats.rho, cur_rho_max=self.rho_max,
-                 pinf_buf=[0.0] * 10, old_pinf_mean=1e30, bad_pd=0,
-                 it=stats.iter, pinf_l1=stats.pinf_l1, gap=stats.gap,
-                 pobj=stats.pobj, dobj=stats.dobj, best_gap=stats.gap,
-                 since_best=0, best_pinf=stats.pinf_l1, since_pinf=0)
+        c = self._admm_start(stats, locals_, total)
         status = "ok"
         while True:
             c = admm_mod.admm_chunk(p, self.pd, c, self.scale_obj_his,
@@ -425,7 +452,11 @@ class LoradsSolver:
                         and stats.iter < iter_celling):
                     gap_stop = True
                     celling = min(iter_celling, stats.iter + 2000)
-                    c["best_gap"], c["since_best"] = stats.gap, 0
+                    carry = c["carry"]
+                    c["carry"] = dataclasses.replace(
+                        carry, best_gap=torch.full_like(carry.gap,
+                                                        stats.gap),
+                        since_best=torch.zeros_like(carry.since_best))
                     self.log("ADMM gap continuation: pinf converged, "
                              f"pushing gap {stats.gap:.2e} -> "
                              f"{p.phase2_tol:.0e} before conceding to "
@@ -439,7 +470,8 @@ class LoradsSolver:
             if time.time() - time_solve_start >= p.time_sec_limit:
                 status = "time_out"
                 break
-        self.U, self.V, self.dual = c["U"], c["V"], c["dual"]
+        carry = c["carry"]
+        self.U, self.V, self.dual = carry.U, carry.V, carry.dual
         self.rho_max = c["cur_rho_max"]
         self.pobj, self.dobj = stats.pobj, stats.dobj
         self.gap, self.pinf_l1 = stats.gap, stats.pinf_l1

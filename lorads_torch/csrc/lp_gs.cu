@@ -501,8 +501,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                  const T* __restrict__ upd, const T* __restrict__ fixed,
                  T* csum, const T* __restrict__ rhs,
                  const T* __restrict__ dual, const T* __restrict__ s,
-                 T* __restrict__ out, int n, int L, int m, T rho) {
+                 T* __restrict__ out, int n, int L, int m,
+                 const T* __restrict__ rho_p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const T rho = *rho_p;  // on the device: a graph replays it as it changes
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + RING;
   auto* ring = reinterpret_cast<Piece<T, HAS_S>*>(empty + RING);
@@ -551,7 +553,7 @@ template <typename T, bool SMEM_CSUM, bool HAS_S>
 int launch_as(const void* pc_con, const void* pc_val, const void* obj,
               const void* nrm2, const void* upd, const void* fixed,
               void* csum, const void* rhs, const void* dual, const void* s,
-              void* out, int n, int L, int m, double rho,
+              void* out, int n, int L, int m, const void* rho,
               cudaStream_t stream) {
   static bool raised = false;  // the dynamic shared memory limit, once
   if (!raised) {
@@ -568,7 +570,7 @@ int launch_as(const void* pc_con, const void* pc_val, const void* obj,
           static_cast<const T*>(upd), static_cast<const T*>(fixed),
           static_cast<T*>(csum), static_cast<const T*>(rhs),
           static_cast<const T*>(dual), static_cast<const T*>(s),
-          static_cast<T*>(out), n, L, m, (T)rho);
+          static_cast<T*>(out), n, L, m, static_cast<const T*>(rho));
   return (int)cudaGetLastError();
 }
 
@@ -577,7 +579,7 @@ template <typename T, bool HAS_S>
 int launch(const void* pc_con, const void* pc_val, const void* obj,
            const void* nrm2, const void* upd, const void* fixed, void* csum,
            const void* rhs, const void* dual, const void* s, void* out, int n,
-           int L, int m, double rho, cudaStream_t stream) {
+           int L, int m, const void* rho, cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
   return m <= smem_max_m<T, HAS_S>()
              ? launch_as<T, true, HAS_S>(pc_con, pc_val, obj, nrm2, upd,
@@ -592,7 +594,7 @@ template <typename T>
 int launch_s(const void* pc_con, const void* pc_val, const void* obj,
              const void* nrm2, const void* upd, const void* fixed,
              void* csum, const void* rhs, const void* dual, const void* s,
-             void* out, int n, int L, int m, double rho,
+             void* out, int n, int L, int m, const void* rho,
              cudaStream_t stream) {
   return s ? launch<T, true>(pc_con, pc_val, obj, nrm2, upd, fixed, csum,
                              rhs, dual, s, out, n, L, m, rho, stream)
@@ -604,7 +606,8 @@ int launch_s(const void* pc_con, const void* pc_val, const void* obj,
 
 // pc_con int32 [n, L] (padding = m), pc_val [n, L], obj / nrm2 / upd /
 // fixed [n], csum [m] updated in place, rhs / dual [m], s [n] or null (no
-// DUAL_U_V term), out [n]; all contiguous.  is_f64: 1 for float64, 0 for
+// DUAL_U_V term), out [n], rho [1] (on the device, the dtype of csum); all
+// contiguous.  is_f64: 1 for float64, 0 for
 // float32.  csum stays in shared memory during the sweep when
 // m <= lt_lp_gs_smem_max_m(is_f64, s != null), else in global memory.
 // Returns cudaGetLastError().
@@ -614,7 +617,7 @@ extern "C" int lt_lp_gs_sweep(int is_f64, const void* pc_con,
                               const void* fixed, void* csum,
                               const void* rhs, const void* dual,
                               const void* s, void* out, int n, int L, int m,
-                              double rho, void* stream) {
+                              const void* rho, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_s<double>(pc_con, pc_val, obj, nrm2, upd, fixed,
                                    csum, rhs, dual, s, out, n, L, m, rho, st)

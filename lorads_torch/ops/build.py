@@ -47,13 +47,17 @@ _SIGNATURES = {
     "lt_wmul_tiled": [_I, *[_VP] * 11, *[_I] * 9, _VP],
     "lt_adj_a_offdiag": [_I, *[_VP] * 12, *[_I] * 8, _VP],
     "lt_adj_a_dense": [_I, _VP, _VP, _VP, _VP, _I, _I, _VP],
-    "lt_lp_gs_sweep": [_I, *[_VP] * 11, _I, _I, _I, ctypes.c_double, _VP],
+    "lt_lp_gs_sweep": [_I, *[_VP] * 11, _I, _I, _I, _VP, _VP],
     "lt_lp_gs_smem_max_m": [_I, _I],
     "lt_onehot_scatter": [_I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "lt_onehot_gather": [_I, _VP, _VP, _VP, _I, _I, _VP],
     "lt_row_gather": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     "lt_smem_optin": [],
     "lt_scatter_add": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    # conditional graph nodes (csrc/graph_cond.cu), alg/devloop.py
+    "lt_cond_begin": [_I, _VP, _VP, ctypes.POINTER(ctypes.c_ulonglong),
+                      _VP],
+    "lt_cond_end": [_I, ctypes.c_ulonglong, _VP, _VP, _VP],
     # measuring instruments (csrc/floor.cu), read by chip_smoke.py
     "lt_empty": [_VP],
     "lt_smem_chase": [_I, _VP, _VP],

@@ -29,6 +29,10 @@ K6 and K5 at r > 1 run over tile schedules of the static pattern
 rows in shared memory a tile at a time (csrc/tiles.cuh); K3, K3p and K6
 share one schedule of the off slots and one set of kernels
 (csrc/sddmm.cuh).
+csrc/graph_cond.cu opens the conditional nodes of devloop's device-decided
+loops (``alg/devloop.py``): its one-thread kernel, counted as
+``loop_cond``, sets a WHILE or IF node's condition from a device boolean
+(lorads_tpu's ``lax.while_loop`` cond and ``lax.cond`` predicate).
 csrc/floor.cu holds two measuring instruments that chip_smoke.py calls
 (an empty kernel, a chain of dependent shared-memory loads); they have
 no wrapper here and no count in ``LAUNCHES``.
@@ -66,7 +70,7 @@ import torch
 KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
                 "gather_segsum", "wmul_csr", "adj_a_offdiag",
                 "adj_a_dense", "lp_gs_sweep", "onehot_scatter",
-                "onehot_gather", "row_gather", "scatter_add")
+                "onehot_gather", "row_gather", "scatter_add", "loop_cond")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # of LAUNCHES["uvt_split"], those with V is U (one dot an entry)
 ONE_DOT_LAUNCHES = {"uvt_split": 0}
@@ -106,13 +110,48 @@ def recording():
         _TALLY = prev
 
 
-def replayed(tally: dict) -> None:
-    """Count one replay of a graph whose launches are ``tally``."""
+def replayed(tally: dict, times: int = 1, replay: bool = True) -> None:
+    """Count one replay of a graph whose launches are ``tally``; with
+    ``times`` and ``replay=False``, a conditional node's body (its
+    launches ``tally``) that ran ``times`` times in a replay."""
     for (table, name), n in tally.items():
-        _TABLES[table][name] += n
+        _TABLES[table][name] += n * times
         if table == "launches":
-            GRAPHS["launches"] += n
-    GRAPHS["replayed"] += 1
+            GRAPHS["launches"] += n * times
+    if replay:
+        GRAPHS["replayed"] += 1
+
+
+def cond_begin(is_while: bool, pred: torch.Tensor, child) -> int:
+    """Open a WHILE (or IF) node on the stream being captured, its
+    condition set from the 0-d bool ``pred``, and start capturing its body
+    on the stream ``child`` (csrc/graph_cond.cu) -> the node's handle."""
+    import ctypes
+
+    from lorads_torch.ops import build
+    handle = ctypes.c_ulonglong(0)
+    rc = build.load().lt_cond_begin(
+        int(is_while), pred.data_ptr(), child.cuda_stream,
+        ctypes.byref(handle), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"loop_cond: opening a conditional node failed "
+                           f"(cudaError {rc})")
+    _bump("launches", "loop_cond")
+    return handle.value
+
+
+def cond_end(is_while: bool, handle: int, pred, counter, child) -> None:
+    """End the body captured on ``child``: a WHILE node's body sets its
+    condition from ``pred`` (runs again while it holds); either adds one
+    to ``counter`` (an int64 element) each time the body runs."""
+    from lorads_torch.ops import build
+    rc = build.load().lt_cond_end(
+        int(is_while), handle, None if pred is None else pred.data_ptr(),
+        counter.data_ptr(), child.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"loop_cond: closing a conditional node failed "
+                           f"(cudaError {rc})")
+    _bump("launches", "loop_cond")
 
 
 def _check(name, floats, ints):
@@ -708,13 +747,15 @@ def lp_gs_sweep_plain(pc_con, pc_val, obj, nrm2, upd, fixed, csum, rhs, dual,
 def lp_gs_sweep(pc_con: torch.Tensor, pc_val: torch.Tensor,
                 obj: torch.Tensor, nrm2: torch.Tensor, upd: torch.Tensor,
                 fixed: torch.Tensor, csum: torch.Tensor, rhs: torch.Tensor,
-                dual: torch.Tensor, rho: float,
+                dual: torch.Tensor, rho,
                 s: Optional[torch.Tensor] = None):
     """K8c.  pc_con int32 [n, L] (padding ids = m) and pc_val [n, L]: the
     columns' padded entries; obj, nrm2 (||a_j||^2), upd (u), fixed (v)
-    [n]; csum, rhs, dual [m]; ``s`` [n] or None: the DUAL_U_V variant's
-    signed term, m2 + s_j (admm.py:253) -> (new u [n], csum after the
-    sweep [m]).  ``csum`` itself is not modified."""
+    [n]; csum, rhs, dual [m]; ``rho`` a number or a 0-d tensor (the
+    kernel reads it from the device, so that a graph replays it as it
+    changes); ``s`` [n] or None: the DUAL_U_V variant's signed term,
+    m2 + s_j (admm.py:253) -> (new u [n], csum after the sweep [m]).
+    ``csum`` itself is not modified."""
     n, L = pc_con.shape
     m = csum.shape[0]
     if (pc_val.shape != pc_con.shape or rhs.shape != (m,)
@@ -728,11 +769,15 @@ def lp_gs_sweep(pc_con: torch.Tensor, pc_val: torch.Tensor,
                                  csum, rhs, dual, float(rho), s)
     out_sum = csum.clone()
     new = torch.empty_like(upd)
+    rho_t = (rho.to(device=csum.device, dtype=csum.dtype).reshape(1)
+             .contiguous() if isinstance(rho, torch.Tensor)
+             else torch.full((1,), rho, dtype=csum.dtype,
+                             device=csum.device))
     _launch("lp_gs_sweep", "lt_lp_gs_sweep", _is_f64(csum), pc_con.data_ptr(),
             pc_val.data_ptr(), obj.data_ptr(), nrm2.data_ptr(),
             upd.data_ptr(), fixed.data_ptr(), out_sum.data_ptr(),
             rhs.data_ptr(), dual.data_ptr(), _ptr(s), new.data_ptr(), n, L,
-            m, float(rho))
+            m, rho_t.data_ptr())
     if s is not None:
         _bump("with_s", "lp_gs_sweep")
     return new, out_sum

@@ -11,13 +11,15 @@ so the kernels are built and loaded):
   last one's by label (``device.HOST_SYNCS_BY``) and its loop graphs
   captured and replayed (``kernels.GRAPHS``);
 * ``phases``: one solve with synchronised timers around the solver's
-  construction, the ALM phases, the ADMM phases (and, inside them, the
-  CG solves), the certificate passes and the spectral dual repair;
+  construction, the ALM phases, the ADMM phases (whose CG solves run
+  inside the ADMM chunk's graph), the certificate passes and the
+  spectral dual repair;
 * ``device``: one solve with ``torch.profiler`` tracing the card over
-  two windows, the first ``--window`` host syncs of the ALM phase and
-  of the ADMM phase: per window, the device time of its kernels,
-  copies and fills over its wall (the busy share) and the largest
-  device items by name.  (A whole theta solve launches ~10^6 kernels,
+  the first ``--window`` host syncs of the ALM phase: the device time of
+  its kernels, copies and fills over its wall (the busy share) and the
+  largest device items by name; and the ADMM phases' graph share: the
+  device time of their chunk graphs' replays (CUDA events recorded by
+  ``devloop.timed``) over their wall.  (A whole theta solve launches ~10^6 kernels,
   whose trace takes longer to process than the solve takes to run.)
 
 With ``--resume`` each instance instead gets ``--walls`` rounds, in
@@ -29,9 +31,9 @@ walls (construction, load or warm start included), ALM inner steps,
 ADMM iterations and host syncs of each.
 
 The instances are chip_smoke.py's main-path instances, solved with
-its options for each (``PARAMS``).  ``--cg-chunk`` and ``--alm-chunk``
-set the device loops' chunk lengths (``cg.CHUNK``, ``alm.INNER_CHUNK``)
-for this process, to measure them.  Run from the
+its options for each (``PARAMS``).  ``--alm-chunk`` sets the ALM inner
+loop's chunk length (``alm.INNER_CHUNK``) for this process, to measure
+it.  Run from the
 root of the repository; needs a GPU; prints one JSON line per instance
 and the card's name and power limit.
 """
@@ -50,9 +52,8 @@ import torch
 
 from chip_smoke import INSTANCES, PARAMS
 from lorads_torch import device as dev
-from lorads_torch.alg import admm as admm_mod
 from lorads_torch.alg import alm as alm_mod
-from lorads_torch.alg import cg as cg_mod
+from lorads_torch.alg import devloop
 from lorads_torch.alg import solver as solver_mod
 from lorads_torch.alg.solver import LoradsSolver
 from lorads_torch.config import LoradsParams
@@ -97,9 +98,6 @@ def _timed(phases):
                                                "alm")),
              (LoradsSolver, "admm_phase", wrap(LoradsSolver, "admm_phase",
                                                 "admm")),
-             (admm_mod, "cg_solve_ir", wrap(admm_mod, "cg_solve_ir",
-                                            "admm_cg")),
-             (admm_mod, "cg_solve", wrap(admm_mod, "cg_solve", "admm_cg")),
              (LoradsSolver, "_dual_infeas_pass",
               wrap(LoradsSolver, "_dual_infeas_pass", "certificate")),
              (solver_mod, "try_spectral_repair",
@@ -126,8 +124,13 @@ def _summary(prof, wall, top):
 
 def _device_share(problem, name, window, top=8):
     """{phase: _summary} of one solve traced over the first ``window``
-    host syncs of its first ALM phase and of its first ADMM phase."""
+    host syncs of its first ALM phase, and its ADMM phases' graph share:
+    the device time of their chunk graphs' replays (``devloop.timed``)
+    over the phases' wall.  The ADMM phases are not traced: under a trace
+    devloop pauses the CUDA collection around those graphs (ROADMAP §3
+    F4)."""
     from torch.profiler import ProfilerActivity, profile
+    from lorads_torch.alg import devloop
     out, state = {}, {}
     read = dev.host_read
 
@@ -146,31 +149,49 @@ def _device_share(problem, name, window, top=8):
             stop()
         return v
 
-    def traced(phase, fn):
+    def traced(fn):
         def run(*a, **k):
-            if phase in out:
+            if "alm" in out:
                 return fn(*a, **k)
             torch.cuda.synchronize()
             prof = profile(activities=[ProfilerActivity.CUDA])
             prof.start()
-            state.update(prof=prof, phase=phase, n=0, t0=time.time())
+            state.update(prof=prof, phase="alm", n=0, t0=time.time())
             try:
                 return fn(*a, **k)
             finally:
                 stop()
         return run
 
+    walls = []
+
+    def admm_timed(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+        return run
+
     saved = [(LoradsSolver, "alm_phase", LoradsSolver.alm_phase),
              (LoradsSolver, "admm_phase", LoradsSolver.admm_phase),
              (dev, "host_read", read)]
-    LoradsSolver.alm_phase = traced("alm", LoradsSolver.alm_phase)
-    LoradsSolver.admm_phase = traced("admm", LoradsSolver.admm_phase)
+    LoradsSolver.alm_phase = traced(LoradsSolver.alm_phase)
+    LoradsSolver.admm_phase = admm_timed(LoradsSolver.admm_phase)
     dev.host_read = counted
     try:
-        _solve(problem, name)
+        with devloop.timed() as events:
+            _solve(problem, name)
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
+    graph_s = sum(a.elapsed_time(b) for a, b in events) * 1e-3
+    wall = sum(walls)
+    out["admm_graphs"] = dict(graph_s=graph_s, wall_s=wall, replays=len(events),
+                              share=graph_s / wall if wall else 0.0)
     return out
 
 
@@ -186,7 +207,10 @@ def profile_instance(name, walls, window):
         alm_outer=res.alm_stats.outer_iter,
         alm_inner=res.alm_stats.inner_iter, admm=res.admm_stats.iter,
         cg=runs[-1][1].admm_cg_total, rank=res.ranks,
-        host_syncs_by=runs[-1][1].syncs_by, graphs=runs[-1][1].graphs,
+        host_syncs_by=runs[-1][1].syncs_by,
+        admm_reads_by={k: n for k, n in runs[-1][1].admm_reads_by.items()
+                       if n},
+        graphs=runs[-1][1].graphs,
         spectral_repair=getattr(runs[-1][1], "spectral_repair_info",
                                 None))
     phases = {}
@@ -245,22 +269,18 @@ def main(argv=None) -> int:
     ap.add_argument("--walls", type=int, default=5)
     ap.add_argument("--window", type=int, default=2000,
                     help="host syncs traced per phase")
-    ap.add_argument("--cg-chunk", type=int, help="cg.CHUNK")
     ap.add_argument("--alm-chunk", type=int, help="alm.INNER_CHUNK")
     ap.add_argument("--resume", action="store_true",
                     help="walls of cold, checkpointed, resumed and "
                     "warm-started solves in turns")
     args = ap.parse_args(argv)
-    if args.cg_chunk:
-        cg_mod.CHUNK = args.cg_chunk
     if args.alm_chunk:
         alm_mod.INNER_CHUNK = args.alm_chunk
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve needs an NVIDIA GPU")
     card = card_line()
     print(f"card: {card}")
-    print(json.dumps({"cg_chunk": cg_mod.CHUNK,
-                      "alm_chunk": alm_mod.INNER_CHUNK}))
+    print(json.dumps({"alm_chunk": alm_mod.INNER_CHUNK}))
     _solve(INSTANCES["maxcut300"]())        # build, load, warm up
     for name in args.instances:
         out = (resume_walls(name, args.walls) if args.resume else

@@ -32,6 +32,16 @@ from lorads_torch.alg.solver import LoradsSolver as TorchSolver
 from lorads_torch.config import LoradsParams as TorchParams
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.as_tensor(np.array(x, dtype=np.float64))
 

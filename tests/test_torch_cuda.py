@@ -30,6 +30,17 @@ from lorads_torch.io.sdpa import read_sdpa
 from lorads_torch.ops import kernels
 from lorads_torch.ops import pattern as pat
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 
 
@@ -975,7 +986,8 @@ def test_lp_gs_sweep_kernel_with_s_bit_for_bit(case, dtype):
 # ---------------------------------------------------------------------------
 
 def _mc_cg_loop(dtype):
-    """The CG loop of matcomp500's operator (K6, K5) at ``dtype``."""
+    """The CG loop of matcomp500's operator (K6, K5) at ``dtype``: a
+    device-decided loop (its whole solve one replay)."""
     from lorads_torch.alg import admm, cg, devloop
     bk, bp = _mc_bucket(dtype)
     rng = np.random.default_rng(4)
@@ -1007,7 +1019,9 @@ def _flat(tree):
 @pytest.mark.parametrize("which", ["cg_f64", "cg_f32", "alm_inner"])
 def test_graphed_chunk_equals_eager_chunk(which):
     """One chunk replayed from its CUDA graph equals the same masked
-    steps run eagerly on the card from the same state, bit for bit."""
+    steps run eagerly on the card from the same state, bit for bit; the
+    CG's graph (a WHILE node) runs its whole solve in one replay, against
+    the solve decided by host reads."""
     _need_cuda()
     from lorads_torch.alg import devloop
     with devloop.phase():
@@ -1053,12 +1067,12 @@ def test_host_read_inside_capture_raises():
 
 @pytest.mark.cuda
 def test_launches_count_per_replay():
-    """kernels.LAUNCHES after 3 replays of a CG chunk's graph: 3 times
+    """kernels.LAUNCHES after 3 replays of an ALM chunk's graph: 3 times
     the launches the graph holds, none at its capture."""
     _need_cuda()
     from lorads_torch.alg import devloop
     with devloop.phase():
-        loop = _mc_cg_loop(torch.float64)
+        loop = _mc_alm_loop()
         devloop.eager_chunk(loop)            # build, set attributes
         kernels.reset_launches()
         graph, load, _ = devloop.graph_chunk(loop)
@@ -1070,5 +1084,178 @@ def test_launches_count_per_replay():
         for _ in range(3):
             graph.replay()
         assert sum(kernels.LAUNCHES.values()) == 3 * held
-        assert kernels.LAUNCHES["adj_a_offdiag"] > 0
+        assert kernels.LAUNCHES["uvt_pair_split"] > 0
         assert kernels.GRAPHS["replayed"] == 3
+
+
+# ---------------------------------------------------------------------------
+# Device-decided loops: WHILE nodes, the graphed ADMM chunk.
+# ---------------------------------------------------------------------------
+
+def _count_loop(n):
+    """A device-decided loop that adds 1 until its count reaches n."""
+    from lorads_torch.alg import devloop
+    dev = torch.device("cuda")
+    return devloop.Loop(
+        key=("count",), step=lambda inp, st, kind: (st[0] + 1, st[1] * 2),
+        pack=lambda inp, st: st[0].to(torch.float64).reshape(1),
+        inputs=(torch.full((), n, dtype=torch.int64, device=dev),),
+        state=(torch.zeros((), dtype=torch.int64, device=dev),
+               torch.ones((), dtype=torch.float64, device=dev)),
+        K=None, label="other", running=lambda inp, st: st[0] < inp[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 37])
+def test_while_node_runs_to_its_device_exit(n):
+    """One replay runs a WHILE node's body until the device's exit test
+    fails (also never, at n = 0); its closing kernel counts each run."""
+    _need_cuda()
+    from lorads_torch.alg import devloop
+    with devloop.phase():
+        loop = _count_loop(n)
+        graph, load, bufs = devloop.graph_chunk(loop)
+        load()
+        kernels.reset_launches()
+        graph.replay()
+        assert graph.read("other") == [float(n)]
+        st = bufs.tree("state")
+        assert int(st[0]) == n and float(st[1]) == 2.0 ** n
+        # the condition set before the node, and the body's closing
+        # kernel once a run
+        assert kernels.LAUNCHES["loop_cond"] == 1 + n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acts", [("CPU",), ("CPU", "CUDA")])
+def test_device_decided_graph_under_a_trace(acts):
+    """Under torch.profiler a device-decided loop's graph is captured and
+    replayed with the trace's CUDA collection paused (its replay under
+    a CUDA trace hit an illegal address on the card: ROADMAP F4), shows
+    as a ``devloop.*`` range, and the trace goes on after it."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from lorads_torch.alg import devloop
+    with devloop.phase():
+        with profile(activities=[getattr(ProfilerActivity, a)
+                                 for a in acts]) as prof:
+            _, out = devloop.run(_count_loop(3))      # captured, replayed
+            assert out == [3.0]
+            _, out = devloop.run(_count_loop(5))      # replayed
+            assert out == [5.0]
+            (torch.ones(8, device="cuda") * 2).sum().item()
+    names = [e.key for e in prof.key_averages()]
+    assert "devloop.capture" in names and "devloop.replay" in names
+    device = [e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU
+              and e.self_device_time_total > 0]
+    assert bool(device) == ("CUDA" in acts)
+
+
+def _admm_solver(name):
+    """A solver right after its ALM phase on the card, and the ADMM
+    stats it hands over."""
+    import time
+
+    from lorads_torch.alg.admm import ADMMStats
+    from lorads_torch.alg.alm import ALMStats
+    problems = {
+        "theta_gtoy60": lambda: read_sdpa(os.path.join(
+            FIX, "theta_gtoy60.dat-s")),
+        "hand_multiblock": lambda: read_sdpa(os.path.join(
+            FIX, "hand_multiblock.dat-s")),
+        "matcomp500": lambda: read_sdpa(os.path.join(
+            FIX, "matcomp500.dat-s")),
+        "maxcut300": lambda: generators.maxcut(n=300, avg_degree=4, seed=3),
+        "rmb2": lambda: generators.random_multiblock(
+            n_blocks=2, dim=8, m=6, n_lp=4, seed=2)}
+    key = name.split(":")[0]
+    params = LoradsParams(verbose=False,
+                          lp_gauss_seidel=name.endswith(":lp_gs"))
+    s = LoradsSolver(problems[key](), params, device="cuda")
+    alm_stats = ALMStats(rho=s.ps.rho0)
+    s.alm_phase(alm_stats, time.time())
+    stats = ADMMStats(rho=s.ps.rho0)
+    s.alm_to_admm(alm_stats, stats)
+    return s, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["theta_gtoy60", "hand_multiblock:lp_gs",
+                                  "rmb2", "maxcut300", "matcomp500"])
+def test_graphed_admm_chunks_equal_eager(name):
+    """Three ADMM chunks as the solver runs them (``devloop.run``: a
+    warm-up and the capture of one graph, a WHILE node of ADMM
+    iterations with the CG and refinement loops WHILE nodes inside and
+    the restart an IF node; then replays of it with each chunk's inputs)
+    against the same chunks run eagerly on the card from the same carry:
+    the pack and every state tensor bit for bit (both sides launch the
+    same kernels on the same inputs in the same order), and a replay's
+    launches, counted from its pack, equal to the eager run's but for
+    the conditional nodes' own kernel."""
+    _need_cuda()
+    from lorads_torch.alg import admm, devloop
+    s, stats = _admm_solver(name)
+    with devloop.phase():
+        locals_, total, vals = admm.admm_init_eval(
+            s.pd, s.U, s.V, s.dual, s.scale_obj_his)
+        s._set_admm_stats(stats, vals)
+        c = s._admm_start(stats, locals_, total)
+        cg = 0
+        for j, n in enumerate((10, 20, 40)):
+            c, loop = admm.prepare_chunk(
+                s.params, s.pd, c, s.scale_obj_his, s.params.max_admm_iter,
+                n, jacobi=s._bucket_jacobi, S=s.S)
+            kernels.reset_launches()
+            eager = devloop.eager_chunk(loop)
+            torch.cuda.synchronize()
+            eager_launches = dict(kernels.LAUNCHES)
+            want = loop.pack(loop.inputs, eager).tolist()
+            kernels.reset_launches()
+            got_state, got = devloop.run(loop)
+            replay_launches = dict(kernels.LAUNCHES)
+            assert got == want
+            for g, e in zip(devloop.flatten(got_state)[0],
+                            devloop.flatten(eager)[0]):
+                assert torch.equal(g, e)
+            assert eager_launches.pop("loop_cond") == 0
+            assert replay_launches.pop("loop_cond") > 0
+            if j:                    # the first also warms up
+                assert replay_launches == eager_launches
+            c["carry"] = got_state
+            cg += int(got[7])        # the pack's cg_iter
+    # Max-Cut's closed form runs no CG
+    assert (cg > 0) == (name != "maxcut300")
+
+
+@pytest.mark.cuda
+def test_admm_chunk_reads_once():
+    """A solve's ADMM phases on the card: each chunk replays its graph
+    (the first of a key after a warm-up that reads nothing) and reads
+    the host once (label admm); the CG inside makes no read."""
+    _need_cuda()
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import admm
+    problem = read_sdpa(os.path.join(FIX, "theta_gtoy60.dat-s"))
+    s = LoradsSolver(problem, LoradsParams(verbose=False), device="cuda")
+    chunks = []
+    run = admm.admm_chunk
+
+    def counted(*a, **k):
+        before = dict(tdev.HOST_SYNCS_BY)
+        out = run(*a, **k)
+        chunks.append({key: n - before[key]
+                       for key, n in tdev.HOST_SYNCS_BY.items()
+                       if n > before[key]})
+        return out
+
+    admm.admm_chunk = counted
+    try:
+        res = s.solve()
+    finally:
+        admm.admm_chunk = run
+    assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
+    assert len(chunks) > 2 and s.admm_cg_total > 0
+    assert all(c == {"admm": 1} for c in chunks), chunks
+    assert not s.admm_reads_by.get("cg") and not s.admm_reads_by.get("cg_ir")

@@ -1,15 +1,18 @@
 """lorads_torch's device-resident loops (alg/devloop.py) on the CPU.
 
-CG and the ALM inner loop run as masked steps in chunks: K steps
-between two host reads (the loop's own chunk, as on the card) must give
-what one step between reads gives (the CPU default), bit for bit,
-because a step past the loop's exit leaves the state unchanged.  Checked
-here: cg_solve and cg_solve_ir on a matcomp500 bucket and on a
+The ALM inner loop runs as masked steps in chunks: K steps between two
+host reads (the loop's own chunk, as on the card) must give what one
+step between reads gives (the CPU default), bit for bit, because a step
+past the loop's exit leaves the state unchanged.  CG and the refinement
+passes are device-decided loops: run at the top (a read of the exit
+test before each iteration) they must give what they give nested in a
+device-decided step, as the ADMM iteration runs them.  Checked here:
+cg_solve and cg_solve_ir on a matcomp500 bucket and on a
 hand_multiblock block slice, each also against lorads_tpu's on the same
-numpy inputs; the masked no-op with an inf / NaN direction in a done
-block; the ALM inner loop on maxcut300 and matcomp500 across a cache
-refresh and a wrap of the history head; the host-read labels and the
-replay-aware launch counts.
+numpy inputs; a done block's no-op with an inf / NaN direction; the ALM
+inner loop on maxcut300 and matcomp500 across a cache refresh and a
+wrap of the history head; the host-read labels and the replay-aware
+launch counts.
 """
 
 import jax.numpy as jnp
@@ -32,6 +35,17 @@ from lorads_torch.alg.solver import LoradsSolver as TorchSolver
 from lorads_torch.config import LoradsParams as TorchParams
 from lorads_torch.ops import kernels
 from lorads_torch.ops import pattern as t_pat
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FIX = "tests/fixtures/"
 
@@ -104,18 +118,21 @@ def _port_cg(case, tol, ir):
 
 @pytest.mark.parametrize("ir", [False, True], ids=["cg", "cg_ir"])
 def test_cg_chunks_match_single_steps(monkeypatch, cg_case, ir):
-    """Chunks of cg.CHUNK iterations (restarts at fixed positions) give
-    the one-step-a-read solve bit for bit, iteration count included."""
+    """The solve run at the top (a host read of the exit test before each
+    iteration or pass, whatever CPU_CHUNK) gives the solve nested in a
+    device-decided step (the ADMM iteration's path, its count a 0-d
+    tensor) bit for bit, iteration count included."""
     _chunked(monkeypatch, False)
     x1, k1 = _port_cg(cg_case, 1e-8, ir)
     _chunked(monkeypatch, True)
-    xk, kk = _port_cg(cg_case, 1e-8, ir)
-    assert kk == k1 > 0
+    with devloop._stepping():
+        xk, kk = _port_cg(cg_case, 1e-8, ir)
+    assert isinstance(kk, torch.Tensor) and int(kk) == k1 > 0
     assert torch.equal(xk, x1)
 
 
 def test_cg_chunks_match_lorads_tpu(monkeypatch, cg_case, tol=1e-8):
-    """cg_solve and cg_solve_ir, chunked, against lorads_tpu's on the
+    """cg_solve and cg_solve_ir against lorads_tpu's on the
     same numpy inputs: equal counts; cg_solve's x within 1e-11 of the
     solution's largest entry (f64 sums in two orders: an error relative
     to the terms' scale, not to each entry), cg_solve_ir's within what
@@ -149,11 +166,19 @@ def _same_bits(a, b):
         a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
+def _cg_steps(loop, state, start, n):
+    """``n`` CG iterations from ``state``, the first at ``start``."""
+    for p in range(start, start + n):
+        state = loop.step(loop.inputs, state, loop.kind(p))
+    return state
+
+
 @pytest.mark.parametrize("bad", [np.inf, np.nan])
 def test_masked_cg_step_is_a_no_op(bad):
     """A done block whose direction p holds inf or NaN: its x, r and p
     stay the same bit for bit, the live block advances as it does
-    alone, and once every block is done a step changes nothing."""
+    alone, and once every block is done the loop runs no iteration: the
+    state, its count included, comes back as it was."""
     rng = np.random.default_rng(3)
     M = rng.standard_normal((2, 6, 6))
     M = _t(np.einsum("bij,bkj->bik", M, M) + 6 * np.eye(6))
@@ -164,17 +189,17 @@ def test_masked_cg_step_is_a_no_op(bad):
     p = p.clone()
     p[1] = bad
     loop.state = (x, r, p, torch.tensor([False, True]), best, since, k)
-    st = devloop.eager_chunk(loop, steps=3)
+    st = _cg_steps(loop, loop.state, 0, 3)
     for new, old in zip(st[:3], loop.state[:3]):
         assert _same_bits(new[1], old[1])
     assert bool(torch.isfinite(st[0]).all()) and int(st[6]) == 3
     alone = t_cg.cg_loop(lambda y: torch.matmul(M[:1], y),
                          torch.zeros_like(b[:1]), b[:1], 1e-12, 800)
-    assert _same_bits(st[0][0], devloop.eager_chunk(alone, steps=3)[0][0])
+    assert _same_bits(st[0][0], _cg_steps(alone, alone.state, 0, 3)[0][0])
     # every block done: nothing moves, the count included
     loop.state = st[:3] + (torch.tensor([True, True]),) + st[4:]
-    for new, old in zip(devloop.eager_chunk(loop, start=3, steps=20),
-                        loop.state):
+    assert not bool(loop.running(loop.inputs, loop.state))
+    for new, old in zip(devloop.run(loop)[0], loop.state):
         assert _same_bits(new, old)
 
 
@@ -259,8 +284,8 @@ def test_launches_recorded_count_per_replay():
 
 
 def test_cpu_reads_by_label(monkeypatch):
-    """On the CPU a CG solve reads once a step (label cg), and once a
-    chunk with the loop's own chunk."""
+    """On the CPU a CG solve reads its exit test before each iteration
+    and its pack once (label cg), whatever CPU_CHUNK."""
     rng = np.random.default_rng(5)
     M = rng.standard_normal((1, 8, 8))
     M = _t(np.einsum("bij,bkj->bik", M, M) + 8 * np.eye(8))
@@ -270,5 +295,5 @@ def test_cpu_reads_by_label(monkeypatch):
         _chunked(monkeypatch, on)
         t_dev.reset_host_syncs()
         _, k = t_cg.cg_solve(op, torch.zeros_like(b), b, 1e-12, 800)
-        want = -(-k // t_cg.CHUNK) if on else k
+        want = k + 2
         assert t_dev.HOST_SYNCS_BY["cg"] == t_dev.HOST_SYNCS == want

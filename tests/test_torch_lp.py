@@ -45,6 +45,17 @@ from lorads_torch.config import SolverStatus
 from lorads_torch.ops import kernels
 from lorads_torch.ops import lp as t_lp
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIX = "tests/fixtures/"
 RTOL = 1e-12
 # lorads_tpu CPU f64 on the fixture

@@ -56,6 +56,17 @@ from lorads_torch.core.problem import split_objectives_factors as t_split
 from lorads_torch.ops import kernels
 from lorads_torch.ops import pattern as t_pat
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIX = "tests/fixtures/"
 OUTER_LINE = re.compile(
     r"ALM Outer:(\d+) Inner:(\d+) pObj:(\S+) dObj:(\S+) pInf\(1\):(\S+) "

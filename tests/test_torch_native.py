@@ -8,9 +8,21 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from lorads_torch import native
 from lorads_torch.io import sdpa
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURES = sorted((ROOT / "tests" / "fixtures").glob("*.dat-s"))

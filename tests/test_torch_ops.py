@@ -40,6 +40,17 @@ from lorads_torch.io import sdpa as t_sdpa
 from lorads_torch.ops import kernels
 from lorads_torch.ops import pattern as t_pat
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIX = "tests/fixtures/"
 EPS32 = float(np.finfo(np.float32).eps)
 F64_PREFIX = 2.0 ** -48

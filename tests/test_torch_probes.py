@@ -32,6 +32,17 @@ from lorads_torch.probes import onehot as oh
 from lorads_torch.probes.__main__ import SECTIONS
 from lorads_torch.probes.__main__ import main as probes_main
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EPS32 = float(np.finfo(np.float32).eps)
 PROBES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools", "probes")

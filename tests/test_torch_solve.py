@@ -27,6 +27,17 @@ from lorads_torch.core.presolve import presolve as t_presolve
 from lorads_torch.io import generators as t_gen
 from lorads_torch.ops import pattern as t_pat
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = os.path.join(REPO, "tests", "fixtures")
 POBJ_RTOL = 1e-4

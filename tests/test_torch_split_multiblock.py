@@ -16,6 +16,8 @@ import time
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from lorads_tpu.alg.alm import ALMStats as TpuALMStats
 from lorads_tpu.alg.solver import LoradsSolver as TpuSolver
@@ -27,6 +29,17 @@ from lorads_torch.alg.alm import ALMStats
 from lorads_torch.alg.solver import LoradsSolver as TorchSolver
 from lorads_torch.config import LoradsParams as TorchParams
 from lorads_torch.config import SolverStatus
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these shapes are small, and the test workers
+    share the cores (eight threads a worker oversubscribe them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 OUTER_LINE = re.compile(
     r"ALM Outer:(\d+) Inner:(\d+) pObj:(\S+) dObj:(\S+) pInf\(1\):(\S+) "
