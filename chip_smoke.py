@@ -39,18 +39,22 @@ Phases, each reported on its own lines:
    segment lengths (one-entry segments with segments of 800, 5000 and
    70000 entries among them, empty segments, B = 2, base and alpha),
    bit for bit on one-entry segments;
-   the device loops (lorads_torch/alg/devloop.py): each chunk of CG
+   the device loops (lorads_torch/alg/devloop.py), each replayed from
+   its CUDA graph against the same run decided by host reads on the
+   card from the same state, bit for bit: CG as a whole solve
    (matcomp2000 and theta800, the mixed-precision CG's f32 inner loop)
-   and of the ALM inner loop (maxcut20000, matcomp2000) replayed from
-   its CUDA graph against the same masked steps run eagerly on the card
-   from the same state, bit for bit, with the chunk's device ms and the
-   eager chunk's dispatched ms;
+   with the graph's device ms and the eager solve's dispatched ms; three
+   runs in a row of the ALM phase's outer loop (maxcut20000,
+   matcomp2000, theta300) and of the ADMM chunk (theta800, multiblock22,
+   multiblock_lp), launches equal, with the last replay's device ms;
+   loop_cond alone;
 4. the main paths, each with the kernel launch counts reset just before
    it and read just after, through LoradsSolver(...).solve() on cuda at
    f64, each solve held to primal_dual_optimal and to lorads_tpu's CPU
    f64 objective within 1e-4 relative, its line giving the host syncs
-   by label (device.HOST_SYNCS_BY), the loop graphs captured and
-   replayed and the kernel launches the replays counted:
+   by label (device.HOST_SYNCS_BY: no ``alm_inner`` read, the ALM's
+   ``alm`` reads one a run), the loop graphs captured and replayed and
+   the kernel launches the replays counted:
    - Max-Cut (split, diag-identity): maxcut(n=300, deg 4, seed 3) (ALM
      + closed-form ADMM, exact-eigh certificate), maxcut n=20000 (deg 8,
      seed 7) and tests/fixtures/gset_torus10000.rudy (Lanczos
@@ -66,9 +70,10 @@ Phases, each reported on its own lines:
      K7a operator, exact-eigh certificate, spectral dual repair);
    - the CGNR dual refinement: theta_gtoy60 with the spectral repair
      replaced by a reject in this process, so that the solve takes the
-     CGNR refinement (K4 in every iteration), rejects its step and
-     ends by the level-2 reopt, held to lorads_tpu's CPU run of the
-     same forced path (status and objective);
+     CGNR refinement (K4 in every iteration; one graph replay and one
+     host read a run), rejects its step and ends by the level-2 reopt,
+     held to lorads_tpu's CPU run of the same forced path (status and
+     objective);
    - multi-block and LP: tests/fixtures/hand_multiblock.dat-s (two dense
      one-block buckets on local slots, an LP block of 2 columns), solved
      with Jacobi and with Gauss-Seidel (K8c) LP sweeps;
@@ -113,11 +118,10 @@ Phases, each reported on its own lines:
    counted), then resumed from the checkpoint and warm-started from
    ``save_solution``'s file, each certified within 1e-4 of the first
    solve, with walls and ALM inner counts; one solve inside
-   ``utils.profiling.device_trace``, its trace's kernel events of the
-   port counted (and whether a kernel event names its graph), and a
-   hand_multiblock solve traced through its ADMM phase (the chunk
-   graphs run with the trace's CUDA collection paused, ROADMAP §3 F4:
-   its ``devloop.*`` ranges counted);
+   ``utils.profiling.device_trace`` (its loops run eagerly under the
+   trace, ROADMAP §3 F4), the trace holding at least an event a launch
+   of its ALM phase's kernels (K2, K3), and a hand_multiblock solve
+   traced through its ADMM phase, the trace holding its ADMM's kernels;
    ``fix_init_point`` on maxcut20000 (max_alm_iter=2: one nrm2U line
    per inner step, all finite) and its trace on the card against the
    CPU run in this process: maxcut300's first 2 values (after that step
@@ -141,6 +145,7 @@ lorads_torch/timing.py; the last line is {"kernels_of": DIR, "cases":
 both in one call, in turns.
 """
 
+import contextlib
 import functools
 import json
 import math
@@ -233,9 +238,9 @@ REFERENCE_DUAL_UV = {
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
-    "maxcut": ("cmul_csr", "uvt_split"),
+    "maxcut": ("cmul_csr", "uvt_split", "loop_cond"),
     "matcomp": ("uvt_split", "uvt_pair_split", "gather_segsum", "wmul_csr",
-                "adj_a_offdiag"),
+                "adj_a_offdiag", "loop_cond"),
     "theta": ("gather_segsum", "adj_a_dense", "loop_cond"),
     "cgnr": ("gather_segsum", "adj_a_dense"),
     "lp": ("gather_segsum", "lp_gs_sweep", "loop_cond"),
@@ -1624,19 +1629,22 @@ def _devloop_cg(name):
     return cg.cg_loop(op, torch.zeros_like(b), b, 1e-5, admm.CG_MAX_ITER)
 
 
-def _devloop_alm(name):
-    """The ALM inner loop of ``name``'s solver from its start (rho0,
-    the solver's initial factor, dual and history)."""
+def _alm_solver(name, max_outers=2):
+    """(solver, carry, inputs but the budget) of ``name`` on the card at
+    its first ALM phase's start (rho0, the solver's initial factor, dual
+    and history), ``max_outers`` outer iterations a run."""
     from lorads_torch import LoradsParams, LoradsSolver
     from lorads_torch.alg import alm
 
-    s = LoradsSolver(INSTANCES[name](), LoradsParams(verbose=False),
+    s = LoradsSolver(INSTANCES[name](),
+                     LoradsParams(verbose=False, **PARAMS.get(name, {})),
                      device="cuda")
-    rho, p = s.ps.rho0, s.params
-    cs, g, cert = alm.alm_recompute(s.pd, s.R, s.dual, rho)
-    return alm.inner_loop(s.pd, s.R, g, s.hist, s.dual, cs, cert, rho,
-                          0.1 / rho, p.end_alm_sub_tol, p.end_tau_tol,
-                          p.phase1_tol, True, 801)
+    p = s.params
+    carry, fixed = alm.alm_start(
+        s.pd, p, s.R, s.dual, s.hist, alm.ALMStats(rho=s.ps.rho0),
+        s.scale_obj_his, s.is_rank_max(), p.alm_rho_factor,
+        s.max_alm_sub_iter, max_outers, p.max_alm_iter)
+    return s, carry, fixed
 
 
 def _admm_chunk_solver(name):
@@ -1792,6 +1800,104 @@ def admm_chunk_checks(card):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def alm_outer_checks(card):
+    """The ALM phase as one device loop (alg/alm.py) on maxcut20000 (K2,
+    K3), matcomp2000 (K3, K3p, K4, K5) and theta300 (K4, K7a, the dense
+    layouts) from their phases' start, three runs of the outer loop in a
+    row as alm_optimize makes them (two outers a run; ``devloop.run``:
+    the first a warm-up and the capture of the graph, WHILE nodes for
+    the outer, middle, inner and rho loops and an IF node for the cache
+    refresh; then replays), each against the same run made eagerly on
+    the card from the same carry (the host reading every exit test):
+    pack and state bit for bit, and the replays' launches, counted from
+    their packs, equal to the eager runs' but for the nodes' own kernel;
+    with the last replay's device ms and the eager runs' wall ms."""
+    import dataclasses
+
+    import torch
+
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import alm, devloop
+    from lorads_torch.ops import kernels
+
+    for name in ("maxcut20000", "matcomp2000", "theta300"):
+        s, carry, fixed = _alm_solver(name)
+        e_ms, e_reads, lines = 0.0, {}, []
+        dev = s.pd.rhs.device
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        with devloop.phase():
+            for j in range(3):
+                loop = alm.outer_loop(
+                    s.pd, alm.ALMInputs(
+                        budget=torch.full((), 2 ** 30, device=dev),
+                        grind_armed=torch.zeros((), dtype=torch.bool,
+                                                device=dev), **fixed),
+                    carry, high_acc_mode=s.params.high_acc_mode)
+                kernels.reset_launches()
+                reads0 = dict(tdev.HOST_SYNCS_BY)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                eager = devloop.eager_chunk(loop)
+                want = loop.pack(loop.inputs, eager).tolist()
+                e_ms += (time.time() - t0) * 1e3
+                e_launch = dict(kernels.LAUNCHES)
+                for k, v in tdev.HOST_SYNCS_BY.items():
+                    if v > reads0[k]:
+                        e_reads[k] = e_reads.get(k, 0) + v - reads0[k]
+                kernels.reset_launches()
+                reads0 = dict(tdev.HOST_SYNCS_BY)
+                got_state, got = devloop.run(loop)
+                g_launch = dict(kernels.LAUNCHES)
+                g_reads = {k: v - reads0[k] for k, v in
+                           tdev.HOST_SYNCS_BY.items() if v > reads0[k]}
+                same = [torch.equal(g, e) for g, e in zip(
+                    devloop.flatten(got_state)[0],
+                    devloop.flatten(eager)[0])]
+                if got != want or not all(same):
+                    raise AssertionError(
+                        f"alm outer {name} #{j}: the graph differs from "
+                        f"the eager run (pack {got[:18]} vs {want[:18]}; "
+                        f"tensors "
+                        f"{[i for i, ok in enumerate(same) if not ok]})")
+                if g_reads != {"alm": 1}:
+                    raise AssertionError(f"alm outer {name} #{j}: host "
+                                         f"reads {g_reads}")
+                nodes = g_launch.pop("loop_cond")
+                e_launch.pop("loop_cond")
+                if j and (g_launch != e_launch or nodes <= 0):
+                    raise AssertionError(
+                        f"alm outer {name} #{j}: launches {g_launch} in "
+                        f"the replay vs {e_launch} eagerly")
+                sc = dict(zip(alm.PACK_F + alm.PACK_I, got))
+                lines.append(f"#{j} {int(sc['n_done'])} outers to k "
+                             f"{int(sc['k'])}, {int(sc['total_inner'])} "
+                             f"inner steps, oexit {int(sc['oexit'])}, "
+                             f"{nodes} node kernels")
+                carry = dataclasses.replace(got_state, total_inner=zero,
+                                            n_done=zero, last_inner=zero)
+            # the last run's replay alone, on the device (its key's
+            # graph, captured at the first run)
+            graph, load, _ = devloop.graph_chunk(loop)
+            load()
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            graph.replay()
+            t1.record()
+            torch.cuda.synchronize()
+            graph.read("alm")
+            g_ms = t0.elapsed_time(t1)
+        print(f"alm outer {name}: 3 runs ({'; '.join(lines)}): graph == "
+              f"eager, bit for bit ({len(same)} tensors, pack {len(got)} "
+              f"values), one read a replay; last run {g_ms:.3f} ms on the "
+              f"device ({len(graph.bodies)} distinct bodies), the eager "
+              f"runs {e_ms:.1f} ms wall with host reads {e_reads}; kernel "
+              f"launches of the last replay "
+              f"{ {k: n for k, n in g_launch.items() if n} }  [{card}]")
+        del s
+
+
 def _devloop_solve(label, loop, card, cuda_time_ms):
     """A device-decided solve (the CG) replayed from its graph, one WHILE
     node, against the same solve decided by host reads on the card from
@@ -1831,69 +1937,19 @@ def _devloop_solve(label, loop, card, cuda_time_ms):
 
 
 def devloop_checks(card):
-    """The device loops (alg/devloop.py), each replayed from its CUDA
-    graph against the same steps run eagerly on the card from the same
-    state, bit for bit, with the graph's device ms (replays between CUDA
-    events) and the eager run's dispatched ms: the CG, a device-decided
-    loop, as a whole solve (``_devloop_solve``); the ALM inner loop's
-    masked chunks, its first and the one that holds step 24 (the cache
-    refresh), reached by eager chunks."""
-    import torch
-
+    """The CG (alg/cg.py), a device-decided loop called alone, replayed
+    from its CUDA graph as a whole solve against the same solve run
+    eagerly on the card from the same state, bit for bit, with the
+    graph's device ms (replays between CUDA events) and the eager run's
+    dispatched ms (``_devloop_solve``)."""
     from lorads_torch.alg import devloop
 
     cuda_time_ms = timing().cuda_time_ms
-    cases = (("matcomp2000 CG, f32 (K6, K5)", "cg", "matcomp2000"),
-             ("theta800 CG, f32 (K7a, K4, matmuls)", "cg", "theta800"),
-             ("maxcut20000 ALM inner (K2, K3)", "alm", "maxcut20000"),
-             ("matcomp2000 ALM inner (K3p, K4, K5)", "alm", "matcomp2000"))
-    for label, kind, name in cases:
+    cases = (("matcomp2000 CG, f32 (K6, K5)", "matcomp2000"),
+             ("theta800 CG, f32 (K7a, K4, matmuls)", "theta800"))
+    for label, name in cases:
         with devloop.phase():
-            if kind == "cg":
-                _devloop_solve(label, _devloop_cg(name), card, cuda_time_ms)
-                continue
-            loop = _devloop_alm(name)
-            last = 24 // loop.K
-            for c in range(last + 1):
-                start = c * loop.K
-                if c not in (0, last):
-                    loop.state = devloop.eager_chunk(loop, start)
-                    continue
-                eager = devloop.flatten(devloop.eager_chunk(loop, start))[0]
-                graph, load, bufs = devloop.graph_chunk(loop, start)
-                load()
-                graph.replay()
-                got = devloop.flatten(bufs.tree("state"))[0]
-                same = [torch.equal(g, e) for g, e in zip(got, eager)]
-                if not all(same):
-                    raise AssertionError(
-                        f"devloop {label} chunk {c}: the graph replay "
-                        f"differs from the eager chunk in tensors "
-                        f"{[i for i, ok in enumerate(same) if not ok]}")
-                # device: 10 replays between two events (the state
-                # advances; a masked step launches the same kernels)
-                load()
-                torch.cuda.synchronize()
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
-                for _ in range(10):
-                    graph.replay()
-                t1.record()
-                torch.cuda.synchronize()
-                g_ms = t0.elapsed_time(t1) / 10
-                e_ms = cuda_time_ms(
-                    lambda: devloop.eager_chunk(loop, start), reps=3,
-                    warmup=1)
-                held = sum(n for (t, _), n in graph.launches.items()
-                           if t == "launches")
-                print(f"devloop {label}: chunk {c} (steps {start}-"
-                      f"{start + loop.K - 1}) graph replay == eager, bit "
-                      f"for bit ({len(got)} tensors); graph {g_ms:.4f} ms "
-                      f"on the device, eager {e_ms:.4f} ms dispatched; "
-                      f"{held} kernel launches in the graph  [{card}]")
-                loop.state = devloop.unflatten(
-                    devloop.flatten(loop.state)[1], eager)
+            _devloop_solve(label, _devloop_cg(name), card, cuda_time_ms)
 
 
 def probes_path(card):
@@ -1979,9 +2035,12 @@ def solve_path(card, path, instances):
               f"{launches}  [{card}]")
         if res.status is not SolverStatus.PRIMAL_DUAL_OPTIMAL:
             raise AssertionError(f"{name}: status {res.status.value}")
-        # the ADMM chunks' CG runs inside their graphs
+        # the ADMM chunks' CG runs inside their graphs, the ALM's inner
+        # loop inside the ALM phase's graph (one read a run, label alm)
         if admm_reads.get("cg", 0) or admm_reads.get("cg_ir", 0):
             raise AssertionError(f"{name}: CG reads in ADMM {admm_reads}")
+        if by.get("alm_inner", 0) or not by.get("alm", 0):
+            raise AssertionError(f"{name}: ALM reads {by}")
         if not (math.isfinite(res.pobj) and rel <= POBJ_RTOL):
             raise AssertionError(f"{name}: pObj {res.pobj} vs {ref}")
         fs, lp_vals = solver.factor_blocks()
@@ -2038,11 +2097,13 @@ def cgnr_path(card):
 
     def counted_refine(*a, **k):
         before = kernels.LAUNCHES["gather_segsum"]
+        reads = tdev.HOST_SYNCS_BY["repair"]
         out = refine(*a, **k)
         k4.append(kernels.LAUNCHES["gather_segsum"] - before)
+        cgnr_reads.append(tdev.HOST_SYNCS_BY["repair"] - reads)
         return out
 
-    lines = []
+    lines, cgnr_reads = [], []
     torch.cuda.synchronize()
     kernels.reset_launches()
     tdev.reset_host_syncs()
@@ -2072,8 +2133,8 @@ def cgnr_path(card):
     print(f"  {refine_lines}")
     print(f"  CGNR: {info['iters']} iterations (cap {info['n_iter']}), "
           f"{info['seconds']:.3f} s, {info['host_syncs']} host reads "
-          f"(certificates included), {k4} K4 launches; main path cgnr: "
-          f"kernel launches {counts}")
+          f"(certificates included; the CGNR runs' own {cgnr_reads}), "
+          f"{k4} K4 launches; main path cgnr: kernel launches {counts}")
     if len(refine_lines) != 1:
         raise AssertionError(f"{name}: no 'dual refine:' line in the log")
     if res.status.value != status_ref:
@@ -2083,6 +2144,8 @@ def cgnr_path(card):
         raise AssertionError(f"{name}: pObj {res.pobj} vs {pobj_ref}")
     if not (k4 and k4[0] > 0 and info["iters"] > 0):
         raise AssertionError("the CGNR refinement launched no K4")
+    if cgnr_reads != [1] * len(k4):
+        raise AssertionError(f"CGNR host reads {cgnr_reads}: one a run")
     for k in PATH_KERNELS["cgnr"]:
         if counts[k] <= 0:
             raise AssertionError(f"the cgnr path never launched {k}")
@@ -2121,6 +2184,67 @@ PORT_KERNEL_RE = (r"\b(adj_a_dense|cmul_pairs|gather_cols|gather_cols_staged|"
                   r"onehot_scatter|scatter_add|sddmm_l2|sddmm_off|"
                   r"sddmm_staged|segment_sum|segsum|wmul_combine|wmul_rows|"
                   r"wmul_tiled|zero)_kernel\b")
+
+# the kernels of each group of the port's wrappers as a trace names them:
+# a launch of a group's wrapper is at least one of the group's kernel
+# events (K2 and K5 at r = 1 take K4's segsum kernel; K3, K3p and K6 share
+# the SDDMM kernels)
+TRACE_GROUPS = {
+    "segsum": (("cmul_csr", "gather_segsum", "wmul_csr"),
+               r"\b(cmul_pairs|segsum|wmul_rows|wmul_tiled)_kernel\b"),
+    "sddmm": (("uvt_split", "uvt_pair_split", "adj_a_offdiag"),
+              r"\bsddmm_(off|l2|staged)_kernel\b"),
+    "adj_a_dense": (("adj_a_dense",), r"\badj_a_dense_kernel\b"),
+    "lp_gs": (("lp_gs_sweep",), r"\blp_gs_kernel\b"),
+    "segment_sum": (("segment_sum",), r"\bsegment_sum_kernel\b"),
+}
+
+
+@contextlib.contextmanager
+def _phase_launches(attr):
+    """{kernel: launches} made inside LoradsSolver.``attr`` (a phase)
+    while the block runs, summed over its calls."""
+    from lorads_torch.alg.solver import LoradsSolver
+    from lorads_torch.ops import kernels
+
+    fn, out = getattr(LoradsSolver, attr), {}
+
+    def counted(self, *a, **k):
+        before = dict(kernels.LAUNCHES)
+        try:
+            return fn(self, *a, **k)
+        finally:
+            for name, n in kernels.LAUNCHES.items():
+                out[name] = out.get(name, 0) + n - before[name]
+    setattr(LoradsSolver, attr, counted)
+    try:
+        yield out
+    finally:
+        setattr(LoradsSolver, attr, fn)
+
+
+def _trace_holds(logdir, launches, what):
+    """{group: (kernel events in the trace in ``logdir``, the group's
+    ``launches``)} for each group a phase launched; raises unless some
+    group was launched and every such group's events reach its
+    launches."""
+    import glob
+    import re
+
+    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f).get(
+            "traceEvents", []) if e.get("cat") == "kernel"]
+    out = {}
+    for group, (wrappers, rx) in TRACE_GROUPS.items():
+        n = sum(launches.get(w, 0) for w in wrappers)
+        if n:
+            pat = re.compile(rx)
+            out[group] = (sum(1 for x in names if pat.search(x)), n)
+    if not out or any(ev < n for ev, n in out.values()):
+        raise AssertionError(f"{what}: the trace's kernel events against "
+                             f"the phase's launches {out}")
+    return out
 
 
 def _solve_timed(problem, device="cuda", load=None, warm=None, **params):
@@ -2211,22 +2335,6 @@ def _trace_counts(logdir):
     return len(kern), mine, graph_calls, in_graph, os.path.getsize(files[0])
 
 
-def _trace_ranges(logdir, prefix):
-    """{name: count} of the trace's events in ``logdir`` whose names start
-    with ``prefix``."""
-    import glob
-
-    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    out = {}
-    for e in events:
-        name = e.get("name", "")
-        if name.startswith(prefix):
-            out[name] = out.get(name, 0) + 1
-    return out
-
-
 def extras_path(card):
     """Phase 5: the solver's extras on the card, with the launch counts
     reset just before and read just after: checkpoint and resume, the
@@ -2291,44 +2399,44 @@ def extras_path(card):
               f"B wall {w3:.3f} s ALM inner {r3.alm_stats.inner_iter} "
               f"pObj {r3.pobj!r} (rel to the cold solve {rel3:.2e})  "
               f"[{card}]")
-        # ---- a device trace around one solve
+        # ---- a device trace around one solve: its loops run eagerly,
+        # so the trace holds the ALM's kernels (K2, K3)
         tdir = os.path.join(tmp, "trace")
         t0 = time.time()
-        with device_trace(tdir, "cuda"):
+        with device_trace(tdir, "cuda"), \
+                _phase_launches("alm_phase") as alm_l:
             _, r4, w4 = _solve_timed(mc)
         w4x = time.time() - t0
         _certified("maxcut20000 (traced)", r4, ref)
-        n_kern, n_mine, n_graph, n_in_graph, size = _trace_counts(tdir)
+        n_kern, n_mine, n_graph, _, size = _trace_counts(tdir)
+        held = _trace_holds(tdir, alm_l, "maxcut20000's ALM")
         print(f"extras device_trace: maxcut20000 solve wall {w4:.3f} s "
               f"({w4x:.3f} s with the trace's export), trace {size} B: "
               f"{n_kern} kernel events, {n_mine} of them the port's "
-              f"kernels, {n_graph} cudaGraphLaunch calls, {n_in_graph} "
-              f"kernel events naming a graph  [{card}]")
-        if n_graph and not n_in_graph:
-            print("extras device_trace: no kernel event names its graph: "
-                  "kernel events inside graph replays are not told apart "
-                  "from eager launches in this trace")
-        if n_kern <= 0 or n_mine <= 0:
-            raise AssertionError("the device trace holds no kernel of the "
-                                 "port")
+              f"kernels, {n_graph} cudaGraphLaunch calls; the ALM "
+              f"phase's K2 {alm_l['cmul_csr']} and K3 "
+              f"{alm_l['uvt_split']} launches, kernel events against "
+              f"its launches by group {held}  [{card}]")
+        if not (alm_l["cmul_csr"] > 0 and alm_l["uvt_split"] > 0):
+            raise AssertionError(f"the traced ALM launched {alm_l}")
         # ---- a device trace around a solve that reaches the ADMM phase:
-        # its chunk graphs run with the trace's CUDA collection paused
-        # (ROADMAP §3 F4), each a devloop range of the trace
+        # the trace holds the ADMM chunks' kernels
         tdir = os.path.join(tmp, "trace_admm")
-        with device_trace(tdir, "cuda"):
+        with device_trace(tdir, "cuda"), \
+                _phase_launches("admm_phase") as admm_l:
             _, r6, w6 = _solve_timed(INSTANCES["hand_multiblock"]())
         _certified("hand_multiblock (traced)", r6,
                    REFERENCE_POBJ["hand_multiblock"])
         n_kern, n_mine, _, _, size = _trace_counts(tdir)
-        ranges = _trace_ranges(tdir, "devloop.")
+        held = _trace_holds(tdir, admm_l, "hand_multiblock's ADMM")
         print(f"extras device_trace: hand_multiblock solve wall {w6:.3f} s, "
               f"ADMM {r6.admm_stats.iter} iterations, trace {size} B: "
-              f"{n_kern} kernel events, {n_mine} of them the port's, "
-              f"ranges {ranges}  [{card}]")
-        if r6.admm_stats.iter <= 0 or not ranges.get("devloop.replay") \
-                or n_mine <= 0:
+              f"{n_kern} kernel events, {n_mine} of them the port's; the "
+              f"ADMM phase's kernel events against its launches by group "
+              f"{held}  [{card}]")
+        if r6.admm_stats.iter <= 0:
             raise AssertionError("the traced hand_multiblock solve ran no "
-                                 "ADMM graph, or its trace lacks them")
+                                 "ADMM iteration")
     # ---- FIX_INI_POINT
     trace, (_, r5, w5) = _fix_ini_lines(lambda: _solve_timed(
         mc, fix_init_point=True, max_alm_iter=2, max_admm_iter=5))
@@ -2467,6 +2575,7 @@ def main(argv=None) -> int:
                           "cases": results}))
         return 0
     devloop_checks(card)
+    alm_outer_checks(card)
     results["loop_cond"] = [admm_chunk_checks(card)]
     counts = main_path(card)
     for k, n in extras_path(card).items():

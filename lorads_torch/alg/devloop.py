@@ -1,72 +1,59 @@
-"""Device-resident loops: masked steps run in chunks, replayed from CUDA
-graphs, with one packed host read per chunk.
+"""Device-decided loops, replayed from CUDA graphs, with one packed host
+read a run.
 
-The counterpart of lorads_tpu's ``lax.while_loop`` loops (alg/alm.py
-``_inner_loop``; alg/cg.py and alg/admm.py below).  A ``Loop`` is a masked
-step, ``step(inputs, state, kind) -> state``, that leaves the state
-unchanged, bit for bit, once the loop's exit test holds (the test is
-evaluated on the device in every step, as a mask), and a ``pack(inputs,
-state)`` that gives the 1-D float64 vector the host reads: element 0 is
-nonzero while the loop runs.  ``kind(pos)`` names what a step at
-position ``pos`` does that is fixed when the step is traced (the ALM's
-cache refresh); a chunk's graph is keyed by the kinds of its positions,
-so a period that K divides or that divides K gives at most period / K
-graphs.
+The counterpart of lorads_tpu's ``lax.while_loop`` loops: the ALM phase
+(alg/alm.py: the outer loop, the middle passes, the inner L-BFGS loop and
+the rho do-while), the ADMM chunk, the CG solves and refinement passes
+nested in its iterations, and the CGNR.  A ``Loop`` has a
+``step(inputs, state, kind) -> state``, ``running(inputs, state)``, its
+exit test as a 0-d bool tensor (the step runs only while it holds), a
+``pack(inputs, state)`` that gives the 1-D float64 vector the host reads
+after the run, and optionally ``init(inputs, state)``, what a run does to
+the state before the loop.  ``kind(pos)`` tells an eager step at
+position ``pos`` what the device decides under capture (a branch of the
+step: the CG restart, the ALM's cache refresh).  Inside another loop's
+step a loop runs through ``nest``; at the top through ``run``:
 
-On CUDA tensors ``run`` takes chunks of ``K`` steps:
-
-* the first chunk of a new key runs eagerly (real work; it also builds
-  the kernels and sets their launch attributes before any capture);
-* a chunk is then captured once per kind pattern into a
-  ``torch.cuda.CUDAGraph`` (capture executes nothing) over static input
-  and state buffers, the step's results copied back into the state
-  buffers at the graph's end, and replayed: the inputs and the initial
-  state are copied into the buffers, each replay advances the state in
-  place, and the host reads the chunk's pack;
-* a capture that fails raises (a host read inside it, for one: see
-  ``device.host_read``); nothing falls back to an eager loop.
-
-Graphs live until ``drop``: the solver's phases run inside ``phase()``,
-which drops them at its entry and its end, and all graphs of a phase
-share one memory pool (the buffers they communicate through are
-allocated outside it, so any replay order is safe).  A key names what
-the step closes over besides its inputs (``ident`` wraps an object by
-identity and keeps it alive); the leaves' shapes, dtypes and device,
-and the trees' layout, are added to it here.  A graph reads a tensor
-at the address it had at the capture: a step reads its inputs (the
-graph's buffers) and tensors the key keeps alive, never a tensor of
-one run's making.
-
-On CPU tensors the same masked step runs eagerly, ``CPU_CHUNK`` steps
-between two reads (1, so that a loop stops after the step where its
-exit test first holds; ``None`` runs the loop's own K, as the tests of
-the chunked schedule do).  A kernel launched inside a capture is
-counted in ``kernels.LAUNCHES`` at each replay, not at the capture.
-
-Device-decided loops (``K`` None; lorads_tpu's ``while_loop``s whose
-length only the device knows: the ADMM chunk, the CG solves and
-refinement passes nested in its iterations).  Such a loop also has ``running(inputs, state)``, its
-exit test as a 0-d bool tensor, and its step runs only while the test
-holds (it need not be masked).  Inside another loop's step it runs
-through ``nest``; at the top through ``run``:
-
-* eagerly (CPU tensors; ``eager_chunk`` on CUDA tensors), the host
-  reads the test before every step (label ``loop.label``) and the step
-  is given ``kind(pos)``;
+* eagerly (CPU tensors, and CUDA tensors while torch.profiler runs; also
+  ``eager_chunk``), the host reads the exit test before every step
+  (label ``loop.label``) and the step is given ``kind(pos)``;
 * on CUDA tensors every run replays a graph, captured at a key's first
   run after a warm-up (``init`` and one step on a copy of the state,
   each nested loop one step, no host read, the results dropped: the
-  kernels are built and their attributes set outside the capture);
-* under capture it becomes a WHILE node of the graph (csrc/graph_cond.cu):
-  its body, the step given the kind None (decide on the device; a branch
-  of the step takes ``branch``, an IF node), is captured on a stream of
-  its own nesting depth, its allocations routed to that depth's pool,
-  and the device re-evaluates the test after each run of the body.  A
-  body's launches are counted once per run of the body: each body adds
-  one to a device counter, and the counters ride at the end of the
-  top-level graph's pack.  At the top, one replay runs the loop to its
-  exit (``init(inputs, state)``, if given, first) and the host reads the
-  pack once.
+  kernels are built and their attributes set outside the capture); the
+  inputs and the initial state are copied into static buffers, the
+  replay runs the loop to its exit, and the host reads the pack once;
+* under capture a loop becomes a WHILE node of the graph
+  (csrc/graph_cond.cu): its body, the step given the kind None (decide
+  on the device; a branch of the step takes ``branch``, an IF node), is
+  captured on a stream of its own nesting depth, its allocations routed
+  to that depth's pool, and the device re-evaluates the test after each
+  run of the body.  A body's launches are counted once per run of the
+  body: each body adds one to a device counter, and the counters ride at
+  the end of the top-level graph's pack.
+
+A capture that fails raises (a host read inside it, for one: see
+``device.host_read``); nothing falls back to an eager loop.  A step's
+scalars must be device tensors: a Python float would be frozen into the
+graph.  Graphs live until ``drop``: the solver's phases run inside
+``phase()``, which drops them at its entry and its end, and all graphs of
+a phase share one memory pool (the buffers they communicate through are
+allocated outside it, so any replay order is safe).  A key names what
+the step closes over besides its inputs (``ident`` wraps an object by
+identity and keeps it alive); the leaves' shapes, dtypes and device,
+and the trees' layout, are added to it here.  A graph reads a tensor at
+the address it had at the capture: a step reads its inputs (the graph's
+buffers) and tensors the key keeps alive, never a tensor of one run's
+making.  A kernel launched inside a capture is counted in
+``kernels.LAUNCHES`` at each replay, not at the capture.
+
+Under torch.profiler (``tracing()``) a top-level run on CUDA tensors is
+eager, as on the CPU: the same steps, kernels and device, the exit test
+read before each step.  CUPTI's records of a graph of WHILE nodes whose
+bodies run some 10^4 times a replay hit an illegal address on an H100
+(ROADMAP §3 F4, ``f4_repro.py``); run eagerly, every kernel of the loop
+is in the trace.  The eager run is held bit for bit against the graph
+(chip_smoke's ``admm chunk`` and ``alm outer`` lines).
 """
 
 from __future__ import annotations
@@ -79,9 +66,6 @@ import torch
 
 from lorads_torch import device as dev
 from lorads_torch.ops import kernels
-
-# steps between two host reads on CPU tensors (None: the loop's own K)
-CPU_CHUNK = 1
 
 _LOOPS = {}        # full key -> _Buffers
 _POOL = None       # the phase's graph memory pool
@@ -127,22 +111,20 @@ def scalar(v, dtype, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Loop:
-    """One run of a masked loop: its key, step, pack, inputs (read, not
-    changed), initial state, chunk length K, host-read label and kind;
-    ``on_read(out, positions)``, if given, is called after each host
-    read with the pack read and the positions of the steps it covers.
-    K None: a device-decided loop, with ``running`` its exit test and
-    ``init`` (optional) what a run does to the state before the loop."""
+    """One run of a device-decided loop: its key, step, pack, inputs
+    (read, not changed), initial state, host-read label, exit test
+    ``running``, kind and ``init`` (optional: what a run does to the
+    state before the loop).  ``K`` is None: the device decides the
+    loop's length."""
 
     key: Any
     step: Callable
     pack: Callable
     inputs: Any
     state: Any
-    K: int
-    label: str
+    K: None = None
+    label: str = "other"
     kind: Callable = _no_kind
-    on_read: Callable = None
     running: Callable = None
     init: Callable = None
 
@@ -212,13 +194,13 @@ def phase():
 
 
 class _Buffers:
-    """A key's static input and state buffers and its graphs by kinds."""
+    """A key's static input and state buffers and its graph."""
 
     def __init__(self, in_layout, st_layout, inputs, state):
         self.in_layout, self.st_layout = in_layout, st_layout
         self.inputs = [t.clone() for t in inputs]
         self.state = [t.clone() for t in state]
-        self.graphs = {}
+        self.graph = None
 
     def load(self, inputs, state):
         for b, t in zip(self.inputs + self.state, inputs + state):
@@ -231,38 +213,32 @@ class _Buffers:
 
 
 class _Graph:
-    """A captured chunk: its graph, pack and launches; ``bodies``: the
+    """A captured loop: its graph, pack and launches; ``bodies``: the
     launch tallies of its conditional nodes' bodies, in the order of the
     counters at the end of the pack (``n_pack`` elements before them)."""
 
     __slots__ = ("graph", "pack", "launches", "bodies", "n_pack")
 
-    def __init__(self, graph, pack, launches, bodies=(), n_pack=None):
+    def __init__(self, graph, pack, launches, bodies, n_pack):
         self.graph, self.pack, self.launches = graph, pack, launches
         self.bodies, self.n_pack = tuple(bodies), n_pack
 
     def replay(self):
-        if self.n_pack is None:
-            self.graph.replay()
-        else:
-            with _untraced("replay"):
-                times = None
-                if _TIMES is not None:
-                    times = (torch.cuda.Event(enable_timing=True),
-                             torch.cuda.Event(enable_timing=True))
-                    times[0].record()
-                self.graph.replay()
-                if times is not None:
-                    times[1].record()
-                    _TIMES.append(times)
+        times = None
+        if _TIMES is not None:
+            times = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+            times[0].record()
+        self.graph.replay()
+        if times is not None:
+            times[1].record()
+            _TIMES.append(times)
         kernels.replayed(self.launches)
 
     def read(self, label):
         """The pack after a replay, read to the host once; the bodies'
         runs counted from its counters and cut from what is returned."""
         out = dev.host_read(self.pack, label)
-        if self.n_pack is None:
-            return out
         for tally, n in zip(self.bodies, out[self.n_pack:]):
             kernels.replayed(tally, int(n), replay=False)
         return out[:self.n_pack]
@@ -290,6 +266,13 @@ def _stepping():
 
 def _capturing(t: torch.Tensor) -> bool:
     return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def tracing() -> bool:
+    """Whether torch.profiler runs: top-level loops on CUDA tensors then
+    run eagerly, so that the trace holds their kernels."""
+    return (torch._C._autograd._profiler_type()
+            == torch._C._profiler.ActiveProfilerType.KINETO)
 
 
 class _Body:
@@ -334,6 +317,13 @@ def _body(is_while: bool, pred: torch.Tensor):
                 pred_end = None if not is_while else body.pred.contiguous()
                 ctr = _counter(tally)
                 kernels.cond_end(is_while, handle, pred_end, ctr, stream)
+            except BaseException:
+                # end the body's capture (the graph is dropped), so that
+                # the capture of the whole graph can end and the thread
+                # leave capture mode
+                with contextlib.suppress(Exception):
+                    kernels.cond_end(is_while, handle, None, None, stream)
+                raise
             finally:
                 torch._C._cuda_endAllocateToPool(device, pool)
     finally:
@@ -400,64 +390,59 @@ def _while_node(loop: Loop, inputs, state):
 
 
 def nest(loop: Loop):
-    """Run a device-decided loop (K None) to its exit inside another
-    loop's step -> its final state: a WHILE node under capture, else
-    eagerly with a host read of the exit test before each step."""
+    """Run a device-decided loop to its exit inside another loop's step
+    -> its final state: a WHILE node under capture, else eagerly with a
+    host read of the exit test before each step."""
     leaves, _ = flatten(loop.state)
     if _capturing(leaves[0]):
         return _while_node(loop, loop.inputs, loop.state)
     return _eager_loop(loop, loop.state)
 
 
-def branch(pred: torch.Tensor, fn: Callable, other: torch.Tensor):
-    """fn() where the 0-d bool ``pred`` holds, else ``other``, inside a
-    step captured with the kind None: an IF node whose body computes
-    fn() into a copy of ``other`` (lorads_tpu's ``lax.cond``)."""
-    out = other.clone()
+def branch(pred: torch.Tensor, fn: Callable, other):
+    """fn() where the 0-d bool ``pred`` holds, else ``other`` (a tree of
+    tensors, as fn() gives), inside a step captured with the kind None:
+    an IF node whose body computes fn() into a copy of ``other``
+    (lorads_tpu's ``lax.cond``)."""
+    leaves, layout = flatten(other)
+    out = [t.clone() for t in leaves]
     with _body(False, pred):
-        out.copy_(fn())
-    return out
+        _assign(out, flatten(fn())[0])
+    return unflatten(layout, out)
 
 
-def _capture(bufs: _Buffers, loop: Loop, kinds) -> _Graph:
-    """The chunk of ``kinds`` (a device-decided loop: its whole run)
-    captured over the buffers; the step's results are copied into the
-    state buffers inside the graph."""
+def _capture(bufs: _Buffers, loop: Loop) -> _Graph:
+    """The loop's whole run captured over the buffers: ``init``, then the
+    loop as a WHILE node, its final state copied into the state buffers
+    and the pack computed inside the graph."""
     global _POOL, _STREAM, _COUNTERS
     if _POOL is None:
         _POOL = torch.cuda.graph_pool_handle()
     if _STREAM is None:
         _STREAM = torch.cuda.Stream()
     # the bodies' streams exist before the capture starts
-    while loop.K is None and len(_BODIES) < MAX_DEPTH:
+    while len(_BODIES) < MAX_DEPTH:
         _BODIES.append([torch.cuda.Stream(), None])
     graph = torch.cuda.CUDAGraph()
     cur = torch.cuda.current_stream()
     _STREAM.wait_stream(cur)
-    tallies, n_pack = [], None
-    with _untraced("capture") if loop.K is None else \
-            contextlib.nullcontext(), \
-            torch.cuda.stream(_STREAM), kernels.recording() as launches:
+    tallies = []
+    with torch.cuda.stream(_STREAM), kernels.recording() as launches:
         graph.capture_begin(pool=_POOL)
         try:
             inputs = bufs.tree("inputs")
             state = bufs.tree("state")
-            if loop.K is None:
-                _COUNTERS = [torch.zeros(MAX_BODIES, dtype=torch.int64,
-                                         device=bufs.state[0].device),
-                             {}, tallies]
-                if loop.init is not None:
-                    state = loop.init(inputs, state)
-                state = _while_node(loop, inputs, state)
-            else:
-                for kd in kinds:
-                    state = loop.step(inputs, state, kd)
+            _COUNTERS = [torch.zeros(MAX_BODIES, dtype=torch.int64,
+                                     device=bufs.state[0].device),
+                         {}, tallies]
+            if loop.init is not None:
+                state = loop.init(inputs, state)
+            state = _while_node(loop, inputs, state)
             _assign(bufs.state, flatten(state)[0])
             pack = loop.pack(inputs, bufs.tree("state"))
-            if loop.K is None:
-                n_pack = pack.numel()
-                pack = torch.cat([pack, _COUNTERS[0][:len(tallies)]
-                                  .to(pack.dtype)])
+            n_pack = pack.numel()
+            pack = torch.cat([pack, _COUNTERS[0][:len(tallies)]
+                              .to(pack.dtype)])
         except BaseException:
             with contextlib.suppress(Exception):
                 graph.capture_end()
@@ -468,32 +453,6 @@ def _capture(bufs: _Buffers, loop: Loop, kinds) -> _Graph:
     cur.wait_stream(_STREAM)
     kernels.GRAPHS["captured"] += 1
     return _Graph(graph, pack, launches, tallies, n_pack)
-
-
-@contextlib.contextmanager
-def _untraced(what: str):
-    """Around the capture and each replay of a device-decided loop's
-    graph: while torch.profiler runs, its CUDA activity collection is
-    paused (CPU activity goes on; the graph shows as one range named
-    ``devloop.<what>``).  On an H100 (torch 2.11, CUDA 12.8, the CUPTI
-    torch ships) a graph of WHILE nodes whose bodies run some 10^4 times
-    a replay hit an illegal address when it was captured after CUPTI
-    attached to the process and replayed under a CUDA trace: with
-    bodies of torch's own kernels too (ROADMAP §3 F4)."""
-    if torch._C._autograd._profiler_type() != \
-            torch._C._profiler.ActiveProfilerType.KINETO:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, record_function
-    cuda = {ProfilerActivity.CUDA}
-    torch.cuda.synchronize()
-    torch._C._autograd._toggle_collection_dynamic(False, cuda)
-    try:
-        with record_function(f"devloop.{what}"):
-            yield
-            torch.cuda.synchronize()
-    finally:
-        torch._C._autograd._toggle_collection_dynamic(True, cuda)
 
 
 @contextlib.contextmanager
@@ -508,45 +467,28 @@ def timed():
         _TIMES = prev
 
 
-def _kinds(loop: Loop, start: int):
-    if loop.K is None:
-        return None
-    return tuple(loop.kind(p) for p in range(start, start + loop.K))
-
-
 def _full_key(loop: Loop, in_leaves, in_layout, st_leaves, st_layout):
-    return (loop.key, loop.K, in_layout, st_layout,
+    return (loop.key, in_layout, st_layout,
             tuple((tuple(t.shape), t.dtype, t.device)
                   for t in in_leaves + st_leaves))
 
 
-def _eager_run(loop: Loop):
-    """A device-decided loop's run, eagerly: init, then the loop."""
+def eager_chunk(loop: Loop):
+    """The loop's whole run, eagerly: init, then the steps, the host
+    reading the exit test before each -> the final state."""
     state = loop.state
     if loop.init is not None:
         state = loop.init(loop.inputs, state)
     return _eager_loop(loop, state)
 
 
-def eager_chunk(loop: Loop, start: int = 0, steps=None):
-    """``steps`` (default K) masked steps from ``loop.state``, eagerly; a
-    device-decided loop's whole run."""
-    if loop.K is None:
-        return _eager_run(loop)
-    state = loop.state
-    for p in range(start, start + (loop.K if steps is None else steps)):
-        state = loop.step(loop.inputs, state, loop.kind(p))
-    return state
-
-
-def graph_chunk(loop: Loop, start: int = 0):
-    """(graph, load, buffers) of the chunk at ``start`` for this loop's
-    key: the graph captured here if absent (the key's buffers made from
-    this loop's tensors if absent) and a function that loads the loop's
-    inputs and state into the buffers.  ``graph.replay()`` then advances
-    the state buffers by one chunk (a device-decided loop: runs it to its
-    exit; ``graph.read(label)`` reads its pack and counts its bodies);
-    ``buffers.tree("state")`` reads them."""
+def graph_chunk(loop: Loop):
+    """(graph, load, buffers) of this loop's key: the graph captured here
+    if absent (the key's buffers made from this loop's tensors if absent;
+    no warm-up) and a function that loads the loop's inputs and state
+    into the buffers.  ``graph.replay()`` then runs the loop to its exit
+    in the buffers, ``graph.read(label)`` reads its pack and counts its
+    bodies, and ``buffers.tree("state")`` reads the final state."""
     in_leaves, in_layout = flatten(loop.inputs)
     st_leaves, st_layout = flatten(loop.state)
     key = _full_key(loop, in_leaves, in_layout, st_leaves, st_layout)
@@ -554,16 +496,9 @@ def graph_chunk(loop: Loop, start: int = 0):
     if bufs is None:
         bufs = _LOOPS[key] = _Buffers(in_layout, st_layout, in_leaves,
                                       st_leaves)
-    kinds = _kinds(loop, start)
-    g = bufs.graphs.get(kinds)
-    if g is None:
-        g = bufs.graphs[kinds] = _capture(bufs, loop, kinds)
-    return g, lambda: bufs.load(in_leaves, st_leaves), bufs
-
-
-def _read(loop: Loop, out, start: int, end: int) -> None:
-    if loop.on_read is not None:
-        loop.on_read(out, range(start, end))
+    if bufs.graph is None:
+        bufs.graph = _capture(bufs, loop)
+    return bufs.graph, lambda: bufs.load(in_leaves, st_leaves), bufs
 
 
 def _warm_up(loop: Loop, st_leaves, st_layout) -> None:
@@ -583,10 +518,17 @@ def _warm_up(loop: Loop, st_leaves, st_layout) -> None:
         _WARM -= 1
 
 
-def _run_device_decided(loop: Loop, in_leaves, in_layout, st_leaves,
-                        st_layout):
-    if not st_leaves[0].is_cuda:
-        state = _eager_run(loop)
+def run(loop: Loop):
+    """Run the loop to its exit -> (final state, its pack read to the
+    host as a list): eagerly on CPU tensors and under a trace, else one
+    replay of the key's graph."""
+    if loop.K is not None:
+        raise ValueError("devloop: a loop's length is decided on the "
+                         "device (K None)")
+    in_leaves, in_layout = flatten(loop.inputs)
+    st_leaves, st_layout = flatten(loop.state)
+    if not st_leaves[0].is_cuda or tracing():
+        state = eager_chunk(loop)
         return state, dev.host_read(loop.pack(loop.inputs, state),
                                     loop.label)
     key = _full_key(loop, in_leaves, in_layout, st_leaves, st_layout)
@@ -596,56 +538,8 @@ def _run_device_decided(loop: Loop, in_leaves, in_layout, st_leaves,
         bufs = _LOOPS[key] = _Buffers(in_layout, st_layout, in_leaves,
                                       st_leaves)
     bufs.load(in_leaves, st_leaves)
-    g = bufs.graphs.get(None)
-    if g is None:
-        g = bufs.graphs[None] = _capture(bufs, loop, None)
-    g.replay()
-    out = g.read(loop.label)
+    if bufs.graph is None:
+        bufs.graph = _capture(bufs, loop)
+    bufs.graph.replay()
+    out = bufs.graph.read(loop.label)
     return unflatten(st_layout, [t.clone() for t in bufs.state]), out
-
-
-def run(loop: Loop):
-    """Run the loop to its exit -> (final state, the last pack read to
-    the host as a list)."""
-    in_leaves, in_layout = flatten(loop.inputs)
-    st_leaves, st_layout = flatten(loop.state)
-    if loop.K is None:
-        return _run_device_decided(loop, in_leaves, in_layout, st_leaves,
-                                   st_layout)
-    if not st_leaves[0].is_cuda:
-        n = loop.K if CPU_CHUNK is None else CPU_CHUNK
-        state, pos = loop.state, 0
-        while True:
-            for p in range(pos, pos + n):
-                state = loop.step(loop.inputs, state, loop.kind(p))
-            out = dev.host_read(loop.pack(loop.inputs, state), loop.label)
-            _read(loop, out, pos, pos + n)
-            pos += n
-            if not out[0]:
-                return state, out
-    key = _full_key(loop, in_leaves, in_layout, st_leaves, st_layout)
-    bufs = _LOOPS.get(key)
-    pos = 0
-    if bufs is None:
-        state = eager_chunk(loop)
-        out = dev.host_read(loop.pack(loop.inputs, state), loop.label)
-        _read(loop, out, 0, loop.K)
-        st_leaves, _ = flatten(state)
-        bufs = _LOOPS[key] = _Buffers(in_layout, st_layout, in_leaves,
-                                      st_leaves)
-        if not out[0]:
-            return state, out
-        pos = loop.K
-    else:
-        bufs.load(in_leaves, st_leaves)
-    while True:
-        kinds = _kinds(loop, pos)
-        g = bufs.graphs.get(kinds)
-        if g is None:
-            g = bufs.graphs[kinds] = _capture(bufs, loop, kinds)
-        g.replay()
-        out = g.read(loop.label)
-        _read(loop, out, pos, pos + loop.K)
-        pos += loop.K
-        if not out[0]:
-            return unflatten(st_layout, [t.clone() for t in bufs.state]), out

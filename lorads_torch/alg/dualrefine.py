@@ -18,23 +18,19 @@ restricted to the level set {d : b^T d = 0}, so that dObj = b^T lambda
 (solver._try_dual_refine) re-certifies the candidates dual + t d and
 keeps one only if dinf meets its band.
 
-lorads_tpu runs the CGNR loop on the device (one while_loop).  Here it
-runs in masked chunks of ``CHUNK`` iterations with one host read per
-chunk (counted in ``device.HOST_SYNCS``): the exit test rs <= stop is
-applied per iteration, and an iteration past it leaves every iterate
-unchanged, so the iteration count and the iterates are the reference's.
+As in lorads_tpu (one while_loop), the CGNR runs on the device: a
+device-decided ``devloop.Loop`` (its exit, rs <= stop or the iteration
+cap, tested on the device), one graph replay and one host read (label
+``repair``) a run on the card, the LS norms in the read; on the CPU the
+host reads the exit test before each iteration.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lorads_torch import device as dev
-from lorads_torch.alg import aop
+from lorads_torch.alg import aop, devloop
 from lorads_torch.alg.state import FactorVec, fv_norm2sq
-
-# CGNR iterations between two host reads of the exit test
-CHUNK = 8
 
 
 def _weight_by_spectrum(R: FactorVec) -> FactorVec:
@@ -53,58 +49,77 @@ def _weight_by_spectrum(R: FactorVec) -> FactorVec:
     return FactorVec(tuple(cones), R.lp)
 
 
+def _proj(rhs, bb, z):
+    """z projected onto {b^T z = 0}."""
+    return torch.where(bb > 0, z - (torch.dot(rhs, z) / torch.clamp(
+        bb, min=1e-30)) * rhs, z)
+
+
+def cgnr_loop(pd, R: FactorVec, dual: torch.Tensor, n_iter,
+              rel_tol: float = 1e-4) -> devloop.Loop:
+    """The CGNR for (LS) from ``dual`` as a device-decided devloop.Loop
+    (lorads_tpu dualrefine.py:127-150), its prologue computed here: the
+    inputs are the spectrum-weighted R, CR, the dual, the stop level and
+    the cap; the state (x, r, p, rs, iterations).  The pack: (iterations,
+    ||S(dual) R||, ||S(dual + x) R||)."""
+    R = _weight_by_spectrum(R)
+    CR = aop.grad(pd, R, torch.zeros_like(dual)).scale(0.5)    # C R
+    rhs = pd.rhs
+    bb = torch.dot(rhs, rhs)
+
+    def M(Rw, CRw, d):                           # A^*(d) R
+        return aop.grad(pd, Rw, d).scale(0.5).axpy(-1.0, CRw)
+
+    def Mt(Rw, Y):                               # A(sym(Y R^T)) in R^m
+        return aop.auv(pd, Y, Rw)[1]
+
+    r0 = CR.axpy(-1.0, M(R, CR, dual))           # S(dual) R
+    ls0 = fv_norm2sq(r0)
+    r = _proj(rhs, bb, Mt(R, r0))
+    rs = torch.dot(r, r)
+    inputs = (R, CR, dual, bb, rel_tol * rel_tol * rs, ls0,
+              devloop.scalar(n_iter, torch.int64, dual.device))
+
+    def running(inp, st):
+        return (st[3] > inp[4]) & (st[4] < inp[6])
+
+    def step(inp, st, kind):
+        Rw, CRw, _, bbw = inp[:4]
+        x, r, p, rs, its = st
+        Ap = _proj(rhs, bbw, Mt(Rw, M(Rw, CRw, p)))
+        denom = torch.dot(p, Ap)
+        # non-positive curvature: numerical breakdown of the PSD normal
+        # operator; alpha = 0 freezes the iterate
+        alpha = torch.where(denom > 0.0, rs / torch.clamp(denom, min=1e-30),
+                            torch.zeros_like(rs))
+        r_next = r - alpha * Ap
+        rs_new = torch.dot(r_next, r_next)
+        beta = rs_new / torch.clamp(rs, min=1e-30)
+        return (x + alpha * p, r_next, r_next + beta * p, rs_new, its + 1)
+
+    def pack(inp, st):
+        Rw, CRw, d, _, _, ls0_, _ = inp
+        ls1 = fv_norm2sq(CRw.axpy(-1.0, M(Rw, CRw, d + st[0])))
+        return torch.stack([st[4].to(ls1.dtype), torch.sqrt(ls0_),
+                            torch.sqrt(ls1)]).to(torch.float64)
+
+    return devloop.Loop(
+        key=("cgnr", devloop.ident(pd)), step=step, pack=pack,
+        inputs=inputs, state=(torch.zeros_like(dual), r, r, rs,
+                              torch.zeros((), dtype=torch.int64,
+                                          device=dual.device)),
+        label="repair", running=running)
+
+
 def dual_ls_refine(pd, R: FactorVec, dual: torch.Tensor, n_iter: int,
                    rel_tol: float = 1e-4):
     """CGNR for (LS) from ``dual`` over the b-orthogonal subspace.
 
     Returns (step d, ls_norm0, ls_norm1, iterations): the refinement
     direction, sqrt of the LS objective before and after the full step
-    (0-d tensors) and the CGNR iterations taken (at most ``n_iter``).
-    The caller forms the candidates dual + t d."""
-    R = _weight_by_spectrum(R)
-    CR = aop.grad(pd, R, torch.zeros_like(dual)).scale(0.5)    # C R
-
-    def M(d):                                    # A^*(d) R
-        return aop.grad(pd, R, d).scale(0.5).axpy(-1.0, CR)
-
-    def Mt(Y):                                   # A(sym(Y R^T)) in R^m
-        return aop.auv(pd, Y, R)[1]
-
-    rhs = pd.rhs
-    bb = torch.dot(rhs, rhs)
-
-    def proj(z):                                 # onto {b^T z = 0}
-        return torch.where(bb > 0, z - (torch.dot(rhs, z) / torch.clamp(
-            bb, min=1e-30)) * rhs, z)
-
-    r0 = CR.axpy(-1.0, M(dual))                  # S(dual) R
-    ls0 = fv_norm2sq(r0)
-    r = proj(Mt(r0))
-    x = torch.zeros_like(dual)
-    p = r
-    rs = torch.dot(r, r)
-    stop = rel_tol * rel_tol * rs
-    done = ~(rs > stop)
-    its = torch.zeros((), dtype=torch.int64, device=dual.device)
-    k = 0
-    while k < n_iter and not dev.host_read(done, "repair"):
-        for _ in range(min(CHUNK, n_iter - k)):
-            Ap = proj(Mt(M(p)))
-            denom = torch.dot(p, Ap)
-            # non-positive curvature: numerical breakdown of the PSD
-            # normal operator; alpha = 0 freezes the iterate
-            alpha = torch.where(denom > 0.0,
-                                rs / torch.clamp(denom, min=1e-30),
-                                torch.zeros_like(rs))
-            r_next = r - alpha * Ap
-            rs_new = torch.dot(r_next, r_next)
-            beta = rs_new / torch.clamp(rs, min=1e-30)
-            x = torch.where(done, x, x + alpha * p)
-            p = torch.where(done, p, r_next + beta * p)
-            r = torch.where(done, r, r_next)
-            rs = torch.where(done, rs, rs_new)
-            its = its + (~done).to(its.dtype)
-            done = done | ~(rs > stop)
-            k += 1
-    ls1 = fv_norm2sq(CR.axpy(-1.0, M(dual + x)))
-    return x, torch.sqrt(ls0), torch.sqrt(ls1), its
+    and the CGNR iterations taken (at most ``n_iter``), the last three
+    host numbers from the run's one read.  The caller forms the
+    candidates dual + t d."""
+    st, (its, ls0, ls1) = devloop.run(cgnr_loop(pd, R, dual, n_iter,
+                                                rel_tol))
+    return st[0], ls0, ls1, int(its)

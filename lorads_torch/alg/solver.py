@@ -135,6 +135,9 @@ class LoradsSolver:
         self.device_chunk_iters = self.params.device_chunk_iters
         if self.device_chunk_iters is None:
             self.device_chunk_iters = 200 if small else 50
+        # ALM outer iterations a run of the device loop (solver.py:144);
+        # the host checks the time limit between runs
+        self.alm_max_outers = 16 if small else 8
         # ADMM iterations per chunk: 10 at first, doubling up to
         # device_chunk_iters and kept across phases -- lorads_tpu's
         # dispatch sizes whenever its per-iteration wall is small.  The
@@ -268,7 +271,7 @@ class LoradsSolver:
         factor = (rho_update_factor if rho_update_factor is not None
                   else self.params.alm_rho_factor)
         while True:
-            with devloop.phase():     # the ALM inner loop's graphs
+            with devloop.phase():     # the ALM phase's graph
                 res = alm_mod.alm_optimize(
                     self.pd, self.params, self.R, self.dual, self.hist,
                     stats, self.scale_obj_his, self.is_rank_max(), factor,
@@ -753,8 +756,6 @@ class LoradsSolver:
         n_iter = min(max(2 * self.pd.m, 64), 1200)
         step, ls0, ls1, its = dual_ls_refine(self.pd, Rbar, self.dual,
                                              n_iter)
-        ls0, ls1, its = dev.host_read(torch.stack(
-            [ls0, ls1, its.to(ls0.dtype)]), "repair")
         # b^T step = 0, so dObj and the gap are the same for every t:
         # acceptance compares dinf alone
         best_t, best_dinf = None, admm_stats.dinf_l1
@@ -843,6 +844,10 @@ class LoradsSolver:
 
         self.log("Start solving by ALM and ADMM")
         self.log(dev.backend_report(self.device, self.dtype))
+        if self.device.type == "cuda" and devloop.tracing():
+            self.log("device trace: the ALM, ADMM, CG and CGNR loops run "
+                     "eagerly (a host read a step), so that the trace "
+                     "holds their kernels")
         action = self.alm_phase(alm_stats, t_start)
         if p.checkpoint_path:
             self.save(p.checkpoint_path, alm_stats, admm_stats, "post_alm")

@@ -22,10 +22,13 @@ torch.backends.cudnn.allow_tf32 = False
 
 # device -> host reads made by the solver's control flow (see host_read)
 HOST_SYNCS = 0
-# the loops a read is made for: the ALM inner loop's chunks, CG's chunks,
-# the mixed-precision CG's refinement passes, the ADMM iterations, the
-# Lanczos restarts, the dual repairs (spectral and CGNR), the rest
-LABELS = ("alm_inner", "cg", "cg_ir", "admm", "lanczos", "repair", "other")
+# the loops a read is made for: the ALM phase's runs (on the CPU also its
+# outer, middle and rho steps), the ALM inner loop's steps (read on the
+# CPU alone), CG's iterations, the mixed-precision CG's refinement
+# passes, the ADMM iterations, the Lanczos restarts, the dual repairs
+# (spectral and CGNR), the rest
+LABELS = ("alm", "alm_inner", "cg", "cg_ir", "admm", "lanczos", "repair",
+          "other")
 HOST_SYNCS_BY = dict.fromkeys(LABELS, 0)
 
 

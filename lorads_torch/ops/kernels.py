@@ -142,12 +142,13 @@ def cond_begin(is_while: bool, pred: torch.Tensor, child) -> int:
 
 def cond_end(is_while: bool, handle: int, pred, counter, child) -> None:
     """End the body captured on ``child``: a WHILE node's body sets its
-    condition from ``pred`` (runs again while it holds); either adds one
-    to ``counter`` (an int64 element) each time the body runs."""
+    condition from ``pred`` (runs again while it holds; None: stops);
+    either adds one to ``counter`` (an int64 element, or None) each time
+    the body runs."""
     from lorads_torch.ops import build
     rc = build.load().lt_cond_end(
         int(is_while), handle, None if pred is None else pred.data_ptr(),
-        counter.data_ptr(), child.cuda_stream)
+        None if counter is None else counter.data_ptr(), child.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"loop_cond: closing a conditional node failed "
                            f"(cudaError {rc})")

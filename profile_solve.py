@@ -1,41 +1,40 @@
 """Where a solve's time goes, on one NVIDIA GPU.
 
     python3 profile_solve.py theta300 theta800 --walls 5
+    python3 profile_solve.py theta800 --root _checkout/parent
 
 For each named instance, in one warm process (one untimed solve first,
 so the kernels are built and loaded):
 
-* ``walls``: the wall seconds of that many untraced solves,
-  ``LoradsSolver(...)`` construction included, each ending in a device
-  synchronise; with the host syncs (``device.HOST_SYNCS``) of each, the
-  last one's by label (``device.HOST_SYNCS_BY``) and its loop graphs
-  captured and replayed (``kernels.GRAPHS``);
+* ``walls``: the wall seconds of that many solves, ``LoradsSolver(...)``
+  construction included, each ending in a device synchronise; with the
+  host syncs (``device.HOST_SYNCS``) of each, the last one's by label
+  (``device.HOST_SYNCS_BY``), its loop graphs captured and replayed
+  (``kernels.GRAPHS``) and its captures with their seconds (warm-ups
+  and captures, ``devloop._warm_up`` and ``devloop._capture``, each
+  between device synchronises);
 * ``phases``: one solve with synchronised timers around the solver's
-  construction, the ALM phases, the ADMM phases (whose CG solves run
-  inside the ADMM chunk's graph), the certificate passes and the
-  spectral dual repair;
-* ``device``: one solve with ``torch.profiler`` tracing the card over
-  the first ``--window`` host syncs of the ALM phase: the device time of
-  its kernels, copies and fills over its wall (the busy share) and the
-  largest device items by name; and the ADMM phases' graph share: the
-  device time of their chunk graphs' replays (CUDA events recorded by
-  ``devloop.timed``) over their wall.  (A whole theta solve launches ~10^6 kernels,
-  whose trace takes longer to process than the solve takes to run.)
+  construction, the ALM phases, the ADMM phases, the certificate
+  passes and the spectral dual repair;
+* ``device``: for the ALM and the ADMM phases of one solve, the device
+  time of their device-decided graphs' replays (CUDA events recorded by
+  ``devloop.timed``) over the phases' wall, with the replays counted.
 
-With ``--resume`` each instance instead gets ``--walls`` rounds, in
-turns, of a cold solve, a solve that checkpoints at its phase
-boundaries (``checkpoint_path``), a solve resumed from that checkpoint
-(``LoradsSolver.load``) and one warm-started from the checkpointed
-solve's solution file (``save_solution``, ``set_initial_factors``):
-walls (construction, load or warm start included), ALM inner steps,
-ADMM iterations and host syncs of each.
+``--root DIR`` profiles the lorads_torch of the checkout at DIR (built
+into DIR/build) with this script: two checkouts compare on one card by
+running both in one call, in turns.  ``--resume``: each instance instead
+gets ``--walls`` rounds, in turns, of a cold solve, a solve that
+checkpoints at its phase boundaries (``checkpoint_path``), a solve
+resumed from that checkpoint (``LoradsSolver.load``) and one
+warm-started from the checkpointed solve's solution file
+(``save_solution``, ``set_initial_factors``): walls (construction, load
+or warm start included), ALM inner steps, ADMM iterations and host
+syncs of each.
 
-The instances are chip_smoke.py's main-path instances, solved with
-its options for each (``PARAMS``).  ``--alm-chunk`` sets the ALM inner
-loop's chunk length (``alm.INNER_CHUNK``) for this process, to measure
-it.  Run from the
-root of the repository; needs a GPU; prints one JSON line per instance
-and the card's name and power limit.
+The instances are chip_smoke.py's main-path instances, solved with its
+options for each (``PARAMS``).  Run from the root of the repository;
+needs a GPU; prints one JSON line per instance and the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -44,34 +43,75 @@ import argparse
 import contextlib
 import json
 import os
+import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
 
-from chip_smoke import INSTANCES, PARAMS
-from lorads_torch import device as dev
-from lorads_torch.alg import alm as alm_mod
-from lorads_torch.alg import devloop
-from lorads_torch.alg import solver as solver_mod
-from lorads_torch.alg.solver import LoradsSolver
-from lorads_torch.config import LoradsParams
-from lorads_torch.ops import kernels
-from lorads_torch.timing import card_line
+dev = devloop = solver_mod = LoradsSolver = LoradsParams = kernels = None
+INSTANCES = PARAMS = card_line = None
+
+
+def _import(root=None):
+    """The port's modules, from the checkout at ``root`` if given."""
+    global dev, devloop, solver_mod, LoradsSolver, LoradsParams, kernels
+    global INSTANCES, PARAMS, card_line
+    if root:
+        sys.path.insert(0, os.path.abspath(root))
+    from chip_smoke import INSTANCES, PARAMS
+    from lorads_torch import device as dev
+    from lorads_torch.alg import devloop
+    from lorads_torch.alg import solver as solver_mod
+    from lorads_torch.alg.solver import LoradsSolver
+    from lorads_torch.config import LoradsParams
+    from lorads_torch.ops import kernels
+    from lorads_torch.timing import card_line
+
+
+@contextlib.contextmanager
+def _captures():
+    """[(kind, seconds), ...] of the warm-ups and graph captures made
+    inside, each between device synchronises."""
+    out = []
+
+    def wrap(attr):
+        fn = getattr(devloop, attr)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                out.append((attr.strip("_"), time.time() - t0))
+        setattr(devloop, attr, timed)
+        return fn
+
+    saved = [(attr, wrap(attr)) for attr in ("_warm_up", "_capture")]
+    try:
+        yield out
+    finally:
+        for attr, fn in saved:
+            setattr(devloop, attr, fn)
 
 
 def _solve(problem, name=None):
     t0 = time.time()
     dev.reset_host_syncs()
     kernels.reset_launches()
-    solver = LoradsSolver(problem, LoradsParams(verbose=False,
-                                                **PARAMS.get(name, {})),
-                          device="cuda")
-    res = solver.solve()
-    torch.cuda.synchronize()
+    with _captures() as caps:
+        solver = LoradsSolver(problem, LoradsParams(
+            verbose=False, **PARAMS.get(name, {})), device="cuda")
+        res = solver.solve()
+        torch.cuda.synchronize()
     solver.syncs_by = {k: v for k, v in dev.HOST_SYNCS_BY.items() if v}
     solver.graphs = dict(kernels.GRAPHS)
+    solver.captures = {kind: [n, sum(t for k, t in caps if k == kind)]
+                       for kind in ("warm_up", "capture")
+                       for n in [sum(1 for k, _ in caps if k == kind)]}
     return res, solver, time.time() - t0, dev.HOST_SYNCS
 
 
@@ -109,93 +149,46 @@ def _timed(phases):
             setattr(owner, attr, fn)
 
 
-def _summary(prof, wall, top):
-    """Busy seconds, share of ``wall`` and largest items of a trace:
-    device events only (a CPU op's device time repeats its kernels')."""
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type != torch.autograd.DeviceType.CPU
-                   and ev.self_device_time_total > 0), reverse=True)
-    busy = sum(t for t, _, _ in rows) * 1e-6
-    return dict(busy_s=busy, wall_s=wall, share=busy / wall,
-                top=[dict(name=k[:80], ms=t * 1e-3, calls=c)
-                     for t, k, c in rows[:top]])
+def _device_share(problem, name):
+    """{phase: graph seconds, wall seconds, replays, share} of one solve:
+    the device time of the device-decided graphs replayed inside the ALM
+    and the ADMM phases (CUDA events, ``devloop.timed``) over the
+    phases' wall."""
+    spans = {"alm": [], "admm": []}
 
-
-def _device_share(problem, name, window, top=8):
-    """{phase: _summary} of one solve traced over the first ``window``
-    host syncs of its first ALM phase, and its ADMM phases' graph share:
-    the device time of their chunk graphs' replays (``devloop.timed``)
-    over the phases' wall.  The ADMM phases are not traced: under a trace
-    devloop pauses the CUDA collection around those graphs (ROADMAP §3
-    F4)."""
-    from torch.profiler import ProfilerActivity, profile
-    from lorads_torch.alg import devloop
-    out, state = {}, {}
-    read = dev.host_read
-
-    def stop():
-        prof = state.pop("prof", None)
-        if prof is not None:
-            torch.cuda.synchronize()
-            wall = time.time() - state["t0"]
-            prof.stop()
-            out[state["phase"]] = _summary(prof, wall, top)
-
-    def counted(t, label):
-        v = read(t, label)
-        state["n"] = state.get("n", 0) + 1
-        if state["n"] >= window:
-            stop()
-        return v
-
-    def traced(fn):
-        def run(*a, **k):
-            if "alm" in out:
-                return fn(*a, **k)
-            torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CUDA])
-            prof.start()
-            state.update(prof=prof, phase="alm", n=0, t0=time.time())
-            try:
-                return fn(*a, **k)
-            finally:
-                stop()
-        return run
-
-    walls = []
-
-    def admm_timed(fn):
+    def timed_phase(fn, phase):
         def run(*a, **k):
             torch.cuda.synchronize()
-            t0 = time.time()
+            t0, first = time.time(), len(events)
             try:
                 return fn(*a, **k)
             finally:
                 torch.cuda.synchronize()
-                walls.append(time.time() - t0)
+                spans[phase].append((time.time() - t0, first, len(events)))
         return run
 
-    saved = [(LoradsSolver, "alm_phase", LoradsSolver.alm_phase),
-             (LoradsSolver, "admm_phase", LoradsSolver.admm_phase),
-             (dev, "host_read", read)]
-    LoradsSolver.alm_phase = traced(LoradsSolver.alm_phase)
-    LoradsSolver.admm_phase = admm_timed(LoradsSolver.admm_phase)
-    dev.host_read = counted
+    saved = [(attr, getattr(LoradsSolver, attr))
+             for attr in ("alm_phase", "admm_phase")]
+    for attr, fn in saved:
+        setattr(LoradsSolver, attr, timed_phase(fn, attr.split("_")[0]))
     try:
         with devloop.timed() as events:
             _solve(problem, name)
     finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
-    graph_s = sum(a.elapsed_time(b) for a, b in events) * 1e-3
-    wall = sum(walls)
-    out["admm_graphs"] = dict(graph_s=graph_s, wall_s=wall, replays=len(events),
-                              share=graph_s / wall if wall else 0.0)
+        for attr, fn in saved:
+            setattr(LoradsSolver, attr, fn)
+    out = {}
+    for phase, runs in spans.items():
+        wall = sum(w for w, _, _ in runs)
+        graph_s = sum(a.elapsed_time(b) for _, i, j in runs
+                      for a, b in events[i:j]) * 1e-3
+        out[phase] = dict(graph_s=graph_s, wall_s=wall,
+                          replays=sum(j - i for _, i, j in runs),
+                          share=graph_s / wall if wall else 0.0)
     return out
 
 
-def profile_instance(name, walls, window):
+def profile_instance(name, walls):
     problem = INSTANCES[name]()
     out = dict(instance=name)
     runs = [_solve(problem, name) for _ in range(walls)]
@@ -210,14 +203,14 @@ def profile_instance(name, walls, window):
         host_syncs_by=runs[-1][1].syncs_by,
         admm_reads_by={k: n for k, n in runs[-1][1].admm_reads_by.items()
                        if n},
-        graphs=runs[-1][1].graphs,
+        graphs=runs[-1][1].graphs, captures=runs[-1][1].captures,
         spectral_repair=getattr(runs[-1][1], "spectral_repair_info",
                                 None))
     phases = {}
     with _timed(phases):
         _, _, wall, _ = _solve(problem, name)
     out["phases"] = dict(phases, wall=wall)
-    out["device"] = _device_share(problem, name, window)
+    out["device"] = _device_share(problem, name)
     return out
 
 
@@ -265,26 +258,27 @@ def resume_walls(name, walls):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("instances", nargs="+", choices=sorted(INSTANCES))
+    ap.add_argument("instances", nargs="+")
     ap.add_argument("--walls", type=int, default=5)
-    ap.add_argument("--window", type=int, default=2000,
-                    help="host syncs traced per phase")
-    ap.add_argument("--alm-chunk", type=int, help="alm.INNER_CHUNK")
+    ap.add_argument("--root", metavar="DIR",
+                    help="profile the lorads_torch of the checkout at DIR")
     ap.add_argument("--resume", action="store_true",
                     help="walls of cold, checkpointed, resumed and "
                     "warm-started solves in turns")
     args = ap.parse_args(argv)
-    if args.alm_chunk:
-        alm_mod.INNER_CHUNK = args.alm_chunk
+    _import(args.root)
+    unknown = sorted(set(args.instances) - set(INSTANCES))
+    if unknown:
+        ap.error(f"unknown instances {unknown}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve needs an NVIDIA GPU")
     card = card_line()
     print(f"card: {card}")
-    print(json.dumps({"alm_chunk": alm_mod.INNER_CHUNK}))
+    print(json.dumps({"root": os.path.abspath(args.root or ".")}))
     _solve(INSTANCES["maxcut300"]())        # build, load, warm up
     for name in args.instances:
         out = (resume_walls(name, args.walls) if args.resume else
-               profile_instance(name, args.walls, args.window))
+               profile_instance(name, args.walls))
         print(json.dumps(out), flush=True)
     print(f"card: {card}")
     return 0

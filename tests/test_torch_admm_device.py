@@ -3,20 +3,21 @@
 
 The same factors, dual and rho, made from a numpy seed, go through one
 chunk of each package's loop: lorads_tpu's jitted while_loop and the
-port's device step, run here eagerly with the chunked schedule
-(``devloop.CPU_CHUNK = None``), its CG and refinement passes nested
-loops.  Statuses, iteration and CG counts, rho, cur_rho_max, bad_pd and
-the stall counters must be equal.  The floats agree to within a bound
-of their scale (the largest magnitude of each field) for each case and
-group (objectives; DIMACS pinf, gap and the pinf ring; factors, dual and
-constraint sums): twice the largest spread measured between the two
-packages on the CPU, rounded up to 1, 2 or 5 times a power of ten (each
-package sums its own reductions; pinf and gap are differences of nearly
-equal terms, so their spread is the widest).  The cases cover Lovász theta (dense K7a operator, the
-mixed-precision CG), the bucket Gauss-Seidel scan with the LP block,
-K8c with and without the DUAL_U_V term, Max-Cut's closed form, the
-reopt and gap-continuation flavours, and every exit of lorads_tpu's
-cond: a status, ``n_steps``, ``iter_celling`` and the CG budget.
+port's device step, run here eagerly (the host reads each exit test),
+its CG and refinement passes nested loops.  Statuses, iteration and CG
+counts, rho, cur_rho_max, bad_pd and the stall counters must be equal.
+The floats agree to within a bound of their scale (the largest
+magnitude of each field) for each case and group (objectives; DIMACS
+pinf, gap and the pinf ring; factors, dual and constraint sums): twice
+the largest spread measured between the two packages on the CPU,
+rounded up to 1, 2 or 5 times a power of ten (each package sums its own
+reductions; pinf and gap are differences of nearly equal terms, so
+their spread is the widest).  The cases cover Lovász theta (dense K7a
+operator, the mixed-precision CG), the bucket Gauss-Seidel scan with
+the LP block, K8c with and without the DUAL_U_V term, Max-Cut's closed
+form, the reopt and gap-continuation flavours, and every exit of
+lorads_tpu's cond: a status, ``n_steps``, ``iter_celling`` and the CG
+budget.
 """
 
 import functools
@@ -37,7 +38,6 @@ from lorads_tpu.io import generators as tpu_gen
 from lorads_tpu.io import sdpa as tpu_sdpa
 from lorads_torch import interop
 from lorads_torch.alg import admm as t_admm
-from lorads_torch.alg import devloop
 from lorads_torch.alg.admm import ADMMStats
 from lorads_torch.alg.alm import ALMStats
 from lorads_torch.alg.solver import LoradsSolver as TorchSolver
@@ -180,7 +180,6 @@ def _close(got, want, bound):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_admm_chunk_matches_lorads_tpu(monkeypatch, case):
     name, kw, run, want_exit = CASES[case]
-    monkeypatch.setattr(devloop, "CPU_CHUNK", None)
     if "budget" in run:
         monkeypatch.setattr(t_admm, "CG_BUDGET_MIXED", run["budget"])
     problem = _problem(name)

@@ -296,7 +296,16 @@ def test_ema_detector_matches():
     rng = np.random.default_rng(4)
     vals = np.concatenate([np.geomspace(1.0, 1e-3, 30),
                            1e-3 * (1 + 1e-3 * rng.standard_normal(30))])
-    a, b = tpu_alm.EmaDetector(), t_alm.EmaDetector()
-    assert [a.update(float(v)) for v in vals] == \
-        [b.update(float(v)) for v in vals]
-    assert not all(b.update(1e-3) for _ in range(10))
+    a = tpu_alm.EmaDetector()
+    # the port's detector: device scalars in the ALM's middle loop
+    cur, old = torch.zeros((), dtype=torch.float64), torch.zeros(
+        (), dtype=torch.float64)
+    n = torch.ones((), dtype=torch.int64)
+
+    def update(v):
+        nonlocal cur, old, n
+        cur, old, n, go = t_alm.ema_update(cur, old, n, _t(v))
+        return bool(go)
+    assert [a.update(float(v)) for v in vals] == [update(v) for v in vals]
+    assert a.current == float(cur) and a.old == float(old)
+    assert not all(update(1e-3) for _ in range(10))

@@ -997,17 +997,37 @@ def _mc_cg_loop(dtype):
     return cg.cg_loop(op, torch.zeros_like(b), b, 1e-8, 800)
 
 
-def _mc_alm_loop():
-    """The ALM inner loop of matcomp500 (K3p, K4, K5) from its start."""
+def _mc_alm_solver():
+    """(solver, the ALM outer loop of matcomp500 (K3, K3p, K4, K5) from
+    its phase's start, two outers a run)."""
     from lorads_torch.alg import alm
     problem = read_sdpa(os.path.join(FIX, "matcomp500.dat-s"))
     s = LoradsSolver(problem, LoradsParams(verbose=False), device="cuda")
-    rho = s.ps.rho0
-    cs, g, cert = alm.alm_recompute(s.pd, s.R, s.dual, rho)
     p = s.params
-    return alm.inner_loop(s.pd, s.R, g, s.hist, s.dual, cs, cert, rho,
-                          0.1 / rho, p.end_alm_sub_tol, p.end_tau_tol,
-                          p.phase1_tol, True, 801)
+    carry, fixed = alm.alm_start(
+        s.pd, p, s.R, s.dual, s.hist, alm.ALMStats(rho=s.ps.rho0),
+        s.scale_obj_his, s.is_rank_max(), p.alm_rho_factor,
+        s.max_alm_sub_iter, 2, p.max_alm_iter)
+    dev = torch.device("cuda")
+    inputs = alm.ALMInputs(
+        budget=torch.full((), 2 ** 30, device=dev),
+        grind_armed=torch.zeros((), dtype=torch.bool, device=dev), **fixed)
+    return s, alm.outer_loop(s.pd, inputs, carry)
+
+
+def _mc_alm_loop(which):
+    """matcomp500's ALM outer loop, or its inner L-BFGS loop alone from
+    the phase's start (a WHILE node with the refresh's IF node)."""
+    from lorads_torch.alg import alm
+    s, loop = _mc_alm_solver()
+    if which == "alm_outer":
+        return loop
+    c = loop.state
+    rho, p = s.ps.rho0, s.params
+    return alm.inner_loop(s.pd, c.R, c.grad, c.hist, c.dual, c.constr_sum,
+                          c.cert_val, rho, 0.1 / rho, p.end_alm_sub_tol,
+                          p.end_tau_tol, p.phase1_tol, True, 801,
+                          caches=c.caches)
 
 
 def _flat(tree):
@@ -1016,18 +1036,19 @@ def _flat(tree):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["cg_f64", "cg_f32", "alm_inner"])
+@pytest.mark.parametrize("which", ["cg_f64", "cg_f32", "alm_inner",
+                                   "alm_outer"])
 def test_graphed_chunk_equals_eager_chunk(which):
-    """One chunk replayed from its CUDA graph equals the same masked
-    steps run eagerly on the card from the same state, bit for bit; the
-    CG's graph (a WHILE node) runs its whole solve in one replay, against
-    the solve decided by host reads."""
+    """A device-decided loop replayed from its CUDA graph (WHILE nodes;
+    the ALM's refresh an IF node) runs its whole run in one replay and
+    equals the same run decided by host reads on the card from the same
+    state, bit for bit."""
     _need_cuda()
     from lorads_torch.alg import devloop
     with devloop.phase():
-        loop = (_mc_alm_loop() if which == "alm_inner" else
-                _mc_cg_loop(torch.float64 if which == "cg_f64"
-                            else torch.float32))
+        loop = (_mc_cg_loop(torch.float64 if which == "cg_f64"
+                            else torch.float32)
+                if which.startswith("cg") else _mc_alm_loop(which))
         eager = _flat(devloop.eager_chunk(loop))
         graph, load, bufs = devloop.graph_chunk(loop)
         load()
@@ -1057,34 +1078,37 @@ def test_host_read_inside_capture_raises():
         pack=lambda inp, st: torch.ones(1, dtype=torch.float64,
                                         device="cuda"),
         inputs=(torch.ones(3, device="cuda"),),
-        state=(torch.zeros(3, device="cuda"),), K=2, label="other")
+        state=(torch.zeros(3, device="cuda"),), label="other",
+        running=lambda inp, st: st[0].sum() < 30)
     with devloop.phase():
         with pytest.raises(RuntimeError):
             devloop.run(loop)
-    # the eager first chunk (2 steps), then the capture's first step
-    assert len(calls) == 3
+    # the warm-up's step (kind(0)), then the capture's (kind None)
+    assert calls == [None, None]
 
 
 @pytest.mark.cuda
 def test_launches_count_per_replay():
-    """kernels.LAUNCHES after 3 replays of an ALM chunk's graph: 3 times
-    the launches the graph holds, none at its capture."""
+    """kernels.LAUNCHES after 3 replays of an ALM run's graph from the
+    same state, each read: 3 times one replay's, none at its capture."""
     _need_cuda()
     from lorads_torch.alg import devloop
     with devloop.phase():
-        loop = _mc_alm_loop()
+        _, loop = _mc_alm_solver()
         devloop.eager_chunk(loop)            # build, set attributes
         kernels.reset_launches()
         graph, load, _ = devloop.graph_chunk(loop)
         assert not any(kernels.LAUNCHES.values())
-        held = sum(n for (table, _), n in graph.launches.items()
-                   if table == "launches")
-        assert held > 0
         load()
-        for _ in range(3):
+        graph.replay()
+        graph.read("alm")
+        once = dict(kernels.LAUNCHES)
+        assert once["uvt_pair_split"] > 0 and once["loop_cond"] > 0
+        for _ in range(2):
+            load()
             graph.replay()
-        assert sum(kernels.LAUNCHES.values()) == 3 * held
-        assert kernels.LAUNCHES["uvt_pair_split"] > 0
+            graph.read("alm")
+        assert kernels.LAUNCHES == {k: 3 * n for k, n in once.items()}
         assert kernels.GRAPHS["replayed"] == 3
 
 
@@ -1129,28 +1153,41 @@ def test_while_node_runs_to_its_device_exit(n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("acts", [("CPU",), ("CPU", "CUDA")])
 def test_device_decided_graph_under_a_trace(acts):
-    """Under torch.profiler a device-decided loop's graph is captured and
-    replayed with the trace's CUDA collection paused (its replay under
-    a CUDA trace hit an illegal address on the card: ROADMAP F4), shows
-    as a ``devloop.*`` range, and the trace goes on after it."""
+    """Under torch.profiler a device-decided loop runs eagerly (a graph
+    of WHILE nodes replayed under a CUDA trace hit an illegal address on
+    the card: ROADMAP F4): with CUDA activity its kernels are in the
+    trace, one event a launch at least, and its result equals the
+    untraced graph's run bit for bit."""
     _need_cuda()
     from torch.profiler import ProfilerActivity, profile
 
     from lorads_torch.alg import devloop
     with devloop.phase():
+        loop = _mc_cg_loop(torch.float64)
+        graph_state, graph_out = devloop.run(loop)    # warm-up, capture
+        captured = kernels.GRAPHS["captured"]
+        kernels.reset_launches()
         with profile(activities=[getattr(ProfilerActivity, a)
                                  for a in acts]) as prof:
-            _, out = devloop.run(_count_loop(3))      # captured, replayed
-            assert out == [3.0]
-            _, out = devloop.run(_count_loop(5))      # replayed
-            assert out == [5.0]
-            (torch.ones(8, device="cuda") * 2).sum().item()
-    names = [e.key for e in prof.key_averages()]
-    assert "devloop.capture" in names and "devloop.replay" in names
-    device = [e for e in prof.key_averages()
-              if e.device_type != torch.autograd.DeviceType.CPU
-              and e.self_device_time_total > 0]
-    assert bool(device) == ("CUDA" in acts)
+            assert devloop.tracing()
+            state, out = devloop.run(loop)
+            torch.cuda.synchronize()
+        assert not devloop.tracing()
+        launches = dict(kernels.LAUNCHES)
+    assert out == graph_out
+    for g, e in zip(_flat(state), _flat(graph_state)):
+        assert torch.equal(g, e)
+    assert kernels.GRAPHS["captured"] == 0 and captured > 0
+    assert launches["loop_cond"] == 0
+    # K6 (SDDMM kernels) and K5 launched eagerly, each an event
+    assert launches["adj_a_offdiag"] > 0 and launches["wmul_csr"] > 0
+    events = {e.key: e.count for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU}
+    sddmm = sum(n for k, n in events.items() if "sddmm_" in k)
+    if "CUDA" in acts:
+        assert sddmm >= launches["adj_a_offdiag"]
+    else:
+        assert not events
 
 
 def _admm_solver(name):

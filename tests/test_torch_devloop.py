@@ -1,18 +1,13 @@
 """lorads_torch's device-resident loops (alg/devloop.py) on the CPU.
 
-The ALM inner loop runs as masked steps in chunks: K steps between two
-host reads (the loop's own chunk, as on the card) must give what one
-step between reads gives (the CPU default), bit for bit, because a step
-past the loop's exit leaves the state unchanged.  CG and the refinement
-passes are device-decided loops: run at the top (a read of the exit
-test before each iteration) they must give what they give nested in a
-device-decided step, as the ADMM iteration runs them.  Checked here:
-cg_solve and cg_solve_ir on a matcomp500 bucket and on a
-hand_multiblock block slice, each also against lorads_tpu's on the same
-numpy inputs; a done block's no-op with an inf / NaN direction; the ALM
-inner loop on maxcut300 and matcomp500 across a cache refresh and a
-wrap of the history head; the host-read labels and the replay-aware
-launch counts.
+CG and the refinement passes are device-decided loops: run at the top
+(a read of the exit test before each iteration) they must give what
+they give nested in a device-decided step, as the ADMM iteration runs
+them.  Checked here: cg_solve and cg_solve_ir on a matcomp500 bucket and
+on a hand_multiblock block slice, each also against lorads_tpu's on the
+same numpy inputs; a done block's no-op with an inf / NaN direction; the
+host-read labels and the replay-aware launch counts.  (The ALM's loops:
+tests/test_torch_alm_device.py.)
 """
 
 import jax.numpy as jnp
@@ -23,16 +18,12 @@ import torch
 from lorads_tpu.alg import cg as tpu_cg
 from lorads_tpu.config import LoradsParams as TpuParams
 from lorads_tpu.core import presolve as tpu_presolve
-from lorads_tpu.io import generators as tpu_gen
 from lorads_tpu.io import sdpa as tpu_sdpa
 from lorads_tpu.ops import pattern as tpu_pat
 from lorads_torch import device as t_dev
 from lorads_torch.alg import admm as t_admm
-from lorads_torch.alg import alm as t_alm
 from lorads_torch.alg import cg as t_cg
 from lorads_torch.alg import devloop
-from lorads_torch.alg.solver import LoradsSolver as TorchSolver
-from lorads_torch.config import LoradsParams as TorchParams
 from lorads_torch.ops import kernels
 from lorads_torch.ops import pattern as t_pat
 
@@ -52,11 +43,6 @@ FIX = "tests/fixtures/"
 
 def _t(x, dtype=torch.float64):
     return torch.as_tensor(np.array(x, dtype=np.float64)).to(dtype)
-
-
-def _chunked(monkeypatch, on: bool):
-    """CPU runs take the loops' own chunk (on) or one step a read."""
-    monkeypatch.setattr(devloop, "CPU_CHUNK", None if on else 1)
 
 
 def _jop(bk, Fx):
@@ -117,21 +103,19 @@ def _port_cg(case, tol, ir):
 
 
 @pytest.mark.parametrize("ir", [False, True], ids=["cg", "cg_ir"])
-def test_cg_chunks_match_single_steps(monkeypatch, cg_case, ir):
+def test_cg_chunks_match_single_steps(cg_case, ir):
     """The solve run at the top (a host read of the exit test before each
-    iteration or pass, whatever CPU_CHUNK) gives the solve nested in a
-    device-decided step (the ADMM iteration's path, its count a 0-d
-    tensor) bit for bit, iteration count included."""
-    _chunked(monkeypatch, False)
+    iteration or pass) gives the solve nested in a device-decided step
+    (the ADMM iteration's path, its count a 0-d tensor) bit for bit,
+    iteration count included."""
     x1, k1 = _port_cg(cg_case, 1e-8, ir)
-    _chunked(monkeypatch, True)
     with devloop._stepping():
         xk, kk = _port_cg(cg_case, 1e-8, ir)
     assert isinstance(kk, torch.Tensor) and int(kk) == k1 > 0
     assert torch.equal(xk, x1)
 
 
-def test_cg_chunks_match_lorads_tpu(monkeypatch, cg_case, tol=1e-8):
+def test_cg_chunks_match_lorads_tpu(cg_case, tol=1e-8):
     """cg_solve and cg_solve_ir against lorads_tpu's on the
     same numpy inputs: equal counts; cg_solve's x within 1e-11 of the
     solution's largest entry (f64 sums in two orders: an error relative
@@ -139,7 +123,6 @@ def test_cg_chunks_match_lorads_tpu(monkeypatch, cg_case, tol=1e-8):
     the stop test leaves
     (its f32 sweeps round differently: ||x_t - x_j|| <= ||r_t|| +
     ||r_j||, op = I + PSD)."""
-    _chunked(monkeypatch, True)
     _, jhi, jlo, _, _, _, x0, b = cg_case
     jx, jk = tpu_cg.cg_solve(jhi, jnp.asarray(x0), jnp.asarray(b), tol, 800)
     tx, tk = _port_cg(cg_case, tol, False)
@@ -204,45 +187,6 @@ def test_masked_cg_step_is_a_no_op(bad):
 
 
 # ---------------------------------------------------------------------------
-# The ALM inner loop.
-# ---------------------------------------------------------------------------
-
-def _alm_case(name):
-    problem = (tpu_gen.maxcut(n=300, avg_degree=4, seed=3)
-               if name == "maxcut300"
-               else tpu_sdpa.read_sdpa(FIX + "matcomp500.dat-s"))
-    ts = TorchSolver(problem, TorchParams(verbose=False), device="cpu")
-    return ts
-
-
-@pytest.mark.parametrize("name,steps", [("maxcut300", 53),
-                                        ("matcomp500", 27)])
-def test_inner_loop_chunks_match_single_steps(monkeypatch, name, steps):
-    """The inner loop at INNER_CHUNK against one step a read, bit for
-    bit, over ``steps`` steps: the cache refresh at step 24 (and 49),
-    the history head wrapping its L slots many times over, and an exit
-    inside a chunk (the local cap is no multiple of INNER_CHUNK)."""
-    ts = _alm_case(name)
-    rho = ts.ps.rho0
-    cs, g, cert = t_alm.alm_recompute(ts.pd, ts.R, ts.dual, rho)
-    p = ts.params
-    # certificate and pinf exits off: the cap ends the loop
-    args = (0.0, 0.0, p.end_tau_tol, p.phase1_tol, False, steps)
-    outs = []
-    for on in (False, True):
-        _chunked(monkeypatch, on)
-        outs.append(t_alm._inner_loop(ts.pd, ts.R, g, ts.hist, ts.dual, cs,
-                                      float(cert), rho, *args))
-    (R1, g1, h1, cs1, i1, _), (Rk, gk, hk, csk, ik, _) = outs
-    assert i1 == ik and i1["local_iter"] == steps
-    assert int(h1.head) == int(hk.head) == steps % ts.hist.length
-    for a, c in [(R1.cones[0], Rk.cones[0]), (g1.cones[0], gk.cones[0]),
-                 (cs1, csk), (h1.s.cones[0], hk.s.cones[0]),
-                 (h1.y.cones[0], hk.y.cones[0]), (h1.beta, hk.beta)]:
-        assert torch.equal(a, c)
-
-
-# ---------------------------------------------------------------------------
 # Counters.
 # ---------------------------------------------------------------------------
 
@@ -283,17 +227,14 @@ def test_launches_recorded_count_per_replay():
     assert not any(kernels.GRAPHS.values())
 
 
-def test_cpu_reads_by_label(monkeypatch):
+def test_cpu_reads_by_label():
     """On the CPU a CG solve reads its exit test before each iteration
-    and its pack once (label cg), whatever CPU_CHUNK."""
+    and after the last, and its pack once (label cg)."""
     rng = np.random.default_rng(5)
     M = rng.standard_normal((1, 8, 8))
     M = _t(np.einsum("bij,bkj->bik", M, M) + 8 * np.eye(8))
     b = _t(rng.standard_normal((1, 8, 3)))
     op = lambda x: torch.matmul(M, x)  # noqa: E731
-    for on in (False, True):
-        _chunked(monkeypatch, on)
-        t_dev.reset_host_syncs()
-        _, k = t_cg.cg_solve(op, torch.zeros_like(b), b, 1e-12, 800)
-        want = k + 2
-        assert t_dev.HOST_SYNCS_BY["cg"] == t_dev.HOST_SYNCS == want
+    t_dev.reset_host_syncs()
+    _, k = t_cg.cg_solve(op, torch.zeros_like(b), b, 1e-12, 800)
+    assert t_dev.HOST_SYNCS_BY["cg"] == t_dev.HOST_SYNCS == k + 2

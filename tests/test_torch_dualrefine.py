@@ -172,7 +172,7 @@ def _both_ls_refine(js, st, n_iter, dual=None):
     d = st["dual"] if dual is None else dual
     ref = jax.device_get(tpu_solver.dual_ls_refine(js.pd, R, d, n_iter))
     out = dual_ls_refine(ts.pd, ts.U.average(ts.V), ts.dual, n_iter)
-    return [np.asarray(a) for a in ref], [a.numpy() for a in out]
+    return [np.asarray(a) for a in ref], [np.asarray(a) for a in out]
 
 
 def _rel(a, b):

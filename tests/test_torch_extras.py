@@ -127,8 +127,11 @@ def test_fix_ini_trace_hand_multiblock_line_for_line(capfd):
 
 def test_fix_init_point_start_and_loop_key():
     """All-ones SDP factors and e_1 LP columns, S's LP draw after them
-    (the rng stream of lorads_tpu), and the trace flag in the ALM
-    loop's key with one more state tensor when on."""
+    (the rng stream of lorads_tpu), and the trace in the ALM loop's key:
+    with it on the phase's carry holds one more tensor, the FIX_INI
+    buffer of one outer's steps, and its log buffer one outer a run; the
+    inner loop's state two more (the buffer and its next row)."""
+    from lorads_torch.alg import devloop
     problem = tpu_sdpa.read_sdpa(FIX + "hand_multiblock.dat-s")
     try:
         js = TpuSolver(problem, TpuParams(verbose=False,
@@ -137,20 +140,34 @@ def test_fix_init_point_start_and_loop_key():
                                               fix_init_point=True),
                          device="cpu")
         assert t_alm.TRACE_FIX_INI
-        for a, b in zip(ts.R.cones, js.R.cones):
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-        np.testing.assert_array_equal(ts.R.lp.numpy(), [1.0, 0.0])
-        np.testing.assert_array_equal(ts.S.lp.numpy(), np.asarray(js.S.lp))
-        rho = ts.ps.rho0
-        cs, g, cert = t_alm.alm_recompute(ts.pd, ts.R, ts.dual, rho)
-        args = (ts.pd, ts.R, g, ts.hist, ts.dual, cs, cert, rho, 0.1,
-                1e-10, 1e-16, 1e-3, True, 10)
-        on = t_alm.inner_loop(*args)
-        t_alm.TRACE_FIX_INI = False
-        off = t_alm.inner_loop(*args)
     finally:
         tpu_alm.TRACE_FIX_INI = t_alm.TRACE_FIX_INI = False
-    assert on.key != off.key and on.key[:-1] == off.key[:-1]
-    assert len(on.state) == len(off.state) + 1 == 12
-    assert on.on_read is not None and off.on_read is None
-    assert off.kind(24) is True and on.kind(24) == (True, 4)
+    for a, b in zip(ts.R.cones, js.R.cones):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(ts.R.lp.numpy(), [1.0, 0.0])
+    np.testing.assert_array_equal(ts.S.lp.numpy(), np.asarray(js.S.lp))
+    p = ts.params
+    stats = t_alm.ALMStats(rho=ts.ps.rho0)
+    on, off = (t_alm.alm_start(ts.pd, p, ts.R, ts.dual, ts.hist, stats, 1.0,
+                               False, p.alm_rho_factor, 5000,
+                               1 if trace else ts.alm_max_outers,
+                               p.max_alm_iter, trace)[0]
+               for trace in (True, False))
+    assert on.trace.shape == (t_alm.MAX_SUB_CAP + t_alm.PASS_CAP, 4)
+    assert off.trace is None
+    assert on.logbuf.shape == (1, t_alm.LOG_COLS)
+    assert off.logbuf.shape == (ts.alm_max_outers, t_alm.LOG_COLS) \
+        == (16, 10)
+    (lon, kon), (loff, koff) = devloop.flatten(on), devloop.flatten(off)
+    assert len(lon) == len(loff) + 1 and kon != koff
+    rho = ts.ps.rho0
+    cs, g, cert = t_alm.alm_recompute(ts.pd, ts.R, ts.dual, rho)
+    args = (ts.pd, ts.R, g, ts.hist, ts.dual, cs, cert, rho, 0.1,
+            1e-10, 1e-16, 1e-3, True, 10)
+    row = torch.zeros((), dtype=torch.int64)
+    inner_on = t_alm.inner_loop(*args, trace=(on.trace, row))
+    inner_off = t_alm.inner_loop(*args)
+    assert inner_on.key != inner_off.key
+    assert inner_on.key[:-1] == inner_off.key[:-1]
+    assert len(inner_on.state) == len(inner_off.state) + 2 == 13
+    assert inner_off.kind(24) is True and inner_off.kind(23) is False
