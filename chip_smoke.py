@@ -47,14 +47,31 @@ Phases, each reported on its own lines:
    runs in a row of the ALM phase's outer loop (maxcut20000,
    matcomp2000, theta300) and of the ADMM chunk (theta800, multiblock22,
    multiblock_lp), launches equal, with the last replay's device ms;
-   loop_cond alone;
+   loop_cond alone; the certificate's restarted Lanczos (alg/lanczos.py)
+   as one device loop, three certificates in a row at each instance's
+   solved dual on maxcut20000 and gset_torus10000 (K2 at r = 1),
+   matcomp2000 (K5 at r = 1) and maxcut20000x4 (B = 4), and the spectral
+   repair's active sets (alg/spectral_repair.py) of theta_gtoy60's repair
+   from the state in tests/fixtures/cert_states.npz, each replay against
+   the same run made eagerly on the card, bit for bit, launches equal,
+   one host read a replay (``cert`` and ``repair`` lines); then K9
+   (sym_eig_small, csrc/sym_eig.cu) on the last Ritz problem and the last
+   projected slack those runs solved ([1, 36, 36] and [4, 36, 36] at f32,
+   [1, 48, 48] at f64) against torch.linalg.eigh, its plain version and
+   the library call (eigenvalues, residuals, orthogonality and the lowest
+   vector within SYM_EIG_C n eps), with the sweeps each took, the bound
+   and the dependent-step bound, and the step solve's torch.linalg.solve_ex
+   captured into a CUDA graph, its replay bit for bit its eager call;
 4. the main paths, each with the kernel launch counts reset just before
    it and read just after, through LoradsSolver(...).solve() on cuda at
    f64, each solve held to primal_dual_optimal and to lorads_tpu's CPU
    f64 objective within 1e-4 relative, its line giving the host syncs
    by label (device.HOST_SYNCS_BY: no ``alm_inner`` read, the ALM's
-   ``alm`` reads one a run), the loop graphs captured and replayed and
-   the kernel launches the replays counted:
+   ``alm`` reads one a run), the device-decided loops run by label, each
+   run asserted to read the host once (a Lanczos certificate of a
+   bucket one ``lanczos`` read, an active set one ``repair`` read), the
+   loop graphs captured and replayed and the kernel launches the replays
+   counted:
    - Max-Cut (split, diag-identity): maxcut(n=300, deg 4, seed 3) (ALM
      + closed-form ADMM, exact-eigh certificate), maxcut n=20000 (deg 8,
      seed 7) and tests/fixtures/gset_torus10000.rudy (Lanczos
@@ -120,7 +137,8 @@ Phases, each reported on its own lines:
    solve, with walls and ALM inner counts; one solve inside
    ``utils.profiling.device_trace`` (its loops run eagerly under the
    trace, ROADMAP §3 F4), the trace holding at least an event a launch
-   of its ALM phase's kernels (K2, K3), and a hand_multiblock solve
+   of its ALM phase's and its certificates' kernels (K2, K3, K9), and a
+   hand_multiblock solve
    traced through its ADMM phase, the trace holding its ADMM's kernels;
    ``fix_init_point`` on maxcut20000 (max_alm_iter=2: one nrm2U line
    per inner step, all finite) and its trace on the card against the
@@ -238,13 +256,13 @@ REFERENCE_DUAL_UV = {
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
-    "maxcut": ("cmul_csr", "uvt_split", "loop_cond"),
+    "maxcut": ("cmul_csr", "uvt_split", "sym_eig_small", "loop_cond"),
     "matcomp": ("uvt_split", "uvt_pair_split", "gather_segsum", "wmul_csr",
-                "adj_a_offdiag", "loop_cond"),
-    "theta": ("gather_segsum", "adj_a_dense", "loop_cond"),
+                "adj_a_offdiag", "sym_eig_small", "loop_cond"),
+    "theta": ("gather_segsum", "adj_a_dense", "sym_eig_small", "loop_cond"),
     "cgnr": ("gather_segsum", "adj_a_dense"),
     "lp": ("gather_segsum", "lp_gs_sweep", "loop_cond"),
-    "batch": ("cmul_csr", "uvt_split"),
+    "batch": ("cmul_csr", "uvt_split", "sym_eig_small"),
     "extras": ("cmul_csr", "uvt_split", "gather_segsum", "lp_gs_sweep"),
     "probes": ("onehot_scatter", "onehot_gather", "row_gather",
                "scatter_add", "uvt_split"),
@@ -523,7 +541,7 @@ def kernel_checks(card):
     gather_segsum_skewed(rng, dev)
     multiblock_kernel_checks(rng, measure)
     probe_kernel_checks(rng, measure)
-    return measure.results
+    return measure
 
 
 def cmul_cases(rng, measure, bk64, bk32, r, where):
@@ -1952,6 +1970,352 @@ def devloop_checks(card):
             _devloop_solve(label, _devloop_cg(name), card, cuda_time_ms)
 
 
+# K9's tolerances against torch.linalg.eigh on the same matrix, in units
+# of n eps (the matrix's type): eigenvalues within SYM_EIG_C n eps ||A||_2,
+# each residual column ||A v - lambda v|| within SYM_EIG_C n eps ||A||_2,
+# V^T V within SYM_EIG_C n eps of I, and the angle of the lowest
+# eigenvectors within their backward errors over the lowest gap
+# (Davis-Kahan): sin(angle) * gap within SYM_EIG_C n eps ||A||_2 (a
+# cluster's basis and a vector's sign are free)
+SYM_EIG_C = 8
+
+
+def sym_eig_errors(A, got, ref):
+    """(eigenvalue error, residual, orthogonality error, the lowest
+    vectors' sin(angle) * gap or None) of K9's eigenpairs ``got`` of A
+    [B, n, n] against the plain ``ref``, each the worst over the batch and
+    scaled by n eps (and ||A||_2 where it carries A's units); raises
+    beyond SYM_EIG_C."""
+    import torch
+    B, n, _ = A.shape
+    ne = n * torch.finfo(A.dtype).eps
+    (w, V), (wp, Vp) = ((x.double() for x in pair) for pair in (got, ref))
+    scale = wp.abs().amax(dim=1).clamp(min=1e-300)           # ||A||_2
+    Ad = A.double().tril() + A.double().tril(-1).transpose(1, 2)
+    ev = float(((w - wp).abs().amax(dim=1) / scale).max()) / ne
+    res = torch.linalg.vector_norm(Ad @ V - V * w[:, None, :], dim=1)
+    res = float((res.amax(dim=1) / scale).max()) / ne
+    eye = torch.eye(n, dtype=torch.float64, device=A.device)
+    orth = float((V.transpose(1, 2) @ V - eye).abs().max()) / ne
+    align = None
+    if n > 1:
+        # the lowest vectors' angle against the lowest gap (Davis-Kahan:
+        # sin <= backward error / gap), where the gap is not 0
+        gap = wp[:, 1] - wp[:, 0]
+        gapped = gap > 0
+        if bool(gapped.any()):
+            v, u = V[:, :, 0], Vp[:, :, 0]
+            dots = (v * u).sum(dim=1, keepdim=True)
+            sin = torch.linalg.vector_norm(v - dots * u, dim=1)
+            align = float((sin * gap / scale)[gapped].max()) / ne
+    out = (ev, res, orth, align)
+    if max(x for x in out if x is not None) > SYM_EIG_C:
+        raise AssertionError(f"sym_eig_small: errors {out} (in n eps) "
+                             f"beyond {SYM_EIG_C} against torch.linalg.eigh")
+    return out
+
+
+def _jacobi_flops(sweeps, N):
+    """K9's operations for a matrix padded to N that took ``sweeps``
+    sweeps: each of the N - 1 rounds a sweep rotates the A blocks of
+    the N/2 pairs (24 flops an off-diagonal 2 x 2 block, 4 a diagonal
+    one) and V's column pairs (6 an element pair), and each sweep's test
+    sums the squares (2 an element)."""
+    h = N // 2
+    rnd = 12 * h * (h - 1) + 4 * h + 6 * N * h
+    return sweeps * ((N - 1) * rnd + 2 * N * N)
+
+
+def sym_eig_case(measure, label, A):
+    """K9 (kernels.sym_eig_small) on A at a main path's shape against its
+    plain version (torch.linalg.eigh, also the one library call that
+    computes the same function) on the card: the checks of
+    sym_eig_errors, then K9's dispatched ms (CUDA events) and device ms
+    (20 calls in one CUDA graph), eigh's dispatched ms and device ms
+    (the profiler: a graph cannot hold it), the bound (bytes over the
+    memory rate or operations over the peak, the operations from the
+    sweeps this input took) and the dependent-step bound: the largest
+    sweep count x (N - 1) rounds x two dependent shared-memory loads."""
+    import torch
+
+    from lorads_torch.ops import kernels
+
+    B, n, _ = A.shape
+    sfx = "f64" if A.dtype == torch.float64 else "f32"
+    sweeps = torch.zeros(B, dtype=torch.int32, device=A.device)
+    got = kernels.sym_eig_small(A, sweeps)
+    ref = kernels.sym_eig_small_plain(A)
+    torch.cuda.synchronize()
+    errs = sym_eig_errors(A, got, ref)
+    err = float((got[0].double() - ref[0].double()).abs().max())
+    sw = sweeps.tolist()
+    N = n + (n & 1)
+    s = A.element_size()
+    nbytes = B * (2 * n * n + n) * s
+    flops = sum(_jacobi_flops(k, N) for k in sw)
+    ms = statistics.median(timing().cuda_time_ms(
+        lambda: kernels.sym_eig_small(A)) for _ in range(5))
+    dev_ms, dev_by = timing().device_time_ms(lambda: kernels.sym_eig_small(A))
+    eigh = lambda: torch.linalg.eigh(A)          # noqa: E731
+    pms = statistics.median(timing().cuda_time_ms(eigh) for _ in range(5))
+    lib_dev_ms = timing().profiler_time_ms(eigh)
+    bms, by = bound_of(nbytes, flops, sfx)
+    steps = 2 * max(sw) * (N - 1)
+    hop = measure.floors.get("hop_ns")
+    step_ms = None if hop is None else steps * hop * 1e-6
+    fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa
+    print(f"sym_eig_small [{label}]: {B} x {n} x {n} {sfx}, sweeps {sw}: "
+          f"eigenvalues {errs[0]:.2f}, residual {errs[1]:.2f}, V^T V "
+          f"{errs[2]:.2f}, lowest vectors' angle x gap "
+          f"{'no gap' if errs[3] is None else f'{errs[3]:.2f}'} (n eps, "
+          f"tol {SYM_EIG_C}); max_abs_err {err:.3e}; kernel {ms:.4f} ms "
+          f"device {fmt(dev_ms)} ({dev_by}); plain = library "
+          f"torch.linalg.eigh {pms:.4f} ms device {fmt(lib_dev_ms)} "
+          f"(profiler); bound {bms:.6f} ms ({by}: {nbytes} B, {flops} "
+          f"flop); dependent-step bound {fmt(step_ms)} ({steps} dependent "
+          f"shared-memory loads)  [{measure.card}]")
+    measure.results.setdefault("sym_eig_small", []).append(dict(
+        label=label, max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=pms,
+        bound_ms=bms, bound_by=by, library_ms=pms,
+        library_device_ms=lib_dev_ms, step_bound_ms=step_ms, sweeps=sw,
+        errors_n_eps=errs))
+
+
+def solve_ex_capture(card):
+    """The active set's f32 step solve, torch.linalg.solve_ex on a
+    [144, 144] system (lorads_tpu's jnp.linalg.solve, spectral_repair.py:
+    160), captured into a CUDA graph: the capture must succeed and the
+    replay equal the eager call bit for bit."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(17)
+    G = torch.as_tensor(rng.standard_normal((144, 600)), device="cuda")
+    M = G @ G.T
+    M = (M + 1e-2 * torch.trace(M) / 144 * torch.eye(144, device="cuda"))
+    M = (M / M.abs().max()).float()
+    t = torch.as_tensor(rng.standard_normal(144), dtype=torch.float32,
+                        device="cuda")
+    want = torch.linalg.solve_ex(M, t)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.linalg.solve_ex(M, t)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = torch.linalg.solve_ex(M, t)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError("solve_ex: the graph replay differs from the "
+                             "eager call")
+    plain = torch.linalg.solve(M.double(), t.double())
+    err = float((want.double() - plain).abs().max())
+    print(f"solve_ex: [144, 144] f32 captured in a CUDA graph, replay == "
+          f"eager bit for bit; against an f64 solve max err {err:.3e}  "
+          f"[{card}]")
+
+
+def _loop_runs(label, loops, card, check_reads=True):
+    """Each device-decided loop of ``loops`` (made in turn by calling it
+    with the last run's final state, None at first) run eagerly on the
+    card (the host reading every exit test) and by devloop.run (the
+    first run a warm-up and the capture of the graph, then replays):
+    pack and state bit for bit, a replay's launches equal to the eager
+    run's but for loop_cond (after the first), one read a replay.
+    Returns (the lines, the last replay's device ms from devloop.timed,
+    the eager runs' wall ms)."""
+    import torch
+
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import devloop
+    from lorads_torch.ops import kernels
+
+    lines, e_ms, g_ms, state = [], 0.0, None, None
+    for j, make in enumerate(loops):
+        loop = make(state)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eager = devloop.eager_chunk(loop)
+        want = loop.pack(loop.inputs, eager).tolist()
+        torch.cuda.synchronize()
+        e_ms += (time.time() - t0) * 1e3
+        e_launch = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        reads0 = dict(tdev.HOST_SYNCS_BY)
+        with devloop.timed() as times:
+            got_state, got = devloop.run(loop)
+        torch.cuda.synchronize()
+        g_ms = times[-1][0].elapsed_time(times[-1][1])
+        g_launch = dict(kernels.LAUNCHES)
+        g_reads = {k: v - reads0[k] for k, v in tdev.HOST_SYNCS_BY.items()
+                   if v > reads0[k]}
+        same = [torch.equal(g, e) for g, e in zip(
+            devloop.flatten(got_state)[0], devloop.flatten(eager)[0])]
+        if got != want or not all(same):
+            raise AssertionError(
+                f"{label} #{j}: the graph differs from the eager run (pack "
+                f"{got[-4:]} vs {want[-4:]}; tensors "
+                f"{[i for i, ok in enumerate(same) if not ok]})")
+        if check_reads and g_reads != {loop.label: 1}:
+            raise AssertionError(f"{label} #{j}: host reads {g_reads}")
+        nodes = g_launch.pop("loop_cond")
+        e_launch.pop("loop_cond")
+        if j and (g_launch != e_launch or nodes <= 0):
+            raise AssertionError(f"{label} #{j}: launches {g_launch} in the "
+                                 f"replay vs {e_launch} eagerly")
+        lines.append((got, {k: n for k, n in g_launch.items() if n},
+                      nodes))
+        state = got_state
+    return lines, g_ms, e_ms
+
+
+def _recording_eig(record, name):
+    """kernels.sym_eig_small wrapped to keep its last input outside a
+    capture under ``name`` in ``record`` (the K9 timings' main-path
+    inputs: the last Ritz problem, the last projected slack)."""
+    import torch
+
+    from lorads_torch.ops import kernels
+
+    @contextlib.contextmanager
+    def ctx():
+        fn = kernels.sym_eig_small
+
+        def rec(A, *a, **k):
+            if not torch.cuda.is_current_stream_capturing():
+                record[name] = A.clone()
+            return fn(A, *a, **k)
+        kernels.sym_eig_small = rec
+        try:
+            yield
+        finally:
+            kernels.sym_eig_small = fn
+    return ctx()
+
+
+def cert_checks(card, record):
+    """The certificate's restarted Lanczos (alg/lanczos.py) as one device
+    loop on maxcut20000 and gset_torus10000 (K2 r = 1), matcomp2000 (K5
+    r = 1) and maxcut20000x4 (K2 at B = 4), each at its solved dual on
+    the card: three certificates in a row as the solver's passes make
+    them (a random start, then the last Ritz vector plus 1e-3 noise),
+    each the loop of solver._certificate (f32 sweeps, K9 on the k x k
+    tridiagonal, the f64 Rayleigh refinement in the pack) against the
+    same loop run eagerly on the card (_loop_runs): bit for bit,
+    launches equal, one ``lanczos`` read a replay, with the last
+    replay's device ms.  The first T each takes is kept in ``record``."""
+    import numpy as np
+    import torch
+
+    from lorads_torch import LoradsParams, LoradsSolver
+    from lorads_torch.alg import devloop
+    from lorads_torch.alg import solver as solver_mod
+    from lorads_torch.ops import pattern as pat
+
+    for name in ("maxcut20000", "gset_torus10000", "matcomp2000",
+                 "maxcut20000x4"):
+        s = LoradsSolver(INSTANCES[name](), LoradsParams(
+            verbose=False, **PARAMS.get(name, {})), device="cuda")
+        res = s.solve()
+        bk = s.pd.buckets[0]
+        w_loc = pat.gather_w(bk, -s.dual)
+        rng = np.random.default_rng(3)
+
+        def make(state, bk=bk, w_loc=w_loc, rng=rng):
+            if state is None:
+                v0 = rng.standard_normal((bk.B, bk.n))
+                v0 = torch.as_tensor(v0, device="cuda")
+            else:
+                v0 = (state.v.double() + 1e-3 * torch.as_tensor(
+                    rng.standard_normal((bk.B, bk.n)), device="cuda"))
+            return solver_mod._certificate(bk, w_loc, v0, torch.float64)[1]
+
+        with devloop.phase(), _recording_eig(record, name):
+            lines, g_ms, e_ms = _loop_runs(f"cert {name}", [make] * 3, card)
+        B = bk.B
+        desc = "; ".join(
+            f"#{j} {int(got[B])} restarts, lam {got[:B]}, {nodes} node "
+            f"kernels" for j, (got, _, nodes) in enumerate(lines))
+        print(f"cert {name}: {res.status.value}, 3 certificates ({desc}): "
+              f"graph == eager, bit for bit, one lanczos read a replay; "
+              f"last {g_ms:.3f} ms on the device, the eager runs "
+              f"{e_ms:.1f} ms wall; kernel launches of the last replay "
+              f"{lines[-1][1]}  [{card}]")
+        del s
+
+
+def repair_checks(card, record):
+    """The spectral repair's active set (alg/spectral_repair.py) as one
+    device loop: theta_gtoy60 on the card from the state its CPU solve
+    reached just before the dual refinement (tests/fixtures/
+    cert_states.npz), the repair run with its active-set calls' arguments
+    kept; each call's loop then replayed against the same loop run
+    eagerly on the card (_loop_runs): bit for bit, launches equal, one
+    ``repair`` read a replay, with the last replay's device ms.  The
+    first projected slack K9 takes is kept in ``record``."""
+    import numpy as np
+    import torch
+
+    from lorads_torch import LoradsParams, LoradsSolver
+    from lorads_torch.alg import aop, devloop
+    from lorads_torch.alg import spectral_repair as rep
+    from lorads_torch.alg.admm import ADMMStats
+
+    z = np.load(os.path.join(FIX, "cert_states.npz"))
+    st = {k: z["theta_gtoy60_" + k] for k in ("dual", "scale", "pobj",
+                                               "dobj", "gap", "dinf")}
+    s = LoradsSolver(INSTANCES["theta_gtoy60"](), LoradsParams(verbose=False),
+                     device="cuda")
+    s.pd = aop.scale_objective(s.pd, float(st["scale"]))
+    s.scale_obj_his = float(st["scale"])
+    s.dual = torch.as_tensor(st["dual"], device="cuda")
+    s.pobj, s.dobj, s.gap = (float(st[k]) for k in ("pobj", "dobj", "gap"))
+    calls, run = [], rep._active_set
+
+    def kept(*a, **k):
+        calls.append((a, k))
+        return run(*a, **k)
+
+    rep._active_set = kept
+    try:
+        stats = ADMMStats(rho=1.0, dobj=float(st["dobj"]),
+                          gap=float(st["gap"]), dinf_l1=float(st["dinf"]))
+        accepted = rep.try_spectral_repair(s, stats)
+    finally:
+        rep._active_set = run
+    info = s.spectral_repair_info
+    if not calls:
+        raise AssertionError("theta_gtoy60's repair ran no active set")
+    makers = [lambda _, c=c: rep.active_set_loop(*c[0], **c[1])
+              for c in calls]
+    with devloop.phase(), _recording_eig(record, "theta_gtoy60"):
+        lines, g_ms, e_ms = _loop_runs("repair theta_gtoy60", makers, card)
+    m = s.pd.m
+    desc = "; ".join(f"#{j} {int(got[m + 1])} iterations, "
+                     f"{int(got[m])} constraints, {nodes} node kernels"
+                     for j, (got, _, nodes) in enumerate(lines))
+    print(f"repair theta_gtoy60: {info['rounds']} rounds, dinf "
+          f"{info['dinf_before']:.3e} -> {info['dinf_after']:.3e}, "
+          f"{'accepted' if accepted else 'not accepted'}; its "
+          f"{len(calls)} active sets ({desc}): graph == eager, bit for "
+          f"bit, one repair read a replay; last {g_ms:.3f} ms on the "
+          f"device, the eager runs {e_ms:.1f} ms wall; kernel launches of "
+          f"the last replay {lines[-1][1]}  [{card}]")
+    if not accepted:
+        raise AssertionError("theta_gtoy60's repair was not accepted")
+
+
+def sym_eig_checks(card, measure, record):
+    """K9 at the main paths' shapes (the inputs kept by cert_checks and
+    repair_checks) and the step solve's capture."""
+    for name, A in record.items():
+        sym_eig_case(measure, name, A)
+    solve_ex_capture(card)
+
+
 def probes_path(card):
     """The probes' main path: the probe driver at --small, with the
     launch counts reset just before and read just after."""
@@ -1975,6 +2339,36 @@ def probes_path(card):
     return counts
 
 
+@contextlib.contextmanager
+def _run_reads():
+    """{label: runs} of the device-decided loops run from the top
+    (devloop.run) inside, each asserted to read the host once, under
+    its loop's label (a certificate's Lanczos loop ``lanczos``, an active
+    set or a CGNR ``repair``, an ALM run ``alm``, an ADMM chunk
+    ``admm``)."""
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import devloop
+
+    runs, run = {}, devloop.run
+
+    def counted(loop):
+        before = dict(tdev.HOST_SYNCS_BY)
+        out = run(loop)
+        reads = {k: n - before[k] for k, n in tdev.HOST_SYNCS_BY.items()
+                 if n > before[k]}
+        if reads != {loop.label: 1}:
+            raise AssertionError(f"a {loop.label} loop's run read the host "
+                                 f"{reads}")
+        runs[loop.label] = runs.get(loop.label, 0) + 1
+        return out
+
+    devloop.run = counted
+    try:
+        yield runs
+    finally:
+        devloop.run = run
+
+
 def solve_path(card, path, instances):
     """One main path: its solves through the public entry points, with
     the launch counts reset just before and read just after."""
@@ -1996,10 +2390,10 @@ def solve_path(card, path, instances):
         by0 = dict(tdev.HOST_SYNCS_BY)
         graphs0 = dict(kernels.GRAPHS)
         t0 = time.time()
-        solver = LoradsSolver(problem, LoradsParams(verbose=False,
-                                                    **PARAMS.get(name, {})),
-                              device="cuda")
-        res = solver.solve()
+        with _run_reads() as runs:
+            solver = LoradsSolver(problem, LoradsParams(
+                verbose=False, **PARAMS.get(name, {})), device="cuda")
+            res = solver.solve()
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {k: kernels.LAUNCHES[k] - before[k]
@@ -2028,7 +2422,8 @@ def solve_path(card, path, instances):
               f"divergence retries {solver.admm_retries} "
               f"rank {res.ranks} cert restarts {solver.last_cert_restarts} "
               f"spectral repair: {repair}; host syncs "
-              f"{tdev.HOST_SYNCS - syncs0} {by}, in ADMM {admm_reads} "
+              f"{tdev.HOST_SYNCS - syncs0} {by}, in ADMM {admm_reads}, "
+              f"device-loop runs {runs} (one read each) "
               f"graphs captured "
               f"{graphs['captured']} replayed {graphs['replayed']} "
               f"(launches in replays {graphs['launches']}) launches "
@@ -2041,6 +2436,11 @@ def solve_path(card, path, instances):
             raise AssertionError(f"{name}: CG reads in ADMM {admm_reads}")
         if by.get("alm_inner", 0) or not by.get("alm", 0):
             raise AssertionError(f"{name}: ALM reads {by}")
+        # each Lanczos certificate of a bucket and each active set one run
+        # and one read (_run_reads asserts the read)
+        cert = [r for r in solver.last_cert_restarts if r >= 0]
+        if cert and not runs.get("lanczos"):
+            raise AssertionError(f"{name}: no Lanczos loop ran ({runs})")
         if not (math.isfinite(res.pobj) and rel <= POBJ_RTOL):
             raise AssertionError(f"{name}: pObj {res.pobj} vs {ref}")
         fs, lp_vals = solver.factor_blocks()
@@ -2182,8 +2582,8 @@ def main_path(card):
 PORT_KERNEL_RE = (r"\b(adj_a_dense|cmul_pairs|gather_cols|gather_cols_staged|"
                   r"gather_flat|gather_rows|lp_gs|onehot_gather|"
                   r"onehot_scatter|scatter_add|sddmm_l2|sddmm_off|"
-                  r"sddmm_staged|segment_sum|segsum|wmul_combine|wmul_rows|"
-                  r"wmul_tiled|zero)_kernel\b")
+                  r"sddmm_staged|segment_sum|segsum|sym_eig|wmul_combine|"
+                  r"wmul_rows|wmul_tiled|zero)_kernel\b")
 
 # the kernels of each group of the port's wrappers as a trace names them:
 # a launch of a group's wrapper is at least one of the group's kernel
@@ -2197,6 +2597,7 @@ TRACE_GROUPS = {
     "adj_a_dense": (("adj_a_dense",), r"\badj_a_dense_kernel\b"),
     "lp_gs": (("lp_gs_sweep",), r"\blp_gs_kernel\b"),
     "segment_sum": (("segment_sum",), r"\bsegment_sum_kernel\b"),
+    "sym_eig": (("sym_eig_small",), r"\bsym_eig_kernel\b"),
 }
 
 
@@ -2404,21 +2805,29 @@ def extras_path(card):
         tdir = os.path.join(tmp, "trace")
         t0 = time.time()
         with device_trace(tdir, "cuda"), \
-                _phase_launches("alm_phase") as alm_l:
+                _phase_launches("alm_phase") as alm_l, \
+                _phase_launches("_dual_infeas_pass") as cert_l:
             _, r4, w4 = _solve_timed(mc)
         w4x = time.time() - t0
         _certified("maxcut20000 (traced)", r4, ref)
         n_kern, n_mine, n_graph, _, size = _trace_counts(tdir)
-        held = _trace_holds(tdir, alm_l, "maxcut20000's ALM")
+        held = _trace_holds(tdir, {k: alm_l[k] + cert_l.get(k, 0)
+                                   for k in alm_l},
+                            "maxcut20000's ALM and certificates")
         print(f"extras device_trace: maxcut20000 solve wall {w4:.3f} s "
               f"({w4x:.3f} s with the trace's export), trace {size} B: "
               f"{n_kern} kernel events, {n_mine} of them the port's "
               f"kernels, {n_graph} cudaGraphLaunch calls; the ALM "
               f"phase's K2 {alm_l['cmul_csr']} and K3 "
-              f"{alm_l['uvt_split']} launches, kernel events against "
-              f"its launches by group {held}  [{card}]")
+              f"{alm_l['uvt_split']} launches, the certificates' K2 "
+              f"{cert_l['cmul_csr']} and K9 {cert_l['sym_eig_small']} "
+              f"(their Lanczos loops eager under the trace), kernel "
+              f"events against the launches by group {held}  [{card}]")
         if not (alm_l["cmul_csr"] > 0 and alm_l["uvt_split"] > 0):
             raise AssertionError(f"the traced ALM launched {alm_l}")
+        if not (cert_l["cmul_csr"] > 0 and cert_l["sym_eig_small"] > 0):
+            raise AssertionError(f"the traced certificates launched "
+                                 f"{cert_l}")
         # ---- a device trace around a solve that reaches the ADMM phase:
         # the trace holds the ADMM chunks' kernels
         tdir = os.path.join(tmp, "trace_admm")
@@ -2568,7 +2977,8 @@ def main(argv=None) -> int:
     print(f"build: {lib.name} in {time.time() - t0:.2f} s "
           f"(nvcc {build.BUILD_SECONDS:.2f} s)")
 
-    results = kernel_checks(card)
+    measure = kernel_checks(card)
+    results = measure.results
     if args.kernels_of:
         print(f"card: {card}")
         print(json.dumps({"kernels_of": os.path.abspath(args.kernels_of),
@@ -2577,6 +2987,10 @@ def main(argv=None) -> int:
     devloop_checks(card)
     alm_outer_checks(card)
     results["loop_cond"] = [admm_chunk_checks(card)]
+    record = {}
+    cert_checks(card, record)
+    repair_checks(card, record)
+    sym_eig_checks(card, measure, record)
     counts = main_path(card)
     for k, n in extras_path(card).items():
         counts[k] += n
@@ -2599,6 +3013,8 @@ def main(argv=None) -> int:
                            "lorads_tpu/ops/pattern.py:1458"),
            "lp_gs_sweep": ("lorads_torch/csrc/lp_gs.cu",
                            "lorads_tpu/alg/admm.py:238"),
+           "sym_eig_small": ("lorads_torch/csrc/sym_eig.cu",
+                             "lorads_tpu/alg/lanczos.py:117"),
            "onehot_scatter": ("lorads_torch/csrc/onehot_mma.cu",
                               "tools/probes/onehot.py:190"),
            "onehot_gather": ("lorads_torch/csrc/onehot_mma.cu",

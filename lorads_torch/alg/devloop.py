@@ -4,7 +4,9 @@ read a run.
 The counterpart of lorads_tpu's ``lax.while_loop`` loops: the ALM phase
 (alg/alm.py: the outer loop, the middle passes, the inner L-BFGS loop and
 the rho do-while), the ADMM chunk, the CG solves and refinement passes
-nested in its iterations, and the CGNR.  A ``Loop`` has a
+nested in its iterations, the CGNR, the certificate's restarted Lanczos
+with its sweeps nested (alg/lanczos.py) and the spectral repair's active
+set (alg/spectral_repair.py).  A ``Loop`` has a
 ``step(inputs, state, kind) -> state``, ``running(inputs, state)``, its
 exit test as a 0-d bool tensor (the step runs only while it holds), a
 ``pack(inputs, state)`` that gives the 1-D float64 vector the host reads
@@ -19,7 +21,8 @@ step a loop runs through ``nest``; at the top through ``run``:
   (label ``loop.label``) and the step is given ``kind(pos)``;
 * on CUDA tensors every run replays a graph, captured at a key's first
   run after a warm-up (``init`` and one step on a copy of the state,
-  each nested loop one step, no host read, the results dropped: the
+  each nested loop one step, and the pack, no host read, the results
+  dropped: the
   kernels are built and their attributes set outside the capture); the
   inputs and the initial state are copied into static buffers, the
   replay runs the loop to its exit, and the host reads the pack once;
@@ -399,6 +402,27 @@ def nest(loop: Loop):
     return _eager_loop(loop, loop.state)
 
 
+def repeat(step: Callable, inputs, state, count: int):
+    """``state = step(inputs, state, j)`` for j = 0 .. count - 1 inside a
+    device-decided loop's step -> the final state; ``j`` is a 0-d int64
+    tensor on the state's device and ``count`` is fixed by the enclosing
+    loop's key.  Under capture a WHILE node whose counter runs on the
+    device (the step captured once, not ``count`` times); else a host
+    loop with no read (the host knows the count); in a warm-up one step."""
+    leaves, _ = flatten(state)
+    j = torch.zeros((), dtype=torch.int64, device=leaves[0].device)
+    if _capturing(leaves[0]):
+        loop = Loop(key=None, pack=None, inputs=inputs, state=(j, state),
+                    step=lambda inp, st, kind: (st[0] + 1,
+                                                step(inp, st[1], st[0])),
+                    running=lambda inp, st: st[0] < count)
+        return _while_node(loop, inputs, loop.state)[1]
+    for _ in range(min(count, 1) if _WARM else count):
+        state = step(inputs, state, j)
+        j = j + 1
+    return state
+
+
 def branch(pred: torch.Tensor, fn: Callable, other):
     """fn() where the 0-d bool ``pred`` holds, else ``other`` (a tree of
     tensors, as fn() gives), inside a step captured with the kind None:
@@ -504,8 +528,9 @@ def graph_chunk(loop: Loop):
 def _warm_up(loop: Loop, st_leaves, st_layout) -> None:
     """Before a key's first capture: init and one step of the loop on a
     copy of its state, every loop nested in the step run for one step
-    (kind(0)), no host read, the results dropped: every kernel of the
-    graph is built and its launch attributes set outside the capture."""
+    (kind(0)), then the pack, no host read, the results dropped: every
+    kernel of the graph is built and its launch attributes set outside
+    the capture."""
     global _WARM
     state = unflatten(st_layout, [t.clone() for t in st_leaves])
     _WARM += 1
@@ -513,7 +538,8 @@ def _warm_up(loop: Loop, st_leaves, st_layout) -> None:
         if loop.init is not None:
             state = loop.init(loop.inputs, state)
         with _stepping():
-            loop.step(loop.inputs, state, loop.kind(0))
+            state = loop.step(loop.inputs, state, loop.kind(0))
+        loop.pack(loop.inputs, state)
     finally:
         _WARM -= 1
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import weakref
 from typing import List, Optional
 
 import numpy as np
@@ -44,7 +45,7 @@ from lorads_torch.alg import aop, devloop
 from lorads_torch.alg.admm import ADMMStats
 from lorads_torch.alg.alm import ALMStats
 from lorads_torch.alg.dualrefine import dual_ls_refine
-from lorads_torch.alg.lanczos import lanczos_min_eig_device
+from lorads_torch.alg.lanczos import lanczos_loop, lanczos_result
 from lorads_torch.alg.spectral_repair import try_spectral_repair
 from lorads_torch.alg.state import FactorVec, make_history
 from lorads_torch.config import LoradsParams, SolverStatus
@@ -634,7 +635,6 @@ class LoradsSolver:
         self.last_cert_lams_k = lams_k
         out = []
         for lam in lams:
-            lam = np.asarray(dev.host_read(lam, "other"), dtype=np.float64)
             if np.any(np.isnan(lam)):
                 # a NaN sweep must not let the status claim optimality
                 self.log("warning: Lanczos returned NaN on a block; "
@@ -662,7 +662,12 @@ class LoradsSolver:
 
     def dual_infeasibility(self, stats=None, repair=None) -> float:
         """calculate_dual_infeasibility_solver (lorads_solver.c:1007-1037)
-        with the identity-direction dual repair (see _repair_plan)."""
+        with the identity-direction dual repair (see _repair_plan).  Its
+        certificates' Lanczos graphs are dropped at its end."""
+        with devloop.phase():
+            return self._dual_infeasibility(stats, repair)
+
+    def _dual_infeasibility(self, stats, repair) -> float:
         lp_part, lams = self._dual_infeas_pass()
         if self.params.dual_repair if repair is None else repair:
             delta = self._repair_plan(lp_part, lams)
@@ -1056,11 +1061,30 @@ def _eig_rescue_ok(bk) -> bool:
     return bk.n <= _DENSE_EIG_DIM and bk.B * bk.n * bk.n <= _DENSE_EIG_BUDGET
 
 
+# f64 bucket id -> (a weak reference to it, its f32 cast): the Lanczos
+# loop runs on one f32 cast per bucket, which its graph's key holds
+_LO = {}
+
+
+def _f32_bucket(bk):
+    """The f32 cast of bucket ``bk`` (pattern.cast_floats), made once
+    while ``bk`` lives."""
+    hit = _LO.get(id(bk))
+    if hit is not None and hit[0]() is bk:
+        return hit[1]
+    lo = pat.cast_floats(bk, torch.float32)
+    _LO[id(bk)] = (weakref.ref(bk, lambda _, i=id(bk): _LO.pop(i, None)), lo)
+    return lo
+
+
 def _slack_operator(bk, w_loc):
     """Normalized slack operator S/ws = (C - A^*(lambda))/ws for one
     bucket (solver.py:1502-1584) -> (kind, op, ws):
       kind "eigh":    op is the normalized dense slack [B, n, n]
-      kind "lanczos": op is the [B, n] -> [B, n] matvec closure
+      kind "lanczos": op is (mv, ops): mv(x, *ops) the [B, n] -> [B, n]
+                      matvec, ops the tensors of this lambda it reads
+                      (the Lanczos loop's inputs); mv closes over the
+                      bucket's static tensors alone
     ws rescales the normalized eigenvalues back."""
     if bk.diag_ident and not _eig_rescue_ok(bk):
         # A^*(lambda) is diagonal, so the slack's off part is the static
@@ -1069,14 +1093,12 @@ def _slack_operator(bk, w_loc):
         ws = torch.clamp(torch.maximum(
             torch.amax(torch.abs(W_d), dim=1),
             torch.amax(torch.abs(bk.c_off), dim=1)), min=1e-30)
-        Wdn = W_d / ws[:, None]
-        inv = 1.0 / ws
 
-        def mv(x, bk=bk, Wdn=Wdn, inv=inv):
+        def mv(x, Wdn, inv, bk=bk):
             off = pat.cmul(bk, x[:, :, None], include_diag=False)[:, :, 0]
             return off * inv[:, None] + Wdn * x
 
-        return "lanczos", mv, ws
+        return "lanczos", (mv, (W_d / ws[:, None], 1.0 / ws)), ws
     # W = C - A^*(lambda) (kernel K4), normalized per block: |lambda|
     # grows with rho, and an un-normalized f32 Lanczos sweep can
     # overflow (eigenvalues rescale back exactly)
@@ -1084,9 +1106,9 @@ def _slack_operator(bk, w_loc):
         # full [B, n, n] slack (solver.py:1547-1556)
         W = pat.build_w(bk, w_loc)
         ws = torch.clamp(torch.amax(torch.abs(W), dim=(1, 2)), min=1e-30)
-        Wn = W / ws[:, None, None]
+        Wn = (W / ws[:, None, None],)
         if _eig_rescue_ok(bk):
-            return "eigh", Wn, ws
+            return "eigh", Wn[0], ws
     else:
         W_d, W_o = pat.build_w(bk, w_loc)
         ws = torch.clamp(torch.maximum(torch.amax(torch.abs(W_d), dim=1),
@@ -1096,11 +1118,32 @@ def _slack_operator(bk, w_loc):
         if _eig_rescue_ok(bk):
             return "eigh", pat.densify_w(bk, Wn), ws
 
-    def mv(x, bk=bk, Wn=Wn):
+    def mv(x, *Wn, bk=bk):
         # W @ x at r = 1 (kernel K5, or torch.matmul on dense buckets)
-        return pat.w_mul(bk, Wn, x[:, :, None])[:, :, 0]
+        W = Wn[0] if bk.dense else Wn
+        return pat.w_mul(bk, W, x[:, :, None])[:, :, 0]
 
-    return "lanczos", mv, ws
+    return "lanczos", (mv, Wn), ws
+
+
+def _certificate(bk, w_loc, v0, dtype):
+    """One bucket's certificate at the slack of ``w_loc`` -> ("eigh", the
+    normalized dense slack, ws) or ("lanczos", its Lanczos loop, ws): the
+    loop (``lanczos.lanczos_loop``) at f64 runs on the bucket's f32 cast
+    with the f64 operator's Rayleigh refinement, keyed on the bucket (and
+    its cast), its pack's eigenvalues rescaled by ws."""
+    kind, op, ws = _slack_operator(bk, w_loc)
+    if kind == "eigh":
+        return kind, op, ws
+    mv, ops = op
+    if dtype != torch.float64:
+        return kind, lanczos_loop(mv, v0, ops=ops, scale=ws,
+                                  key=("cert", devloop.ident(bk))), ws
+    lo = _f32_bucket(bk)
+    _, (mv32, ops32), _ = _slack_operator(lo, w_loc.to(torch.float32))
+    return kind, lanczos_loop(
+        mv32, v0.to(torch.float32), matvec_hi=mv, ops=ops32, ops_hi=ops,
+        scale=ws, key=("cert", devloop.ident(bk), devloop.ident(lo))), ws
 
 
 def _dual_infeas_device(pd, dual, v0s):
@@ -1110,32 +1153,28 @@ def _dual_infeas_device(pd, dual, v0s):
 
     At f64 the Lanczos restart loop runs at f32 on an f32 cast of the
     SAME normalized slack and the final eigenvalue is refined by one f64
-    Rayleigh quotient (solver.py:1621-1640).
-    Returns (lams, restarts, vecs, lams_k) per bucket; restarts is -1
-    for exact-eigh buckets."""
+    Rayleigh quotient (solver.py:1621-1640), inside the loop's graph.
+    Returns (lams, restarts, vecs, lams_k) per bucket; lams on the host
+    (float64 numpy [B]: a Lanczos bucket's from its loop's one read, an
+    exact-eigh bucket's read here), restarts -1 for exact-eigh buckets."""
     neg_l = -dual
     lams, restarts, vecs, lams_k = [], [], [], []
     for bk, v0 in zip(pd.buckets, v0s):
-        w_loc = pat.gather_w(bk, neg_l)
-        kind, op, ws = _slack_operator(bk, w_loc)
+        kind, got, ws = _certificate(bk, pat.gather_w(bk, neg_l), v0,
+                                     dual.dtype)
         if kind == "eigh":
-            lk, vk = _exact_min_eig(op)
+            lk, vk = _exact_min_eig(got)
             lk = lk.to(dual.dtype) * ws[:, None]
-            lams.append(torch.amin(lk, dim=1))
+            lams.append(np.asarray(dev.host_read(torch.amin(lk, dim=1),
+                                                 "other"), np.float64))
             restarts.append(-1)
             vecs.append(vk.to(dual.dtype))
             lams_k.append(lk)
             continue
-        if dual.dtype == torch.float64:
-            _, op32, _ = _slack_operator(pat.cast_floats(bk, torch.float32),
-                                         w_loc.to(torch.float32))
-            lam, its, vec = lanczos_min_eig_device(
-                op32, v0.to(torch.float32), matvec_hi=op, return_vec=True)
-        else:
-            lam, its, vec = lanczos_min_eig_device(op, v0, return_vec=True)
-        lam = lam * ws
+        lam, its, vec = lanczos_result(*devloop.run(got))
         lams.append(lam)
         restarts.append(its)
         vecs.append(vec.to(dual.dtype)[:, None, :])
-        lams_k.append(lam[:, None])
+        lams_k.append(torch.as_tensor(lam, dtype=dual.dtype,
+                                      device=dual.device)[:, None])
     return lams, restarts, vecs, lams_k

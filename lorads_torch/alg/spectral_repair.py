@@ -20,10 +20,15 @@ Rounds stop when the re-measured dinf is under 0.7 * band, fails to
 improve, or 30 rounds are spent; the best certified dual is kept if it
 improved dinf, and accepted if it passes the band.
 
-lorads_tpu runs the active-set loop as one device while_loop; here it
-is a Python loop over device tensors with one counted host read per
-iteration.  The regularized k x k solve stays at f32, as in lorads_tpu
-(spectral_repair.py:153-162), so both packages take the same steps.
+The active-set loop is one device-decided loop, as lorads_tpu's
+while_loop is (``active_set_loop``, alg/devloop.py): on CUDA tensors a
+run replays one graph and reads the host once; the projected slacks'
+eigenpairs come from kernel K9 (``kernels.sym_eig_small``), the step's
+regularized k x k solve from torch.linalg.solve_ex at f32, as in
+lorads_tpu (spectral_repair.py:153-162), so both packages take the same
+steps.  On CPU tensors the steps run eagerly, the host reading the exit
+test before each, with K9's plain version (torch.linalg.eigh).  A
+repair's graphs are dropped with it (``devloop.phase``).
 When the bases span several buckets, the round runs lorads_tpu's host
 active-set loop instead (``_host_active_set``,
 spectral_repair.py:328-381): per iteration each bucket's projected
@@ -34,12 +39,15 @@ on the host.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from lorads_torch import device as dev
+from lorads_torch.alg import devloop
+from lorads_torch.ops import kernels
 from lorads_torch.ops import pattern as pat
 
 # basis columns kept per block, and directions taken per active-set
@@ -129,43 +137,56 @@ def _host_active_set(solver, bases: dict, delta: float, sigma: float):
     return d_tot, len(cons_g)
 
 
-def _active_set(bk, Bmat: torch.Tensor, p_mask: torch.Tensor, dual0,
-                rhs: torch.Tensor, delta: float, sigma: float,
-                n_iters: int = N_ITERS, con_pad: int = CON_PAD):
-    """One repair round's active-set loop for a single bucket
-    (_active_set_device, spectral_repair.py:71-178).  Per iteration:
-    P = B^T (C - A^*(dual0 + d)) B per block, masked to each block's
-    real basis width; its eigh; the con_pad lowest eigenpairs across
-    the bucket's blocks become candidate directions (eigenvalue below
-    delta); their affine pieces fill a fixed-width constraint buffer;
-    a b-orthogonal, proximally regularized least-squares step moves
-    every active Rayleigh quotient to delta.  Stops early when no
-    eigenvalue sits below delta.  Returns (d_tot [m], constraints
-    collected, iterations run)."""
+@dataclasses.dataclass
+class ActiveSetState:
+    """The active-set loop's carry (lorads_tpu :172-174)."""
+
+    d_tot: torch.Tensor      # [m] the round's dual step so far
+    G: torch.Tensor          # [n_iters * con_pad, m] the constraints' A(uu^T)
+    cs: torch.Tensor         # [n_iters * con_pad] their <C, uu^T>
+    rv: torch.Tensor         # [n_iters * con_pad] 1 where a row is active
+    it: torch.Tensor         # int64 0-d: iterations run
+    none_new: torch.Tensor   # bool 0-d: the last found no direction
+
+
+def active_set_loop(bk, Bmat: torch.Tensor, p_mask: torch.Tensor, dual0,
+                    rhs: torch.Tensor, delta, sigma,
+                    n_iters: int = N_ITERS,
+                    con_pad: int = CON_PAD) -> devloop.Loop:
+    """One repair round's active-set loop for a single bucket as a
+    device-decided devloop.Loop (label ``repair``; _active_set_device,
+    spectral_repair.py:71-178).  Per iteration: P = B^T (C - A^*(dual0 +
+    d)) B per block, masked to each block's real basis width; its
+    eigenpairs (kernel K9); the con_pad lowest across the bucket's blocks
+    become candidate directions (eigenvalue below delta); their affine
+    pieces (K3, K4) fill the fixed-width constraint buffer at rows it *
+    con_pad; a b-orthogonal, proximally regularized least-squares step
+    moves every active Rayleigh quotient to delta, unless no direction
+    was new.  Runs while it < n_iters and the last iteration found a
+    direction.  ``delta`` and ``sigma`` (numbers or 0-d tensors) are
+    inputs: sigma changes from round to round.  The pack: [d_tot (m) |
+    constraints collected | iterations run], float64."""
     b_eff, n, P = Bmat.shape
     m = rhs.shape[0]
     dt, device = Bmat.dtype, Bmat.device
     R_rows = n_iters * con_pad
-    # padded eigh dims sit safely above the activation threshold
-    big = delta + abs(delta) + 1.0
-    bb = torch.dot(rhs, rhs)
-    m2 = p_mask[:, :, None] * p_mask[:, None, :]
-    eyeP = torch.eye(P, dtype=dt, device=device)[None]
-    eyeR = torch.eye(R_rows, dtype=dt, device=device)
-    blocks = torch.arange(b_eff, device=device)
-    d_tot = torch.zeros((m,), dtype=dt, device=device)
-    G = torch.zeros((R_rows, m), dtype=dt, device=device)
-    cs = torch.zeros((R_rows,), dtype=dt, device=device)
-    rv = torch.zeros((R_rows,), dtype=dt, device=device)
-    n_cons, it = 0.0, 0
-    while it < n_iters:
-        dual_cur = dual0 + d_tot
+
+    def step(inp, st, kind):
+        Bmat, p_mask, dual0, rhs, delta, sigma = inp
+        # padded eigh dims sit safely above the activation threshold
+        big = delta + torch.abs(delta) + 1.0
+        bb = torch.dot(rhs, rhs)
+        m2 = p_mask[:, :, None] * p_mask[:, None, :]
+        eyeP = torch.eye(P, dtype=dt, device=device)[None]
+        eyeR = torch.eye(R_rows, dtype=dt, device=device)
+        blocks = torch.arange(b_eff, device=device)
+        dual_cur = dual0 + st.d_tot
         W = pat.build_w(bk, pat.gather_w(bk, -dual_cur))
         SB = pat.w_mul(bk, W, Bmat)
         Pm = torch.matmul(Bmat.transpose(1, 2), SB)
         Pm = 0.5 * (Pm + Pm.transpose(1, 2))
         Pm = Pm * m2 + big * (1.0 - m2) * eyeP
-        evals, Wv = torch.linalg.eigh(Pm)                     # ascending
+        evals, Wv = kernels.sym_eig_small(Pm)                 # ascending
         flat = evals.reshape(-1)
         idx = torch.topk(-flat, con_pad).indices              # lowest k
         ev_sel = flat[idx]
@@ -178,11 +199,13 @@ def _active_set(bk, Bmat: torch.Tensor, p_mask: torch.Tensor, dual0,
         cu = torch.stack([p[0] for p in pieces])
         gu = torch.stack([p[1] for p in pieces]) * valid[:, None]
         # invalid rows: g = 0 and cs = delta make their target t = 0
-        cs_q = torch.where(valid > 0, cu, torch.full_like(cu, delta))
-        row0 = it * con_pad
-        G[row0:row0 + con_pad] = gu
-        cs[row0:row0 + con_pad] = cs_q
-        rv[row0:row0 + con_pad] = valid
+        cs_q = torch.where(valid > 0, cu, delta)
+        # the new rows at it * con_pad (out of place: a run leaves the
+        # state it was given as it was)
+        rows = st.it * con_pad + torch.arange(con_pad, device=device)
+        G = st.G.index_copy(0, rows, gu)
+        cs = st.cs.index_copy(0, rows, cs_q)
+        rv = st.rv.index_copy(0, rows, valid)
         Gp = torch.where(bb > 0, G - (G @ rhs / torch.clamp(bb, min=1e-300))
                          [:, None] * rhs[None], G)
         rq = cs - G @ dual_cur
@@ -192,25 +215,60 @@ def _active_set(bk, Bmat: torch.Tensor, p_mask: torch.Tensor, dual0,
         reg = sigma * torch.clamp(torch.trace(M) / nval, min=1e-30)
         # the tiny regularized system is scale-normalized and solved at
         # f32, as lorads_tpu does; the step feeds a proximal loop that
-        # re-measures dinf and backtracks
+        # re-measures dinf and backtracks.  solve_ex: no host check
         Mn = M + reg * eyeR
         sc = torch.clamp(torch.amax(torch.abs(Mn)), min=1e-30)
-        alpha = torch.linalg.solve((Mn / sc).to(torch.float32),
-                                   (t / sc).to(torch.float32)).to(dt)
-        n_new, n_cons = dev.host_read(torch.stack([torch.sum(valid),
-                                                   torch.sum(rv)]), "repair")
-        it += 1
-        if n_new == 0:
-            # no new directions: no step, and the loop ends
-            break
-        d_tot = d_tot + Gp.T @ alpha
-    return d_tot, int(n_cons), it
+        alpha = torch.linalg.solve_ex((Mn / sc).to(torch.float32),
+                                      (t / sc).to(torch.float32))[0].to(dt)
+        # no new directions: no step, and the loop ends
+        none_new = torch.sum(valid) == 0
+        d_tot = torch.where(none_new, st.d_tot, st.d_tot + Gp.T @ alpha)
+        return ActiveSetState(d_tot=d_tot, G=G, cs=cs, rv=rv, it=st.it + 1,
+                              none_new=none_new)
+
+    def pack(inp, st):
+        return torch.cat([st.d_tot.to(torch.float64),
+                          torch.stack([torch.sum(st.rv),
+                                       st.it.to(dt)]).to(torch.float64)])
+
+    state = ActiveSetState(
+        d_tot=torch.zeros((m,), dtype=dt, device=device),
+        G=torch.zeros((R_rows, m), dtype=dt, device=device),
+        cs=torch.zeros((R_rows,), dtype=dt, device=device),
+        rv=torch.zeros((R_rows,), dtype=dt, device=device),
+        it=torch.zeros((), dtype=torch.int64, device=device),
+        none_new=torch.zeros((), dtype=torch.bool, device=device))
+    return devloop.Loop(
+        key=("active_set", devloop.ident(bk), n_iters, con_pad), step=step,
+        pack=pack,
+        inputs=(Bmat, p_mask, dual0, rhs, devloop.scalar(delta, dt, device),
+                devloop.scalar(sigma, dt, device)),
+        state=state, label="repair",
+        running=lambda inp, st: (st.it < n_iters) & ~st.none_new)
+
+
+def _active_set(bk, Bmat: torch.Tensor, p_mask: torch.Tensor, dual0,
+                rhs: torch.Tensor, delta: float, sigma: float,
+                n_iters: int = N_ITERS, con_pad: int = CON_PAD):
+    """The active-set loop (``active_set_loop``) run to its exit: one
+    graph replay and one host read on CUDA tensors.  Returns (d_tot
+    [m], constraints collected, iterations run)."""
+    state, out = devloop.run(active_set_loop(bk, Bmat, p_mask, dual0, rhs,
+                                             delta, sigma, n_iters, con_pad))
+    m = rhs.shape[0]
+    return state.d_tot, int(out[m]), int(out[m + 1])
 
 
 def try_spectral_repair(solver, admm_stats) -> bool:
     """Run the repair on ``solver`` (a LoradsSolver); returns True iff
     the repaired dual passes its dinf band (admm_stats updated).  The
-    outcome is kept in ``solver.spectral_repair_info``."""
+    outcome is kept in ``solver.spectral_repair_info``; the graphs of its
+    certificates and active-set loops are dropped at its end."""
+    with devloop.phase():
+        return _spectral_repair(solver, admm_stats)
+
+
+def _spectral_repair(solver, admm_stats) -> bool:
     params = solver.params
     band = (params.phase2_tol if params.high_acc_mode
             else 5 * params.phase2_tol)

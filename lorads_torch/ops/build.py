@@ -54,6 +54,9 @@ _SIGNATURES = {
     "lt_row_gather": [_I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     "lt_smem_optin": [],
     "lt_scatter_add": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    # small symmetric eigensolver (csrc/sym_eig.cu), alg/lanczos.py and
+    # alg/spectral_repair.py
+    "lt_sym_eig": [_I, _VP, _VP, _VP, _VP, _I, _I, _VP],
     # conditional graph nodes (csrc/graph_cond.cu), alg/devloop.py
     "lt_cond_begin": [_I, _VP, _VP, ctypes.POINTER(ctypes.c_ulonglong),
                       _VP],

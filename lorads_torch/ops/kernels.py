@@ -11,6 +11,7 @@
 | adj_a_offdiag  | csrc/adj_a.cu          | a_adj_a (K6)                              |
 | adj_a_dense    | csrc/adj_a_dense.cu    | a_adj_a_dense (K7a)                       |
 | lp_gs_sweep    | csrc/lp_gs.cu          | alg/admm.py: _update_lp_var_gs (K8c)      |
+| sym_eig_small  | csrc/sym_eig.cu        | alg/lanczos.py:117, spectral_repair.py:124: jnp.linalg.eigh (K9) |
 
 and the probes' kernels, whose wrappers live in ``lorads_torch/probes``
 (no solver module calls them; ``python -m lorads_torch.probes`` does):
@@ -52,7 +53,10 @@ Plain-version precision: f64 sums directly.  At f32 the segment sums
 error by the compensated kernels' eps32 contract; the row dots of K3,
 K3p and K6 (r terms each) sum in f32, as lorads_tpu's do.  K7a rounds
 its product and its diagonal sum separately, as its plain version
-does, so the two agree bit for bit.  K8c's plain version sums each
+does, so the two agree bit for bit.  K9's plain version is
+torch.linalg.eigh (a host-checked LAPACK or cuSOLVER call): the two
+agree to rounding in the eigenvalues and span the same eigenspaces, a
+vector's sign or a cluster's basis aside.  K8c's plain version sums each
 column's terms in the kernel's lane order (32 partial sums, then the
 shuffle tree), so the two agree bit for bit too; where a column's ids
 repeat, the kernel applies their deltas in order of k, as index_add_
@@ -69,8 +73,9 @@ import torch
 
 KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
                 "gather_segsum", "wmul_csr", "adj_a_offdiag",
-                "adj_a_dense", "lp_gs_sweep", "onehot_scatter",
-                "onehot_gather", "row_gather", "scatter_add", "loop_cond")
+                "adj_a_dense", "lp_gs_sweep", "sym_eig_small",
+                "onehot_scatter", "onehot_gather", "row_gather",
+                "scatter_add", "loop_cond")
 LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # of LAUNCHES["uvt_split"], those with V is U (one dot an entry)
 ONE_DOT_LAUNCHES = {"uvt_split": 0}
@@ -782,3 +787,39 @@ def lp_gs_sweep(pc_con: torch.Tensor, pc_val: torch.Tensor,
     if s is not None:
         _bump("with_s", "lp_gs_sweep")
     return new, out_sum
+
+
+# ---------------------------------------------------------------------------
+# K9: eigenpairs of small symmetric matrices.
+# ---------------------------------------------------------------------------
+
+# the largest n K9 takes (A and V at f64 fill 64 KB of shared memory)
+SYM_EIG_MAX_N = 64
+
+
+def sym_eig_small_plain(A):
+    return torch.linalg.eigh(A)
+
+
+def sym_eig_small(A: torch.Tensor, sweeps: Optional[torch.Tensor] = None):
+    """K9.  A [B, n, n] symmetric, 1 <= n <= SYM_EIG_MAX_N, its lower
+    triangle read (as torch.linalg.eigh reads it) -> (eigenvalues
+    ascending [B, n], eigenvectors [B, n, n], column j the unit
+    eigenvector of eigenvalue j), with no host synchronisation (parallel
+    cyclic Jacobi, a CTA a matrix).  ``sweeps``: int32 [B] on the card or
+    None; where given, the kernel writes each matrix's Jacobi sweeps
+    there."""
+    if A.dim() != 3 or A.shape[1] != A.shape[2] \
+            or not 1 <= A.shape[1] <= SYM_EIG_MAX_N:
+        raise ValueError(f"sym_eig_small: A of shape {tuple(A.shape)} "
+                         f"(need [B, n, n], 1 <= n <= {SYM_EIG_MAX_N})")
+    if not _check("sym_eig_small", [A], [] if sweeps is None else [sweeps]):
+        return sym_eig_small_plain(A)
+    B, n, _ = A.shape
+    if sweeps is not None and sweeps.shape != (B,):
+        raise ValueError("sym_eig_small: sweeps must be [B]")
+    evals = torch.empty((B, n), dtype=A.dtype, device=A.device)
+    evecs = torch.empty_like(A)
+    _launch("sym_eig_small", "lt_sym_eig", _is_f64(A), A.data_ptr(),
+            evals.data_ptr(), evecs.data_ptr(), _ptr(sweeps), B, n)
+    return evals, evecs

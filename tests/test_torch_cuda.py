@@ -539,7 +539,8 @@ def test_dual_ls_refine_on_cuda_matches_cpu(fixture):
         dual = torch.as_tensor(0.1 * rng.standard_normal(problem.m),
                                device=dev)
         before = kernels.LAUNCHES["gather_segsum"]
-        out[dev] = [t.cpu() for t in dual_ls_refine(solver.pd, R, dual, 30)]
+        out[dev] = [t.cpu() if isinstance(t, torch.Tensor) else t
+                    for t in dual_ls_refine(solver.pd, R, dual, 30)]
         if dev == "cuda":
             assert kernels.LAUNCHES["gather_segsum"] > before
     (cs, c0, c1, cits), (gs, g0, g1, gits) = out["cpu"], out["cuda"]
@@ -1296,3 +1297,221 @@ def test_admm_chunk_reads_once():
     assert len(chunks) > 2 and s.admm_cg_total > 0
     assert all(c == {"admm": 1} for c in chunks), chunks
     assert not s.admm_reads_by.get("cg") and not s.admm_reads_by.get("cg_ir")
+
+
+# ---------------------------------------------------------------------------
+# K9 and the certificate's and the repair's device loops.
+# ---------------------------------------------------------------------------
+
+# K9 against torch.linalg.eigh on the same card, in units of n eps of the
+# matrix's type: eigenvalues within SYM_EIG_C n eps ||A||_2, residual
+# columns ||A v - lambda v|| within SYM_EIG_C n eps ||A||_2, V^T V within
+# SYM_EIG_C n eps of I, and the lowest eigenvectors' angle within their
+# backward errors over the lowest gap (Davis-Kahan): sin(angle) * gap
+# within SYM_EIG_C n eps ||A||_2 (a cluster's basis and a vector's sign
+# are free; a fixed 1 - |<v_0, v_0 plain>| bound fails near a gap of
+# 1e-9, where both solvers' vectors move by n eps ||A|| / gap); measured
+# on an H100 at most 2.0 n eps for the others
+SYM_EIG_C = 8
+
+
+def _sym_eig_input(case, B, n, dtype, rng):
+    """[B, n, n] symmetric: ``random`` (Gaussian), ``lanczos_T`` (the
+    tridiagonal of a k = n Lanczos sweep of a random symmetric 200 x 200
+    matrix, as the certificate builds it), ``clustered`` (a masked
+    projected slack: n // 2 real dims with eigenvalues in clusters 1e-9
+    apart under a random rotation, the rest ``big`` on the diagonal)."""
+    if case == "random":
+        X = rng.standard_normal((B, n, n))
+        return torch.as_tensor(X + np.swapaxes(X, 1, 2), dtype=dtype,
+                               device="cuda")
+    if case == "lanczos_T":
+        from lorads_torch.alg import lanczos
+        X = rng.standard_normal((B, 200, 200))
+        M = torch.as_tensor(X + np.swapaxes(X, 1, 2), dtype=dtype,
+                            device="cuda")
+        v0 = torch.as_tensor(rng.standard_normal((B, 200)), dtype=dtype,
+                             device="cuda")
+        al, be, _ = lanczos._sweep(
+            lambda x: (M @ x[:, :, None])[:, :, 0], (), v0, n)
+        al, be = al.T, be.T[:, :n - 1]
+        return (torch.diag_embed(al) + torch.diag_embed(be, 1)
+                + torch.diag_embed(be, -1)).contiguous()
+    p = max(n // 2, 1)
+    A = np.zeros((B, n, n))
+    for b in range(B):
+        lam = np.repeat(rng.standard_normal(-(-p // 3)), 3)[:p]
+        lam = lam + 1e-9 * rng.standard_normal(p)
+        Q, _ = np.linalg.qr(rng.standard_normal((p, p)))
+        A[b, :p, :p] = (Q * lam) @ Q.T
+        A[b, p:, p:] = np.eye(n - p) * (np.abs(lam).max() + 1.0)
+    return torch.as_tensor(A, dtype=dtype, device="cuda")
+
+
+def _sym_eig_errors(A, got, ref):
+    B, n, _ = A.shape
+    ne = n * torch.finfo(A.dtype).eps
+    (w, V), (wp, Vp) = ((x.double() for x in pair) for pair in (got, ref))
+    scale = wp.abs().amax(dim=1).clamp(min=1e-300)
+    Ad = A.double()
+    ev = float(((w - wp).abs().amax(dim=1) / scale).max()) / ne
+    res = torch.linalg.vector_norm(Ad @ V - V * w[:, None, :], dim=1)
+    res = float((res.amax(dim=1) / scale).max()) / ne
+    eye = torch.eye(n, dtype=torch.float64, device=A.device)
+    orth = float((V.transpose(1, 2) @ V - eye).abs().max()) / ne
+    align = 0.0
+    if n > 1:
+        # the lowest vectors' angle against the lowest gap (Davis-Kahan:
+        # sin <= backward error / gap), where the gap is not 0
+        gap = wp[:, 1] - wp[:, 0]
+        gapped = gap > 0
+        if bool(gapped.any()):
+            v, u = V[:, :, 0], Vp[:, :, 0]
+            dots = (v * u).sum(dim=1, keepdim=True)
+            sin = torch.linalg.vector_norm(v - dots * u, dim=1)
+            align = float((sin * gap / scale)[gapped].max()) / ne
+    return ev, res, orth, align
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 4, 22])
+@pytest.mark.parametrize("n", [1, 2, 12, 36, 48, 64])
+@pytest.mark.parametrize("case", ["random", "lanczos_T", "clustered"])
+def test_sym_eig_small_kernel_matches_plain(case, n, B, dtype):
+    """K9 against its plain version (torch.linalg.eigh) on the card within
+    SYM_EIG_C n eps; eigenvalues ascending; one launch counted; the
+    sweeps written where asked, within the cap."""
+    _need_cuda()
+    A = _sym_eig_input(case, B, n, dtype, np.random.default_rng(n + B))
+    sweeps = torch.zeros(B, dtype=torch.int32, device="cuda")
+    before = kernels.LAUNCHES["sym_eig_small"]
+    got = kernels.sym_eig_small(A, sweeps)
+    assert kernels.LAUNCHES["sym_eig_small"] == before + 1
+    ref = kernels.sym_eig_small_plain(A)
+    torch.cuda.synchronize()
+    assert got[0].shape == (B, n) and got[1].shape == (B, n, n)
+    assert bool((got[0][:, 1:] >= got[0][:, :-1]).all())
+    assert max(_sym_eig_errors(A, got, ref)) <= SYM_EIG_C
+    assert 0 <= int(sweeps.min()) and int(sweeps.max()) <= 32
+
+
+def _cert_loop_of(name):
+    """The certificate's Lanczos loop of ``name``'s bucket at a seeded
+    dual and start (the f32 sweeps, K9, the f64 refinement in the pack)."""
+    from lorads_torch.alg import solver as solver_mod
+    if name == "maxcut2000":
+        problem = read_sdpa(os.path.join(FIX, "maxcut2000.dat-s"))
+    else:
+        problem = generators.matrix_completion(n1=600, n2=600, true_rank=3,
+                                               frac_obs=0.12, seed=3)
+    s = LoradsSolver(problem, LoradsParams(verbose=False), device="cuda")
+    bk = s.pd.buckets[0]
+    rng = np.random.default_rng(5)
+    dual = torch.as_tensor(0.05 * rng.standard_normal(s.pd.m), device="cuda")
+    v0 = torch.as_tensor(rng.standard_normal((bk.B, bk.n)), device="cuda")
+    return solver_mod._certificate(bk, pat.gather_w(bk, -dual), v0,
+                                   torch.float64)[1]
+
+
+def _active_set_loop_of():
+    """theta_gtoy60's active-set loop at its repair state's dual, over a
+    seeded 6-column orthonormal basis."""
+    from lorads_torch.alg import spectral_repair as rep
+    problem = read_sdpa(os.path.join(FIX, "theta_gtoy60.dat-s"))
+    s = LoradsSolver(problem, LoradsParams(verbose=False), device="cuda")
+    bk = s.pd.buckets[0]
+    dual = np.load(os.path.join(FIX, "cert_states.npz"))["theta_gtoy60_dual"]
+    rng = np.random.default_rng(2)
+    Q, _ = np.linalg.qr(rng.standard_normal((bk.n, 6)))
+    Bm = np.zeros((1, bk.n, rep.P_CAP))
+    Bm[0, :, :6] = Q
+    pm = np.zeros((1, rep.P_CAP))
+    pm[0, :6] = 1.0
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    return rep.active_set_loop(bk, t(Bm), t(pm), t(dual), s.pd.rhs, 0.5,
+                               1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["maxcut2000", "matcomp600", "active_set"])
+def test_cert_and_repair_loops_graph_equals_eager(which):
+    """The certificate's Lanczos loop (K2 or K5 at r = 1, K9 at f32) and
+    the repair's active set (K3, K4, K9 at f64, solve_ex) replayed from
+    their graphs (a WHILE node of restarts with the sweep a WHILE node
+    inside; a WHILE node of iterations) equal the same runs decided by
+    host reads on the card, bit for bit, twice in a row; a replay reads
+    the host once, under the loop's label."""
+    _need_cuda()
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import devloop
+    with devloop.phase():
+        for _ in range(2):
+            loop = (_active_set_loop_of() if which == "active_set"
+                    else _cert_loop_of(which))
+            eager = devloop.eager_chunk(loop)
+            want = loop.pack(loop.inputs, eager).tolist()
+            before = dict(tdev.HOST_SYNCS_BY)
+            state, got = devloop.run(loop)
+            reads = {k: n - before[k] for k, n in tdev.HOST_SYNCS_BY.items()
+                     if n > before[k]}
+            assert reads == {loop.label: 1}
+            assert got == want
+            for g, e in zip(_flat(state), _flat(eager)):
+                assert torch.equal(g, e)
+
+
+@pytest.mark.cuda
+def test_step_solve_ex_captures():
+    """The active set's f32 step solve, torch.linalg.solve_ex on a
+    [144, 144] system, captured into a CUDA graph: the replay equals the
+    eager call bit for bit."""
+    _need_cuda()
+    rng = np.random.default_rng(17)
+    G = torch.as_tensor(rng.standard_normal((144, 600)), device="cuda")
+    M = G @ G.T
+    M = (M + 1e-2 * torch.trace(M) / 144 * torch.eye(144, device="cuda"))
+    M = (M / M.abs().max()).float()
+    t = torch.as_tensor(rng.standard_normal(144), dtype=torch.float32,
+                        device="cuda")
+    want = torch.linalg.solve_ex(M, t)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.linalg.solve_ex(M, t)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = torch.linalg.solve_ex(M, t)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_certificate_reads_once_a_lanczos_bucket():
+    """A maxcut2000 solve on the card (its certificate a Lanczos bucket):
+    each certificate pass runs one Lanczos loop that reads the host once
+    (label lanczos) and makes no ``other`` read."""
+    _need_cuda()
+    from lorads_torch import device as tdev
+    from lorads_torch.alg.solver import LoradsSolver as Solver
+    s = LoradsSolver(read_sdpa(os.path.join(FIX, "maxcut2000.dat-s")),
+                     LoradsParams(verbose=False), device="cuda")
+    passes, run = [], Solver._dual_infeas_pass
+
+    def counted(self):
+        before = dict(tdev.HOST_SYNCS_BY)
+        out = run(self)
+        passes.append({k: n - before[k] for k, n in
+                       tdev.HOST_SYNCS_BY.items() if n > before[k]})
+        return out
+
+    Solver._dual_infeas_pass = counted
+    try:
+        res = s.solve()
+    finally:
+        Solver._dual_infeas_pass = run
+    assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
+    assert passes and all(p == {"lanczos": 1} for p in passes), passes
+    assert s.last_cert_restarts[0] >= 1
