@@ -47,7 +47,10 @@ Phases, each reported on its own lines:
    runs in a row of the ALM phase's outer loop (maxcut20000,
    matcomp2000, theta300) and of the ADMM chunk (theta800, multiblock22,
    multiblock_lp), launches equal, with the last replay's device ms;
-   loop_cond alone; the certificate's restarted Lanczos (alg/lanczos.py)
+   loop_cond alone, with its floor (a WHILE node whose body is only the
+   set-condition kernel, and the same count of that kernel in a plain
+   graph, from csrc/floor.cu); the certificate's restarted Lanczos
+   (alg/lanczos.py)
    as one device loop, three certificates in a row at each instance's
    solved dual on maxcut20000 and gset_torus10000 (K2 at r = 1),
    matcomp2000 (K5 at r = 1) and maxcut20000x4 (B = 4), and the spectral
@@ -57,11 +60,18 @@ Phases, each reported on its own lines:
    one host read a replay (``cert`` and ``repair`` lines); then K9
    (sym_eig_small, csrc/sym_eig.cu) on the last Ritz problem and the last
    projected slack those runs solved ([1, 36, 36] and [4, 36, 36] at f32,
-   [1, 48, 48] at f64) against torch.linalg.eigh, its plain version and
+   [1, 48, 48] at f64) and on two shapes made from a seed (the repair's
+   masked [1, 48, 48] at f64, its real width 24, built as
+   alg/spectral_repair.py builds it; a [1, 36, 36] f32 matrix with
+   exactly-zero rows in the middle and at the ends, as Lanczos breakdown
+   slots leave them) against torch.linalg.eigh, its plain version and
    the library call (eigenvalues, residuals, orthogonality and the lowest
-   vector within SYM_EIG_C n eps), with the sweeps each took, the bound
-   and the dependent-step bound, and the step solve's torch.linalg.solve_ex
-   captured into a CUDA graph, its replay bit for bit its eager call;
+   vector within SYM_EIG_C n eps; a decoupled index's eigenpair exactly
+   its diagonal and e_i), with the coupled count of each matrix, the
+   sweeps and rounds each took, the microseconds a round, the bound and
+   the dependent-step bound from the rounds run, and the step solve's
+   torch.linalg.solve_ex captured into a CUDA graph, its replay bit for
+   bit its eager call;
 4. the main paths, each with the kernel launch counts reset just before
    it and read just after, through LoradsSolver(...).solve() on cuda at
    f64, each solve held to primal_dual_optimal and to lorads_tpu's CPU
@@ -158,9 +168,12 @@ nonzero without that line.  Needs no network and no JAX.
 
 With --kernels-of DIR only phases 1-3 run, on the lorads_torch of the
 checkout at DIR (built into DIR/build), timed by this checkout's
-lorads_torch/timing.py; the last line is {"kernels_of": DIR, "cases":
-{kernel: [case, ...]}}.  Two checkouts compare on one card by running
-both in one call, in turns.
+lorads_torch/timing.py, and K9 on its two seeded shapes; the last line is
+{"kernels_of": DIR, "cases": {kernel: [case, ...]}}.  Two checkouts
+compare on one card by running both in one call, in turns.
+--eig-inputs FILE: a whole run writes the K9 inputs the main paths gave
+there (torch.save); a --kernels-of run reads them and times K9 on them
+too, so that two checkouts' K9 meet the same main-path inputs.
 """
 
 import contextlib
@@ -174,6 +187,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(ROOT, "tests", "fixtures")
+# the checkout whose kernels a --kernels-of run times (None: this one)
+KERNELS_OF = None
 
 
 def _gen():
@@ -1814,8 +1829,91 @@ def admm_chunk_checks(card):
           f"{g_ms * 1e3:.3f} us a run on the device, host-decided "
           f"{plain_ms * 1e3:.3f} us a run (a read each); bound "
           f"{bound_ms:.3e} ms ({bound_by})  [{card}]")
+    floor = loop_cond_floor(card, n, g_ms)
     return {"max_abs_err": err, "ms": g_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            **floor}
+
+
+def loop_cond_floor(card, n, body_ms):
+    """The floor under loop_cond's row, timed in this process beside
+    today's one-add body (``body_ms``, ms a run): a WHILE node whose body
+    is only the set-condition kernel (graph_cond.cu's, its condition the
+    second byte of the node's own run counter, started at 65536 - n, so
+    that the node runs n times), and the same count of that kernel
+    (csrc/floor.cu's copy) in a plain graph, inside an IF node's body that
+    runs once; each replayed between CUDA events, the median of 5 over
+    n.  The WHILE run is the least a loop_cond run can take; its excess
+    over the plain launch is the conditional relaunch."""
+    import torch
+
+    from lorads_torch.ops import build, kernels
+
+    lib = build.load()
+    dev = torch.device("cuda")
+    ctr = torch.zeros(1, dtype=torch.int64, device=dev)
+    pred = ctr.view(torch.uint8)[1:2]        # bits 8-15 (little-endian)
+    one = torch.ones(1, dtype=torch.uint8, device=dev)
+    ctr2 = torch.zeros(1, dtype=torch.int64, device=dev)
+    child, side = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def capture(fill):
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                fill()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(side)
+        return graph
+
+    def while_only():
+        handle = kernels.cond_begin(True, pred, child)
+        kernels.cond_end(True, handle, pred, ctr, child)
+
+    def plain():
+        handle = kernels.cond_begin(False, one, child)
+        for _ in range(n):
+            rc = lib.lt_cond_set(handle, one.data_ptr(), ctr2.data_ptr(),
+                                 child.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"lt_cond_set: launch failed ({rc})")
+        kernels.cond_end(False, handle, None, None, child)
+
+    def timed(graph, reset):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        ms = []
+        for _ in range(5):
+            reset()
+            t0.record()
+            graph.replay()
+            t1.record()
+            torch.cuda.synchronize()
+            ms.append(t0.elapsed_time(t1) / n)
+        return sorted(ms)[2]
+
+    start = 65536 - n
+    g_while, g_plain = capture(while_only), capture(plain)
+    w_ms = timed(g_while, lambda: ctr.fill_(start))
+    if int(ctr) != 65536:
+        raise AssertionError(f"loop_cond floor: the WHILE node ran "
+                             f"{int(ctr) - start} times, not {n}")
+    p_ms = timed(g_plain, lambda: ctr2.zero_())
+    if int(ctr2) != n:
+        raise AssertionError(f"loop_cond floor: {int(ctr2)} of {n} plain "
+                             f"launches ran")
+    print(f"loop_cond floor: a WHILE node of {n} runs, its body only the "
+          f"set-condition kernel: {w_ms * 1e3:.3f} us a run; that kernel "
+          f"{n} times in a plain graph: {p_ms * 1e3:.3f} us a launch; the "
+          f"conditional relaunch {(w_ms - p_ms) * 1e3:.3f} us a run; "
+          f"today's body (one add and the set-condition kernel) "
+          f"{body_ms * 1e3:.3f} us a run, {w_ms / body_ms:.2f} of it the "
+          f"floor  [{card}]")
+    return {"floor_ms": w_ms, "plain_launch_ms": p_ms,
+            "relaunch_ms": w_ms - p_ms}
 
 
 def alm_outer_checks(card):
@@ -2015,27 +2113,58 @@ def sym_eig_errors(A, got, ref):
     return out
 
 
-def _jacobi_flops(sweeps, N):
-    """K9's operations for a matrix padded to N that took ``sweeps``
-    sweeps: each of the N - 1 rounds a sweep rotates the A blocks of
-    the N/2 pairs (24 flops an off-diagonal 2 x 2 block, 4 a diagonal
-    one) and V's column pairs (6 an element pair), and each sweep's test
-    sums the squares (2 an element)."""
-    h = N // 2
-    rnd = 12 * h * (h - 1) + 4 * h + 6 * N * h
-    return sweeps * ((N - 1) * rnd + 2 * N * N)
+def _jacobi_flops(sweeps, M):
+    """K9's operations for a matrix whose coupled indices, padded to even,
+    number M, that took ``sweeps`` sweeps: each of the M - 1 rounds a
+    sweep rotates the A blocks of the M/2 pairs (24 flops an off-diagonal
+    2 x 2 block, 4 a diagonal one) and V's column pairs (6 an element
+    pair), and each sweep's test sums the squares (2 an element)."""
+    h = M // 2
+    rnd = 12 * h * (h - 1) + 4 * h + 6 * M * h
+    return sweeps * ((M - 1) * rnd + 2 * M * M)
+
+
+def _decoupled(A):
+    """[B, n] bool: the indices of each matrix of A [B, n, n] (its lower
+    triangle read) whose off-diagonal row is exactly zero, eigenpairs
+    already; K9 rotates the others (the coupled ones)."""
+    off = A.tril(-1) != 0
+    return ~(off.any(dim=1) | off.any(dim=2))
+
+
+def _coupled(A):
+    """[B] the count of each matrix's coupled indices (_decoupled)."""
+    return (~_decoupled(A)).sum(dim=1)
+
+
+def _decoupled_exact(A, got):
+    """Each decoupled index of A: K9 gives its diagonal as an eigenvalue
+    and e_i as that eigenvalue's column, exactly; raises otherwise."""
+    import torch
+    w, V = got
+    for b, i in _decoupled(A).nonzero().tolist():
+        cols = (V[b, i] == 1).nonzero().flatten().tolist()
+        e = torch.zeros_like(V[b, :, 0])
+        e[i] = 1
+        if len(cols) != 1 or not bool(w[b, cols[0]] == A[b, i, i]) \
+                or not torch.equal(V[b, :, cols[0]], e):
+            raise AssertionError(f"sym_eig_small: decoupled index {i} of "
+                                 f"matrix {b} is not its exact eigenpair")
 
 
 def sym_eig_case(measure, label, A):
-    """K9 (kernels.sym_eig_small) on A at a main path's shape against its
-    plain version (torch.linalg.eigh, also the one library call that
-    computes the same function) on the card: the checks of
-    sym_eig_errors, then K9's dispatched ms (CUDA events) and device ms
-    (20 calls in one CUDA graph), eigh's dispatched ms and device ms
-    (the profiler: a graph cannot hold it), the bound (bytes over the
-    memory rate or operations over the peak, the operations from the
-    sweeps this input took) and the dependent-step bound: the largest
-    sweep count x (N - 1) rounds x two dependent shared-memory loads."""
+    """K9 (kernels.sym_eig_small) on A against its plain version
+    (torch.linalg.eigh, also the one library call that computes the same
+    function) on the card: the checks of sym_eig_errors and
+    _decoupled_exact, then K9's dispatched ms (CUDA events) and device ms
+    (20 calls in one CUDA graph), eigh's dispatched ms and device ms (the
+    profiler: a graph cannot hold it), the bound (bytes over the memory
+    rate or operations over the peak, the operations from the rounds
+    this input took) and the dependent-step bound: the largest count of
+    rounds run x two dependent shared-memory loads.  The rounds: a matrix
+    whose coupled indices (_coupled) pad to M runs M - 1 a sweep;
+    microseconds a round: the device time over the largest count of
+    rounds of the batch (a CTA a matrix)."""
     import torch
 
     from lorads_torch.ops import kernels
@@ -2047,12 +2176,15 @@ def sym_eig_case(measure, label, A):
     ref = kernels.sym_eig_small_plain(A)
     torch.cuda.synchronize()
     errs = sym_eig_errors(A, got, ref)
+    _decoupled_exact(A, got)
     err = float((got[0].double() - ref[0].double()).abs().max())
     sw = sweeps.tolist()
-    N = n + (n & 1)
+    pw = _coupled(A).tolist()
+    Ms = [k + (k & 1) for k in pw]
+    rounds = [k * max(M - 1, 0) for k, M in zip(sw, Ms)]
     s = A.element_size()
     nbytes = B * (2 * n * n + n) * s
-    flops = sum(_jacobi_flops(k, N) for k in sw)
+    flops = sum(_jacobi_flops(k, M) for k, M in zip(sw, Ms))
     ms = statistics.median(timing().cuda_time_ms(
         lambda: kernels.sym_eig_small(A)) for _ in range(5))
     dev_ms, dev_by = timing().device_time_ms(lambda: kernels.sym_eig_small(A))
@@ -2060,11 +2192,16 @@ def sym_eig_case(measure, label, A):
     pms = statistics.median(timing().cuda_time_ms(eigh) for _ in range(5))
     lib_dev_ms = timing().profiler_time_ms(eigh)
     bms, by = bound_of(nbytes, flops, sfx)
-    steps = 2 * max(sw) * (N - 1)
+    steps = 2 * max(rounds)
     hop = measure.floors.get("hop_ns")
     step_ms = None if hop is None else steps * hop * 1e-6
+    us_round = (None if dev_ms is None or not max(rounds)
+                else dev_ms * 1e3 / max(rounds))
     fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa
-    print(f"sym_eig_small [{label}]: {B} x {n} x {n} {sfx}, sweeps {sw}: "
+    whose = "" if KERNELS_OF is None else f" (kernels of {KERNELS_OF})"
+    print(f"sym_eig_small [{label}]{whose}: {B} x {n} x {n} {sfx}, coupled "
+          f"{pw}, sweeps {sw}, rounds {rounds}, "
+          f"{'-' if us_round is None else f'{us_round:.3f}'} us a round: "
           f"eigenvalues {errs[0]:.2f}, residual {errs[1]:.2f}, V^T V "
           f"{errs[2]:.2f}, lowest vectors' angle x gap "
           f"{'no gap' if errs[3] is None else f'{errs[3]:.2f}'} (n eps, "
@@ -2078,6 +2215,7 @@ def sym_eig_case(measure, label, A):
         label=label, max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=pms,
         bound_ms=bms, bound_by=by, library_ms=pms,
         library_device_ms=lib_dev_ms, step_bound_ms=step_ms, sweeps=sw,
+        coupled=pw, rounds=rounds, us_a_round=us_round,
         errors_n_eps=errs))
 
 
@@ -2308,12 +2446,44 @@ def repair_checks(card, record):
         raise AssertionError("theta_gtoy60's repair was not accepted")
 
 
-def sym_eig_checks(card, measure, record):
+def sym_eig_shapes(device="cuda"):
+    """K9's two shapes made from a seed: the repair's masked projected
+    slack, [1, 48, 48] f64 at real width 24, built as
+    alg/spectral_repair.py:179-188 builds it (P masked to the real basis
+    width, big = delta + |delta| + 1 on the padded diagonal, delta = 0.5);
+    a [1, 36, 36] f32 symmetric matrix with exactly-zero off-diagonal rows
+    at 0, 17 and 35, each such row's diagonal that of row 1 (Lanczos
+    breakdown slots are re-pointed at alpha_0 with zero coupling)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(18)
+    X = rng.standard_normal((1, 48, 48))
+    P = torch.as_tensor(X @ np.swapaxes(X, 1, 2) / 48 - 1.0, device=device)
+    P = 0.5 * (P + P.transpose(1, 2))
+    mask = torch.zeros(1, 48, dtype=torch.float64, device=device)
+    mask[:, :24] = 1.0
+    m2 = mask[:, :, None] * mask[:, None, :]
+    big = 0.5 + abs(0.5) + 1.0
+    eye = torch.eye(48, dtype=torch.float64, device=device)[None]
+    masked = P * m2 + big * (1.0 - m2) * eye
+    X = rng.standard_normal((1, 36, 36))
+    D = X + np.swapaxes(X, 1, 2)
+    for i in (0, 17, 35):
+        D[:, i, :] = 0.0
+        D[:, :, i] = 0.0
+        D[:, i, i] = D[:, 1, 1]
+    free = torch.as_tensor(D, dtype=torch.float32, device=device)
+    return {"masked width 24": masked.contiguous(),
+            "decoupled rows 0, 17, 35": free}
+
+
+def sym_eig_checks(measure, record):
     """K9 at the main paths' shapes (the inputs kept by cert_checks and
-    repair_checks) and the step solve's capture."""
-    for name, A in record.items():
+    repair_checks, or read back by --eig-inputs) and on its two seeded
+    shapes (sym_eig_shapes)."""
+    for name, A in {**record, **sym_eig_shapes()}.items():
         sym_eig_case(measure, name, A)
-    solve_ex_capture(card)
 
 
 def probes_path(card):
@@ -2948,8 +3118,13 @@ def main(argv=None) -> int:
                     help="only phases 1-3 (build, kernel checks and "
                     "times), on the lorads_torch of the checkout at DIR: "
                     "two checkouts' kernels timed alike on one card")
+    ap.add_argument("--eig-inputs", metavar="FILE",
+                    help="a whole run writes the K9 inputs of the main "
+                    "paths there; a --kernels-of run times K9 on them")
     args = ap.parse_args(argv)
+    global KERNELS_OF
     if args.kernels_of:
+        KERNELS_OF = args.kernels_of
         sys.path.insert(0, os.path.abspath(args.kernels_of))
     try:
         import torch
@@ -2980,6 +3155,11 @@ def main(argv=None) -> int:
     measure = kernel_checks(card)
     results = measure.results
     if args.kernels_of:
+        record = {}
+        if args.eig_inputs:
+            record = {k: v.cuda() for k, v in
+                      torch.load(args.eig_inputs).items()}
+        sym_eig_checks(measure, record)
         print(f"card: {card}")
         print(json.dumps({"kernels_of": os.path.abspath(args.kernels_of),
                           "cases": results}))
@@ -2990,7 +3170,10 @@ def main(argv=None) -> int:
     record = {}
     cert_checks(card, record)
     repair_checks(card, record)
-    sym_eig_checks(card, measure, record)
+    if args.eig_inputs:
+        torch.save({k: v.cpu() for k, v in record.items()}, args.eig_inputs)
+    sym_eig_checks(measure, record)
+    solve_ex_capture(card)
     counts = main_path(card)
     for k, n in extras_path(card).items():
         counts[k] += n

@@ -64,6 +64,7 @@ _SIGNATURES = {
     # measuring instruments (csrc/floor.cu), read by chip_smoke.py
     "lt_empty": [_VP],
     "lt_smem_chase": [_I, _VP, _VP],
+    "lt_cond_set": [ctypes.c_ulonglong, _VP, _VP, _VP],
 }
 
 _LIB = None

@@ -34,9 +34,10 @@ csrc/graph_cond.cu opens the conditional nodes of devloop's device-decided
 loops (``alg/devloop.py``): its one-thread kernel, counted as
 ``loop_cond``, sets a WHILE or IF node's condition from a device boolean
 (lorads_tpu's ``lax.while_loop`` cond and ``lax.cond`` predicate).
-csrc/floor.cu holds two measuring instruments that chip_smoke.py calls
-(an empty kernel, a chain of dependent shared-memory loads); they have
-no wrapper here and no count in ``LAUNCHES``.
+csrc/floor.cu holds three measuring instruments that chip_smoke.py calls
+(an empty kernel, a chain of dependent shared-memory loads, one launch
+of the set-condition kernel); they have no wrapper here and no count in
+``LAUNCHES``.
 
 Each wrapper checks its arguments, then takes the plain PyTorch version
 (written with ``index_select`` / ``index_add_``) for CPU tensors, and
@@ -793,7 +794,8 @@ def lp_gs_sweep(pc_con: torch.Tensor, pc_val: torch.Tensor,
 # K9: eigenpairs of small symmetric matrices.
 # ---------------------------------------------------------------------------
 
-# the largest n K9 takes (A and V at f64 fill 64 KB of shared memory)
+# the largest n K9 takes (two copies of A and V at f64 fill about 105 KB
+# of shared memory)
 SYM_EIG_MAX_N = 64
 
 
@@ -806,9 +808,10 @@ def sym_eig_small(A: torch.Tensor, sweeps: Optional[torch.Tensor] = None):
     triangle read (as torch.linalg.eigh reads it) -> (eigenvalues
     ascending [B, n], eigenvectors [B, n, n], column j the unit
     eigenvector of eigenvalue j), with no host synchronisation (parallel
-    cyclic Jacobi, a CTA a matrix).  ``sweeps``: int32 [B] on the card or
-    None; where given, the kernel writes each matrix's Jacobi sweeps
-    there."""
+    cyclic Jacobi, a CTA a matrix, over the indices whose off-diagonal row
+    is not exactly zero; each other index keeps its diagonal and e_i).
+    ``sweeps``: int32 [B] on the card or None; where given, the kernel
+    writes each matrix's Jacobi sweeps there."""
     if A.dim() != 3 or A.shape[1] != A.shape[2] \
             or not 1 <= A.shape[1] <= SYM_EIG_MAX_N:
         raise ValueError(f"sym_eig_small: A of shape {tuple(A.shape)} "

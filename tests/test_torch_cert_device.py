@@ -311,6 +311,115 @@ def test_sym_eig_small_rejects_shapes(shape):
         kernels.sym_eig_small(torch.zeros(shape))
 
 
+def _sym_eig_case(case, n, dtype, rng):
+    """[3, n, n] inputs of K9's masked and decoupled cases: ``masked`` the
+    repair's projected slack built as spectral_repair.py:179-188 builds it
+    (a symmetric P masked to the real basis width, big = delta + |delta| +
+    1 on the padded diagonal, delta = 0.5), at real widths 1, n // 2 and
+    n; ``decoupled`` a symmetric matrix whose rows 0, n // 2 and n - 1 have
+    exactly-zero off-diagonal entries, their diagonal row 1's (Lanczos
+    breakdown slots re-pointed at alpha_0) -> (A, decoupled indices)."""
+    X = rng.standard_normal((3, n, n))
+    A = X + np.swapaxes(X, 1, 2)
+    if case == "masked":
+        big = 0.5 + abs(0.5) + 1.0
+        out = np.empty_like(A)
+        for b, pw in enumerate((1, n // 2, n)):
+            m = (np.arange(n) < pw).astype(float)
+            m2 = m[:, None] * m[None, :]
+            out[b] = A[b] * m2 + big * (1.0 - m2) * np.eye(n)
+        return torch.as_tensor(out, dtype=dtype)
+    for i in {0, n // 2, n - 1}:
+        d = A[:, 1, 1].copy()
+        A[:, i, :] = 0.0
+        A[:, :, i] = 0.0
+        A[:, i, i] = d
+    return torch.as_tensor(A, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [2, 12, 36, 48, 64])
+@pytest.mark.parametrize("case", ["masked", "decoupled"])
+def test_sym_eig_small_plain_masked_and_decoupled(case, n, dtype):
+    """K9's plain version (CPU tensors) on the masked and decoupled cases:
+    eigenvalues ascending and equal to numpy's eigh within 8 n eps ||A||,
+    residuals within 8 n eps ||A||, orthonormal columns, no launch; each
+    decoupled index's diagonal is an eigenvalue within 8 n eps ||A||."""
+    A = _sym_eig_case(case, n, dtype, np.random.default_rng(n))
+    before = kernels.LAUNCHES["sym_eig_small"]
+    w, V = kernels.sym_eig_small(A)
+    assert kernels.LAUNCHES["sym_eig_small"] == before
+    Ad = A.double().numpy()
+    wn = np.linalg.eigvalsh(Ad)
+    ne = 8 * n * float(torch.finfo(dtype).eps)
+    scale = np.abs(wn).max(axis=1, keepdims=True)
+    wd, Vd = w.double().numpy(), V.double().numpy()
+    assert np.all(np.diff(wd, axis=1) >= 0)
+    assert np.all(np.abs(wd - wn) <= ne * scale)
+    res = np.linalg.norm(Ad @ Vd - Vd * wd[:, None, :], axis=1)
+    assert np.all(res <= ne * scale)
+    assert np.abs(np.swapaxes(Vd, 1, 2) @ Vd - np.eye(n)).max() <= ne
+    off = np.abs(np.tril(Ad, -1)) > 0
+    free = ~(off.any(axis=1) | off.any(axis=2))
+    for b, i in zip(*np.nonzero(free)):
+        assert np.abs(wd[b] - Ad[b, i, i]).min() <= ne * scale[b, 0]
+
+
+def _chip_smoke():
+    import importlib.util
+    path = os.path.join(os.path.dirname(FIX), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_sym_eig_shapes_and_rounds():
+    """chip_smoke's seeded K9 shapes and what it counts for them: the
+    masked slack couples its 24 real indices, its padded diagonal is big
+    = 2 with exactly zero coupling; the decoupled matrix couples all but
+    rows 0, 17 and 35, whose off-diagonal entries are exactly zero; the
+    operation count runs M - 1 rounds a sweep over the coupled count M
+    padded to even (33 -> 34: 33 rounds), not n - 1."""
+    cs = _chip_smoke()
+    shapes = cs.sym_eig_shapes("cpu")
+    masked = shapes["masked width 24"]
+    free = shapes["decoupled rows 0, 17, 35"]
+    assert masked.shape == (1, 48, 48) and masked.dtype == torch.float64
+    assert free.shape == (1, 36, 36) and free.dtype == torch.float32
+    assert cs._coupled(masked).tolist() == [24]
+    assert cs._coupled(free).tolist() == [33]
+    pad = masked[0, 24:, :]
+    assert torch.equal(pad[:, 24:], 2.0 * torch.eye(24, dtype=torch.float64))
+    assert not bool(pad[:, :24].any())
+    for i in (0, 17, 35):
+        row = free[0, i].clone()
+        row[i] = 0
+        assert not bool(row.any()) and not bool(free[0, :, i].ne(0).sum() > 1)
+    h = 17
+    one_sweep = 33 * (12 * h * (h - 1) + 4 * h + 6 * 34 * h) + 2 * 34 * 34
+    assert cs._jacobi_flops(1, 34) == one_sweep
+    assert cs._jacobi_flops(6, 34) == 6 * one_sweep
+
+
+def test_k9_phases_finds_its_points():
+    """The K9 phase probe (lorads_torch/probes/k9_phases.py) finds every
+    point it instruments in csrc/sym_eig.cu: each copy holds its stamps
+    once, the fixed-sweep copies stop at 6 sweeps instead of K9's rule,
+    and the two ablations keep one side of the round each."""
+    from lorads_torch.probes import k9_phases
+    v = k9_phases.variants()
+    assert set(v) == {"as is", "6 sweeps", "warp 0 alone", "updaters alone"}
+    for name, src in v.items():
+        assert src.count("clock64()") == 7 and "lt_k9_probe_read" in src
+        assert ("if (!(off > stop)) break;" in src) == (name == "as is")
+        assert ("if (sweep >= 6) break;" in src) == (name != "as is")
+    assert "// A's blocks" not in v["warp 0 alone"]
+    assert "// the next round's rotations" in v["warp 0 alone"]
+    assert "// the next round's rotations" not in v["updaters alone"]
+    assert "// A's blocks" in v["updaters alone"]
+
+
 def test_step_solve_ex_equals_solve():
     """The active set's f32 step solve: torch.linalg.solve_ex (no host
     check) gives torch.linalg.solve's bits on CPU tensors, so the repair

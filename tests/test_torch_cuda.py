@@ -1320,7 +1320,29 @@ def _sym_eig_input(case, B, n, dtype, rng):
     tridiagonal of a k = n Lanczos sweep of a random symmetric 200 x 200
     matrix, as the certificate builds it), ``clustered`` (a masked
     projected slack: n // 2 real dims with eigenvalues in clusters 1e-9
-    apart under a random rotation, the rest ``big`` on the diagonal)."""
+    apart under a random rotation, the rest ``big`` on the diagonal),
+    ``masked`` (the repair's projected slack built as
+    spectral_repair.py:179-188 builds it: a symmetric P masked to the real
+    basis width, big = delta + |delta| + 1 on the padded diagonal, delta =
+    0.5; real widths n // 2, 1 and n in turn over the batch),
+    ``decoupled`` (rows 0, n // 2 and n - 1 with exactly-zero off-diagonal
+    entries, their diagonal row 1's, as Lanczos breakdown slots)."""
+    if case in ("masked", "decoupled"):
+        X = rng.standard_normal((B, n, n))
+        A = X + np.swapaxes(X, 1, 2)
+        if case == "masked":
+            big = 0.5 + abs(0.5) + 1.0
+            for b in range(B):
+                m = (np.arange(n) < (n // 2, 1, n)[b % 3]).astype(float)
+                m2 = m[:, None] * m[None, :]
+                A[b] = A[b] * m2 + big * (1.0 - m2) * np.eye(n)
+        else:
+            for i in {0, n // 2, n - 1}:
+                d = A[:, 1 % n, 1 % n].copy()
+                A[:, i, :] = 0.0
+                A[:, :, i] = 0.0
+                A[:, i, i] = d
+        return torch.as_tensor(A, dtype=dtype, device="cuda")
     if case == "random":
         X = rng.standard_normal((B, n, n))
         return torch.as_tensor(X + np.swapaxes(X, 1, 2), dtype=dtype,
@@ -1377,11 +1399,14 @@ def _sym_eig_errors(A, got, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B", [1, 4, 22])
 @pytest.mark.parametrize("n", [1, 2, 12, 36, 48, 64])
-@pytest.mark.parametrize("case", ["random", "lanczos_T", "clustered"])
+@pytest.mark.parametrize("case", ["random", "lanczos_T", "clustered",
+                                  "masked", "decoupled"])
 def test_sym_eig_small_kernel_matches_plain(case, n, B, dtype):
     """K9 against its plain version (torch.linalg.eigh) on the card within
     SYM_EIG_C n eps; eigenvalues ascending; one launch counted; the
-    sweeps written where asked, within the cap."""
+    sweeps written where asked, within the cap; an index whose
+    off-diagonal row is exactly zero keeps its diagonal as an eigenvalue
+    and e_i as that eigenvalue's column, exactly."""
     _need_cuda()
     A = _sym_eig_input(case, B, n, dtype, np.random.default_rng(n + B))
     sweeps = torch.zeros(B, dtype=torch.int32, device="cuda")
@@ -1394,6 +1419,15 @@ def test_sym_eig_small_kernel_matches_plain(case, n, B, dtype):
     assert bool((got[0][:, 1:] >= got[0][:, :-1]).all())
     assert max(_sym_eig_errors(A, got, ref)) <= SYM_EIG_C
     assert 0 <= int(sweeps.min()) and int(sweeps.max()) <= 32
+    w, V = got
+    off = A.tril(-1) != 0
+    free = ~(off.any(dim=1) | off.any(dim=2))
+    for b, i in free.nonzero().tolist():
+        cols = (V[b, i] == 1).nonzero().flatten().tolist()
+        assert len(cols) == 1 and bool(w[b, cols[0]] == A[b, i, i])
+        e = torch.zeros_like(V[b, :, 0])
+        e[i] = 1
+        assert torch.equal(V[b, :, cols[0]], e)
 
 
 def _cert_loop_of(name):
