@@ -29,7 +29,8 @@ Phases, each reported on its own lines:
    B = 1 and 2; beside torch.sparse.mm at B = 1); K3p, K3, K4, K5 and K6 at
    the shapes of the matrix-completion path (matcomp2000: n=4000,
    Ko=478843, Ks=957686, r = the solve's rank at f64, the f32 copies the
-   mixed-precision CG runs, and K5 at r=1 in f32 and f64 for the
+   mixed-precision CG and the f32 phase run, and K5 at r=1 in f32 and
+   f64 for the
    certificate), K5 and K6 at f64 on maxcut n=20000's sparse pattern
    (Ko=80000, r=20: no tile worth staging), and K3, K3p, K5 and K6 on a
    skewed pattern (n=20000: a hub row, a 12 %-dense block, 4 random
@@ -119,7 +120,9 @@ Phases, each reported on its own lines:
    dependent-step bound: n x one dependent shared-memory load) at
    random_multiblock(8, 40, 120, 400 LP columns)'s LP block and at
    m=30000 (csum in global memory; the label names the instantiation),
-   each without and with the DUAL_U_V term s (a random signed [n]),
+   each without and with the DUAL_U_V term s (a random signed [n]); K8a,
+   K8b and K8c (m=120) at f32 too, as the f32 phase runs them (K8c's f32
+   chain within K8C_F32_TOL, its line saying whether it was bit for bit),
    K4's scatter of its 8 blocks' local constraint values, and K2 / K3 at
    the maxcut batch's B = 4 (K3 with U is V against
    torch.sparse.sampled_addmm, the same off values);
@@ -160,7 +163,24 @@ Phases, each reported on its own lines:
    (REFERENCE_DUAL_UV); the CLI in this process on
    tests/fixtures/maxcut2000.dat-s: --dualUV 1 --checkpoint --solOut,
    --resume, --warmStart, a corrupt warm-start file (exit 2), --traceDir,
-   with the SDPA reader that ran.
+   with the SDPA reader that ran;
+6. the f32 phase (lines "f32 ..."): three ALM runs of maxcut20000 at f32
+   and three f64 ADMM chunks of matcomp2000 after its f32 ALM phase and
+   the escalation its solve takes at ADMM entry, each replay against the
+   same run made eagerly, bit for bit; then, with the launch counts reset
+   just before and read just after, four solves through LoradsSolver at
+   ``dtype="f32"``: maxcut20000 (pure f32: K2, K3 and K9 at f32 in the
+   ALM and Lanczos graphs), matcomp2000 (auto: K3p-K6 at f32, the
+   escalation to f64 at ADMM entry, the f64 graphs captured anew),
+   theta300 (auto: K4 and K7a at f32) and multiblock_lp (pure f32: K8a-c
+   at f32 in the ADMM graph), each held to lorads_tpu's CPU run from the
+   same start (status, escalations, pObj within its band; multiblock_lp
+   to lorads_tpu's run from the card's own state at the end of the f32
+   ALM phase, FROM_CARD_ALM), its backend
+   lines, one read a device-loop run, its f32 launches
+   (kernels.F32_LAUNCHES), the escalation's seconds and the captures
+   after it, its log without the per-iteration lines, and its f32 wall
+   beside the main path's f64 wall of the same instance.
 
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.  Any failed phase raises and exits
@@ -269,6 +289,46 @@ REFERENCE_DUAL_UV = {
     "hand_multiblock": ("primal_dual_optimal", 0.2177524570925113),
     "multiblock_lp": ("primal_dual_optimal", 191.50494275108673),
 }
+# lorads_tpu on the CPU (x86-64) from the start the f32 phase gives each
+# instance: LoradsParams(dtype="f32") with PARAMS, and where ``auto`` the
+# solver's _auto_dtype set (an auto solve started at f32, as lorads_tpu's
+# own tests reach its escalation): (auto, status, the escalation reasons
+# in order, pObj)
+REFERENCE_F32 = {
+    "maxcut20000": (False, "primal_dual_optimal", [], -62097.38671875),
+    "matcomp2000": (True, "primal_dual_optimal",
+                    ["ADMM pinf target 2.4e-10 below the f32 floor"],
+                    12049.951835553655),
+    "theta300": (True, "primal_dual_optimal", [], -153.58482360839844),
+    "multiblock_lp": (False, "primal_dual_optimal", [], 191.5049591064453),
+}
+# where the card's f32 trajectory parts from the CPU's before the hooks
+# decide: lorads_tpu on the CPU resumed from the card's own state at the
+# end of the f32 ALM phase (saved with LoradsSolver.save on an NVIDIA
+# H100 80GB HBM3): (that state's ALM inner iterations, pObj and dObj,
+# (status, escalation reasons, pObj) of lorads_tpu's run from it).
+# multiblock_lp at pure f32: the card's ALM exit lies 3e-3 from the CPU's
+# in dObj (summation order of torch's CUDA operations: every kernel of
+# the path swapped for its plain version gives the same run bit for
+# bit), ADMM's retry then ends inside the gap continuation's window
+# (gap 3.0e-5 against the CPU's 1.2e-3), the continuation plateaus and
+# the f32 reopts at rho 198-1122 take tau = 0: max_iter, as lorads_tpu's
+# own run from that state
+FROM_CARD_ALM = {
+    "multiblock_lp": ((229, 191.88229370117188, 192.05914306640625),
+                      ("max_iter", [], 191.52406311035156)),
+}
+# where lorads_tpu's f32 run lands outside POBJ_RTOL of the f64 optimum,
+# or ends uncertified: the distance measured between the port's f32 pObj
+# on the card (NVIDIA H100 80GB HBM3, 700 W) and lorads_tpu's f32 pObj on
+# the CPU from the same start (theta300: -153.621826171875 against
+# -153.58482360839844; multiblock_lp from the card's ALM exit, both
+# max_iter: 191.5050048828125 against 191.52406311035156); f32_band holds
+# pObj within twice it
+F32_SPREAD = {"theta300": 2.41e-4, "multiblock_lp": 9.95e-5}
+# the escalation the f32 phase's graph check takes on matcomp2000 after
+# its f32 ALM phase: the reason its solve gives at ADMM entry
+ESCALATE_CHECK = REFERENCE_F32["matcomp2000"][2][0]
 # the kernels each main path must launch
 PATH_KERNELS = {
     "maxcut": ("cmul_csr", "uvt_split", "sym_eig_small", "loop_cond"),
@@ -279,10 +339,19 @@ PATH_KERNELS = {
     "lp": ("gather_segsum", "lp_gs_sweep", "loop_cond"),
     "batch": ("cmul_csr", "uvt_split", "sym_eig_small"),
     "extras": ("cmul_csr", "uvt_split", "gather_segsum", "lp_gs_sweep"),
+    # the f32 phase, by instance: the kernels launched at f32
+    "f32 maxcut20000": ("cmul_csr", "uvt_split", "sym_eig_small"),
+    "f32 matcomp2000": ("uvt_split", "uvt_pair_split", "gather_segsum",
+                        "wmul_csr"),
+    "f32 theta300": ("gather_segsum", "adj_a_dense"),
+    "f32 multiblock_lp": ("gather_segsum", "lp_gs_sweep"),
     "probes": ("onehot_scatter", "onehot_gather", "row_gather",
                "scatter_add", "uvt_split"),
 }
 POBJ_RTOL = 1e-4
+# K8c at f32 against its plain version, of each output's largest
+# magnitude: 64 eps32
+K8C_F32_TOL = 64 * 2.0 ** -23
 # the card's device-memory rate, its peak rates outside the tensor cores
 # and its dense tensor-core peaks (NVIDIA H100 SXM data sheet: 67 TFLOP/s
 # f32, 34 TFLOP/s f64; tensor cores 989 TFLOP/s bf16, 494 TFLOP/s TF32)
@@ -323,6 +392,26 @@ def check(name, got, ref, bound):
                 f"(max err {err:.3e}, worst ratio "
                 f"{float((diff / b.clamp(min=1e-300)).max()):.3e})")
     return err
+
+
+def twice(spread):
+    """Twice a measured spread, rounded up to 1, 2 or 5 times a power of
+    ten."""
+    e = 10.0 ** math.floor(math.log10(2 * spread))
+    return next(m * e for m in (1, 2, 5, 10) if m * e >= 2 * spread)
+
+
+def f32_band(name):
+    """(reference pObj, band) an f32 solve's pObj is held to: the f64
+    optimum (REFERENCE_POBJ) within POBJ_RTOL where lorads_tpu's f32 run
+    lands inside that band; else lorads_tpu's f32 pObj (REFERENCE_F32;
+    FROM_CARD_ALM's where the instance has one) within twice F32_SPREAD."""
+    if name in FROM_CARD_ALM:
+        return FROM_CARD_ALM[name][1][2], twice(F32_SPREAD[name])
+    ref, got = REFERENCE_POBJ[name], REFERENCE_F32[name][3]
+    if abs(got - ref) <= POBJ_RTOL * abs(ref):
+        return ref, POBJ_RTOL
+    return got, twice(F32_SPREAD[name])
 
 
 def bound_of(nbytes, flops, sfx):
@@ -823,17 +912,17 @@ def matcomp_kernel_checks(rng, measure):
     for dt, bk in ((torch.float64, bk64), (torch.float32, bk32)):
         sfx = "f64" if dt == torch.float64 else "f32"
         s = 8 if dt == torch.float64 else 4
-        # ---- K3p uvt_pair_split (ALM line search; f64 only on the path)
+        # ---- K3p uvt_pair_split (the ALM line search: f64, and f32 in
+        # the f32 phase's ALM)
         a = (bk.off_rows, bk.off_cols)
-        if dt == torch.float64:
-            R, D = rand((1, n, r), dt), rand((1, n, r), dt)
-            kw = _tiles_kw(pat, bk, "off", kernels.uvt_pair_split)
-            measure("uvt_pair_split", f"{sfx} r={r}", sfx,
-                    lambda: kernels.uvt_pair_split(R, D, *a, **kw),
-                    lambda: kernels.uvt_pair_split_plain(R, D, *a),
-                    kernels.uvt_pair_split_plain(R.abs(), D.abs(), *a),
-                    nbytes=2 * n * r * s + 2 * Ko * 4 + 2 * (n + Ko) * s,
-                    flops=4 * n * r + 6 * Ko * r)
+        R, D = rand((1, n, r), dt), rand((1, n, r), dt)
+        kw = _tiles_kw(pat, bk, "off", kernels.uvt_pair_split)
+        measure("uvt_pair_split", f"{sfx} r={r}", sfx,
+                lambda: kernels.uvt_pair_split(R, D, *a, **kw),
+                lambda: kernels.uvt_pair_split_plain(R, D, *a),
+                kernels.uvt_pair_split_plain(R.abs(), D.abs(), *a),
+                nbytes=2 * n * r * s + 2 * Ko * 4 + 2 * (n + Ko) * s,
+                flops=4 * n * r + 6 * Ko * r)
         # ---- K3 uvt_split: ADMM's sym(x F^T) (U != V) at both types, the
         # ALM's objective values (U is V) at f64
         U, V = rand((1, n, r), dt), rand((1, n, r), dt)
@@ -1223,30 +1312,35 @@ def multiblock_kernel_checks(rng, measure):
     print(f"lp-path shapes: LP columns {n} m={m} entries {N} (at most {L} "
           f"per column); bucket B={bk.B} n={bk.n} m_loc={bk.m_loc} "
           f"scatter entries {bk.scat_idx.shape[1]}")
-    # ---- K8a: A_lp(uv) over the constraint-sorted entries
-    uv = rand(n)
-    a8 = (lpd.a_col_cs[None], lpd.a_val_cs[None], lpd.bnd_con[None])
-    measure("gather_segsum", f"f64 K8a LP A_lp(uv) m={m}", "f64",
-            lambda: lp_ops.constr_vals(lpd, uv),
-            lambda: kernels.gather_segsum_plain(uv[None], *a8)[0],
-            kernels.gather_segsum_plain(uv.abs()[None], a8[0],
-                                        a8[1].abs(), a8[2])[0],
-            nbytes=N * (4 + s) + n * s + (m + 1) * 4 + m * s, flops=2 * N,
-            library=_seg_library(_seg_csr(*a8, n), uv[None]))
-    # ---- K8b: c - A_lp^T lambda (certificate) over the column-sorted
-    # entries; the ALM gradient's c + A_lp^T w is the same launch
-    w = rand(m)
-    b8 = (lpd.a_con_ls[None], lpd.a_val_ls[None], lpd.bnd_col[None])
-    measure("gather_segsum", f"f64 K8b LP c - A_lp^T w n={n}", "f64",
-            lambda: lp_ops.adjoint_cols(lpd, w, base=lpd.obj, alpha=-1.0),
-            lambda: kernels.gather_segsum_plain(w[None], *b8, lpd.obj[None],
-                                                -1.0)[0],
-            kernels.gather_segsum_plain(w.abs()[None], b8[0], b8[1].abs(),
-                                        b8[2], lpd.obj.abs()[None])[0],
-            nbytes=N * (4 + s) + m * s + (n + 1) * 4 + 2 * n * s,
-            flops=2 * N + n,
-            library=_seg_library(_seg_csr(*b8, m, alpha=-1.0), w[None],
-                                 lpd.obj[None]))
+    lp32 = lp_ops.build_lp_data(problem.lp, torch.float32, dev)
+    for sfx, lp, sz in (("f64", lpd, 8), ("f32", lp32, 4)):
+        dt = lp.obj.dtype
+        # ---- K8a: A_lp(uv) over the constraint-sorted entries
+        uv = rand(n).to(dt)
+        a8 = (lp.a_col_cs[None], lp.a_val_cs[None], lp.bnd_con[None])
+        measure("gather_segsum", f"{sfx} K8a LP A_lp(uv) m={m}", sfx,
+                lambda: lp_ops.constr_vals(lp, uv),
+                lambda: kernels.gather_segsum_plain(uv[None], *a8)[0],
+                kernels.gather_segsum_plain(uv.abs()[None], a8[0],
+                                            a8[1].abs(), a8[2])[0],
+                nbytes=N * (4 + sz) + n * sz + (m + 1) * 4 + m * sz,
+                flops=2 * N,
+                library=_seg_library(_seg_csr(*a8, n), uv[None]))
+        # ---- K8b: c - A_lp^T lambda (certificate) over the column-sorted
+        # entries; the ALM gradient's c + A_lp^T w is the same launch
+        w = rand(m).to(dt)
+        b8 = (lp.a_con_ls[None], lp.a_val_ls[None], lp.bnd_col[None])
+        measure("gather_segsum", f"{sfx} K8b LP c - A_lp^T w n={n}", sfx,
+                lambda: lp_ops.adjoint_cols(lp, w, base=lp.obj, alpha=-1.0),
+                lambda: kernels.gather_segsum_plain(w[None], *b8,
+                                                    lp.obj[None], -1.0)[0],
+                kernels.gather_segsum_plain(w.abs()[None], b8[0],
+                                            b8[1].abs(), b8[2],
+                                            lp.obj.abs()[None])[0],
+                nbytes=N * (4 + sz) + m * sz + (n + 1) * 4 + 2 * n * sz,
+                flops=2 * N + n,
+                library=_seg_library(_seg_csr(*b8, m, alpha=-1.0), w[None],
+                                     lp.obj[None]))
     # ---- K8c: the Gauss-Seidel LP sweep, bit for bit, at the LP block's
     # shapes, then at m past the shared-memory limit (400 synthetic
     # columns of 43-74 increasing ids, as the LP block's)
@@ -1256,6 +1350,10 @@ def multiblock_kernel_checks(rng, measure):
            rand(m), dual, 5.0)
     lp_gs_case(measure, a8c, N)
     lp_gs_case(measure, a8c, N, s=rand(n))
+    # at f32, as the f32 phase's multiblock_lp sweeps (no s)
+    lp_gs_case(measure, (lp32.pc_con, lp32.pc_val, lp32.obj,
+                         lp32.col_nrm2sq) + tuple(
+                             t.float() for t in a8c[4:9]) + (5.0,), N)
     mb = 30000
     gen = np.random.default_rng(5)
     pc = np.full((n, L), mb, np.int32)
@@ -1320,9 +1418,10 @@ def multiblock_kernel_checks(rng, measure):
 
 
 def lp_gs_case(measure, a8c, N, s=None):
-    """K8c on the card against its plain version, bit for bit (f64 inputs
-    a8c = (pc_con, pc_val, obj, nrm2, u, v, csum, rhs, dual, rho), N
-    entries; ``s`` the DUAL_U_V term [n] or None), its time per dependent
+    """K8c on the card against its plain version (inputs a8c = (pc_con,
+    pc_val, obj, nrm2, u, v, csum, rhs, dual, rho), N entries, f64: bit
+    for bit; f32: within K8C_F32_TOL; ``s`` the DUAL_U_V term [n] or
+    None), its time per dependent
     step beside the dependent-step bound (n x one dependent shared-memory
     load, measured by launch_floors); the label names the instantiation
     lt_lp_gs_sweep picks.  A checkout whose K8c takes no s skips the s
@@ -1338,25 +1437,40 @@ def lp_gs_case(measure, a8c, N, s=None):
         return
     n, L = a8c[0].shape
     m = a8c[6].shape[0]
+    f64 = a8c[6].dtype == torch.float64
     lib = build.load()
     where = ("" if not hasattr(lib, "lt_lp_gs_smem_max_m") else
              ", csum in shared memory"
-             if m <= lib.lt_lp_gs_smem_max_m(1, int(s is not None))
+             if m <= lib.lt_lp_gs_smem_max_m(int(f64), int(s is not None))
              else ", csum in global memory")
     dev = a8c[6].device
-    b = 8
+    b = 8 if f64 else 4
+    sfx = "f64" if f64 else "f32"
     kw = {} if s is None else {"s": s}
     with_s = "" if s is None else " with s"
+    # f64: bit for bit.  f32: both sides take the same rounded steps in
+    # the same order, but a difference of one rounding in a column's
+    # update reaches every later column through csum, so the check is
+    # K8C_F32_TOL of each output's largest magnitude, and the line says
+    # whether the two agreed bit for bit
+    got, ref = kernels.lp_gs_sweep(*a8c, **kw), \
+        kernels.lp_gs_sweep_plain(*a8c, **kw)
+    bits = all(torch.equal(g, r) for g, r in zip(got, ref))
+    scale = tuple(torch.full_like(r, float(r.abs().max())) for r in ref)
     measure("lp_gs_sweep",
-            f"f64 K8c{with_s} n_lp={n} L={L} m={m}{where} (dependent "
-            f"steps: {n})",
-            "f64", lambda: kernels.lp_gs_sweep(*a8c, **kw),
+            f"{sfx} K8c{with_s} n_lp={n} L={L} m={m}{where} (dependent "
+            f"steps: {n})" + ("" if f64 else
+                              f"; bit for bit with the plain version: "
+                              f"{'yes' if bits else 'no'}"),
+            sfx, lambda: kernels.lp_gs_sweep(*a8c, **kw),
             lambda: kernels.lp_gs_sweep_plain(*a8c, **kw),
             (torch.ones(n, dtype=torch.float64, device=dev),
-             torch.ones(m, dtype=torch.float64, device=dev)),
+             torch.ones(m, dtype=torch.float64, device=dev)) if f64
+            else scale,
             nbytes=n * L * (4 + b) + (5 + (s is not None)) * n * b
             + 4 * m * b,
-            flops=9 * N + (12 + (s is not None)) * n, exact=True, tol=0.0,
+            flops=9 * N + (12 + (s is not None)) * n,
+            exact=True if f64 else None, tol=0.0 if f64 else K8C_F32_TOL,
             steps=n, step_ns=measure.floors["hop_ns"])
 
 
@@ -1662,15 +1776,16 @@ def _devloop_cg(name):
     return cg.cg_loop(op, torch.zeros_like(b), b, 1e-5, admm.CG_MAX_ITER)
 
 
-def _alm_solver(name, max_outers=2):
+def _alm_solver(name, max_outers=2, dtype="auto"):
     """(solver, carry, inputs but the budget) of ``name`` on the card at
     its first ALM phase's start (rho0, the solver's initial factor, dual
-    and history), ``max_outers`` outer iterations a run."""
+    and history), ``max_outers`` outer iterations a run, at ``dtype``."""
     from lorads_torch import LoradsParams, LoradsSolver
     from lorads_torch.alg import alm
 
     s = LoradsSolver(INSTANCES[name](),
-                     LoradsParams(verbose=False, **PARAMS.get(name, {})),
+                     LoradsParams(verbose=False, dtype=dtype,
+                                  **PARAMS.get(name, {})),
                      device="cuda")
     p = s.params
     carry, fixed = alm.alm_start(
@@ -1680,21 +1795,108 @@ def _alm_solver(name, max_outers=2):
     return s, carry, fixed
 
 
-def _admm_chunk_solver(name):
+def _admm_chunk_solver(name, escalate=None):
     """(solver, ADMM stats) of ``name`` on the card right after its ALM
-    phase: the state its ADMM phase starts from."""
+    phase: the state its ADMM phase starts from.  ``escalate``: a reason;
+    the solver then starts at f32 as auto (``_auto_dtype``), runs its ALM
+    phase at f32 and escalates to f64 for that reason before its ADMM
+    phase, its f32 graphs dropped."""
     from lorads_torch import LoradsParams, LoradsSolver
     from lorads_torch.alg.admm import ADMMStats
     from lorads_torch.alg.alm import ALMStats
 
     s = LoradsSolver(INSTANCES[name](),
-                     LoradsParams(verbose=False, **PARAMS.get(name, {})),
+                     LoradsParams(verbose=False, **PARAMS.get(name, {}),
+                                  dtype="f32" if escalate else "auto"),
                      device="cuda")
+    s._auto_dtype = True      # an auto solve, at f32 where escalate
     alm_stats = ALMStats(rho=s.ps.rho0)
     s.alm_phase(alm_stats, time.time())
     stats = ADMMStats(rho=s.ps.rho0)
     s.alm_to_admm(alm_stats, stats)
+    if escalate and not s.maybe_escalate_f64(escalate):
+        raise AssertionError(f"{name}: no escalation")
     return s, stats
+
+
+def admm_chunk_runs(card, name, steps, escalate=None):
+    """admm_chunk_checks' three chunks of ``name`` (``steps`` ADMM
+    iterations each) from its post-ALM state (``_admm_chunk_solver``;
+    ``escalate``: after its ALM phase at f32 and an escalation to f64),
+    each replay against the same chunk run eagerly, bit for bit."""
+    import torch
+
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import admm, devloop
+    from lorads_torch.ops import kernels
+
+    s, stats = _admm_chunk_solver(name, escalate)
+    where = "" if escalate is None else " (escalated from f32)"
+    e_ms, e_reads, lines = 0.0, {}, []
+    with devloop.phase():
+        locals_, total, vals = admm.admm_init_eval(
+            s.pd, s.U, s.V, s.dual, s.scale_obj_his)
+        s._set_admm_stats(stats, vals)
+        c = s._admm_start(stats, locals_, total)
+        for j, n in enumerate(steps):
+            c, loop = admm.prepare_chunk(
+                s.params, s.pd, c, s.scale_obj_his,
+                s.params.max_admm_iter, n, jacobi=s._bucket_jacobi,
+                S=s.S)
+            kernels.reset_launches()
+            reads0 = dict(tdev.HOST_SYNCS_BY)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eager = devloop.eager_chunk(loop)
+            want = loop.pack(loop.inputs, eager).tolist()
+            e_ms += (time.time() - t0) * 1e3
+            e_launch = dict(kernels.LAUNCHES)
+            for k, v in tdev.HOST_SYNCS_BY.items():
+                if v > reads0[k]:
+                    e_reads[k] = e_reads.get(k, 0) + v - reads0[k]
+            kernels.reset_launches()
+            got_state, got = devloop.run(loop)
+            g_launch = dict(kernels.LAUNCHES)
+            same = [torch.equal(g, e) for g, e in zip(
+                devloop.flatten(got_state)[0],
+                devloop.flatten(eager)[0])]
+            if got != want or not all(same):
+                raise AssertionError(
+                    f"admm chunk {name} #{j}: the graph differs from "
+                    f"the eager chunk (pack {got} vs {want}; tensors "
+                    f"{[i for i, ok in enumerate(same) if not ok]})")
+            nodes = g_launch.pop("loop_cond")
+            e_launch.pop("loop_cond")
+            if j and (g_launch != e_launch or nodes <= 0):
+                raise AssertionError(
+                    f"admm chunk {name} #{j}: launches {g_launch} in "
+                    f"the replay vs {e_launch} eagerly")
+            lines.append(f"#{j} {int(got[6]) - stats.iter} iterations "
+                         f"to {int(got[6])}, {int(got[7])} CG, status "
+                         f"{int(got[8])}, {nodes} node kernels")
+            stats.iter = int(got[6])
+            c["carry"] = got_state
+        # the last chunk's replay alone, on the device (its key's
+        # graph, captured at the first chunk)
+        graph, load, _ = devloop.graph_chunk(loop)
+        load()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        graph.read("admm")
+        g_ms = t0.elapsed_time(t1)
+    print(f"admm chunk {name}{where}: 3 chunks ({'; '.join(lines)}): "
+          f"graph == eager, bit for bit ({len(same)} tensors, pack {len(got)} "
+          f"values); last chunk {g_ms:.3f} ms on the device "
+          f"({len(graph.bodies)} distinct bodies), the eager chunks "
+          f"{e_ms:.1f} ms wall with host reads {e_reads}; kernel "
+          f"launches of the last replay "
+          f"{ {k: n for k, n in g_launch.items() if n} }  [{card}]")
+    del s
 
 
 def admm_chunk_checks(card):
@@ -1714,78 +1916,12 @@ def admm_chunk_checks(card):
     loop_cond's kernel entry."""
     import torch
 
-    from lorads_torch import device as tdev
-    from lorads_torch.alg import admm, devloop
+    from lorads_torch.alg import devloop
     from lorads_torch.ops import kernels
 
     for name, steps in (("theta800", (10, 20, 40)), ("multiblock22", (1, 1, 2)),
                         ("multiblock_lp", (1, 2, 2))):
-        s, stats = _admm_chunk_solver(name)
-        e_ms, e_reads, lines = 0.0, {}, []
-        with devloop.phase():
-            locals_, total, vals = admm.admm_init_eval(
-                s.pd, s.U, s.V, s.dual, s.scale_obj_his)
-            s._set_admm_stats(stats, vals)
-            c = s._admm_start(stats, locals_, total)
-            for j, n in enumerate(steps):
-                c, loop = admm.prepare_chunk(
-                    s.params, s.pd, c, s.scale_obj_his,
-                    s.params.max_admm_iter, n, jacobi=s._bucket_jacobi,
-                    S=s.S)
-                kernels.reset_launches()
-                reads0 = dict(tdev.HOST_SYNCS_BY)
-                torch.cuda.synchronize()
-                t0 = time.time()
-                eager = devloop.eager_chunk(loop)
-                want = loop.pack(loop.inputs, eager).tolist()
-                e_ms += (time.time() - t0) * 1e3
-                e_launch = dict(kernels.LAUNCHES)
-                for k, v in tdev.HOST_SYNCS_BY.items():
-                    if v > reads0[k]:
-                        e_reads[k] = e_reads.get(k, 0) + v - reads0[k]
-                kernels.reset_launches()
-                got_state, got = devloop.run(loop)
-                g_launch = dict(kernels.LAUNCHES)
-                same = [torch.equal(g, e) for g, e in zip(
-                    devloop.flatten(got_state)[0],
-                    devloop.flatten(eager)[0])]
-                if got != want or not all(same):
-                    raise AssertionError(
-                        f"admm chunk {name} #{j}: the graph differs from "
-                        f"the eager chunk (pack {got} vs {want}; tensors "
-                        f"{[i for i, ok in enumerate(same) if not ok]})")
-                nodes = g_launch.pop("loop_cond")
-                e_launch.pop("loop_cond")
-                if j and (g_launch != e_launch or nodes <= 0):
-                    raise AssertionError(
-                        f"admm chunk {name} #{j}: launches {g_launch} in "
-                        f"the replay vs {e_launch} eagerly")
-                lines.append(f"#{j} {int(got[6]) - stats.iter} iterations "
-                             f"to {int(got[6])}, {int(got[7])} CG, status "
-                             f"{int(got[8])}, {nodes} node kernels")
-                stats.iter = int(got[6])
-                c["carry"] = got_state
-            # the last chunk's replay alone, on the device (its key's
-            # graph, captured at the first chunk)
-            graph, load, _ = devloop.graph_chunk(loop)
-            load()
-            torch.cuda.synchronize()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            graph.replay()
-            t1.record()
-            torch.cuda.synchronize()
-            graph.read("admm")
-            g_ms = t0.elapsed_time(t1)
-        print(f"admm chunk {name}: 3 chunks ({'; '.join(lines)}): graph == "
-              f"eager, bit for bit ({len(same)} tensors, pack {len(got)} "
-              f"values); last chunk {g_ms:.3f} ms on the device "
-              f"({len(graph.bodies)} distinct bodies), the eager chunks "
-              f"{e_ms:.1f} ms wall with host reads {e_reads}; kernel "
-              f"launches of the last replay "
-              f"{ {k: n for k, n in g_launch.items() if n} }  [{card}]")
-        del s
+        admm_chunk_runs(card, name, steps)
 
     # loop_cond alone: a WHILE node of N runs against N host reads
     n = 1000
@@ -1916,7 +2052,8 @@ def loop_cond_floor(card, n, body_ms):
             "relaunch_ms": w_ms - p_ms}
 
 
-def alm_outer_checks(card):
+def alm_outer_checks(card, names=("maxcut20000", "matcomp2000", "theta300"),
+                     dtype="auto"):
     """The ALM phase as one device loop (alg/alm.py) on maxcut20000 (K2,
     K3), matcomp2000 (K3, K3p, K4, K5) and theta300 (K4, K7a, the dense
     layouts) from their phases' start, three runs of the outer loop in a
@@ -1927,7 +2064,8 @@ def alm_outer_checks(card):
     the card from the same carry (the host reading every exit test):
     pack and state bit for bit, and the replays' launches, counted from
     their packs, equal to the eager runs' but for the nodes' own kernel;
-    with the last replay's device ms and the eager runs' wall ms."""
+    with the last replay's device ms and the eager runs' wall ms.
+    ``dtype``: the solvers' (the f32 phase runs maxcut20000 at f32)."""
     import dataclasses
 
     import torch
@@ -1936,8 +2074,9 @@ def alm_outer_checks(card):
     from lorads_torch.alg import alm, devloop
     from lorads_torch.ops import kernels
 
-    for name in ("maxcut20000", "matcomp2000", "theta300"):
-        s, carry, fixed = _alm_solver(name)
+    for name in names:
+        s, carry, fixed = _alm_solver(name, dtype=dtype)
+        label = name if dtype == "auto" else f"{name} {dtype}"
         e_ms, e_reads, lines = 0.0, {}, []
         dev = s.pd.rhs.device
         zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1971,18 +2110,18 @@ def alm_outer_checks(card):
                     devloop.flatten(eager)[0])]
                 if got != want or not all(same):
                     raise AssertionError(
-                        f"alm outer {name} #{j}: the graph differs from "
+                        f"alm outer {label} #{j}: the graph differs from "
                         f"the eager run (pack {got[:18]} vs {want[:18]}; "
                         f"tensors "
                         f"{[i for i, ok in enumerate(same) if not ok]})")
                 if g_reads != {"alm": 1}:
-                    raise AssertionError(f"alm outer {name} #{j}: host "
+                    raise AssertionError(f"alm outer {label} #{j}: host "
                                          f"reads {g_reads}")
                 nodes = g_launch.pop("loop_cond")
                 e_launch.pop("loop_cond")
                 if j and (g_launch != e_launch or nodes <= 0):
                     raise AssertionError(
-                        f"alm outer {name} #{j}: launches {g_launch} in "
+                        f"alm outer {label} #{j}: launches {g_launch} in "
                         f"the replay vs {e_launch} eagerly")
                 sc = dict(zip(alm.PACK_F + alm.PACK_I, got))
                 lines.append(f"#{j} {int(sc['n_done'])} outers to k "
@@ -2004,7 +2143,7 @@ def alm_outer_checks(card):
             torch.cuda.synchronize()
             graph.read("alm")
             g_ms = t0.elapsed_time(t1)
-        print(f"alm outer {name}: 3 runs ({'; '.join(lines)}): graph == "
+        print(f"alm outer {label}: 3 runs ({'; '.join(lines)}): graph == "
               f"eager, bit for bit ({len(same)} tensors, pack {len(got)} "
               f"values), one read a replay; last run {g_ms:.3f} ms on the "
               f"device ({len(graph.bodies)} distinct bodies), the eager "
@@ -2539,6 +2678,11 @@ def _run_reads():
         devloop.run = run
 
 
+# the main paths' walls by instance (solve_path), for the f32 phase's
+# lines
+WALLS = {}
+
+
 def solve_path(card, path, instances):
     """One main path: its solves through the public entry points, with
     the launch counts reset just before and read just after."""
@@ -2566,6 +2710,7 @@ def solve_path(card, path, instances):
             res = solver.solve()
         torch.cuda.synchronize()
         wall = time.time() - t0
+        WALLS[name] = wall
         launches = {k: kernels.LAUNCHES[k] - before[k]
                     for k in kernels.LAUNCHES}
         by = {k: tdev.HOST_SYNCS_BY[k] - by0[k] for k in by0
@@ -2719,6 +2864,150 @@ def cgnr_path(card):
     for k in PATH_KERNELS["cgnr"]:
         if counts[k] <= 0:
             raise AssertionError(f"the cgnr path never launched {k}")
+    return counts
+
+
+def f32_path(card):
+    """The f32 phase: first the graphs at f32 and after an escalation,
+    each replay against the same run made eagerly on the card, bit for bit
+    (three ALM runs of maxcut20000 at f32; matcomp2000's ALM phase at f32,
+    the escalation to f64 its solve takes at ADMM entry, then three ADMM
+    chunks at f64 on the f64 data).  Then, with the launch counts reset
+    just before and read just after, four solves through LoradsSolver at
+    ``dtype="f32"`` (REFERENCE_F32: maxcut20000 and multiblock_lp pure
+    f32; matcomp2000 and theta300 started at f32 as auto), each held to
+    lorads_tpu's CPU run from the same start (FROM_CARD_ALM: from the
+    card's state at the end of the f32 ALM phase, that state held bit
+    for bit): its status, its escalation reasons in order, and pObj
+    within f32_band; the
+    backend line at f32, and at f64 after each escalation; one host read
+    a device-loop run; the kernels each instance must launch at f32
+    (PATH_KERNELS["f32 ..."], kernels.F32_LAUNCHES); the escalation's
+    seconds and the captures after it.  Each solve's f32 wall beside the
+    f64 wall of the main path's solve of the same instance in this
+    process.  Returns the launch counts."""
+    import torch
+
+    from lorads_torch import LoradsParams, LoradsSolver
+    from lorads_torch import device as tdev
+    from lorads_torch.alg import devloop
+    from lorads_torch.ops import kernels
+
+    alm_outer_checks(card, ("maxcut20000",), "f32")
+    admm_chunk_runs(card, "matcomp2000", (1, 1, 1), escalate=ESCALATE_CHECK)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    tdev.reset_host_syncs()
+    for name, (auto, st_ref, esc_ref, p_ref) in REFERENCE_F32.items():
+        problem = INSTANCES[name]()
+        before = dict(kernels.LAUNCHES)
+        before32 = dict(kernels.F32_LAUNCHES)
+        graphs0 = dict(kernels.GRAPHS)
+        by0 = dict(tdev.HOST_SYNCS_BY)
+        lines, esc_at = [], []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with _run_reads() as runs, devloop.captures() as caps:
+            solver = LoradsSolver(problem, LoradsParams(
+                dtype="f32", **PARAMS.get(name, {})), device="cuda")
+            solver._auto_dtype = auto
+            solver.log = lambda *a, **k: lines.append(" ".join(map(str, a)))
+            alm_phase, alm_exit = solver.alm_phase, []
+
+            def first_alm(stats, *a, _alm=alm_phase, **k):
+                out = _alm(stats, *a, **k)
+                if not alm_exit:
+                    alm_exit.append((stats.inner_iter, stats.pobj,
+                                     stats.dobj))
+                return out
+            solver.alm_phase = first_alm
+            escalate = solver.maybe_escalate_f64
+
+            def timed_escalate(reason, _esc=escalate):
+                ok = _esc(reason)
+                if ok:
+                    torch.cuda.synchronize()
+                    esc_at.append(time.time())
+                return ok
+            solver.maybe_escalate_f64 = timed_escalate
+            res = solver.solve()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: kernels.LAUNCHES[k] - before[k]
+                    for k in kernels.LAUNCHES if kernels.LAUNCHES[k]
+                    > before[k]}
+        at32 = {k: kernels.F32_LAUNCHES[k] - before32[k]
+                for k in kernels.F32_LAUNCHES
+                if kernels.F32_LAUNCHES[k] > before32[k]}
+        by = {k: tdev.HOST_SYNCS_BY[k] - by0[k] for k in by0
+              if tdev.HOST_SYNCS_BY[k] > by0[k]}
+        graphs = {k: kernels.GRAPHS[k] - graphs0[k] for k in graphs0}
+        esc = [r for r, _ in solver.escalations]
+        backend = [ln.split("dtype=")[1].split()[0] for ln in lines
+                   if ln.startswith("lorads_torch backend:")]
+        after = [(k, t) for k, t0_, t in caps if esc_at and t0_ > esc_at[0]]
+        ref64 = REFERENCE_POBJ[name]
+        held, rtol = f32_band(name)
+        rel = abs(res.pobj - ref64) / abs(ref64)
+        rel32 = abs(res.pobj - p_ref) / abs(p_ref)
+        f64_wall = WALLS.get(name)
+        print(f"f32 {name}: {'auto, ' if auto else ''}status "
+              f"{res.status.value} escalations {esc} (lorads_tpu CPU from "
+              f"the same start: {st_ref}, {esc_ref}) pObj {res.pobj!r} "
+              f"(rel {rel:.2e} to the f64 reference {ref64!r}; rel "
+              f"{rel32:.2e} to lorads_tpu's f32 {p_ref!r}; held within "
+              f"{rtol:.0e} of {held!r}) pinf {res.pinf_l1:.3e} gap {res.gap:.3e} dinf "
+              f"{res.dinf_l1:.3e} backend dtypes {backend}; f32 wall "
+              f"{wall:.3f} s against the main path's f64 wall "
+              + ("not run" if f64_wall is None else f"{f64_wall:.3f} s")
+              + f" (certificate {res.dual_infeas_time:.3f} s) ALM inner "
+              f"{res.alm_stats.inner_iter} ADMM {res.admm_stats.iter} CG "
+              f"{solver.admm_cg_total}; escalation seconds "
+              f"{[round(t, 4) for _, t in solver.escalations]}, then "
+              f"{sum(1 for k, _ in after if k == 'capture')} captures in "
+              f"{sum(t for k, t in after if k == 'capture'):.3f} s and "
+              f"{sum(1 for k, _ in after if k == 'warm_up')} warm-ups in "
+              f"{sum(t for k, t in after if k == 'warm_up'):.3f} s; host "
+              f"syncs {by}, device-loop runs {runs} (one read each), graphs "
+              f"captured {graphs['captured']} replayed {graphs['replayed']}"
+              f"; launches {launches}, at f32 {at32}  [{card}]")
+        # the solve's log, but the per-iteration lines
+        for ln in lines:
+            if not ln.startswith(("ALM Outer", "ADMM Iter")):
+                print(f"  {ln}")
+        if name in FROM_CARD_ALM:
+            state, (st_ref, esc_ref, _) = FROM_CARD_ALM[name]
+            print(f"  held to lorads_tpu's CPU run from the card's state at "
+                  f"the ALM exit {state}: {st_ref}, {esc_ref}, pObj "
+                  f"{held!r} (rel {abs(res.pobj - held) / abs(held):.2e}"
+                  f"); this run's ALM exit {alm_exit[0]}")
+            if alm_exit[0] != state:
+                raise AssertionError(f"f32 {name}: ALM exit {alm_exit[0]}, "
+                                     f"not the state {state} lorads_tpu "
+                                     "was resumed from")
+        if res.status.value != st_ref or esc != esc_ref:
+            raise AssertionError(f"f32 {name}: {res.status.value} {esc}, "
+                                 f"lorads_tpu {st_ref} {esc_ref}")
+        if not (math.isfinite(res.pobj)
+                and abs(res.pobj - held) <= rtol * abs(held)):
+            raise AssertionError(f"f32 {name}: pObj {res.pobj!r}")
+        if backend != ["float32"] + ["float64"] * len(esc):
+            raise AssertionError(f"f32 {name}: backend lines {backend}")
+        if by.get("alm_inner", 0) or not by.get("alm", 0):
+            raise AssertionError(f"f32 {name}: ALM reads {by}")
+        if esc and not any(k == "capture" for k, _ in after):
+            raise AssertionError(f"f32 {name}: no capture after the "
+                                 "escalation")
+        for k in PATH_KERNELS[f"f32 {name}"]:
+            if at32.get(k, 0) <= 0:
+                raise AssertionError(f"f32 {name}: {k} never launched at "
+                                     "f32")
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    print(f"main path f32: kernel launches {counts}, at f32 "
+          f"{ {k: n for k, n in kernels.F32_LAUNCHES.items() if n} }, host "
+          f"syncs {tdev.HOST_SYNCS}")
     return counts
 
 
@@ -3176,6 +3465,8 @@ def main(argv=None) -> int:
     solve_ex_capture(card)
     counts = main_path(card)
     for k, n in extras_path(card).items():
+        counts[k] += n
+    for k, n in f32_path(card).items():
         counts[k] += n
 
     src = {"segment_sum": ("lorads_torch/csrc/segment_sum.cu",

@@ -8,9 +8,11 @@ counterpart of JAX's platform choice.  Several input files merge
 block-diagonally (``merge_problems``) into one batch solve, and each
 instance's objective is reported at the end.  --checkpoint / --resume,
 --warmStart / --solOut, --traceDir (a torch.profiler trace) and --dualUV
-do what lorads_tpu's do (lorads_tpu/__main__.py:183-229); the flags of
-configurations the port does not run yet -- --shard other than off and
---dtype f32 -- raise NotImplementedError.
+do what lorads_tpu's do (lorads_tpu/__main__.py:183-229).  --dtype f32
+solves at float32 throughout; --dtype auto (the default) and f64 solve
+at float64, on the CPU and on the card alike (the H100 runs f64
+natively).  --shard other than off, which the port does not run yet,
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "Jacobi sweep")
     # extensions of lorads_tpu
     p.add_argument("--dtype", choices=["auto", "f64", "f32"],
-                   default="auto")
+                   default="auto",
+                   help="f32: a float32 solve; auto and f64: float64")
     p.add_argument("--seed", type=int, default=925)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--checkpoint", default=None, metavar="PATH",

@@ -458,7 +458,9 @@ def chunk_loop(params, pd: ProblemData, carry: ADMMCarry, plan, scale,
     rho_celling = params.rho_celling_admm
     pinf_scale = (1.0 + pd.b_nrm1) / (1.0 + pd.b_nrm_inf)
     mixed = params.admm_mixed_cg and pd.rhs.dtype == torch.float64
-    cg_budget = CG_BUDGET_MIXED if mixed else CG_BUDGET_F64
+    f32 = pd.rhs.dtype == torch.float32
+    # the f32 sweeps' budget, with or without the mixed CG (admm.py:504)
+    cg_budget = CG_BUDGET_MIXED if (mixed or f32) else CG_BUDGET_F64
     lp_gs = params.lp_gauss_seidel
     buckets_lo, slices, slices_lo = plan
     dt, device = pd.rhs.dtype, pd.rhs.device
@@ -499,7 +501,11 @@ def chunk_loop(params, pd: ProblemData, carry: ADMMCarry, plan, scale,
         def code(cond, new, status):
             return torch.where((status == RUNNING) & cond, new, status)
 
-        status = torch.where((pinf_inf >= 1e10) | (gap >= 1 - 1e-8),
+        # the divergence guard (admm.py:527-529), a NaN failing it too:
+        # lorads_tpu's comparisons pass a NaN, so a divergence that
+        # overflows before the gap reaches 1 (an f32 ADMM can) would run on
+        # to the iteration cap; for numbers the two tests agree
+        status = torch.where(~(pinf_inf < 1e10) | ~(gap < 1 - 1e-8),
                              NUM_ERR, RUNNING)
         bad_pd = torch.where(gap <= tol2 * 5,
                              torch.clamp(c.bad_pd - 5, min=0), c.bad_pd)
@@ -543,8 +549,14 @@ def chunk_loop(params, pd: ProblemData, carry: ADMMCarry, plan, scale,
                                  c.since_best + 1)
         since_pinf = torch.where(pinf < c.best_pinf * 0.9, 0,
                                  c.since_pinf + 1)
-        stalled = torch.where(gap_stop_f, since_best >= 75,
-                              (since_best >= 50) & (pinf <= tol2 * 0.1))
+        stalled = (since_best >= 50) & (pinf <= tol2 * 0.1)
+        if f32:
+            # the f32 floor's wedge (admm.py:599-611): pinf_l1 past the
+            # strict tol and flat for 30 iterations while the inf-scaled
+            # exit still fails
+            stalled = stalled | ((since_pinf >= 30) & (pinf <= tol2)
+                                 & (pinf_inf > tol2))
+        stalled = torch.where(gap_stop_f, since_best >= 75, stalled)
         status = code(stalled, STALLED, status)
         return ADMMCarry(
             U=U, V=V, locals=tuple(locals_), u_caches=ucs, v_caches=vcs,

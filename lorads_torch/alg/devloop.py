@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Any, Callable
 
 import torch
@@ -82,6 +83,7 @@ MAX_DEPTH = 4      # nesting depth of conditional nodes
 _IN_STEP = 0       # >0 while a device-decided loop's step runs
 _WARM = 0          # >0 during a device-decided key's warm-up
 _TIMES = None      # while ``timed`` runs: event pairs of the replays
+_CAPS = None       # while ``captures`` runs: its warm-ups and captures
 
 
 class ident:
@@ -435,6 +437,38 @@ def branch(pred: torch.Tensor, fn: Callable, other):
     return unflatten(layout, out)
 
 
+@contextlib.contextmanager
+def captures():
+    """[(kind, start, seconds), ...] of the keys' warm-ups (``warm_up``)
+    and graph captures (``capture``) made inside, each timed between
+    device synchronises (time.time() at its start)."""
+    global _CAPS
+    prev, _CAPS = _CAPS, []
+    try:
+        yield _CAPS
+    finally:
+        _CAPS = prev
+
+
+def _logged(kind: str):
+    """Time a warm-up or capture function into ``captures``' list."""
+    def wrap(fn):
+        def timed(*a, **k):
+            out = _CAPS
+            if out is None:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                out.append((kind, t0, time.time() - t0))
+        return timed
+    return wrap
+
+
+@_logged("capture")
 def _capture(bufs: _Buffers, loop: Loop) -> _Graph:
     """The loop's whole run captured over the buffers: ``init``, then the
     loop as a WHILE node, its final state copied into the state buffers
@@ -525,6 +559,7 @@ def graph_chunk(loop: Loop):
     return bufs.graph, lambda: bufs.load(in_leaves, st_leaves), bufs
 
 
+@_logged("warm_up")
 def _warm_up(loop: Loop, st_leaves, st_layout) -> None:
     """Before a key's first capture: init and one step of the loop on a
     copy of its state, every loop nested in the step run for one step

@@ -104,9 +104,9 @@ def quartic_coeffs(rho, lam, p1, p2, q0, q1, q2) -> torch.Tensor:
 
 def line_search_from_coeffs(coeffs: torch.Tensor):
     """Minimize the quartic over tau in (0, 1] -> (tau, num_roots), 0-d
-    tensors on coeffs' device; num_roots == 0 means a numerical
-    error."""
-    a, b, c, d = coeffs.to(torch.float64).unbind()
+    tensors on coeffs' device, at their dtype (as lorads_tpu solves the
+    cubic at the solve's); num_roots == 0 means a numerical error."""
+    a, b, c, d = coeffs.unbind()
     # Normalize the derivative cubic by its largest coefficient before
     # the discriminant: roots are scale-invariant, and B^2 - 4AC on the
     # raw coefficients overflows f32 for rho-scaled problems.

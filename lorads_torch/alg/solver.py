@@ -10,18 +10,24 @@ The port covers any number of buckets of any number of blocks -- split
 sparse (Max-Cut's diag-identity cone and the general sparse path of
 matrix completion) or dense (Lovász theta, general multi-block SDPs) --
 on local or global constraint slots, with or without an LP block, at
-f64 on one device; several instances merged by ``merge_problems`` solve
-as one batch.  Buckets whose blocks touch disjoint constraints sweep
-their blocks at once in ADMM (``_bucket_jacobi``), the others in
-sequence.  A failing dinf without an LP block takes the spectral dual
-repair (alg/spectral_repair.py), then, if that is not accepted, the
-CGNR dual refinement (alg/dualrefine.py).  The DUAL_U_V ADMM variant
+f64 or f32 on one device; several instances merged by
+``merge_problems`` solve as one batch.  Buckets whose blocks touch
+disjoint constraints sweep their blocks at once in ADMM
+(``_bucket_jacobi``), the others in sequence.  A failing dinf without
+an LP block takes the spectral dual repair (alg/spectral_repair.py),
+then, if that is not accepted, the CGNR dual refinement
+(alg/dualrefine.py).  The DUAL_U_V ADMM variant
 (``dual_uv``), the FIX_INI_POINT start and step trace
 (``fix_init_point``), checkpoints at the phase boundaries
 (``checkpoint_path``, utils/checkpoint.py), solution export and warm
 starts (``save_solution``, ``set_initial_factors``) are lorads_tpu's.
-Sharded placement and f32 solves raise NotImplementedError at
-construction rather than taking another path.
+``dtype="f32"`` solves at float32 throughout; ``dtype="auto"`` starts
+at float64 on the CPU and on the card alike (the H100 runs f64
+natively; lorads_tpu starts f32 only where f64 is emulated), and an
+auto solve that was started at f32 (``_auto_dtype`` set, as lorads_tpu's
+tests do) escalates to f64 at lorads_tpu's hooks
+(``maybe_escalate_f64``).  Sharded placement raises NotImplementedError
+at construction rather than taking another path.
 Initial factors and certificate start vectors come from the same
 ``np.random.default_rng`` stream, in the same order, as in lorads_tpu,
 so both packages start from the same point.
@@ -99,9 +105,13 @@ class LoradsSolver:
         self.problem = problem
         self.device = dev.resolve_device(device)
         self.dtype = dev.resolve_dtype(self.params.dtype)
+        # only an "auto" solve escalates to f64 (solver.py:99)
+        self._auto_dtype = self.params.dtype == "auto"
+        # (reason, seconds) of each escalation taken (maybe_escalate_f64)
+        self.escalations = []
         dev.assert_full_precision()
         self.ps: Presolved = presolve(problem, self.params)
-        self.pd = aop.build_problem_data(self.ps, self.dtype, self.device)
+        self.pd = self._problem_data(self.dtype)
         self.m = problem.m
         if self.params.alm_rho_factor is None:
             # structure-based auto (see LoradsParams.alm_rho_factor)
@@ -166,6 +176,18 @@ class LoradsSolver:
             == np.unique(np.concatenate(
                 [p.loc2glob for p in bp.plans])).size
             for bp in self.ps.buckets)
+
+    def _problem_data(self, dtype):
+        """The ProblemData at ``dtype``, memoized per (presolve, dtype)
+        (solver.py:174-186).  A solver's presolve is its own, so the memo
+        serves checkpoint loads (utils/checkpoint.py); an escalation
+        finds no f64 entry and builds it from the presolve, never by
+        widening the f32 cast, and evicts the f32 entry."""
+        cache = self.ps.__dict__.setdefault("_pd_cache", {})
+        key = (dtype, self.device)
+        if key not in cache:
+            cache[key] = aop.build_problem_data(self.ps, dtype, self.device)
+        return cache[key]
 
     # ------------------------------------------------------------------
     # Variables.
@@ -334,6 +356,14 @@ class LoradsSolver:
         p = self.params
         if stats.gap <= p.phase2_tol and stats.pinf_l1 <= p.phase2_tol:
             return "ok"
+        # the preemptive escalation (solver.py:461-474): the exit's
+        # pinf_l1 target below the f32 floor
+        if self._auto_dtype and self.dtype == torch.float32 and not reopt:
+            need = p.phase2_tol * (1.0 + self.pd.b_nrm_inf) / (
+                1.0 + self.pd.b_nrm1)
+            if need < 5e-10:
+                self.maybe_escalate_f64(
+                    f"ADMM pinf target {need:.1e} below the f32 floor")
         stats.rho = min(stats.rho, self.rho_max)
         entry = (self.U, self.V, self.dual, stats.rho)
         with devloop.phase():     # the graphs of its chunks, retries too
@@ -341,7 +371,13 @@ class LoradsSolver:
                 st = self._admm_phase_once(stats, iter_celling,
                                            time_solve_start, reopt)
                 if st == "stalled":
-                    # f64 gap plateau: hand off to reopt
+                    # a plateau at f32 with auto: escalate and run the
+                    # same phase once more at f64 (solver.py:478-487);
+                    # else hand off to reopt
+                    if self.maybe_escalate_f64("ADMM gap plateau"):
+                        st = self._admm_phase_once(
+                            stats, iter_celling, time_solve_start, reopt)
+                        return "ok" if st == "stalled" else st
                     return "ok"
                 if st != "num_err":
                     return st
@@ -436,8 +472,10 @@ class LoradsSolver:
                 break
             if code == admm_mod.STALLED:
                 self.log("ADMM gap plateau"
-                         + (" in the gap continuation" if gap_stop else ""))
-                if gap_stop:
+                         + (" in the gap continuation" if gap_stop
+                            else " at the f32 dual-noise floor"
+                            if self.dtype == torch.float32 else ""))
+                if gap_stop and self.dtype == torch.float64:
                     # the gap's empirical floor under continued f64
                     # iteration: solve() may skip the level-1 reopt
                     self._gap_push_stalled = True
@@ -480,6 +518,48 @@ class LoradsSolver:
         self.pobj, self.dobj = stats.pobj, stats.dobj
         self.gap, self.pinf_l1 = stats.gap, stats.pinf_l1
         return status
+
+    # ------------------------------------------------------------------
+    # Escalation to f64 (solver.py:705-733).
+    # ------------------------------------------------------------------
+
+    def maybe_escalate_f64(self, reason: str) -> bool:
+        """Switch an auto solve that runs at float32 to float64 (else do
+        nothing and return False): the f64 problem data from the memo,
+        the objective scaled again where a reopt scaled it, R, U, V, S
+        and the dual widened (aliases kept), a new L-BFGS history.  The
+        graphs captured on the f32 data are dropped here, with their
+        memory pools and the f32 data: a graph reads its tensors at their
+        capture addresses, so none may be replayed after the switch; the
+        loops capture anew under their f64 keys."""
+        if not self._auto_dtype or self.dtype == torch.float64:
+            return False
+        t0 = time.time()
+        self.log(f"escalating to float64 ({reason})")
+        devloop.drop()
+        # the f32 data go with their graphs: nothing reads them again
+        self.ps.__dict__["_pd_cache"].pop((self.dtype, self.device), None)
+        self._admm_plan = (None, None)
+        self.dtype = torch.float64
+        self.pd = self._problem_data(self.dtype)
+        if self.scale_obj_his != 1.0:
+            self.pd = aop.scale_objective(self.pd, self.scale_obj_his)
+        wide = {}
+
+        def up(fv):
+            if id(fv) not in wide:
+                wide[id(fv)] = FactorVec(
+                    tuple(x.to(torch.float64) for x in fv.cones),
+                    fv.lp.to(torch.float64))
+            return wide[id(fv)]
+
+        self.R, self.U, self.V, self.S = (up(self.R), up(self.U),
+                                          up(self.V), up(self.S))
+        self.dual = self.dual.to(torch.float64)
+        self.hist = make_history(self.R, self.lbfgs_len)
+        self.log(dev.backend_report(self.device, self.dtype))
+        self.escalations.append((reason, time.time() - t0))
+        return True
 
     def prob_info(self) -> str:
         """Problem dump mirroring the reference's printfProbInfo
@@ -884,6 +964,7 @@ class LoradsSolver:
                  or alm_stats.pinf_l1 > p.phase2_tol)
                     and (admm_stats.gap > p.phase2_tol
                          or admm_stats.pinf_l1 > p.phase2_tol)):
+                self.maybe_escalate_f64("reopt needed at f32")
                 self.log("****** reopt parameter: 5.0")
                 admm_budget = 1000 if p.high_acc_mode else 50
                 admm_bad_iter_flag = self.reopt(
@@ -925,6 +1006,7 @@ class LoradsSolver:
                         and admm_stats.gap <= 5 * p.phase2_tol
                         and admm_stats.pinf_l1 <= p.phase2_tol):
                     break
+                self.maybe_escalate_f64("dual reopt needed at f32")
                 self.log("****** reopt parameter: 5.0")
                 admm_bad_iter_flag = self.reopt(
                     alm_stats, admm_stats, 5.0, 3, 50, t_start,

@@ -9,8 +9,9 @@ reproduce that in `__post_init__`.
 
 A copy of ``lorads_tpu/config.py`` with the same fields and defaults,
 so that both packages read one ``LoradsParams``.  In ``lorads_torch``
-``dtype="auto"`` resolves to f64 (the H100 runs f64 natively) and only
-``shard="off"`` is ported; see ``lorads_torch.alg.solver``.
+``dtype="auto"`` resolves to f64 (the H100 runs f64 natively),
+``dtype="f32"`` solves at f32, and only ``shard="off"`` is ported; see
+``lorads_torch.alg.solver``.
 """
 
 from __future__ import annotations
@@ -92,11 +93,12 @@ class LoradsParams:
 
     # --- TPU-native extensions (no reference counterpart) ---
     dtype: str = "auto"              # "f32" | "f64" | "auto":
-                                     # lorads_torch runs auto as f64;
-                                     # lorads_tpu starts f32 on a TPU
-                                     # and escalates to (emulated) f64
-                                     # when the f32 noise floor blocks
-                                     # the target tolerance
+                                     # lorads_torch runs auto as f64 on
+                                     # the CPU and the card, f32 as f32;
+                                     # lorads_tpu starts auto at f32 on
+                                     # a TPU and escalates to (emulated)
+                                     # f64 when the f32 noise floor
+                                     # blocks the target tolerance
     seed: int = 925                  # reference srand(925) (lorads_solver.c:415)
     # ADMM iterations per device round-trip.  None -> auto: 50 (the
     # reference log cadence, lorads_admm.c:139) for large problems,

@@ -52,10 +52,17 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def resolve_dtype(name: str) -> torch.dtype:
-    """``"auto"`` and ``"f64"`` give float64; f32 solves (with the f64
-    escalation of lorads_tpu/alg/solver.py:708-736) are not ported."""
+    """``"f32"`` gives float32; ``"auto"`` and ``"f64"`` give float64, on
+    the CPU and on the card alike.  lorads_tpu starts ``auto`` at f32
+    where f64 is emulated (a TPU) and escalates to f64 on demand
+    (lorads_tpu/alg/solver.py:94-100); the H100 runs f64 natively, so
+    the port's ``auto`` starts where lorads_tpu's does on the CPU.  A
+    solve started at f32 escalates only as ``auto`` (the solver's
+    ``_auto_dtype``, ``maybe_escalate_f64``)."""
     if name in ("auto", "f64"):
         return torch.float64
+    if name == "f32":
+        return torch.float32
     raise NotImplementedError(
         f"dtype={name!r} not yet ported to lorads_torch")
 

@@ -43,7 +43,8 @@ Each wrapper checks its arguments, then takes the plain PyTorch version
 (written with ``index_select`` / ``index_add_``) for CPU tensors, and
 for CUDA tensors launches the kernel on the current stream or raises;
 there is no fallback between the two.  ``LAUNCHES`` counts kernel
-launches per wrapper (plain-version calls are not counted); a launch
+launches per wrapper (plain-version calls are not counted), and
+``F32_LAUNCHES`` those of them on float32 data; a launch
 recorded into a CUDA graph (``alg/devloop.py``, inside ``recording``)
 counts once at each replay of the graph (``replayed``), not at its
 capture.  ``GRAPHS`` counts devloop's captures and replays and the
@@ -82,10 +83,12 @@ LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 ONE_DOT_LAUNCHES = {"uvt_split": 0}
 # of LAUNCHES["lp_gs_sweep"], those with the DUAL_U_V term s
 WITH_S_LAUNCHES = {"lp_gs_sweep": 0}
+# of LAUNCHES, those on float32 data
+F32_LAUNCHES = dict.fromkeys(KERNEL_NAMES, 0)
 # devloop's graphs captured and replayed, and the launches of the replays
 GRAPHS = {"captured": 0, "replayed": 0, "launches": 0}
 _TABLES = {"launches": LAUNCHES, "one_dot": ONE_DOT_LAUNCHES,
-           "with_s": WITH_S_LAUNCHES}
+           "with_s": WITH_S_LAUNCHES, "f32": F32_LAUNCHES}
 # the launches of the graph being captured, (table, name) -> count
 _TALLY = None
 
@@ -195,6 +198,14 @@ def _launch(name, fn, *args):
 
 def _is_f64(t):
     return int(t.dtype == torch.float64)
+
+
+def _typed_launch(name, fn, t, *args):
+    """_launch of a kernel whose first argument is its type flag, from
+    ``t``'s dtype; a launch on float32 data also counts in F32_LAUNCHES."""
+    _launch(name, fn, _is_f64(t), *args)
+    if t.dtype == torch.float32:
+        _bump("f32", name)
 
 
 def _take_rows(X, idx):
@@ -448,8 +459,9 @@ def segment_sum(data: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     S = bounds.shape[1] - 1
     out = torch.empty((B, S) + data.shape[2:], dtype=data.dtype,
                       device=data.device)
-    _launch("segment_sum", "lt_segment_sum", _is_f64(data),
-            data.data_ptr(), bounds.data_ptr(), out.data_ptr(), B, N, S, r)
+    _typed_launch("segment_sum", "lt_segment_sum", data,
+                  data.data_ptr(), bounds.data_ptr(), out.data_ptr(), B, N,
+                  S, r)
     return out
 
 
@@ -478,10 +490,10 @@ def cmul_csr(X: torch.Tensor, c_diag, cols: torch.Tensor,
     if not _check("cmul_csr", floats, [cols, bnd]):
         return cmul_csr_plain(X, c_diag, cols, vals, bnd)
     out = torch.empty_like(X)
-    _launch("cmul_csr", "lt_cmul", _is_f64(X), X.data_ptr(),
-            c_diag.data_ptr() if c_diag is not None else None,
-            cols.data_ptr(), vals.data_ptr(), bnd.data_ptr(),
-            out.data_ptr(), B, n, Ks, r)
+    _typed_launch("cmul_csr", "lt_cmul", X, X.data_ptr(),
+                  c_diag.data_ptr() if c_diag is not None else None,
+                  cols.data_ptr(), vals.data_ptr(), bnd.data_ptr(),
+                  out.data_ptr(), B, n, Ks, r)
     return out
 
 
@@ -515,9 +527,9 @@ def uvt_split(U: torch.Tensor, V: torch.Tensor, rows: torch.Tensor,
     one_dot = U.data_ptr() == V.data_ptr()
     d = torch.empty((B, n), dtype=U.dtype, device=U.device)
     o = torch.empty((B, Ko), dtype=U.dtype, device=U.device)
-    _launch("uvt_split", "lt_uvt_split", _is_f64(U), int(one_dot),
-            U.data_ptr(), V.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-            *_tile_args(t, (d, o), B, n, Ko, r))
+    _typed_launch("uvt_split", "lt_uvt_split", U, int(one_dot),
+                  U.data_ptr(), V.data_ptr(), rows.data_ptr(),
+                  cols.data_ptr(), *_tile_args(t, (d, o), B, n, Ko, r))
     _bump("one_dot", "uvt_split", int(one_dot))
     return d, o
 
@@ -554,9 +566,9 @@ def uvt_pair_split(R: torch.Tensor, D: torch.Tensor, rows: torch.Tensor,
                   for _ in range(2))
     rd_o, dd_o = (torch.empty((B, Ko), dtype=R.dtype, device=R.device)
                   for _ in range(2))
-    _launch("uvt_pair_split", "lt_uvt_pair", _is_f64(R), R.data_ptr(),
-            D.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-            *_tile_args(t, (rd_d, rd_o, dd_d, dd_o), B, n, Ko, r))
+    _typed_launch("uvt_pair_split", "lt_uvt_pair", R, R.data_ptr(),
+                  D.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+                  *_tile_args(t, (rd_d, rd_o, dd_d, dd_o), B, n, Ko, r))
     return rd_d, rd_o, dd_d, dd_o
 
 
@@ -588,9 +600,9 @@ def gather_segsum(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     if not _check("gather_segsum", [x, val, base], [idx, bnd]):
         return gather_segsum_plain(x, idx, val, bnd, base, alpha)
     out = torch.empty((B, S), dtype=x.dtype, device=x.device)
-    _launch("gather_segsum", "lt_gather_segsum", _is_f64(x), x.data_ptr(),
-            idx.data_ptr(), val.data_ptr(), bnd.data_ptr(), _ptr(base),
-            out.data_ptr(), B, Nx, N, S, float(alpha))
+    _typed_launch("gather_segsum", "lt_gather_segsum", x, x.data_ptr(),
+                  idx.data_ptr(), val.data_ptr(), bnd.data_ptr(), _ptr(base),
+                  out.data_ptr(), B, Nx, N, S, float(alpha))
     return out
 
 
@@ -631,10 +643,10 @@ def wmul_csr(X: torch.Tensor, W_d: torch.Tensor, W_o: torch.Tensor,
         t = tiles if tiles is not None else wmul_tiles(slots, cols, bnd)
         _pairs("wmul_csr", t, cols)
     if t is None or not t.staged:
-        _launch("wmul_csr", "lt_wmul", _is_f64(X), X.data_ptr(),
-                W_d.data_ptr(), W_o.data_ptr(), slots.data_ptr(),
-                cols.data_ptr(), bnd.data_ptr(), out.data_ptr(), B, n, Ko,
-                Ks, r)
+        _typed_launch("wmul_csr", "lt_wmul", X, X.data_ptr(),
+                      W_d.data_ptr(), W_o.data_ptr(), slots.data_ptr(),
+                      cols.data_ptr(), bnd.data_ptr(), out.data_ptr(), B, n,
+                      Ko, Ks, r)
         return out
     ti = (t.slot, t.ij, t.bnd, t.col0, t.strip, t.rowptr)
     # parts a strip, so that the CTAs fill the card WMUL_WAVES deep
@@ -642,10 +654,10 @@ def wmul_csr(X: torch.Tensor, W_d: torch.Tensor, W_o: torch.Tensor,
                                      // (B * -(-n // t.rows)))))
     part = (torch.empty((P, B, n, r), dtype=torch.float64, device=X.device)
             if P > 1 else None)
-    _launch("wmul_csr", "lt_wmul_tiled", _is_f64(X), X.data_ptr(),
-            W_d.data_ptr(), W_o.data_ptr(), *(a.data_ptr() for a in ti),
-            out.data_ptr(), _ptr(part), B, n, Ko, Ks, r, t.row0.shape[1],
-            t.rows, t.cols, P)
+    _typed_launch("wmul_csr", "lt_wmul_tiled", X, X.data_ptr(),
+                  W_d.data_ptr(), W_o.data_ptr(), *(a.data_ptr() for a in ti),
+                  out.data_ptr(), _ptr(part), B, n, Ko, Ks, r,
+                  t.row0.shape[1], t.rows, t.cols, P)
     return out
 
 
@@ -676,9 +688,9 @@ def adj_a_offdiag(X: torch.Tensor, F: torch.Tensor, rows: torch.Tensor,
     d = (torch.empty((B, n), dtype=X.dtype, device=X.device)
          if want_diag else None)
     W_o = torch.empty((B, Ko), dtype=X.dtype, device=X.device)
-    _launch("adj_a_offdiag", "lt_adj_a_offdiag", _is_f64(X), X.data_ptr(),
-            F.data_ptr(), rows.data_ptr(), cols.data_ptr(), a2.data_ptr(),
-            *_tile_args(t, (d, W_o), B, n, Ko, r))
+    _typed_launch("adj_a_offdiag", "lt_adj_a_offdiag", X, X.data_ptr(),
+                  F.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+                  a2.data_ptr(), *_tile_args(t, (d, W_o), B, n, Ko, r))
     return d, W_o
 
 
@@ -703,8 +715,8 @@ def adj_a_dense(X: torch.Tensor, a2: torch.Tensor,
     if not _check("adj_a_dense", [X, a2, W_d], []):
         return adj_a_dense_plain(X, a2, W_d)
     out = torch.empty_like(X)
-    _launch("adj_a_dense", "lt_adj_a_dense", _is_f64(X), X.data_ptr(),
-            a2.data_ptr(), _ptr(W_d), out.data_ptr(), B, n)
+    _typed_launch("adj_a_dense", "lt_adj_a_dense", X, X.data_ptr(),
+                  a2.data_ptr(), _ptr(W_d), out.data_ptr(), B, n)
     return out
 
 
@@ -780,11 +792,11 @@ def lp_gs_sweep(pc_con: torch.Tensor, pc_val: torch.Tensor,
              .contiguous() if isinstance(rho, torch.Tensor)
              else torch.full((1,), rho, dtype=csum.dtype,
                              device=csum.device))
-    _launch("lp_gs_sweep", "lt_lp_gs_sweep", _is_f64(csum), pc_con.data_ptr(),
-            pc_val.data_ptr(), obj.data_ptr(), nrm2.data_ptr(),
-            upd.data_ptr(), fixed.data_ptr(), out_sum.data_ptr(),
-            rhs.data_ptr(), dual.data_ptr(), _ptr(s), new.data_ptr(), n, L,
-            m, rho_t.data_ptr())
+    _typed_launch("lp_gs_sweep", "lt_lp_gs_sweep", csum, pc_con.data_ptr(),
+                  pc_val.data_ptr(), obj.data_ptr(), nrm2.data_ptr(),
+                  upd.data_ptr(), fixed.data_ptr(), out_sum.data_ptr(),
+                  rhs.data_ptr(), dual.data_ptr(), _ptr(s), new.data_ptr(),
+                  n, L, m, rho_t.data_ptr())
     if s is not None:
         _bump("with_s", "lp_gs_sweep")
     return new, out_sum
@@ -823,6 +835,6 @@ def sym_eig_small(A: torch.Tensor, sweeps: Optional[torch.Tensor] = None):
         raise ValueError("sym_eig_small: sweeps must be [B]")
     evals = torch.empty((B, n), dtype=A.dtype, device=A.device)
     evecs = torch.empty_like(A)
-    _launch("sym_eig_small", "lt_sym_eig", _is_f64(A), A.data_ptr(),
-            evals.data_ptr(), evecs.data_ptr(), _ptr(sweeps), B, n)
+    _typed_launch("sym_eig_small", "lt_sym_eig", A, A.data_ptr(),
+                  evals.data_ptr(), evecs.data_ptr(), _ptr(sweeps), B, n)
     return evals, evecs

@@ -82,8 +82,10 @@ def save_checkpoint(path: str, solver, alm_stats=None, admm_stats=None,
 def load_checkpoint(path: str, solver) -> dict:
     """Restore the state saved by :func:`save_checkpoint` (or by
     lorads_tpu's) into ``solver``; returns the meta dict (phase, stats).
-    The ranks become the checkpoint's.  When the objective was rescaled
-    (scale_obj_his != 1) the problem data is rebuilt and rescaled
+    The ranks become the checkpoint's; the arrays load at the solver's
+    dtype (an f64 file into an f32 solve is cast, as in lorads_tpu).
+    When the objective was rescaled (scale_obj_his != 1) the problem data
+    at that dtype (the solver's memo) is rescaled
     (lorads_tpu/utils/checkpoint.py:105-110): new buckets, so new tile
     schedules and new device-loop keys; the graphs of the old data were
     dropped at the end of the phase that made them."""
@@ -111,8 +113,7 @@ def load_checkpoint(path: str, solver) -> dict:
     solver.pinf_l1 = meta["pinf_l1"]
     if solver.scale_obj_his != 1.0:
         from lorads_torch.alg import aop
-        solver.pd = aop.build_problem_data(solver.ps, solver.dtype,
-                                           solver.device)
-        solver.pd = aop.scale_objective(solver.pd, solver.scale_obj_his)
+        solver.pd = aop.scale_objective(solver._problem_data(solver.dtype),
+                                        solver.scale_obj_his)
     solver.hist = make_history(solver.R, solver.lbfgs_len)
     return meta

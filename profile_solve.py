@@ -11,8 +11,8 @@ so the kernels are built and loaded):
   host syncs (``device.HOST_SYNCS``) of each, the last one's by label
   (``device.HOST_SYNCS_BY``), its loop graphs captured and replayed
   (``kernels.GRAPHS``) and its captures with their seconds (warm-ups
-  and captures, ``devloop._warm_up`` and ``devloop._capture``, each
-  between device synchronises);
+  and captures, ``devloop.captures``, each between device
+  synchronises);
 * ``phases``: one solve with synchronised timers around the solver's
   construction, the ALM phases, the ADMM phases, the certificate
   passes and the spectral dual repair;
@@ -70,32 +70,11 @@ def _import(root=None):
     from lorads_torch.timing import card_line
 
 
-@contextlib.contextmanager
 def _captures():
-    """[(kind, seconds), ...] of the warm-ups and graph captures made
-    inside, each between device synchronises."""
-    out = []
-
-    def wrap(attr):
-        fn = getattr(devloop, attr)
-
-        def timed(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            try:
-                return fn(*a, **k)
-            finally:
-                torch.cuda.synchronize()
-                out.append((attr.strip("_"), time.time() - t0))
-        setattr(devloop, attr, timed)
-        return fn
-
-    saved = [(attr, wrap(attr)) for attr in ("_warm_up", "_capture")]
-    try:
-        yield out
-    finally:
-        for attr, fn in saved:
-            setattr(devloop, attr, fn)
+    """devloop.captures() of the checkout profiled; a checkout without it
+    reports no captures."""
+    return (devloop.captures() if hasattr(devloop, "captures")
+            else contextlib.nullcontext([]))
 
 
 def _solve(problem, name=None):
@@ -109,9 +88,9 @@ def _solve(problem, name=None):
         torch.cuda.synchronize()
     solver.syncs_by = {k: v for k, v in dev.HOST_SYNCS_BY.items() if v}
     solver.graphs = dict(kernels.GRAPHS)
-    solver.captures = {kind: [n, sum(t for k, t in caps if k == kind)]
+    solver.captures = {kind: [n, sum(t for k, _, t in caps if k == kind)]
                        for kind in ("warm_up", "capture")
-                       for n in [sum(1 for k, _ in caps if k == kind)]}
+                       for n in [sum(1 for k, _, _ in caps if k == kind)]}
     return res, solver, time.time() - t0, dev.HOST_SYNCS
 
 

@@ -17,6 +17,7 @@ accumulation agree within 4 eps32 * sum|terms|.
 """
 
 import os
+import time
 import types
 
 import numpy as np
@@ -632,6 +633,107 @@ def test_lp_sums_and_scatter_match_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rho", [3.5, 0.25])
+def test_lp_gs_sweep_kernel_f32_matches_plain(rho):
+    """K8c at f32 (the f32 solve's LP sweep): the same rounded steps as
+    its plain version; within 64 eps32 of each output's largest
+    magnitude, a rounding's difference reaching the later columns through
+    csum."""
+    _need_cuda()
+    from lorads_torch.ops import lp as lp_ops
+    problem = _lp_problem()
+    lpd = lp_ops.build_lp_data(problem.lp, torch.float32, "cuda")
+    rng = np.random.default_rng(11)
+    n, m = lpd.n_cols, lpd.m_glob
+    u, v = (_rand(rng, (n,), torch.float32) for _ in range(2))
+    csum, rhs, dual = (_rand(rng, (m,), torch.float32) for _ in range(3))
+    args = (lpd.pc_con, lpd.pc_val, lpd.obj, lpd.col_nrm2sq, u, v, csum,
+            rhs, dual, rho)
+    before = kernels.F32_LAUNCHES["lp_gs_sweep"]
+    got = kernels.lp_gs_sweep(*args)
+    assert kernels.F32_LAUNCHES["lp_gs_sweep"] == before + 1
+    ref = kernels.lp_gs_sweep_plain(*args)
+    for g, e in zip(got, ref):
+        assert g.dtype == torch.float32
+        tol = 64 * torch.finfo(torch.float32).eps * float(e.abs().max())
+        assert float((g - e).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_lp_sums_f32_match_plain():
+    """K8a / K8b at f32 (the f32 solve's LP block) against their plain
+    versions, within 4 eps32 * sum|terms|."""
+    _need_cuda()
+    from lorads_torch.ops import lp as lp_ops
+    dt = torch.float32
+    lpd = lp_ops.build_lp_data(_lp_problem().lp, dt, "cuda")
+    rng = np.random.default_rng(12)
+    uv = _rand(rng, (lpd.n_cols,), dt)
+    w = _rand(rng, (lpd.m_glob,), dt)
+    a8 = (lpd.a_col_cs[None], lpd.a_val_cs[None], lpd.bnd_con[None])
+    b8 = (lpd.a_con_ls[None], lpd.a_val_ls[None], lpd.bnd_col[None])
+    before = kernels.F32_LAUNCHES["gather_segsum"]
+    cases = [
+        (lp_ops.constr_vals(lpd, uv),
+         kernels.gather_segsum_plain(uv[None], *a8)[0],
+         kernels.gather_segsum_plain(uv.abs()[None], a8[0], a8[1].abs(),
+                                     a8[2])[0]),
+        (lp_ops.adjoint_cols(lpd, w, base=lpd.obj, alpha=-1.0),
+         kernels.gather_segsum_plain(w[None], *b8, lpd.obj[None], -1.0)[0],
+         kernels.gather_segsum_plain(w.abs()[None], b8[0], b8[1].abs(),
+                                     b8[2], lpd.obj.abs()[None])[0]),
+    ]
+    assert kernels.F32_LAUNCHES["gather_segsum"] == before + 2
+    for got, ref, l1 in cases:
+        assert got.dtype == dt and _close(got, ref, l1, dt)
+
+
+@pytest.mark.cuda
+def test_graph_replay_after_escalation_matches_eager():
+    """An auto solve started at f32: its ALM phase at f32, then the
+    escalation to f64 (the f32 graphs dropped), then ADMM chunks at f64
+    captured anew on the f64 data, each replay bit for bit the same
+    chunk run eagerly from the same carry."""
+    _need_cuda()
+    import time as _time
+
+    from lorads_torch.alg import admm, devloop
+    from lorads_torch.alg.admm import ADMMStats
+    from lorads_torch.alg.alm import ALMStats
+    s = LoradsSolver(read_sdpa(os.path.join(FIX, "hand_multiblock.dat-s")),
+                     LoradsParams(verbose=False, dtype="f32",
+                                  lp_gauss_seidel=True), device="cuda")
+    s._auto_dtype = True
+    alm_stats = ALMStats(rho=s.ps.rho0)
+    s.alm_phase(alm_stats, _time.time())
+    stats = ADMMStats(rho=s.ps.rho0)
+    s.alm_to_admm(alm_stats, stats)
+    assert s.pd.rhs.dtype == torch.float32
+    assert s.maybe_escalate_f64("test")
+    assert s.pd.rhs.dtype == torch.float64 and not devloop._LOOPS
+    captured = kernels.GRAPHS["captured"]
+    with devloop.phase():
+        locals_, total, vals = admm.admm_init_eval(
+            s.pd, s.U, s.V, s.dual, s.scale_obj_his)
+        s._set_admm_stats(stats, vals)
+        c = s._admm_start(stats, locals_, total)
+        for n in (1, 2):
+            c, loop = admm.prepare_chunk(
+                s.params, s.pd, c, s.scale_obj_his, s.params.max_admm_iter,
+                n, jacobi=s._bucket_jacobi, S=s.S)
+            eager = devloop.eager_chunk(loop)
+            want = loop.pack(loop.inputs, eager).tolist()
+            got_state, got = devloop.run(loop)
+            assert got == want
+            for g, e in zip(devloop.flatten(got_state)[0],
+                            devloop.flatten(eager)[0]):
+                assert torch.equal(g, e)
+            assert got_state.U.cones[0].dtype == torch.float64
+            c["carry"] = got_state
+    assert kernels.GRAPHS["captured"] > captured
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lp_gs", [False, True])
 def test_hand_multiblock_solve_on_cuda(lp_gs):
     """Two dense buckets on local slots and an LP block; with lp_gs the
@@ -1149,6 +1251,25 @@ def test_while_node_runs_to_its_device_exit(n):
         # the condition set before the node, and the body's closing
         # kernel once a run
         assert kernels.LAUNCHES["loop_cond"] == 1 + n
+
+
+@pytest.mark.cuda
+def test_captures_logs_warm_up_and_capture_once_a_key():
+    """devloop.captures: a key's first run logs its warm-up and its
+    capture, each with its start and seconds; a replay logs nothing, and
+    nothing is logged outside the context."""
+    _need_cuda()
+    from lorads_torch.alg import devloop
+    with devloop.phase():
+        with devloop.captures() as caps:
+            t0 = time.time()
+            devloop.run(_count_loop(5))
+            assert [k for k, _, _ in caps] == ["warm_up", "capture"]
+            assert all(t >= t0 and sec >= 0.0 for _, t, sec in caps)
+            devloop.run(_count_loop(7))
+            assert len(caps) == 2
+        devloop.run(_count_loop(3))
+        assert len(caps) == 2
 
 
 @pytest.mark.cuda

@@ -263,12 +263,11 @@ def test_device_cuda_without_gpu_raises():
                     LoradsParams(verbose=False))
 
 
-@pytest.mark.parametrize("case", ["shard", "f32"])
+@pytest.mark.parametrize("case", ["shard"])
 def test_out_of_slice_raises(case):
     problem = t_gen.maxcut(n=300, avg_degree=4, seed=3)
     params = LoradsParams(verbose=False, **{
         "shard": dict(shard="dp"),
-        "f32": dict(dtype="f32"),
     }[case])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TorchSolver(problem, params, device="cpu")
