@@ -180,7 +180,19 @@ Phases, each reported on its own lines:
    lines, one read a device-loop run, its f32 launches
    (kernels.F32_LAUNCHES), the escalation's seconds and the captures
    after it, its log without the per-iteration lines, and its f32 wall
-   beside the main path's f64 wall of the same instance.
+   beside the main path's f64 wall of the same instance;
+7. the shard phase (lines "shard ..."; the card is one, so no run has
+   more than one rank): maxcut20000 and matcomp2000 as summed D = 4
+   layouts and theta800 as a rowshard D = 4 layout swapped into the
+   solver's ProblemData (unplaced), solved with the launch counts reset
+   just before and read just after, held to REFERENCE_POBJ, each solve's
+   wall beside the main path's (construction and the shard build apart);
+   the kernels at those shapes against their
+   plain versions; on a one-rank NCCL group the building blocks against
+   their oracles and shard="auto" against the unsharded solve, with the
+   collectives counted by site; whether an NCCL all_reduce captures
+   into a plain graph and a WHILE body (a child process; the phase fails
+   unless both capture and replay bit for bit).
 
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.  Any failed phase raises and exits
@@ -347,7 +359,18 @@ PATH_KERNELS = {
     "f32 multiblock_lp": ("gather_segsum", "lp_gs_sweep"),
     "probes": ("onehot_scatter", "onehot_gather", "row_gather",
                "scatter_add", "uvt_split"),
+    # the shard phase, by instance: its solves on the shard layouts
+    "shard maxcut20000": ("cmul_csr", "uvt_split", "sym_eig_small",
+                          "loop_cond"),
+    "shard matcomp2000": ("uvt_split", "uvt_pair_split", "gather_segsum",
+                          "wmul_csr", "sym_eig_small", "loop_cond"),
+    "shard theta800": ("gather_segsum", "sym_eig_small", "loop_cond"),
+    "shard blocks": ("gather_segsum", "uvt_split", "wmul_csr"),
 }
+# the shard phase's layouts at full width, unplaced: (instance, layout,
+# shards)
+SHARD_LAYOUTS = (("maxcut20000", "sp", 4), ("matcomp2000", "sp", 4),
+                 ("theta800", "tp", 4))
 POBJ_RTOL = 1e-4
 # K8c at f32 against its plain version, of each output's largest
 # magnitude: 64 eps32
@@ -2679,8 +2702,10 @@ def _run_reads():
 
 
 # the main paths' walls by instance (solve_path), for the f32 phase's
-# lines
+# lines, and the walls of their solve() calls alone, for the shard
+# phase's
 WALLS = {}
+SOLVE_WALLS = {}
 
 
 def solve_path(card, path, instances):
@@ -2707,10 +2732,13 @@ def solve_path(card, path, instances):
         with _run_reads() as runs:
             solver = LoradsSolver(problem, LoradsParams(
                 verbose=False, **PARAMS.get(name, {})), device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.time()
             res = solver.solve()
         torch.cuda.synchronize()
         wall = time.time() - t0
         WALLS[name] = wall
+        SOLVE_WALLS[name] = time.time() - t1
         launches = {k: kernels.LAUNCHES[k] - before[k]
                     for k in kernels.LAUNCHES}
         by = {k: tdev.HOST_SYNCS_BY[k] - by0[k] for k in by0
@@ -3034,6 +3062,397 @@ def main_path(card):
         counts = path(card)
         for k in total:
             total[k] += counts[k]
+    return total
+
+
+def _shard_bucket(problem, layout, D, dtype=None):
+    """The instance's one bucket rebuilt as a shard layout of D shards on
+    the card: summed (sp) or rowshard (tp)."""
+    import torch
+
+    from lorads_torch.config import LoradsParams
+    from lorads_torch.core.presolve import presolve
+    from lorads_torch.parallel.pattern_sharded import build_pattern_shards
+    from lorads_torch.parallel.row_sharded import build_rowshard_bucket
+    plan = presolve(problem, LoradsParams()).plans[0]
+    dtype = dtype or torch.float64
+    if layout == "sp":
+        return build_pattern_shards(plan, problem.m, D, dtype, summed=True)
+    return build_rowshard_bucket(plan, problem.m, D, dtype)
+
+
+def shard_kernel_checks(measure, bks, rng):
+    """Each kernel the shard layouts launch, at their shapes, against its
+    plain version (Measure): K2 and K3 (U is V) on maxcut20000's summed
+    D = 4 shards, K3p, K3, K4 (A(.) and C + A^*(w)) and K5 on
+    matcomp2000's, K4 on theta800's row slabs (A(.) over the [4, 200 *
+    800] slab, W onto its slots), each at B = 4."""
+    import torch
+
+    from lorads_torch.ops import kernels
+    from lorads_torch.ops import pattern as pat
+
+    dev = torch.device("cuda")
+
+    def rand(shape, dt=torch.float64):
+        return torch.as_tensor(rng.standard_normal(shape), device=dev,
+                               dtype=dt)
+
+    s, sfx = 8, "f64"
+    bk = bks["maxcut20000"]
+    B, n, Ks, Ko = bk.B, bk.n, bk.Ks, bk.Ko
+    r = 20
+    for rr, wd in ((r, True), (1, False)):
+        X = rand((B, n, rr))
+        cd = bk.c_diag if wd else None
+        args = (X, cd, bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
+        measure("cmul_csr", f"shard sp maxcut20000 B={B} f64 r={rr}"
+                + (" diag" if wd else " no-diag"), sfx,
+                lambda: kernels.cmul_csr(*args),
+                lambda: kernels.cmul_csr_plain(*args),
+                kernels.cmul_csr_plain(X.abs(), None if cd is None
+                                       else cd.abs(), bk.sym_cols_rs,
+                                       bk.c_sym_rs.abs(), bk.bnd_sym_rows),
+                nbytes=B * (2 * n * rr * s + Ks * (4 + s) + (n + 1) * 4
+                            + (n * s if wd else 0)),
+                flops=B * (2 * Ks * rr + (2 * n * rr if wd else 0)))
+    U = rand((B, n, r))
+    uvt_cases(measure, kernels, f"shard sp maxcut20000 B={B} ", sfx, U,
+              None, bk.off_rows, bk.off_cols,
+              _tiles_kw(pat, bk, "off", kernels.uvt_split), n, Ko, B=B)
+
+    bk = bks["matcomp2000"]
+    B, n, Ks, Ko, m = bk.B, bk.n, bk.Ks, bk.Ko, bk.m_loc
+    r = 20
+    a = (bk.off_rows, bk.off_cols)
+    R, D = rand((B, n, r)), rand((B, n, r))
+    kw = _tiles_kw(pat, bk, "off", kernels.uvt_pair_split)
+    measure("uvt_pair_split", f"shard sp matcomp2000 B={B} f64 r={r}", sfx,
+            lambda: kernels.uvt_pair_split(R, D, *a, **kw),
+            lambda: kernels.uvt_pair_split_plain(R, D, *a),
+            kernels.uvt_pair_split_plain(R.abs(), D.abs(), *a),
+            nbytes=B * (2 * n * r * s + 2 * Ko * 4 + 2 * (n + Ko) * s),
+            flops=B * (4 * n * r + 6 * Ko * r))
+    V = rand((B, n, r))
+    uvt_cases(measure, kernels, f"shard sp matcomp2000 B={B} ", sfx,
+              rand((B, n, r)), V, *a,
+              _tiles_kw(pat, bk, "off", kernels.uvt_split), n, Ko, B=B)
+    o = rand((B, Ko))
+    a4 = (o, bk.a_pos_o_cs, bk.a_val_o_cs, bk.bnd_a_con_o_cs)
+    N = bk.a_pos_o_cs.shape[1]
+    measure("gather_segsum", f"shard sp matcomp2000 B={B} f64 A(.) "
+            f"m_loc={m}", sfx,
+            lambda: kernels.gather_segsum(*a4, alpha=2.0),
+            lambda: kernels.gather_segsum_plain(*a4, None, 2.0),
+            kernels.gather_segsum_plain(o.abs(), a4[1], a4[2].abs(), a4[3],
+                                        None, 2.0),
+            nbytes=B * (N * (2 * s + 4) + (m + 1) * 4 + m * s),
+            flops=B * 3 * N, exact=True)
+    w = rand((B, m))
+    a4w = (w, bk.a_con_o_s, bk.a_val_o_s, bk.bnd_a_pos_o_s)
+    measure("gather_segsum", f"shard sp matcomp2000 B={B} f64 A^*(w)+C "
+            f"Ko={Ko}", sfx,
+            lambda: kernels.gather_segsum(*a4w, base=bk.c_off),
+            lambda: kernels.gather_segsum_plain(*a4w, bk.c_off),
+            kernels.gather_segsum_plain(w.abs(), a4w[1], a4w[2].abs(),
+                                        a4w[3], bk.c_off.abs()),
+            nbytes=B * (m * s + N * (4 + s) + (Ko + 1) * 4 + 2 * Ko * s),
+            flops=B * (2 * N + Ko))
+    W_d, W_o = rand((B, n)), rand((B, Ko))
+    a5 = (bk.sym_slot_rs, bk.sym_cols_rs, bk.bnd_sym_rows)
+    for rr in (r, 1):
+        X = rand((B, n, rr))
+        measure("wmul_csr", f"shard sp matcomp2000 B={B} f64 r={rr}", sfx,
+                lambda: kernels.wmul_csr(X, W_d, W_o, *a5,
+                                         **_tiles_kw(pat, bk, "sym")),
+                lambda: kernels.wmul_csr_plain(X, W_d, W_o, *a5),
+                kernels.wmul_csr_plain(X.abs(), W_d.abs(), W_o.abs(), *a5),
+                nbytes=B * (2 * n * rr * s + (n + Ko) * s + Ks * 8
+                            + (n + 1) * 4),
+                flops=B * 2 * (Ks + n) * rr)
+
+    bk = bks["theta800"]
+    B, n, nl, m = bk.B, bk.n, bk.n_loc, bk.m_loc
+    S = nl * n
+    x = rand((B, S))
+    a4 = (x, bk.a_lin_cs, bk.a_val_inner_cs, bk.bnd_a_con_cs)
+    N = bk.a_lin_cs.shape[1]
+    measure("gather_segsum", f"shard tp theta800 B={B} f64 A(.) slab "
+            f"{nl}x{n} m_loc={m}", sfx,
+            lambda: kernels.gather_segsum(*a4),
+            lambda: kernels.gather_segsum_plain(*a4),
+            kernels.gather_segsum_plain(x.abs(), a4[1], a4[2].abs(), a4[3]),
+            nbytes=B * (N * (2 * s + 4) + (m + 1) * 4 + m * s),
+            flops=B * 2 * N)
+    w = rand((B, m))
+    base = bk.c_full.reshape(B, S)
+    a4w = (w, bk.a_con2_s, bk.a_val2_s, bk.bnd_a_lin2)
+    N = bk.a_con2_s.shape[1]
+    measure("gather_segsum", f"shard tp theta800 B={B} f64 C+A^*(w) slab "
+            f"slots {S}", sfx,
+            lambda: kernels.gather_segsum(*a4w, base=base),
+            lambda: kernels.gather_segsum_plain(*a4w, base),
+            kernels.gather_segsum_plain(w.abs(), a4w[1], a4w[2].abs(),
+                                        a4w[3], base.abs()),
+            nbytes=B * (m * s + N * (4 + s) + (S + 1) * 4 + 2 * S * s),
+            flops=B * (2 * N + S))
+
+
+_CAPTURE_PROBE = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from lorads_torch.alg import devloop
+from lorads_torch.parallel import comm, distributed
+
+distributed.init_multihost(store=dist.HashStore(), rank=0, world_size=1,
+                           device="cuda")
+mesh = distributed.solver_mesh(1, "cuda")
+out = {}
+x = torch.arange(1, 4097, dtype=torch.float64, device="cuda") / 7.0
+eager = comm.all_reduce(x * 0.5 + 1.0, mesh, "probe")
+torch.cuda.synchronize()
+try:
+    xs = x.clone()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        ys = comm.all_reduce(xs * 0.5 + 1.0, mesh, "probe")
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    out["plain graph"] = {"captured": True,
+                          "bit_for_bit": bool(torch.equal(ys, eager))}
+except Exception as e:
+    out["plain graph"] = {"captured": False, "error": repr(e)[:400]}
+torch.cuda.synchronize()
+
+
+def step(inp, st, kind):
+    y, k = st
+    return (comm.all_reduce(y * 0.5 + inp, mesh, "probe"), k + 1)
+
+
+def loop():
+    return devloop.Loop(
+        key=("collective probe",), step=step,
+        pack=lambda inp, st: torch.stack([st[0].sum(), st[1].double()]),
+        inputs=torch.ones((), dtype=torch.float64, device="cuda"),
+        state=(x.clone(), torch.zeros((), dtype=torch.int64,
+                                      device="cuda")),
+        running=lambda inp, st: st[1] < 6)
+
+
+ref = devloop.eager_chunk(loop())
+try:
+    st, pack = devloop.run(loop())
+    torch.cuda.synchronize()
+    out["while body"] = {"captured": True,
+                         "bit_for_bit": bool(torch.equal(st[0], ref[0])
+                                             and int(st[1]) == 6)}
+except Exception as e:
+    out["while body"] = {"captured": False, "error": repr(e)[:400]}
+out["calls"] = dict(comm.CALLS)
+print("PROBE " + json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def collective_capture_probe(card):
+    """Whether an NCCL all_reduce (world size 1) captures into a plain
+    CUDA graph and into a WHILE node's body (devloop), and whether each
+    replay is bit for bit its eager run: in a child process of its own,
+    so that a failed capture cannot leave this one's CUDA state broken.
+    Returns the finding."""
+    import subprocess
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _CAPTURE_PROBE],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT, env=env)
+    found = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("PROBE ")]
+    if proc.returncode != 0 and not found:
+        found = {"probe": {"captured": False, "rc": proc.returncode,
+                           "error": proc.stderr[-600:]}}
+    else:
+        found = json.loads(found[-1][6:])
+    print(f"shard capture: NCCL all_reduce at world size 1 in a plain CUDA "
+          f"graph {found.get('plain graph')}, in a WHILE body "
+          f"{found.get('while body')} (child rc {proc.returncode})  "
+          f"[{card}]")
+    # the device loops keep their collectives inside their graphs
+    # (devloop): both captures must hold, bit for bit
+    want = {"captured": True, "bit_for_bit": True}
+    for where in ("plain graph", "while body"):
+        if found.get(where) != want:
+            raise AssertionError(f"shard capture: {where}: "
+                                 f"{found.get(where)}")
+    return found
+
+
+def shard_path(card, measure):
+    """The shard phase.  One H100 here: no run has more than one rank.
+    (1) The layouts at full width, unplaced (SHARD_LAYOUTS): the bucket
+    rebuilt as a summed (sp) or rowshard (tp) layout of 4 shards, swapped
+    into the solver's ProblemData, solved through LoradsSolver.solve()
+    with the launch counts reset just before and read just after, each
+    held to REFERENCE_POBJ within POBJ_RTOL, primal_dual_optimal, one
+    read a device-loop run, its wall beside the main path's unsharded
+    wall of the instance; the kernels at those shapes against their plain
+    versions (shard_kernel_checks).  (2) A one-rank NCCL group
+    (HashStore): sharded_solver_step, make_sharded_gradient and
+    make_row_sharded_gradient on CUDA tensors against their unsharded
+    oracles at tests/test_sharded.py's tolerances, shard="auto" solving
+    as the unsharded path does, the comm counters of each, and whether a
+    collective captures into the loops' graphs (collective_capture_probe).
+    Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lorads_torch import LoradsParams, LoradsSolver, SolverStatus
+    from lorads_torch.alg import aop
+    from lorads_torch.ops import kernels
+    from lorads_torch.parallel import comm, distributed
+    from lorads_torch.parallel.pattern_sharded import (
+        build_pattern_shards, make_sharded_gradient)
+    from lorads_torch.parallel.row_sharded import (
+        build_row_shards, make_row_sharded_gradient)
+    from lorads_torch.parallel.sharded import sharded_solver_step
+
+    print("shard: one NVIDIA H100 here, so no run has more than one rank: "
+          "the layouts run unplaced on one card, the building blocks on a "
+          "one-rank NCCL group")
+    total = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    bks = {}
+    for name, layout, D in SHARD_LAYOUTS:
+        problem = INSTANCES[name]()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        with _run_reads() as runs:
+            solver = LoradsSolver(problem, LoradsParams(verbose=False),
+                                  device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.time()
+            bk = _shard_bucket(problem, layout, D)
+            bks[name] = bk
+            solver.pd = dataclasses.replace(solver.pd, buckets=(bk,))
+            torch.cuda.synchronize()
+            t2 = time.time()
+            res = solver.solve()
+        torch.cuda.synchronize()
+        wall = time.time() - t2
+        counts = dict(kernels.LAUNCHES)
+        ref = REFERENCE_POBJ[name]
+        rel = abs(res.pobj - ref) / abs(ref)
+        print(f"shard {name} {layout} D={D} ({'summed' if bk.summed else f'rowshard n_loc={bk.n_loc}'}"
+              f"{', diag-parent' if bk.diag_parent else ''}): status "
+              f"{res.status.value} pObj {res.pobj!r} (lorads_tpu CPU f64 "
+              f"{ref!r}, rel {rel:.2e}) dinf {res.dinf_l1:.3e} solve "
+              f"{wall:.3f} s (unsharded solve "
+              f"{SOLVE_WALLS.get(name, float('nan')):.3f} s in this "
+              f"process), construction {t1 - t0:.3f} s, shard build "
+              f"{t2 - t1:.3f} s, ALM inner {res.alm_stats.inner_iter} "
+              f"ADMM {res.admm_stats.iter} CG {solver.admm_cg_total} "
+              f"device-loop runs {runs} (one read each) launches "
+              f"{ {k: v for k, v in counts.items() if v} }  [{card}]")
+        if res.status is not SolverStatus.PRIMAL_DUAL_OPTIMAL:
+            raise AssertionError(f"shard {name}: {res.status.value}")
+        if not (math.isfinite(res.pobj) and rel <= POBJ_RTOL):
+            raise AssertionError(f"shard {name}: pObj {res.pobj} vs {ref}")
+        for k in PATH_KERNELS[f"shard {name}"]:
+            if counts[k] <= 0:
+                raise AssertionError(f"shard {name} never launched {k}")
+        for k in total:
+            total[k] += counts[k]
+    rng = np.random.default_rng(20)
+    shard_kernel_checks(measure, bks, rng)
+
+    # ---- the group at world size 1, on NCCL
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    distributed.init_multihost(store=dist.HashStore(), rank=0,
+                               world_size=1, device="cuda")
+    try:
+        mesh = distributed.solver_mesh(1, "cuda")
+        comm.reset()
+        s = LoradsSolver(_gen().random_multiblock(n_blocks=8, dim=12, m=10,
+                                                  seed=3),
+                         LoradsParams(verbose=False), device="cuda")
+        got = sharded_solver_step(mesh, s.pd, s.U, s.V, s.dual, 1.0)
+        ref = sharded_solver_step(None, s.pd, s.U, s.V, s.dual, 1.0)
+        errs = []
+        for g, r_, (rt, at) in zip(got, ref, ((1e-7, 1e-8), (1e-7, 1e-8),
+                                              (1e-9, 1e-10), (1e-9, 1e-10))):
+            torch.testing.assert_close(g, r_, rtol=rt, atol=at)
+            errs.append(float((g - r_).abs().max()))
+        print(f"shard nccl sharded_solver_step (random_multiblock 8 x 12): "
+              f"max |diff| U {errs[0]:.3e} V {errs[1]:.3e} total "
+              f"{errs[2]:.3e} grad {errs[3]:.3e} against the unplaced run; "
+              f"comm {comm.counts()}  [{card}]")
+        for name, kind in (("maxcut20000", "sp"), ("theta800", "tp")):
+            comm.reset()
+            s = LoradsSolver(INSTANCES[name](), LoradsParams(verbose=False),
+                             device="cuda")
+            plan = s.ps.plans[0]
+            dual = torch.as_tensor(rng.standard_normal(s.m), device="cuda")
+            rho = 1.7
+            if kind == "sp":
+                data = build_pattern_shards(plan, s.m, 4, torch.float64,
+                                            device="cuda")
+                step = make_sharded_gradient(mesh, data, s.pd.rhs,
+                                             s.pd.c_nrm_inf)
+            else:
+                data = build_row_shards(plan, s.m, 4, torch.float64,
+                                        device="cuda")
+                step = make_row_sharded_gradient(mesh, data,
+                                                 s.pd.c_nrm_inf)
+            tot, grad, cert = step(s.R.cones[0][0], s.pd.rhs, dual, rho)
+            _, tot0 = aop.auv(s.pd, s.R, s.R)
+            g0 = aop.grad(s.pd, s.R, rho * (tot0 - s.pd.rhs) - dual)
+            c0 = aop.cert_value(s.pd, g0)
+            torch.testing.assert_close(tot, tot0, rtol=1e-9, atol=1e-10)
+            torch.testing.assert_close(grad, g0.cones[0][0], rtol=1e-9,
+                                       atol=1e-10)
+            if abs(float(cert) - float(c0)) > 1e-9 * abs(float(c0)):
+                raise AssertionError(f"{kind} gradient: cert {cert} {c0}")
+            print(f"shard nccl {'make_sharded_gradient' if kind == 'sp' else 'make_row_sharded_gradient'} "
+                  f"({name}, D=4): max |diff| total "
+                  f"{float((tot - tot0).abs().max()):.3e} grad "
+                  f"{float((grad - g0.cones[0][0]).abs().max()):.3e} cert "
+                  f"{abs(float(cert) - float(c0)):.3e} against the "
+                  f"unsharded gradient; comm {comm.counts()}  [{card}]")
+        comm.reset()
+        problem = INSTANCES["maxcut300"]()
+        base = LoradsSolver(problem, LoradsParams(verbose=False),
+                            device="cuda").solve()
+        s = LoradsSolver(problem, LoradsParams(verbose=False, shard="auto"),
+                         device="cuda")
+        res = s.solve()
+        same = (res.pobj == base.pobj and torch.equal(res.R.cones[0],
+                                                      base.R.cones[0]))
+        print(f"shard nccl shard=auto on 1 rank: mesh {s.mesh}, "
+              f"note {s.shard_note!r}, pObj {res.pobj!r} (unsharded "
+              f"{base.pobj!r}, bit for bit {same}); comm {comm.counts()}  "
+              f"[{card}]")
+        if s.mesh is not None or not same or comm.counts():
+            raise AssertionError("shard=auto on one rank is not the "
+                                 "unsharded solve")
+    finally:
+        dist.destroy_process_group()
+    counts = dict(kernels.LAUNCHES)
+    for k in PATH_KERNELS["shard blocks"]:
+        if counts[k] <= 0:
+            raise AssertionError(f"the shard building blocks never "
+                                 f"launched {k}")
+    for k in total:
+        total[k] += counts[k]
+    print(f"shard launches (the phase's solves and building blocks): "
+          f"{ {k: v for k, v in total.items() if v} }  [{card}]")
+    collective_capture_probe(card)
     return total
 
 
@@ -3467,6 +3886,8 @@ def main(argv=None) -> int:
     for k, n in extras_path(card).items():
         counts[k] += n
     for k, n in f32_path(card).items():
+        counts[k] += n
+    for k, n in shard_path(card, measure).items():
         counts[k] += n
 
     src = {"segment_sum": ("lorads_torch/csrc/segment_sum.cu",

@@ -11,13 +11,18 @@ instance's objective is reported at the end.  --checkpoint / --resume,
 do what lorads_tpu's do (lorads_tpu/__main__.py:183-229).  --dtype f32
 solves at float32 throughout; --dtype auto (the default) and f64 solve
 at float64, on the CPU and on the card alike (the H100 runs f64
-natively).  --shard other than off, which the port does not run yet,
-raises NotImplementedError.
+natively).  --shard auto|dp|sp|tp shards the solve over the ranks of a
+torchrun launch (one process per card: ``python -m torch.distributed.run
+--nproc_per_node=N -m lorads_torch FILE --shard sp``; NCCL on cards,
+gloo with --device cpu), the group read from torchrun's environment;
+only rank 0 prints the report and writes files.  Without a launch (one
+rank) the solve runs unsharded and says so.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -60,8 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--highAccMode", type=int, default=0)
     p.add_argument("--shard", choices=["off", "auto", "dp", "sp", "tp"],
                    default="off",
-                   help="multi-device placement (only off is ported; "
-                        "auto, dp, sp and tp raise)")
+                   help="multi-device placement over the ranks of a "
+                        "torchrun launch: dp (a bucket's blocks), sp (one "
+                        "sparse cone's pattern), tp (one dense cone's "
+                        "row slabs), auto (lorads_tpu's choice)")
     p.add_argument("--dualUV", type=int, default=0,
                    help="DUAL_U_V build variant: +/-S terms in the "
                         "ADMM subproblems")
@@ -120,7 +127,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.shard == "off" or int(os.environ.get("WORLD_SIZE", "1")) < 2:
+        return _main(args)
+    # a torchrun launch: one process a card, the group from its
+    # environment; the ranks but 0 print nothing
+    import torch.distributed as dist
 
+    from lorads_torch.parallel import distributed
+    distributed.init_multihost(device=args.device)
+    out = sys.stdout
+    if distributed.world()[0] != 0:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        return _main(args)
+    finally:
+        if sys.stdout is not out:
+            sys.stdout.close()
+            sys.stdout = out
+        dist.destroy_process_group()
+
+
+def _main(args) -> int:
     from lorads_torch.config import LoradsParams
     from lorads_torch.core.problem import (merge_problems,
                                            split_objectives_factors)

@@ -62,6 +62,7 @@ from lorads_torch.alg.state import FactorVec
 from lorads_torch.ops import kernels
 from lorads_torch.ops import lp as lp_ops
 from lorads_torch.ops import pattern as pat
+from lorads_torch.parallel import comm
 
 # exit codes of a chunk
 RUNNING, CONVERGED, NUM_ERR, BAD_PD, EARLY_STOP, STALLED = 0, 1, 2, 3, 4, 5
@@ -113,7 +114,7 @@ def _admm_cache(bk: pat.BucketData, x):
     """ADMM cache of one factor: C @ X for diag-identity cones (the
     closed-form update's W @ X is C @ X + (a .* w) .* X); None for every
     other bucket (the port keeps no gathered-row caches)."""
-    if aop._diag_fast(bk):
+    if aop._diag_fast(bk) and not bk.summed:
         return aop.CRCache(pat.cmul(bk, x))
     return pat.gather_cache(bk, x)
 
@@ -129,7 +130,7 @@ def _cg_operator(bk, F=None):
     def op(x, F=F):
         if bk.dense and bk.a_single_dense:
             Wop = pat.a_adj_a_dense(bk, pat.uvt_half_cached(bk, x, F, None))
-        elif bk.a_off_unique:
+        elif bk.a_off_unique and not bk.summed:
             Wop = pat.a_adj_a(bk, x, F)
         else:
             vals = pat.cone_total(bk, pat.constr_vals(bk, pat.uvt(bk, x, F)))
@@ -140,7 +141,8 @@ def _cg_operator(bk, F=None):
 
 def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
                         fixed_var, local_vals, constr_sum, dual, rho,
-                        cg_tol=1e-8, fcache=None, bk_lo=None, s_term=None):
+                        cg_tol=1e-8, fcache=None, bk_lo=None, s_term=None,
+                        mesh=None):
     """One side of the splitting for one bucket (LORADSUpdateSDPVarOne,
     lorads_admm.c:428-480): solve (I + N) x = rhs for U with V fixed.
 
@@ -153,7 +155,13 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
     tensor); with ``bk_lo`` (the bucket's f32 cast) the CG is the
     mixed-precision cg_solve_ir.  A CG loop's graphs are keyed by the
     bucket (or block slice) it runs on.  ``s_term`` (the signed DUAL_U_V
-    term, [B, n, r]) is added to M2 = W @ fixed - rho fixed.
+    term, [B, n, r]) is added to M2 = W @ fixed - rho fixed.  A summed
+    bucket's M1 subtracts the cone's total, not the shard's partial
+    (admm.py:111-113); its diag-identity parent takes the closed form
+    with W @ fixed from build_w and w_mul (admm.py:88, 136-152).
+    ``mesh``: the change of the constraint values is summed over it (a
+    block of a dp bucket in the block scan, the owner's change and the
+    others' zeros).
     Returns (new_var, new_local_vals, new_constr_sum, cg_iters,
     new_cache)."""
     base = rho * (constr_sum - pd.rhs) - dual
@@ -161,16 +169,24 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
     if aop._diag_fast(bk):
         if fcache is None:
             fcache = _admm_cache(bk, fixed_var)
-        M2 = (fcache.cr + (bk.a_val_d * w_loc)[:, :, None] * fixed_var
-              - rho * fixed_var)
+        ad = aop._adiag(bk)
+        if isinstance(fcache, aop.CRCache):
+            M2 = (fcache.cr + (ad * w_loc)[:, :, None] * fixed_var
+                  - rho * fixed_var)
+        else:
+            M2 = (pat.w_mul(bk, pat.build_w(bk, w_loc), fixed_var)
+                  - rho * fixed_var)
         rhs = _over(-(M2 if s_term is None else M2 + s_term), rho)
-        a2 = bk.a_val_d * bk.a_val_d
+        a2 = ad * ad
         vr = torch.sum(fixed_var * rhs, -1)
         vv = torch.sum(fixed_var * fixed_var, -1)
         coef = a2 * vr / (1.0 + a2 * vv)
         new_var = rhs - coef[..., None] * fixed_var
         iters = 0
-        new_local = bk.a_val_d * torch.sum(new_var * fixed_var, -1)
+        if bk.summed:
+            new_local = pat.constr_vals(bk, pat.uvt(bk, new_var, fixed_var))
+        else:
+            new_local = bk.a_val_d * torch.sum(new_var * fixed_var, -1)
     else:
         W = pat.build_w(bk, w_loc)                        # C + A*(M1)
         M2 = pat.w_mul(bk, W, fixed_var) - rho * fixed_var
@@ -187,8 +203,11 @@ def _update_sdp_var_one(pd: ProblemData, bk: pat.BucketData, update_var,
             new_var, iters = cg_solve(op, update_var, rhs, cg_tol,
                                       CG_MAX_ITER)
         new_local = pat.constr_vals(bk, pat.uvt(bk, new_var, fixed_var))
-    new_sum = constr_sum + pat.scatter_constr(bk, new_local - local_vals)
-    return new_var, new_local, new_sum, iters, _admm_cache(bk, new_var)
+    diff = pat.scatter_constr(bk, new_local - local_vals)
+    if mesh is not None:
+        diff = comm.all_reduce(diff, mesh, "block_scan")
+    return (new_var, new_local, constr_sum + diff, iters,
+            _admm_cache(bk, new_var))
 
 
 def _update_lp_var(pd: ProblemData, upd, fixed, lp_contrib, constr_sum,
@@ -227,14 +246,25 @@ def _update_lp_var_gs(pd: ProblemData, upd, fixed, lp_contrib, constr_sum,
 
 def _update_sdp_var_bucket_gs(pd: ProblemData, slices, slices_lo, upd,
                               fixed, local_vals, constr_sum, dual, rho,
-                              cg_tol, s=None):
+                              cg_tol, s=None, bk=None):
     """One side of the splitting over a bucket's blocks in sequence, each
     block seeing the constr_sum the previous ones updated -- the
     reference's sweep (lorads_alg_common.c:190-214; admm.py:279-299,
     a lax.scan there, a host loop over ``slices`` here, the
     bucket_slice views of each block); ``s`` the signed DUAL_U_V term
-    [B, n, r], block b's slice to block b.  Returns (new_var [B, n, r],
-    new_local_vals [B, m_loc], new_constr_sum, cg_iters, None)."""
+    [B, n, r], block b's slice to block b.  ``bk``: the bucket; when its
+    blocks are split over ranks (dp) every rank walks the blocks in
+    global order, the block's owner updates it, and its change of the
+    constraint values reaches every rank (one all_reduce a block,
+    zeros from the others) before the next block: the scan's order
+    and results hold across ranks, its steps one after another.
+    Returns (new_var [B, n, r], new_local_vals [B, m_loc],
+    new_constr_sum, cg_iters, None)."""
+    mesh = None if bk is None else pat.dp_mesh(bk)
+    if mesh is not None:
+        return _bucket_gs_ranks(pd, bk, mesh, slices, slices_lo, upd,
+                                fixed, local_vals, constr_sum, dual, rho,
+                                cg_tol, s)
     new_var, new_local, iters = [], [], 0
     for b, bk1 in enumerate(slices):
         u1, loc1, constr_sum, it, _ = _update_sdp_var_one(
@@ -249,6 +279,40 @@ def _update_sdp_var_bucket_gs(pd: ProblemData, slices, slices_lo, upd,
             None)
 
 
+def _bucket_gs_ranks(pd, bk, mesh, slices, slices_lo, upd, fixed,
+                     local_vals, constr_sum, dual, rho, cg_tol, s):
+    """The block scan of a dp bucket (see _update_sdp_var_bucket_gs): the
+    CG counts of the owners summed over the ranks."""
+    new_var, new_local, iters = [], [], 0
+    zero = torch.zeros_like(constr_sum)
+    for g in range(bk.B_all):
+        b = g - bk.b0
+        if not 0 <= b < bk.B:
+            constr_sum = constr_sum + comm.all_reduce(zero, mesh,
+                                                      "block_scan")
+            continue
+        u1, loc1, constr_sum, it, _ = _update_sdp_var_one(
+            pd, slices[b], upd[b:b + 1], fixed[b:b + 1],
+            local_vals[b:b + 1], constr_sum, dual, rho, cg_tol,
+            bk_lo=None if slices_lo is None else slices_lo[b],
+            s_term=None if s is None else s[b:b + 1], mesh=mesh)
+        new_var.append(u1)
+        new_local.append(loc1)
+        iters = iters + it
+    return (torch.cat(new_var), torch.cat(new_local), constr_sum,
+            _count_over(iters, mesh, "sum", zero.device), None)
+
+
+def _count_over(it, mesh, op: str, device):
+    """A CG count (an int at the top, a 0-d tensor inside a loop's step)
+    reduced over the mesh, of the same kind."""
+    t = comm.all_reduce(torch.as_tensor(it, dtype=torch.int64,
+                                        device=device), mesh, "cg_count", op)
+    if isinstance(it, torch.Tensor) or devloop.in_step():
+        return t
+    return int(dev.host_read(t, "other"))
+
+
 def sweep_plan(pd: ProblemData, jacobi=(), mixed: bool = False):
     """What a sweep needs per bucket, built once per ADMM phase:
     (buckets_lo, slices, slices_lo).  ``jacobi``: per-bucket flags (a
@@ -261,7 +325,9 @@ def sweep_plan(pd: ProblemData, jacobi=(), mixed: bool = False):
     slices, slices_lo = [], []
     for j, bk in enumerate(pd.buckets):
         jac = j < len(jacobi) and bool(jacobi[j])
-        if jac or bk.B == 1:
+        # the shard layouts' B axis holds shards of one cone: updated at
+        # once (admm.py:332)
+        if jac or pat.n_blocks(bk) == 1 or bk.summed or bk.rowshard:
             slices.append(None)
             slices_lo.append(None)
             continue
@@ -306,13 +372,19 @@ def admm_update_all(pd: ProblemData, U: FactorVec, V: FactorVec, locals_,
             v_new, loc, constr_sum, it2, vc = _update_sdp_var_one(
                 pd, bk, v_cones[j], u_new, loc, constr_sum, dual, rho,
                 cg_tol, fcache=uc, bk_lo=lo[j], s_term=s_n)
+            mesh = pat.dp_mesh(bk)
+            if mesh is not None:
+                # a batched CG's count is its slowest block's: the
+                # largest over the ranks
+                it1 = _count_over(it1, mesh, "max", constr_sum.device)
+                it2 = _count_over(it2, mesh, "max", constr_sum.device)
         else:
             u_new, loc, constr_sum, it1, uc = _update_sdp_var_bucket_gs(
                 pd, slices[j], slices_lo[j], u_cones[j], v_cones[j],
-                locals_[j], constr_sum, dual, rho, cg_tol, s=s_j)
+                locals_[j], constr_sum, dual, rho, cg_tol, s=s_j, bk=bk)
             v_new, loc, constr_sum, it2, vc = _update_sdp_var_bucket_gs(
                 pd, slices[j], slices_lo[j], v_cones[j], u_new, loc,
-                constr_sum, dual, rho, cg_tol, s=s_n)
+                constr_sum, dual, rho, cg_tol, s=s_n, bk=bk)
         u_cones[j], v_cones[j] = u_new, v_new
         u_caches[j], v_caches[j] = uc, vc
         locals_[j] = loc

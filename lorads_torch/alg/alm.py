@@ -160,7 +160,7 @@ def _inner_step(pd: ProblemData, check_pinf_conv: bool, refresh_every: int,
         dual, rho, _, _, end_tau_tol = inp[:5]
         R, grad, hist, caches, cs, cert, pinf, it = st[:8]
         hist = history_reset(hist, it % 300 == 0)
-        D = lbfgs_direction(hist, grad)
+        D = lbfgs_direction(hist, grad, pd)
         q0 = pd.rhs - cs
         p1, q1, p2, q2, dcaches = aop.obj_and_auv_pair_cached(
             pd, R, D, caches)
@@ -188,7 +188,7 @@ def _inner_step(pd: ProblemData, check_pinf_conv: bool, refresh_every: int,
             can, total = fresh() if refresh else keep
         w = rho * (cs_inc - pd.rhs) - dual
         gn = aop.grad_cached(pd, Rn, w, can)
-        hist = history_push(hist, D.scale(tau_n), y0 + gn, ok)
+        hist = history_push(hist, D.scale(tau_n), y0 + gn, ok, pd)
         pinf_n = aop.primal_infeas_l1(pd, total)
         cert_n = aop.cert_value(pd, gn)
         caches = tuple(c if c is None else aop.CRCache(
@@ -199,7 +199,7 @@ def _inner_step(pd: ProblemData, check_pinf_conv: bool, refresh_every: int,
         if not trace:
             return out
         buf, row = st[11:13]
-        rec = torch.stack([torch.sqrt(fv_norm2sq(D)), tau_n,
+        rec = torch.stack([torch.sqrt(fv_norm2sq(D, pd)), tau_n,
                            ok.to(tau_n.dtype), torch.ones_like(tau_n)])
         buf = buf.index_copy(0, row.reshape(1),
                              rec.to(buf.dtype).reshape(1, 4))

@@ -26,6 +26,7 @@ import torch
 
 from lorads_torch.alg.state import FactorVec, fv_norm2sq
 from lorads_torch.core.presolve import Presolved
+from lorads_torch.ops import kernels
 from lorads_torch.ops import lp as lp_ops
 from lorads_torch.ops import pattern as pat
 
@@ -51,9 +52,14 @@ class ProblemData:
         return len(self.buckets)
 
 
-def build_problem_data(ps: Presolved, dtype, device) -> ProblemData:
-    buckets = tuple(pat.build_bucket_data(bp, ps.m, dtype, device)
-                    for bp in ps.buckets)
+def build_problem_data(ps: Presolved, dtype, device,
+                       buckets=None) -> ProblemData:
+    """The presolve's problem data on ``device``; ``buckets`` (a sharded
+    solve's placed buckets) in place of the buckets built from the
+    plans."""
+    if buckets is None:
+        buckets = tuple(pat.build_bucket_data(bp, ps.m, dtype, device)
+                        for bp in ps.buckets)
     lpd = (lp_ops.build_lp_data(ps.problem.lp, dtype, device)
            if ps.problem.lp is not None else None)
     return ProblemData(
@@ -72,8 +78,36 @@ def scale_objective(pd: ProblemData, s: float) -> ProblemData:
 
 
 def _diag_fast(bk) -> bool:
-    """Static gate of the diag-identity fast path."""
-    return bk.split and bk.diag_ident
+    """Static gate of the diag-identity fast path (aop.py:213-223): a
+    diag-identity bucket, or the summed shards of a diag-identity parent
+    cone (``diag_parent``: each shard's own diag_ident is False, but
+    A(.) and A^*(.) stay elementwise with the full diagonal map, and
+    C @ R sums over the shards inside cmul)."""
+    return bk.split and ((bk.diag_ident and not bk.summed)
+                         or bk.diag_parent)
+
+
+def _adiag(bk):
+    """The diagonal constraint coefficients by row: [B, n], or a
+    diag-parent's full map [1, n] (aop.py:226-230)."""
+    return bk.a_val_d_full[:1] if bk.diag_parent else bk.a_val_d
+
+
+def _scatter_diag(bk, vals):
+    """Diag-fast constraint values [B or 1, m_loc] into the m-vector
+    (aop.py:233-241): a diag-parent's values come whole from the
+    factors, the same on every shard and rank, so they scatter once
+    (shard 0's slots, kernel K4) with no sum over shards."""
+    if bk.diag_parent:
+        return kernels.gather_segsum(vals.reshape(1, -1), bk.diag_scat_idx,
+                                     bk.diag_scat_val, bk.bnd_diag_scat)[0]
+    return pat.scatter_constr(bk, vals)
+
+
+def _wloc_diag(bk, w_loc):
+    """A diag-parent's gathered w_loc is the same on every shard: its
+    first row (aop.py:244-246)."""
+    return w_loc[:1] if bk.diag_parent else w_loc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +143,7 @@ def obj_and_auv(pd: ProblemData, X: FactorVec, Y: FactorVec):
     obj = _zero(pd)
     for bk, U, V in zip(pd.buckets, X.cones, Y.cones):
         uvt_val = pat.uvt(bk, U, V)
-        obj = obj + torch.sum(pat.obj_inner(bk, uvt_val))
+        obj = obj + pat.shard_sum(bk, pat.obj_inner(bk, uvt_val), "obj")
         vals = pat.constr_vals(bk, uvt_val)
         locals_.append(vals)
         total = total + pat.scatter_constr(bk, vals)
@@ -124,7 +158,8 @@ def obj_only(pd: ProblemData, X: FactorVec, Y: FactorVec) -> torch.Tensor:
     """<C, sym(XY^T)> (LORADSCalObjRR_ALM, lorads_alm.c:1259)."""
     obj = _zero(pd)
     for bk, U, V in zip(pd.buckets, X.cones, Y.cones):
-        obj = obj + torch.sum(pat.obj_inner(bk, pat.uvt(bk, U, V)))
+        obj = obj + pat.shard_sum(bk, pat.obj_inner(bk, pat.uvt(bk, U, V)),
+                                  "obj")
     if pd.lp is not None:
         obj = obj + lp_ops.obj_inner(pd.lp, X.lp * Y.lp)
     return obj
@@ -158,17 +193,18 @@ def obj_and_auv_pair_cached(pd: ProblemData, R: FactorVec, D: FactorVec,
         if isinstance(cache, CRCache):
             cd = pat.cmul(bk, Db)
             dcaches.append(CRCache(cd))
-            p1 = p1 + 0.5 * (torch.sum(Rb * cd) + torch.sum(Db * cache.cr))
-            p2 = p2 + torch.sum(Db * cd)
-            t1 = t1 + pat.scatter_constr(
-                bk, bk.a_val_d * torch.sum(Rb * Db, -1))
-            t2 = t2 + pat.scatter_constr(
-                bk, bk.a_val_d * torch.sum(Db * Db, -1))
+            p1 = p1 + 0.5 * (pat.factor_sum(bk, Rb * cd, "obj")
+                             + pat.factor_sum(bk, Db * cache.cr, "obj"))
+            p2 = p2 + pat.factor_sum(bk, Db * cd, "obj")
+            t1 = t1 + _scatter_diag(
+                bk, _adiag(bk) * torch.sum(Rb * Db, -1))
+            t2 = t2 + _scatter_diag(
+                bk, _adiag(bk) * torch.sum(Db * Db, -1))
             continue
         (uv_rd, uv_dd), dc = pat.uvt_pair_cached(bk, Rb, Db, cache)
         dcaches.append(dc)
-        p1 = p1 + torch.sum(pat.obj_inner(bk, uv_rd))
-        p2 = p2 + torch.sum(pat.obj_inner(bk, uv_dd))
+        p1 = p1 + pat.shard_sum(bk, pat.obj_inner(bk, uv_rd), "obj")
+        p2 = p2 + pat.shard_sum(bk, pat.obj_inner(bk, uv_dd), "obj")
         t1 = t1 + pat.scatter_constr(bk, pat.constr_vals(bk, uv_rd))
         t2 = t2 + pat.scatter_constr(bk, pat.constr_vals(bk, uv_dd))
     if pd.lp is not None:
@@ -186,9 +222,10 @@ def auv_cached(pd: ProblemData, R: FactorVec, caches) -> torch.Tensor:
     total = torch.zeros_like(pd.rhs)
     for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
         if isinstance(cache, CRCache):
-            vals = bk.a_val_d * torch.sum(Rb * Rb, -1)
-        else:
-            vals = pat.constr_vals(bk, pat.uvt_from_cache(bk, Rb, cache))
+            total = total + _scatter_diag(
+                bk, _adiag(bk) * torch.sum(Rb * Rb, -1))
+            continue
+        vals = pat.constr_vals(bk, pat.uvt_from_cache(bk, Rb, cache))
         total = total + pat.scatter_constr(bk, vals)
     if pd.lp is not None:
         total = total + lp_ops.constr_vals(pd.lp, R.lp * R.lp)
@@ -202,12 +239,14 @@ def obj_and_auv_cached(pd: ProblemData, R: FactorVec, caches):
     obj = _zero(pd)
     for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
         if isinstance(cache, CRCache):
-            obj = obj + torch.sum(Rb * cache.cr)
-            vals = bk.a_val_d * torch.sum(Rb * Rb, -1)
-        else:
-            uv = pat.uvt_from_cache(bk, Rb, cache)
-            obj = obj + torch.sum(pat.obj_inner(bk, uv))
-            vals = pat.constr_vals(bk, uv)
+            obj = obj + pat.factor_sum(bk, Rb * cache.cr, "obj")
+            vals = _adiag(bk) * torch.sum(Rb * Rb, -1)
+            locals_.append(vals)
+            total = total + _scatter_diag(bk, vals)
+            continue
+        uv = pat.uvt_from_cache(bk, Rb, cache)
+        obj = obj + pat.shard_sum(bk, pat.obj_inner(bk, uv), "obj")
+        vals = pat.constr_vals(bk, uv)
         locals_.append(vals)
         total = total + pat.scatter_constr(bk, vals)
     if pd.lp is not None:
@@ -222,10 +261,10 @@ def obj_cached(pd: ProblemData, R: FactorVec, caches) -> torch.Tensor:
     obj = _zero(pd)
     for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
         if isinstance(cache, CRCache):
-            obj = obj + torch.sum(Rb * cache.cr)
+            obj = obj + pat.factor_sum(bk, Rb * cache.cr, "obj")
         else:
-            obj = obj + torch.sum(pat.obj_inner(
-                bk, pat.uvt_from_cache(bk, Rb, cache)))
+            obj = obj + pat.shard_sum(bk, pat.obj_inner(
+                bk, pat.uvt_from_cache(bk, Rb, cache)), "obj")
     if pd.lp is not None:
         obj = obj + lp_ops.obj_inner(pd.lp, R.lp * R.lp)
     return obj
@@ -241,8 +280,8 @@ def grad_cached(pd: ProblemData, R: FactorVec, w: torch.Tensor,
     for bk, Rb, cache in zip(pd.buckets, R.cones, caches):
         w_loc = pat.gather_w(bk, w)
         if isinstance(cache, CRCache):
-            cones.append(2.0 * (cache.cr
-                                + (bk.a_val_d * w_loc)[:, :, None] * Rb))
+            cones.append(2.0 * (cache.cr + (
+                _adiag(bk) * _wloc_diag(bk, w_loc))[:, :, None] * Rb))
             continue
         W = pat.build_w(bk, w_loc)
         cones.append(2.0 * pat.w_mul_cached(bk, W, Rb, cache))
@@ -261,7 +300,7 @@ def grad(pd: ProblemData, R: FactorVec, w: torch.Tensor) -> FactorVec:
 
 def cert_value(pd: ProblemData, g: FactorVec) -> torch.Tensor:
     """The ALM certificate ||g|| / (1 + ||C||_inf)."""
-    return torch.sqrt(fv_norm2sq(g)) / (1.0 + pd.c_nrm_inf)
+    return torch.sqrt(fv_norm2sq(g, pd)) / (1.0 + pd.c_nrm_inf)
 
 
 def primal_infeas_l1(pd: ProblemData, total: torch.Tensor) -> torch.Tensor:

@@ -35,7 +35,10 @@ step a loop runs through ``nest``; at the top through ``run``:
   body: each body adds one to a device counter, and the counters ride at
   the end of the top-level graph's pack.
 
-A capture that fails raises (a host read inside it, for one: see
+A sharded solve's steps issue NCCL collectives (parallel/comm.py); they
+are captured with the rest of a step, WHILE bodies included (an
+all_reduce's replay is bit for bit its eager run on one rank: chip_smoke's
+``shard capture`` line).  A capture that fails raises (a host read inside it, for one: see
 ``device.host_read``); nothing falls back to an eager loop.  A step's
 scalars must be device tensors: a Python float would be frozen into the
 graph.  Graphs live until ``drop``: the solver's phases run inside

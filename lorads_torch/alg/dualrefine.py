@@ -74,7 +74,7 @@ def cgnr_loop(pd, R: FactorVec, dual: torch.Tensor, n_iter,
         return aop.auv(pd, Y, Rw)[1]
 
     r0 = CR.axpy(-1.0, M(R, CR, dual))           # S(dual) R
-    ls0 = fv_norm2sq(r0)
+    ls0 = fv_norm2sq(r0, pd)
     r = _proj(rhs, bb, Mt(R, r0))
     rs = torch.dot(r, r)
     inputs = (R, CR, dual, bb, rel_tol * rel_tol * rs, ls0,
@@ -99,7 +99,7 @@ def cgnr_loop(pd, R: FactorVec, dual: torch.Tensor, n_iter,
 
     def pack(inp, st):
         Rw, CRw, d, _, _, ls0_, _ = inp
-        ls1 = fv_norm2sq(CRw.axpy(-1.0, M(Rw, CRw, d + st[0])))
+        ls1 = fv_norm2sq(CRw.axpy(-1.0, M(Rw, CRw, d + st[0])), pd)
         return torch.stack([st[4].to(ls1.dtype), torch.sqrt(ls0_),
                             torch.sqrt(ls1)]).to(torch.float64)
 

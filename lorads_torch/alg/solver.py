@@ -26,8 +26,10 @@ at float64 on the CPU and on the card alike (the H100 runs f64
 natively; lorads_tpu starts f32 only where f64 is emulated), and an
 auto solve that was started at f32 (``_auto_dtype`` set, as lorads_tpu's
 tests do) escalates to f64 at lorads_tpu's hooks
-(``maybe_escalate_f64``).  Sharded placement raises NotImplementedError
-at construction rather than taking another path.
+(``maybe_escalate_f64``).  ``shard`` (``dp``, ``sp``, ``tp``, ``auto``)
+places buckets on the mesh of the ranks of the default process group
+(lorads_tpu's GSPMD placement as explicit collectives, parallel/comm.py;
+``_maybe_shard``); with fewer than 2 ranks the solve runs unsharded.
 Initial factors and certificate start vectors come from the same
 ``np.random.default_rng`` stream, in the same order, as in lorads_tpu,
 so both packages start from the same point.
@@ -35,6 +37,7 @@ so both packages start from the same point.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -59,6 +62,7 @@ from lorads_torch.core.presolve import Presolved, presolve
 from lorads_torch.core.problem import SDPProblem
 from lorads_torch.ops import lp as lp_ops
 from lorads_torch.ops import pattern as pat
+from lorads_torch.parallel import comm
 
 
 @dataclasses.dataclass
@@ -80,13 +84,30 @@ class SolveResult:
     dual: np.ndarray
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} not yet ported to lorads_torch")
+SHARD_MODES = ("off", "auto", "dp", "sp", "tp")
 
 
 def _check_params(p: LoradsParams) -> None:
-    if p.shard != "off":
-        raise _not_ported(f"shard={p.shard!r}")
+    if p.shard not in SHARD_MODES:
+        raise ValueError(f"shard={p.shard!r} is not one of {SHARD_MODES}")
+
+
+def shard_choice(mode: str, nd: int, buckets):
+    """Which buckets (presolve BucketPlans) each layout takes on an
+    ``nd``-rank mesh -> (dp, sp, tp) lists of bools: lorads_tpu's rules
+    (solver.py:207-228).  dp: the blocks divide over the ranks; sp: one
+    large sparse cone (K >= 16 nd); tp: one dense cone, any with
+    n >= 2 nd when asked for, from n >= 4096 under auto."""
+    dp_ok = [mode in ("auto", "dp") and bp.B % nd == 0 and bp.B >= nd
+             for bp in buckets]
+    sp_ok = [mode in ("auto", "sp") and not dp and not bp.dense
+             and bp.B == 1 and bp.K >= 16 * nd
+             for bp, dp in zip(buckets, dp_ok)]
+    tp_ok = [bp.dense and bp.B == 1 and not dp and not sp
+             and ((mode == "tp" and bp.n >= 2 * nd)
+                  or (mode == "auto" and bp.n >= 4096))
+             for bp, dp, sp in zip(buckets, dp_ok, sp_ok)]
+    return dp_ok, sp_ok, tp_ok
 
 
 class LoradsSolver:
@@ -111,12 +132,17 @@ class LoradsSolver:
         self.escalations = []
         dev.assert_full_precision()
         self.ps: Presolved = presolve(problem, self.params)
-        self.pd = self._problem_data(self.dtype)
         self.m = problem.m
+        # the shard layouts, chosen from the presolve's plans before any
+        # data reaches the device (_shard_layout, _maybe_shard)
+        self._shard_layout()
+        self.pd = self._problem_data(self.dtype)
         if self.params.alm_rho_factor is None:
-            # structure-based auto (see LoradsParams.alm_rho_factor)
+            # structure-based auto (see LoradsParams.alm_rho_factor); a
+            # diag-parent's shards stand for their diag-identity cone
             pure_diag = (self.pd.lp is None and bool(self.pd.buckets)
-                         and all(bk.diag_ident for bk in self.pd.buckets))
+                         and all(bk.diag_ident or bk.diag_parent
+                                 for bk in self.pd.buckets))
             self.params = dataclasses.replace(
                 self.params, alm_rho_factor=3.0 if pure_diag else 2.0)
         self.scale_obj_his = 1.0
@@ -167,6 +193,8 @@ class LoradsSolver:
         # host reads by label made inside the solve's ADMM phases
         self.admm_reads_by = {}
         self._init_vars()
+        # the factors' placement (_maybe_shard)
+        self._maybe_shard()
         # buckets whose blocks touch pairwise-disjoint constraint sets
         # (merged batches, block-diagonal problems) sweep their blocks
         # at once in ADMM: exactly the Gauss-Seidel update there
@@ -179,15 +207,148 @@ class LoradsSolver:
 
     def _problem_data(self, dtype):
         """The ProblemData at ``dtype``, memoized per (presolve, dtype)
-        (solver.py:174-186).  A solver's presolve is its own, so the memo
-        serves checkpoint loads (utils/checkpoint.py); an escalation
-        finds no f64 entry and builds it from the presolve, never by
-        widening the f32 cast, and evicts the f32 entry."""
+        (solver.py:174-186) and, in a sharded solve, per layout: a
+        sharded solve keeps only its placed data (_placed).  A solver's
+        presolve is its own, so the memo serves checkpoint loads
+        (utils/checkpoint.py); an escalation finds no f64 entry and
+        builds it from the presolve, never by widening the f32 cast (the
+        shard layouts too), and evicts the f32 entry."""
         cache = self.ps.__dict__.setdefault("_pd_cache", {})
         key = (dtype, self.device)
+        if self._layout is not None:
+            key += (self._layout,)
         if key not in cache:
-            cache[key] = aop.build_problem_data(self.ps, dtype, self.device)
+            cache[key] = (aop.build_problem_data(self.ps, dtype, self.device)
+                          if self._layout is None else self._placed(dtype))
         return cache[key]
+
+    # ------------------------------------------------------------------
+    # Sharding (solver.py:188-279): the layouts and their placement.
+    # ------------------------------------------------------------------
+
+    def _shard_layout(self):
+        """Choose the shard layouts (shard_choice, on the presolve's
+        plans) on the mesh of the first ``n_devices`` ranks of the default
+        process group: ``self._layout`` (nd, dp, sp, tp) and ``self.mesh``,
+        or None with fewer than 2 ranks (the solve runs unsharded, as
+        lorads_tpu's does on one device, and says so) or no bucket that
+        qualifies.  ``self.shard_note`` is the log line."""
+        mode = self.params.shard
+        self.mesh = self._layout = self.shard_note = None
+        if mode == "off":
+            return
+        from lorads_torch.parallel import distributed
+        _, size = distributed.world()
+        nd = size if self.params.n_devices is None else min(
+            int(self.params.n_devices), size)
+        if nd < 2:
+            self.shard_note = (f"sharding: shard={mode} on {nd} rank: "
+                               "unsharded")
+            return
+        dp_ok, sp_ok, tp_ok = shard_choice(mode, nd, self.ps.buckets)
+        if not any(dp_ok) and not any(sp_ok) and not any(tp_ok):
+            self.shard_note = (f"sharding: shard={mode} on {nd} ranks: no "
+                               "bucket qualifies, unsharded")
+            return
+        self.mesh = distributed.solver_mesh(nd, self.device)
+        self._layout = (nd, tuple(dp_ok), tuple(sp_ok), tuple(tp_ok))
+        self.shard_note = (
+            f"sharding: {nd}-device mesh, "
+            f"dp buckets {[i for i, ok in enumerate(dp_ok) if ok]}, "
+            f"sp buckets {[i for i, ok in enumerate(sp_ok) if ok]}, "
+            f"tp buckets {[i for i, ok in enumerate(tp_ok) if ok]}")
+
+    def _maybe_shard(self):
+        """Log the layout and place the factors on its mesh: a dp
+        bucket's factor blocks split over the ranks (each rank keeps its
+        rows of the whole random start), an sp or tp bucket's factors
+        whole.  Only rank 0 logs."""
+        if self.shard_note is not None and self.is_root:
+            self.log(self.shard_note)
+        if self._layout is None:
+            return
+        if not self.is_root:
+            self.log = lambda *a, **k: None
+        if self.scale_obj_his != 1.0:
+            self.pd = aop.scale_objective(self.pd, self.scale_obj_his)
+        self.R, self.U, self.V, self.S = (self._local_fv(fv) for fv in (
+            self.R, self.U, self.V, self.S))
+        self.hist = make_history(self.R, self.lbfgs_len)
+
+    def _placed(self, dtype):
+        """The unscaled ProblemData at ``dtype`` with every bucket of the
+        layout placed on the mesh: a dp bucket built whole on the host
+        and this rank's blocks moved to the device, an sp or tp bucket
+        rebuilt from the raw plan on the host as a summed or rowshard
+        layout and this rank's shards moved (pattern.local_bucket); the
+        other buckets built on the device.  No bucket of the layout is
+        ever whole on the device."""
+        from lorads_torch.parallel.pattern_sharded import (
+            build_pattern_shards)
+        from lorads_torch.parallel.row_sharded import build_rowshard_bucket
+        nd, dp_ok, sp_ok, tp_ok = self._layout
+        buckets = []
+        for bp, dp, sp, tp in zip(self.ps.buckets, dp_ok, sp_ok, tp_ok):
+            if sp:
+                bk = build_pattern_shards(bp.plans[0], self.m, nd, dtype,
+                                          summed=True, device="cpu")
+            elif tp:
+                bk = build_rowshard_bucket(bp.plans[0], self.m, nd, dtype,
+                                           device="cpu")
+            elif dp:
+                bk = pat.build_bucket_data(bp, self.m, dtype, "cpu")
+            else:
+                buckets.append(pat.build_bucket_data(bp, self.m, dtype,
+                                                     self.device))
+                continue
+            buckets.append(pat.local_bucket(bk, self.mesh, self.device))
+        return aop.build_problem_data(self.ps, dtype, self.device,
+                                      buckets=tuple(buckets))
+
+    def _dp_meshes(self):
+        """Per bucket, the mesh its blocks are split over (dp), or None."""
+        return [pat.dp_mesh(bk) for bk in self.pd.buckets]
+
+    def _local_fv(self, fv: FactorVec) -> FactorVec:
+        """This rank's blocks of a whole FactorVec's dp cones."""
+        return FactorVec(tuple(
+            x if m is None else x[bk.b0:bk.b0 + bk.B].contiguous()
+            for x, m, bk in zip(fv.cones, self._dp_meshes(),
+                                self.pd.buckets)), fv.lp)
+
+    def _gather_fv(self, fv: FactorVec) -> FactorVec:
+        """A FactorVec whole on every rank: its dp cones gathered."""
+        return FactorVec(tuple(
+            x if m is None else comm.all_gather(x, m, "gather_factors")
+            for x, m in zip(fv.cones, self._dp_meshes())), fv.lp)
+
+    @contextlib.contextmanager
+    def _unplaced(self):
+        """Run the body on the whole problem data and gathered factors
+        when dp buckets are placed (every rank the same work): the dual
+        refinement, checkpoints; the placed state comes back after."""
+        if not any(m is not None for m in self._dp_meshes()):
+            yield
+            return
+        saved = (self.pd, self.R, self.U, self.V, self.S, self._layout)
+        self.R, self.U, self.V, self.S = (self._gather_fv(fv) for fv in (
+            self.R, self.U, self.V, self.S))
+        self._layout = None
+        # built for the body alone: the memo keeps the placed data only
+        self.pd = aop.build_problem_data(self.ps, self.dtype, self.device)
+        if self.scale_obj_his != 1.0:
+            self.pd = aop.scale_objective(self.pd, self.scale_obj_his)
+        try:
+            yield
+        finally:
+            (self.pd, self.R, self.U, self.V, self.S,
+             self._layout) = saved
+
+    @property
+    def is_root(self) -> bool:
+        """Rank 0 of the mesh (or no mesh): the one that logs the report
+        and writes files."""
+        return self.mesh is None or self.mesh.index == 0
 
     # ------------------------------------------------------------------
     # Variables.
@@ -538,7 +699,9 @@ class LoradsSolver:
         self.log(f"escalating to float64 ({reason})")
         devloop.drop()
         # the f32 data go with their graphs: nothing reads them again
-        self.ps.__dict__["_pd_cache"].pop((self.dtype, self.device), None)
+        cache = self.ps.__dict__["_pd_cache"]
+        for k in [k for k in cache if k[:2] == (self.dtype, self.device)]:
+            cache.pop(k)
         self._admm_plan = (None, None)
         self.dtype = torch.float64
         self.pd = self._problem_data(self.dtype)
@@ -577,9 +740,14 @@ class LoradsSolver:
                  "\t 4.sdp block dims:              : "
                  + ",".join(f"{pl.dim:3d}" for _, _, pl in plans) + ","]
         for bp, bk, pl in plans:
-            mode = ("sparse(diag-identity fast path)" if bk.diag_ident
+            mode = ("sparse(diag-identity fast path)"
+                    if bk.diag_ident or bk.diag_parent
                     else "dense(full lower triangle)" if bk.dense
                     else "sparse(union pattern)")
+            if bk.summed:
+                mode += " sharded(sp)"
+            if bk.rowshard:
+                mode += " sharded(tp: row slabs)"
             tri = pl.dim * (pl.dim + 1) // 2
             lines.append(f"iCone:{pl.index}")
             lines.append(
@@ -597,7 +765,7 @@ class LoradsSolver:
         original block order, and the LP column values u .* u (or None)
         (solver.py:807-825): float64 numpy arrays, one host read per
         bucket."""
-        R = R if R is not None else self.R
+        R = self._gather_fv(R if R is not None else self.R)
         out = [None] * len(self.ps.plans)
         for bp, Rb in zip(self.ps.buckets, R.cones):
             Rh = np.asarray(dev.host_read(Rb.double(), "other"), np.float64)
@@ -626,7 +794,8 @@ class LoradsSolver:
             arrs[f"f{i}"] = f
         if lp_vals is not None:
             arrs["lp"] = lp_vals
-        np.savez_compressed(path, **arrs)
+        if self.is_root:
+            np.savez_compressed(path, **arrs)
 
     def set_initial_factors(self, factors, lp_vals=None,
                             dual=None) -> None:
@@ -638,7 +807,7 @@ class LoradsSolver:
         values x (factored as u = sqrt(x)); ``dual``: the UNSCALED dual
         (SolveResult.dual)."""
         cones = []
-        for bp, Rb in zip(self.ps.buckets, self.R.cones):
+        for bp, Rb in zip(self.ps.buckets, self._gather_fv(self.R).cones):
             new = np.zeros(tuple(Rb.shape))
             r = Rb.shape[2]
             for b, plan in enumerate(bp.plans):
@@ -661,7 +830,7 @@ class LoradsSolver:
             if np.any(x < -1e-12):
                 raise ValueError("lp_vals must be nonnegative")
             lp = self._tensor(np.sqrt(np.maximum(x, 0.0)))
-        fv = FactorVec(tuple(cones), lp)
+        fv = self._local_fv(FactorVec(tuple(cones), lp))
         self.R = fv
         self.U = fv
         self.V = fv
@@ -674,12 +843,19 @@ class LoradsSolver:
              phase: str = "alm") -> None:
         """Checkpoint: utils/checkpoint.save_checkpoint."""
         from lorads_torch.utils.checkpoint import save_checkpoint
-        save_checkpoint(path, self, alm_stats, admm_stats, phase)
+        with self._unplaced():         # the gathered state, rank 0 writes
+            save_checkpoint(path, self, alm_stats, admm_stats, phase,
+                            write=self.is_root)
 
     def load(self, path: str) -> dict:
         """Restore a checkpoint (either package's): returns its meta."""
         from lorads_torch.utils.checkpoint import load_checkpoint
-        return load_checkpoint(path, self)
+        meta = load_checkpoint(path, self)
+        # a dp rank keeps its blocks of the whole state
+        self.R, self.U, self.V, self.S = (self._local_fv(fv) for fv in (
+            self.R, self.U, self.V, self.S))
+        self.hist = make_history(self.R, self.lbfgs_len)
+        return meta
 
     # ------------------------------------------------------------------
     # Dual infeasibility certificate.
@@ -695,18 +871,24 @@ class LoradsSolver:
         v0s = []
         for j, (bk, bp) in enumerate(zip(self.pd.buckets,
                                          self.ps.buckets)):
+            # one logical cone per shard layout (solver.py:920-935); a
+            # dp bucket's vectors are drawn whole and sliced, so every
+            # rank draws the same stream
+            b_eff = _b_eff(bk)
+            lo, hi = (bk.b0, bk.b0 + bk.B) if pat.dp_mesh(bk) else (0, b_eff)
             pv = prev[j] if prev is not None else None
             mask = (np.arange(bk.n)[None, :]
-                    < np.asarray(bp.dims)[:bk.B, None])
-            if (pv is not None and pv.shape[0] == bk.B
+                    < np.asarray(bp.dims)[:b_eff, None])
+            if (pv is not None and pv.shape[0] == b_eff
                     and pv.shape[-1] == bk.n):
-                noise = 1e-3 * self._rng.standard_normal((bk.B, bk.n)) \
+                noise = 1e-3 * self._rng.standard_normal((b_eff, bk.n)) \
                     * mask
-                v0s.append(pv[:, 0, :].to(self.dtype) + self._tensor(noise))
+                v0s.append(pv[lo:hi, 0, :].to(self.dtype)
+                           + self._tensor(noise[lo:hi]))
                 continue
-            v0 = self._rng.standard_normal((bk.B, bk.n))
+            v0 = self._rng.standard_normal((b_eff, bk.n))
             v0 *= mask
-            v0s.append(self._tensor(v0))
+            v0s.append(self._tensor(v0[lo:hi]))
         lams, restarts, vecs, lams_k = _dual_infeas_device(
             self.pd, self.dual, v0s)
         lp_part = _lp_dual_part(self.pd, self.dual)
@@ -793,7 +975,7 @@ class LoradsSolver:
         repairable = 0.0
         floor = -1e-14 * max(1.0, float(self.pd.c_nrm_inf))
         for bk, bp, lam in zip(self.pd.buckets, self.ps.buckets, lams):
-            for b in range(bk.B):
+            for b in range(_b_eff(bk)):
                 d = dirs[bp.plans[b].index]
                 lam_b = float(lam[b])
                 if d is None or lam_b >= floor:
@@ -928,7 +1110,8 @@ class LoradsSolver:
         status = SolverStatus.UNKNOWN
 
         self.log("Start solving by ALM and ADMM")
-        self.log(dev.backend_report(self.device, self.dtype))
+        self.log(dev.backend_report(self.device, self.dtype)
+                 + (f"; {self.shard_note}" if self.shard_note else ""))
         if self.device.type == "cuda" and devloop.tracing():
             self.log("device trace: the ALM, ADMM, CG and CGNR loops run "
                      "eagerly (a host read a step), so that the trace "
@@ -990,7 +1173,8 @@ class LoradsSolver:
                     p.phase2_tol if p.high_acc_mode
                     else 5 * p.phase2_tol)):
             t_di = time.time()
-            self._try_dual_refine(admm_stats)
+            with self._unplaced():     # dp: every rank, whole data
+                self._try_dual_refine(admm_stats)
             dual_infeas_time += time.time() - t_di
 
         # reopt level 2 (main.c:414-476)
@@ -1039,9 +1223,11 @@ class LoradsSolver:
             else:
                 status = SolverStatus.MAXITER
 
-        # the certified DIMACS numbers are for X_bar = avg(U, V)
+        # the certified DIMACS numbers are for X_bar = avg(U, V); every
+        # rank returns it whole
         Rbar = self.U.average(self.V)
         self.R = Rbar
+        Rbar = self._gather_fv(Rbar)
         pinf_inf = self.pinf_l1 * (1 + self.pd.b_nrm1) / (
             1 + self.pd.b_nrm_inf)
         dual = np.asarray(dev.host_read(self.dual, "other"), np.float64)
@@ -1139,8 +1325,23 @@ def _exact_min_eig(Wn: torch.Tensor):
 
 
 def _eig_rescue_ok(bk) -> bool:
-    """Small slack blocks get the exact eigh."""
-    return bk.n <= _DENSE_EIG_DIM and bk.B * bk.n * bk.n <= _DENSE_EIG_BUDGET
+    """Small slack blocks get the exact eigh; a shard layout's never does
+    (solver.py:1494-1499)."""
+    return (not bk.summed and not bk.rowshard and bk.n <= _DENSE_EIG_DIM
+            and bk.B * bk.n * bk.n <= _DENSE_EIG_BUDGET)
+
+
+def _b_eff(bk) -> int:
+    """The certificate's blocks of a bucket: one logical cone for a shard
+    layout, every block of a dp bucket (solver.py:920, 1139)."""
+    return 1 if bk.summed or bk.rowshard else pat.n_blocks(bk)
+
+
+def _cone_max(bk, ws):
+    """A shard layout's normalization: the largest over its shards (and
+    ranks), the same on every shard (solver.py:1532-1572)."""
+    return comm.all_reduce(torch.amax(ws).reshape(1), bk.mesh, "cert_ws",
+                           op="max")
 
 
 # f64 bucket id -> (a weak reference to it, its f32 cast): the Lanczos
@@ -1184,7 +1385,13 @@ def _slack_operator(bk, w_loc):
     # W = C - A^*(lambda) (kernel K4), normalized per block: |lambda|
     # grows with rho, and an un-normalized f32 Lanczos sweep can
     # overflow (eigenvalues rescale back exactly)
-    if bk.dense:
+    if bk.rowshard:
+        # this rank's slack row slabs [B, n_loc, n], normalized by the
+        # cone's largest entry; mv is the row-distributed dsymm
+        W = pat.build_w(bk, w_loc)
+        ws = torch.clamp(_cone_max(bk, torch.abs(W)), min=1e-30)
+        Wn = (W / ws,)
+    elif bk.dense:
         # full [B, n, n] slack (solver.py:1547-1556)
         W = pat.build_w(bk, w_loc)
         ws = torch.clamp(torch.amax(torch.abs(W), dim=(1, 2)), min=1e-30)
@@ -1196,12 +1403,18 @@ def _slack_operator(bk, w_loc):
         ws = torch.clamp(torch.maximum(torch.amax(torch.abs(W_d), dim=1),
                                        torch.amax(torch.abs(W_o), dim=1)),
                          min=1e-30)
+        if bk.summed:
+            # one logical cone: every shard rescales by the same
+            ws = _cone_max(bk, ws).expand(bk.B)
         Wn = (W_d / ws[:, None], W_o / ws[:, None])
         if _eig_rescue_ok(bk):
             return "eigh", pat.densify_w(bk, Wn), ws
+        if bk.summed:
+            ws = ws[:1]
 
     def mv(x, *Wn, bk=bk):
-        # W @ x at r = 1 (kernel K5, or torch.matmul on dense buckets)
+        # W @ x at r = 1 (kernel K5, or torch.matmul on dense buckets;
+        # on the shard layouts x is the cone's [1, n])
         W = Wn[0] if bk.dense else Wn
         return pat.w_mul(bk, W, x[:, :, None])[:, :, 0]
 
@@ -1247,6 +1460,10 @@ def _dual_infeas_device(pd, dual, v0s):
         if kind == "eigh":
             lk, vk = _exact_min_eig(got)
             lk = lk.to(dual.dtype) * ws[:, None]
+            mesh = pat.dp_mesh(bk)
+            if mesh is not None:
+                lk = comm.all_gather(lk, mesh, "cert_lams")
+                vk = comm.all_gather(vk.contiguous(), mesh, "cert_vecs")
             lams.append(np.asarray(dev.host_read(torch.amin(lk, dim=1),
                                                  "other"), np.float64))
             restarts.append(-1)
@@ -1254,9 +1471,18 @@ def _dual_infeas_device(pd, dual, v0s):
             lams_k.append(lk)
             continue
         lam, its, vec = lanczos_result(*devloop.run(got))
+        lk = torch.as_tensor(lam, dtype=dual.dtype,
+                             device=dual.device)[:, None]
+        vec = vec.to(dual.dtype)[:, None, :]
+        mesh = pat.dp_mesh(bk)
+        if mesh is not None:
+            # a dp bucket's blocks: gathered before the repair reads them
+            lk = comm.all_gather(lk, mesh, "cert_lams")
+            vec = comm.all_gather(vec, mesh, "cert_vecs")
+            lam = np.asarray(dev.host_read(lk[:, 0].double(), "other"),
+                             np.float64)
         lams.append(lam)
         restarts.append(its)
-        vecs.append(vec.to(dual.dtype)[:, None, :])
-        lams_k.append(torch.as_tensor(lam, dtype=dual.dtype,
-                                      device=dual.device)[:, None])
+        vecs.append(vec)
+        lams_k.append(lk)
     return lams, restarts, vecs, lams_k

@@ -62,7 +62,7 @@ MAX_ROUNDS = 30
 def _pieces(bk, u: torch.Tensor):
     """(<C, uu^T>, A(uu^T) [m]) for one direction slab u [B, n, 1]."""
     uv = pat.uvt(bk, u, u)
-    return (torch.sum(pat.obj_inner(bk, uv)),
+    return (pat.shard_sum(bk, pat.obj_inner(bk, uv), "obj"),
             pat.scatter_constr(bk, pat.constr_vals(bk, uv)))
 
 

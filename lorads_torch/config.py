@@ -10,7 +10,8 @@ reproduce that in `__post_init__`.
 A copy of ``lorads_tpu/config.py`` with the same fields and defaults,
 so that both packages read one ``LoradsParams``.  In ``lorads_torch``
 ``dtype="auto"`` resolves to f64 (the H100 runs f64 natively),
-``dtype="f32"`` solves at f32, and only ``shard="off"`` is ported; see
+``dtype="f32"`` solves at f32, and ``shard`` places buckets on the ranks
+of the default torch.distributed process group (one process a card); see
 ``lorads_torch.alg.solver``.
 """
 
@@ -111,7 +112,8 @@ class LoradsParams:
     dense_dim_threshold: int = 20    # dims below this always dense (conic.c:884)
     sparse_cone_threshold: float = 0.3   # lorads.h:13
     # Cap on devices used by --shard placement (solver._maybe_shard
-    # meshes jax.devices()[:n_devices]).  None -> all local devices.
+    # meshes the first n_devices ranks of the process group, as
+    # lorads_tpu meshes jax.devices()[:n_devices]).  None -> all ranks.
     n_devices: Optional[int] = None
     admm_jacobi: bool = False        # Jacobi within multi-block buckets
     # ADMM LP columns: the reference updates them SEQUENTIALLY, each
@@ -184,7 +186,8 @@ class LoradsParams:
     # BucketData: every n x n intermediate lives as [D, n_loc, n]
     # slabs — distributed dsyr2k/dsymm, per-chip memory n^2/D);
     # auto = dp where the block axis divides the mesh, else sp/tp
-    # where eligible.  GSPMD partitions the solver's jitted programs.
+    # where eligible.  The port runs one process a rank and issues the
+    # collectives explicitly (lorads_torch/parallel/comm.py).
     shard: str = "off"
     fix_init_point: bool = False     # deterministic all-ones init
                                      # (FIX_INI_POINT, lorads_solver.c:441)

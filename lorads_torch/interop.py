@@ -18,43 +18,38 @@ from lorads_torch.ops import pattern as pat
 
 def bucket_from_numpy(bk, dtype=torch.float64, device="cpu"):
     """The port's bucket from a lorads_tpu BucketData's fields (any B,
-    any constraint slots): a DenseBucketData for a dense bucket, else a
-    split BucketData.  The port-only arrays (pattern.dense_port_fields,
-    pattern.port_fields, pattern.scatter_fields) are built on the host
-    from the same fields."""
-    if not (bk.dense or bk.split) or getattr(bk, "summed", False):
+    any constraint slots): a DenseBucketData for a dense bucket (a
+    rowshard one's row slabs too), else a split BucketData (a summed
+    one's shards too, with a diag-identity parent's full diagonal map).
+    The port-only arrays (pattern.dense_port_fields,
+    pattern.port_fields, pattern.scatter_fields, the tile schedules) are
+    built from the same fields (pattern.split_from_layout,
+    pattern.dense_from_layout); the bucket is unplaced."""
+    if not (bk.dense or bk.split):
         raise NotImplementedError(
             "only dense and split buckets are ported to lorads_torch")
+    rowshard = bool(getattr(bk, "rowshard", False))
+    shard = dict(summed=bool(getattr(bk, "summed", False)),
+                 rowshard=rowshard,
+                 n_loc=int(getattr(bk, "n_loc", 0) or 0),
+                 diag_parent=bool(getattr(bk, "diag_parent", False)))
+    if shard["summed"] or rowshard:
+        shard["B_all"] = bk.B
     if bk.dense:
-        return _dense_bucket_from_numpy(bk, dtype, device)
+        meta = {k: getattr(bk, k, 0) for k in pat.DENSE_META_FIELDS}
+        meta["a_single_dense"] = bool(getattr(bk, "a_single_dense",
+                                              False))
+        names = pat.DENSE_FIELDS + (pat.DENSE_DD_FIELDS
+                                    if meta["a_single_dense"] else ())
+        arrays = {k: np.asarray(getattr(bk, k)) for k in names}
+        return pat.dense_from_layout(meta, arrays, dtype, device, **shard)
     meta = {k: getattr(bk, k) for k in pat.META_FIELDS if k != "Ks"}
     arrays = {k: np.asarray(getattr(bk, k))
               for k in pat.INT_FIELDS + pat.FLOAT_FIELDS}
-    port = pat.port_fields(bk.n, bk.m_loc, arrays["off_rows"],
-                           arrays["off_cols"], arrays["c_off"],
-                           arrays["a_con_o"], arrays["a_pos_o"],
-                           arrays["a_val_o"])
-    meta["Ks"] = port.pop("Ks")
-    arrays.update(port)
-    arrays["bnd_a_con_d"] = pat.sorted_prefix_bounds(arrays["a_con_d"],
-                                                     bk.m_loc)
-    arrays.update(pat.scatter_fields(arrays["glob_idx"], bk.m_glob))
-    return pat.bucket_from_arrays(meta, arrays, dtype, device)
-
-
-def _dense_bucket_from_numpy(bk, dtype, device) -> pat.DenseBucketData:
-    meta = {k: getattr(bk, k) for k in pat.DENSE_META_FIELDS}
-    names = pat.DENSE_FIELDS + (pat.DENSE_DD_FIELDS if bk.a_single_dense
-                                else ())
-    arrays = {k: np.asarray(getattr(bk, k)) for k in names}
-    arrays.update(pat.dense_port_fields(
-        bk.n, bk.m_loc, *(arrays[k] for k in (
-            "a_lin", "a_lin_t", "a_con_loc", "a_val", "a_val_mirror",
-            "a_val_inner")),
-        *(arrays[k] for k in ("dd_con", "dd_row", "dd_val"))
-        if bk.a_single_dense else ()))
-    arrays.update(pat.scatter_fields(arrays["glob_idx"], bk.m_glob))
-    return pat.dense_bucket_from_arrays(meta, arrays, dtype, device)
+    full = (np.asarray(bk.a_val_d_full) if shard["diag_parent"]
+            else None)
+    return pat.split_from_layout(meta, arrays, dtype, device,
+                                 a_val_d_full=full, **shard)
 
 
 def lp_from_numpy(lpd, dtype=torch.float64, device="cpu") -> lp_ops.LPData:

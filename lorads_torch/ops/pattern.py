@@ -80,6 +80,17 @@ them to global ones, padding to m).  One block on the global slots
 slot) sorted by global slot (``scat_idx``, ``scat_val``, ``bnd_scat``),
 and ``gather_w`` an ``index_select``.  ``bucket_slice`` gives one block
 as a B = 1 bucket of views, for the ADMM's bucket Gauss-Seidel scan.
+
+The shard layouts (lorads_tpu's, parallel/pattern_sharded.py and
+row_sharded.py) reuse both bucket kinds with a B axis of shards of one
+cone: ``summed`` split buckets (slot ranges of one sparse cone's
+pattern) and ``rowshard`` dense ones (row slabs [B, n_loc, n] of one
+dense cone).  Their factors stay [1, n, r] (``_expand``), factor-shaped
+results sum or gather back (``_reduce``, ``_unslab``) and constraint
+values are per-shard partials (``cone_total``).  ``local_bucket`` places
+a bucket on a ``comm.Mesh``: a rank keeps its blocks or shards, with its
+port-only fields built anew, and every sum over the B axis ends in one
+collective (parallel/comm.py).
 """
 
 from __future__ import annotations
@@ -89,8 +100,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from lorads_torch import device as dev
 from lorads_torch.core.presolve import BucketPlan
 from lorads_torch.ops import kernels
+from lorads_torch.parallel import comm
 
 
 def comp_segment_sum(data: torch.Tensor, bounds: torch.Tensor):
@@ -192,6 +205,23 @@ class BucketData:
     # tile schedule (kernels.unit_counts; host values, no device read)
     off_tile_units: tuple = ()
     sym_tile_units: tuple = ()
+    # the shard layouts and their placement (see SHARD_FIELDS): summed
+    # (the B axis is a shard axis of one sparse cone), a diag-identity
+    # parent cone's full diagonal map a_val_d_full [B, n] and the
+    # scatter of shard 0's values (diag_scat_*), the mesh the B axis
+    # lies on (comm.Mesh; None: unplaced) and this rank's first block
+    # b0 of the B_all blocks (or shards) of the whole bucket
+    summed: bool = False
+    rowshard: bool = False
+    n_loc: int = 0
+    diag_parent: bool = False
+    a_val_d_full: torch.Tensor = None
+    diag_scat_idx: torch.Tensor = None
+    diag_scat_val: torch.Tensor = None
+    bnd_diag_scat: torch.Tensor = None
+    mesh: object = None
+    b0: int = 0
+    B_all: int = 0
 
     def __post_init__(self):
         # the schedules as kernels.Tiles (``off_tiles``, ``sym_tiles``),
@@ -419,6 +449,15 @@ class DenseBucketData:
     dense: bool = True
     diag_ident: bool = False
     a_off_unique: bool = False
+    # the row-slab layout (rowshard: c_full holds [B, n_loc, n] row slabs
+    # of one dense cone) and the placement, as on BucketData
+    summed: bool = False
+    rowshard: bool = False
+    n_loc: int = 0
+    diag_parent: bool = False
+    mesh: object = None
+    b0: int = 0
+    B_all: int = 0
 
     @property
     def dtype(self) -> torch.dtype:
@@ -461,11 +500,13 @@ def _csr(key, idx, val, S: int):
 
 def dense_port_fields(n: int, m_loc: int, a_lin, a_lin_t, a_con_loc,
                       a_val, a_val_mirror, a_val_inner, dd_con=None,
-                      dd_row=None, dd_val=None) -> dict:
+                      dd_row=None, dd_val=None, slots=None) -> dict:
     """The port's host-built sorted copies (i)-(iii) of a dense bucket
     from its lorads_tpu-layout [B, nnz_a] entry arrays (and the dd
     entries when a_single_dense).  Entries of constraint id >= m_loc are
-    left out (their value is taken as 0)."""
+    left out (their value is taken as 0).  ``slots``: the flat slots of
+    W (n^2; a rowshard layout's n_loc * n slab slots)."""
+    slots = n * n if slots is None else slots
     con = np.asarray(a_con_loc)
     ok = con < m_loc
     out = {}
@@ -475,7 +516,7 @@ def dense_port_fields(n: int, m_loc: int, a_lin, a_lin_t, a_con_loc,
         np.concatenate([a_lin, a_lin_t], axis=1),
         np.concatenate([con, con], axis=1),
         np.where(np.concatenate([ok, ok], axis=1),
-                 np.concatenate([a_val, a_val_mirror], axis=1), 0.0), n * n)
+                 np.concatenate([a_val, a_val_mirror], axis=1), 0.0), slots)
     if dd_con is not None:
         out["dd_row_cs"], out["dd_val_cs"], out["bnd_dd_con"] = _csr(
             dd_con, dd_row, dd_val, m_loc)
@@ -673,6 +714,114 @@ def build_bucket_data(bp: BucketPlan, m_glob: int, dtype, device):
     return bucket_from_arrays(meta, arrays, dtype, device)
 
 
+# ---------------------------------------------------------------------------
+# Buckets from lorads_tpu's layout, the shard layouts and placement.
+# ---------------------------------------------------------------------------
+
+# the shard fields of either bucket kind (host values)
+SHARD_META = ("summed", "rowshard", "n_loc", "diag_parent", "b0", "B_all")
+
+
+def split_from_layout(meta: dict, arrays: dict, dtype, device,
+                      a_val_d_full=None, **shard) -> BucketData:
+    """A split BucketData from lorads_tpu's layout: ``meta``
+    (META_FIELDS but Ks) and ``arrays`` (INT_FIELDS, FLOAT_FIELDS as
+    numpy), the port-only fields built on the host from those arrays
+    (port_fields, sorted_prefix_bounds, scatter_fields) and the tile
+    schedules on ``device``.  ``shard``: SHARD_META values and ``mesh``;
+    ``a_val_d_full`` (a diag-parent shard layout's full diagonal map)
+    brings the scatter of shard 0's values (diag_scat_*)."""
+    meta, arrays = dict(meta), dict(arrays)
+    port = port_fields(meta["n"], meta["m_loc"], arrays["off_rows"],
+                       arrays["off_cols"], arrays["c_off"],
+                       arrays["a_con_o"], arrays["a_pos_o"],
+                       arrays["a_val_o"])
+    meta["Ks"] = port.pop("Ks")
+    arrays.update(port)
+    arrays["bnd_a_con_d"] = sorted_prefix_bounds(arrays["a_con_d"],
+                                                 meta["m_loc"])
+    arrays.update(scatter_fields(arrays["glob_idx"], meta["m_glob"]))
+    bk = bucket_from_arrays(meta, arrays, dtype, device)
+    if a_val_d_full is not None:
+        sc = scatter_fields(np.asarray(arrays["glob_idx"])[:1],
+                            meta["m_glob"])
+        shard.update(
+            a_val_d_full=torch.as_tensor(
+                np.array(a_val_d_full, np.float64),
+                device=device).to(dtype),
+            diag_scat_idx=torch.as_tensor(sc["scat_idx"].astype(np.int32),
+                                          device=device),
+            diag_scat_val=torch.as_tensor(sc["scat_val"],
+                                          device=device).to(dtype),
+            bnd_diag_scat=torch.as_tensor(sc["bnd_scat"], device=device))
+    return dataclasses.replace(bk, **shard) if shard else bk
+
+
+def dense_from_layout(meta: dict, arrays: dict, dtype, device,
+                      **shard) -> DenseBucketData:
+    """A DenseBucketData from lorads_tpu's layout (DENSE_META_FIELDS;
+    DENSE_FIELDS and, when a_single_dense, DENSE_DD_FIELDS as numpy),
+    the port-only fields built on the host (dense_port_fields over the
+    n^2 slots, or a rowshard layout's n_loc * n slab slots,
+    scatter_fields).  ``shard``: SHARD_META values and ``mesh``."""
+    arrays = dict(arrays)
+    slots = (shard["n_loc"] if shard.get("rowshard") else meta["n"]) \
+        * meta["n"]
+    ent = {k: arrays[k] for k in ("a_lin", "a_lin_t", "a_con_loc", "a_val",
+                                  "a_val_mirror", "a_val_inner")}
+    if shard.get("rowshard"):
+        # a slab's entry list holds the mirrors: no mirrored copy
+        ent.update(a_lin_t=np.zeros_like(ent["a_lin"]),
+                   a_val_mirror=np.zeros_like(ent["a_val"]))
+    arrays.update(dense_port_fields(
+        meta["n"], meta["m_loc"], *ent.values(),
+        *(arrays[k] for k in ("dd_con", "dd_row", "dd_val"))
+        if meta["a_single_dense"] else (), slots=slots))
+    arrays.update(scatter_fields(arrays["glob_idx"], meta["m_glob"]))
+    bk = dense_bucket_from_arrays(meta, arrays, dtype, device)
+    return dataclasses.replace(bk, **shard) if shard else bk
+
+
+def layout_of(bk):
+    """(meta, arrays, shard) of a port bucket in lorads_tpu's layout, the
+    arrays as host numpy, a counted read each (the inverse of
+    split_from_layout and dense_from_layout)."""
+    host = lambda t: dev.host_array(t, "other")  # noqa: E731
+    shard = {k: getattr(bk, k) for k in SHARD_META}
+    if bk.dense:
+        meta = {k: getattr(bk, k) for k in DENSE_META_FIELDS}
+        names = DENSE_FIELDS + (DENSE_DD_FIELDS if bk.a_single_dense
+                                else ())
+        return meta, {k: host(getattr(bk, k)) for k in names}, shard
+    meta = {k: getattr(bk, k) for k in META_FIELDS if k != "Ks"}
+    arrays = {k: host(getattr(bk, k)) for k in INT_FIELDS + FLOAT_FIELDS}
+    if bk.diag_parent:
+        shard["a_val_d_full"] = host(bk.a_val_d_full)
+    return meta, arrays, shard
+
+
+def local_bucket(bk, mesh, device=None):
+    """This rank's part of an unplaced bucket (lorads_tpu's device_put of
+    its B axis, parallel/sharded.py:100-121): blocks (dp) or shards (the
+    shard layouts) [b0, b0 + B / mesh.size) of lorads_tpu's layout, the
+    port-only fields built anew from them (never sliced from the whole
+    bucket's), placed on ``mesh``."""
+    if bk.B % mesh.size:
+        raise ValueError(f"{bk.B} blocks over {mesh.size} ranks")
+    k = bk.B // mesh.size
+    b0 = mesh.index * k
+    meta, arrays, shard = layout_of(bk)
+    arrays = {n: a[b0:b0 + k] for n, a in arrays.items()}
+    meta.update(B=k)
+    shard.update(mesh=mesh, b0=b0, B_all=bk.B)
+    dtype, device = bk.dtype, device or mesh.device
+    if bk.dense:
+        return dense_from_layout(meta, arrays, dtype, device, **shard)
+    if shard.get("a_val_d_full") is not None:
+        shard["a_val_d_full"] = shard["a_val_d_full"][b0:b0 + k]
+    return split_from_layout(meta, arrays, dtype, device, **shard)
+
+
 def bucket_slice(bk, b: int):
     """Block b of a bucket as a B = 1 bucket whose tensors are views of
     the bucket's (the bucket Gauss-Seidel scan updates one block at a
@@ -691,7 +840,7 @@ def bucket_slice(bk, b: int):
         own.update(off_tile_units=(bk.off_tile_units[b],),
                    sym_tile_units=(bk.sym_tile_units[b],))
     own.update(
-        B=1, glob_ident=False,
+        B=1, glob_ident=False, mesh=None,
         scat_idx=torch.arange(bk.m_loc, dtype=torch.int32, device=dev)[None],
         scat_val=torch.ones((1, bk.m_loc), dtype=bk.dtype, device=dev),
         bnd_scat=torch.searchsorted(
@@ -720,9 +869,92 @@ def scale_bucket(bk, s: float):
         c_sym_rs=bk.c_sym_rs * s)
 
 
-def cone_total(bk: BucketData, vals: torch.Tensor) -> torch.Tensor:
-    """Per-cone constraint values: the identity (the port has no
-    sharded buckets)."""
+# ---------------------------------------------------------------------------
+# The shard layouts' glue (pattern.py:993-1053).  A summed or rowshard
+# bucket's B axis is a shard axis of ONE cone: its factors are [1, n, r]
+# on every shard; factor-shaped outputs are summed (summed) or gathered
+# (rowshard) back to [1, n, r], and constraint values are per-shard
+# partials that cone_total and scatter_constr sum.  A dp bucket's B axis
+# holds blocks.  Unplaced (mesh None) the B axis holds every shard or
+# block and each sum is local; placed, a rank holds its own and the local
+# sum is followed by one collective (parallel/comm.py).  lorads_tpu's
+# with_sharding_constraint pins (_pin, pin_factor_summed) have no
+# counterpart: placement here is explicit.
+# ---------------------------------------------------------------------------
+
+def dp_mesh(bk):
+    """The mesh of a bucket whose blocks are spread over ranks (dp), else
+    None (unplaced buckets, and the shard layouts, whose factors are
+    whole on every rank)."""
+    return None if (bk.summed or bk.rowshard) else bk.mesh
+
+
+def n_blocks(bk) -> int:
+    """The bucket's blocks over all ranks (a dp bucket holds B_all, this
+    rank B of them); a shard layout's B counts shards, not blocks."""
+    return bk.B_all if dp_mesh(bk) is not None else bk.B
+
+
+def shard_sum(bk, x: torch.Tensor, site: str) -> torch.Tensor:
+    """The sum of a per-block or per-shard quantity over the whole bucket
+    (objective partials, say): torch.sum, then over the mesh."""
+    return comm.all_reduce(torch.sum(x), bk.mesh, site)
+
+
+def factor_sum(bk, x: torch.Tensor, site: str) -> torch.Tensor:
+    """The sum of a factor-shaped quantity of one bucket ([B, n, r]
+    products): over the mesh only where the factors are split over ranks
+    (dp); a shard layout's factors are whole on every rank."""
+    return comm.all_reduce(torch.sum(x), dp_mesh(bk), site)
+
+
+def _expand(bk, X: torch.Tensor) -> torch.Tensor:
+    """A summed bucket's [1, n, r] factor broadcast to its [B, n, r]
+    shards (pattern.py:993-1003)."""
+    if bk.summed and X.shape[0] != bk.B:
+        return X.expand((bk.B,) + tuple(X.shape[1:])).contiguous()
+    return X
+
+
+def _reduce(bk, X: torch.Tensor, site: str = "reduce") -> torch.Tensor:
+    """A summed bucket's per-shard factor-shaped partials summed to
+    [1, ...] (pattern.py:1006-1016): over the local shards, then over
+    the mesh."""
+    if bk.summed:
+        return comm.all_reduce(torch.sum(X, 0, keepdim=True), bk.mesh,
+                               site)
+    return X
+
+
+def _shards(bk) -> int:
+    """Shards of a shard layout over all ranks."""
+    return bk.B_all if bk.mesh is not None else bk.B
+
+
+def _slab(bk, X: torch.Tensor) -> torch.Tensor:
+    """This rank's row slabs [B, n_loc, r] of a [1, n, r] factor
+    (pattern.py:1031-1037)."""
+    r = X.shape[-1]
+    D = _shards(bk)
+    P = torch.nn.functional.pad(X[0], (0, 0, 0, D * bk.n_loc - bk.n))
+    return P.reshape(D, bk.n_loc, r)[bk.b0:bk.b0 + bk.B]
+
+
+def _unslab(bk, X: torch.Tensor) -> torch.Tensor:
+    """Disjoint row slabs [B, n_loc, r] concatenated to [1, n, r]
+    (pattern.py:1040-1043): an all_gather over the mesh."""
+    X = comm.all_gather(X, bk.mesh, "unslab")
+    return X.reshape(1, -1, X.shape[-1])[:, :bk.n]
+
+
+def cone_total(bk, vals: torch.Tensor) -> torch.Tensor:
+    """Per-cone constraint values (pattern.py:1046-1053): on the shard
+    layouts the sum of the per-shard partials, on every shard (over the
+    mesh where placed); else the values themselves."""
+    if bk.summed or bk.rowshard:
+        tot = comm.all_reduce(torch.sum(vals, 0, keepdim=True), bk.mesh,
+                              "cone_total")
+        return tot.expand_as(vals).contiguous()
     return vals
 
 
@@ -743,8 +975,14 @@ def uvt(bk, U: torch.Tensor, V: torch.Tensor):
     pattern (diag [B, n], off [B, Ko]) -- kernel K3
     (pattern.py:1085-1092) over the off slots' schedule, one dot an
     entry when V is U."""
+    if bk.rowshard:
+        # this rank's row slabs of sym(UV^T): 0.5 (U_loc V^T + V_loc U^T)
+        # (pattern.py:1063-1076), the row-distributed dsyr2k
+        return 0.5 * (torch.matmul(_slab(bk, U), V[0].transpose(0, 1))
+                      + torch.matmul(_slab(bk, V), U[0].transpose(0, 1)))
     if bk.dense:
         return _sym_product(U, V)
+    U, V = _expand(bk, U), _expand(bk, V)
     return kernels.uvt_split(U.contiguous(), V.contiguous(), bk.off_rows,
                              bk.off_cols, tiles=bk.off_tiles)
 
@@ -753,8 +991,11 @@ def uvt_pair(bk, R: torch.Tensor, D: torch.Tensor):
     """(sym(RD^T), sym(DD^T)) for the ALM line search: two dense
     products on dense buckets (pattern.py:1108-1109), else the pattern
     values in one pass -- kernel K3p (pattern.py:1110-1119)."""
+    if bk.rowshard:
+        return uvt(bk, R, D), uvt(bk, D, D)
     if bk.dense:
         return _sym_product(R, D), _sym_product(D, D)
+    R, D = _expand(bk, R), _expand(bk, D)
     rd_d, rd_o, dd_d, dd_o = kernels.uvt_pair_split(
         R.contiguous(), D.contiguous(), bk.off_rows, bk.off_cols,
         tiles=bk.off_tiles)
@@ -768,9 +1009,10 @@ def constr_vals(bk, uvt_val) -> torch.Tensor:
     diag-identity buckets; else K4 over the diagonal entries and over
     the off entries (whose <A, X> weight is 2 a)."""
     if bk.dense:
+        # (on a row slab [B, n_loc, n] too: its entries index the slab)
         B = uvt_val.shape[0]
         return kernels.gather_segsum(
-            uvt_val.reshape(B, bk.n * bk.n).contiguous(), bk.a_lin_cs,
+            uvt_val.reshape(B, -1).contiguous(), bk.a_lin_cs,
             bk.a_val_inner_cs, bk.bnd_a_con_cs)
     d, o = uvt_val
     if bk.diag_ident:
@@ -807,8 +1049,10 @@ def scatter_constr(bk, vals: torch.Tensor) -> torch.Tensor:
     slot) sorted by global slot (scatter_fields)."""
     if bk.glob_ident:
         return vals[0]
-    return kernels.gather_segsum(vals.reshape(1, -1), bk.scat_idx,
-                                 bk.scat_val, bk.bnd_scat)[0]
+    tot = kernels.gather_segsum(vals.reshape(1, -1), bk.scat_idx,
+                                bk.scat_val, bk.bnd_scat)[0]
+    # a placed bucket's other blocks or shards: over the mesh
+    return comm.all_reduce(tot, bk.mesh, "scatter_constr")
 
 
 def gather_w(bk, w: torch.Tensor) -> torch.Tensor:
@@ -832,11 +1076,13 @@ def build_w(bk, w_loc: torch.Tensor, include_obj: bool = True):
     as K4's base.  (lorads_tpu also returns a column-order mirror of
     W_o; the port has none.)"""
     if bk.dense:
-        B, n = w_loc.shape[0], bk.n
-        base = bk.c_full.reshape(B, n * n) if include_obj else None
+        # (a rowshard bucket's W: this rank's row slabs [B, n_loc, n],
+        # one segment per slab slot, pattern.py:1223-1248)
+        B, shape = w_loc.shape[0], bk.c_full.shape[1:]
+        base = bk.c_full.reshape(B, -1) if include_obj else None
         return kernels.gather_segsum(w_loc, bk.a_con2_s, bk.a_val2_s,
                                      bk.bnd_a_lin2,
-                                     base=base).reshape(B, n, n)
+                                     base=base).reshape((B,) + shape)
     z = lambda L: torch.zeros((w_loc.shape[0], L),  # noqa: E731
                               dtype=w_loc.dtype, device=w_loc.device)
     if bk.diag_ident:
@@ -881,13 +1127,17 @@ def w_mul(bk, W, X: torch.Tensor) -> torch.Tensor:
     buckets (pattern.py:1326-1329), else kernel K5
     (pattern.py:1330-1347): one pass over the full-symmetric row-sorted
     entry list, each entry reading its W_o slot."""
+    if bk.rowshard:
+        # the row-distributed dsymm: disjoint row slabs of W @ X,
+        # gathered to [1, n, r] (pattern.py:1317-1324)
+        return _unslab(bk, torch.matmul(W, X[0]))
     if bk.dense:
         return torch.matmul(W, X)
     W_d, W_o = W
-    return kernels.wmul_csr(X.contiguous(), W_d.contiguous(),
-                            W_o.contiguous(), bk.sym_slot_rs,
-                            bk.sym_cols_rs, bk.bnd_sym_rows,
-                            tiles=bk.sym_tiles)
+    return _reduce(bk, kernels.wmul_csr(
+        _expand(bk, X).contiguous(), W_d.contiguous(), W_o.contiguous(),
+        bk.sym_slot_rs, bk.sym_cols_rs, bk.bnd_sym_rows,
+        tiles=bk.sym_tiles), "w_mul")
 
 
 def densify_w(bk, W) -> torch.Tensor:
@@ -950,9 +1200,9 @@ def cmul(bk: BucketData, X: torch.Tensor,
     """C @ X [B, n, r] over the full-symmetric row-sorted entry list --
     kernel K2 (pattern.py:1509-1550).  The fused kernel never writes the
     [Ks, r] product, so the TPU version's entry chunking is gone."""
-    return kernels.cmul_csr(X.contiguous(),
-                            bk.c_diag if include_diag else None,
-                            bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
+    return _reduce(bk, kernels.cmul_csr(
+        _expand(bk, X).contiguous(), bk.c_diag if include_diag else None,
+        bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows), "cmul")
 
 
 # ---------------------------------------------------------------------------

@@ -47,15 +47,18 @@ def _plain(stats) -> dict:
 
 
 def save_checkpoint(path: str, solver, alm_stats=None, admm_stats=None,
-                    phase: str = "alm") -> None:
+                    phase: str = "alm", write: bool = True) -> None:
     """Write the solver's state to ``path`` (.npz) and
-    ``path``.meta.json."""
+    ``path``.meta.json.  ``write`` False reads the state and writes
+    nothing (the ranks of a sharded solve but the first)."""
     arrays: dict = {}
     _pack_fv("R", solver.R, arrays)
     _pack_fv("U", solver.U, arrays)
     _pack_fv("V", solver.V, arrays)
     _pack_fv("S", solver.S, arrays)
     arrays["dual"] = dev.host_array(solver.dual, "other")
+    if not write:
+        return
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)
     os.replace(tmp, path)

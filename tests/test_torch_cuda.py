@@ -1670,3 +1670,147 @@ def test_certificate_reads_once_a_lanczos_bucket():
     assert res.status is SolverStatus.PRIMAL_DUAL_OPTIMAL
     assert passes and all(p == {"lanczos": 1} for p in passes), passes
     assert s.last_cert_restarts[0] >= 1
+
+
+# ---------------------------------------------------------------------------
+# The shard layouts (parallel/pattern_sharded.py, row_sharded.py): each
+# kernel at their shapes against its plain version, and the building
+# blocks on a one-rank NCCL group against their unplaced runs.
+# ---------------------------------------------------------------------------
+
+def _shard_buckets(dtype, device):
+    """(summed Max-Cut, summed matrix completion, rowshard theta) at D = 4
+    built on ``device``."""
+    from lorads_torch.parallel.pattern_sharded import build_pattern_shards
+    from lorads_torch.parallel.row_sharded import build_rowshard_bucket
+    out = []
+    for problem, kind in (
+            (generators.maxcut(n=2000, avg_degree=6, seed=1), "sp"),
+            (generators.matrix_completion(n1=300, n2=300, true_rank=3,
+                                          frac_obs=0.05, seed=2), "sp"),
+            (generators.lovasz_theta(n=200, avg_degree=8, seed=5), "tp")):
+        plan = presolve(problem, LoradsParams()).plans[0]
+        out.append(build_pattern_shards(plan, problem.m, 4, dtype,
+                                        summed=True, device=device)
+                   if kind == "sp" else
+                   build_rowshard_bucket(plan, problem.m, 4, dtype,
+                                         device=device))
+    return out
+
+
+def _close_all(got, ref, dtype, name):
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        g, r = g.cpu().double(), r.double()
+        tol = _tol(dtype) * max(float(r.abs().max()), 1.0) * 64
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        assert float((g - r).abs().max()) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_shard_layout_kernels_match_plain(dtype):
+    """K2 (cmul) and K3 on the summed Max-Cut shards, K3, K3p, K4 and K5
+    on the summed matrix-completion shards, K4 on the row slabs (A(.)
+    and W), each at B = 4 on CUDA tensors against the plain versions on
+    CPU copies of the same buckets."""
+    _need_cuda()
+    gpu = _shard_buckets(dtype, "cuda")
+    cpu = _shard_buckets(dtype, "cpu")
+    rng = np.random.default_rng(0)
+    for (bg, bc), what in zip(zip(gpu, cpu), ("maxcut", "matcomp",
+                                                "theta")):
+        n, r = bg.n, 5
+        U, V = (torch.as_tensor(rng.standard_normal((1, n, r))).to(dtype)
+                for _ in range(2))
+        w = torch.as_tensor(rng.standard_normal(bg.m_glob)).to(dtype)
+        before = dict(kernels.LAUNCHES)
+        for fn, name in ((lambda b, u, v: pat.uvt(b, u, v), "uvt"),
+                         (lambda b, u, v: pat.constr_vals(
+                             b, pat.uvt(b, u, v)), "constr_vals")):
+            _close_all(fn(bg, U.cuda(), V.cuda()), fn(bc, U, V), dtype,
+                       f"{what} {name}")
+        if what == "maxcut":
+            _close_all(pat.cmul(bg, U.cuda()), pat.cmul(bc, U), dtype,
+                       "maxcut cmul")
+        if what != "maxcut":
+            Wg = pat.build_w(bg, pat.gather_w(bg, w.cuda()))
+            Wc = pat.build_w(bc, pat.gather_w(bc, w))
+            _close_all(Wg, Wc, dtype, f"{what} build_w")
+            _close_all(pat.w_mul(bg, Wg, V.cuda()), pat.w_mul(bc, Wc, V),
+                       dtype, f"{what} w_mul")
+        if what == "matcomp":
+            _close_all(pat.uvt_pair(bg, U.cuda(), V.cuda())[1],
+                       pat.uvt_pair(bc, U, V)[1], dtype, "uvt_pair")
+        ran = {k for k in kernels.LAUNCHES if kernels.LAUNCHES[k] >
+               before[k]}
+        want = {"maxcut": {"cmul_csr", "uvt_split"},
+                "matcomp": {"uvt_split", "uvt_pair_split", "gather_segsum",
+                            "wmul_csr"},
+                "theta": {"gather_segsum"}}[what]
+        assert want <= ran, (what, ran)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_building_blocks():
+    """sharded_solver_step, make_sharded_gradient and
+    make_row_sharded_gradient on a one-rank NCCL group (CUDA tensors)
+    against their unplaced runs (no group, no collective)."""
+    _need_cuda()
+    import torch.distributed as dist
+
+    from lorads_torch.alg import aop
+    from lorads_torch.parallel import comm, distributed
+    from lorads_torch.parallel.pattern_sharded import (
+        build_pattern_shards, make_sharded_gradient)
+    from lorads_torch.parallel.row_sharded import (
+        build_row_shards, make_row_sharded_gradient)
+    from lorads_torch.parallel.sharded import sharded_solver_step
+
+    distributed.init_multihost(store=dist.HashStore(), rank=0,
+                               world_size=1, device="cuda")
+    try:
+        mesh = distributed.solver_mesh(1, "cuda")
+        assert mesh is not None and mesh.size == 1
+        comm.reset()
+        s = LoradsSolver(generators.random_multiblock(
+            n_blocks=8, dim=12, m=10, seed=3), LoradsParams(verbose=False),
+            device="cuda")
+        got = sharded_solver_step(mesh, s.pd, s.U, s.V, s.dual, 1.0)
+        ref = sharded_solver_step(None, s.pd, s.U, s.V, s.dual, 1.0)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=1e-9, atol=1e-10)
+        assert comm.CALLS["scatter_constr"] == 3
+        rng = np.random.default_rng(0)
+        for kind in ("sp", "tp"):
+            problem = (generators.maxcut(n=2000, avg_degree=6, seed=1)
+                       if kind == "sp" else
+                       generators.lovasz_theta(n=200, avg_degree=8, seed=5))
+            s = LoradsSolver(problem, LoradsParams(verbose=False),
+                             device="cuda")
+            plan = s.ps.plans[0]
+            dual = torch.as_tensor(rng.standard_normal(problem.m),
+                                   device="cuda")
+            rho = 1.7
+            U = s.R.cones[0][0]
+            if kind == "sp":
+                data = build_pattern_shards(plan, problem.m, 4,
+                                            torch.float64, device="cuda")
+                step = make_sharded_gradient(mesh, data, s.pd.rhs,
+                                             s.pd.c_nrm_inf)
+            else:
+                data = build_row_shards(plan, problem.m, 4, torch.float64,
+                                        device="cuda")
+                step = make_row_sharded_gradient(mesh, data,
+                                                 s.pd.c_nrm_inf)
+            total, grad, cert = step(U, s.pd.rhs, dual, rho)
+            _, tot0 = aop.auv(s.pd, s.R, s.R)
+            g0 = aop.grad(s.pd, s.R, rho * (tot0 - s.pd.rhs) - dual)
+            torch.testing.assert_close(total, tot0, rtol=1e-9, atol=1e-10)
+            torch.testing.assert_close(grad, g0.cones[0][0], rtol=1e-9,
+                                       atol=1e-10)
+            assert float(cert) == pytest.approx(
+                float(aop.cert_value(s.pd, g0)), rel=1e-9)
+    finally:
+        dist.destroy_process_group()

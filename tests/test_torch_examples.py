@@ -17,8 +17,11 @@ EXAMPLES = sorted(
 
 
 def test_the_three_twins_are_there():
+    """The twins of examples/*.py: the first three, and the fourth,
+    sharded_execution, since the port runs sharding."""
     assert [p.stem for p in EXAMPLES] == [
-        "basic_usage", "batch_and_extract", "checkpoint_and_resume"]
+        "basic_usage", "batch_and_extract", "checkpoint_and_resume",
+        "sharded_execution"]
 
 
 @pytest.mark.parametrize("script", EXAMPLES, ids=lambda p: p.stem)

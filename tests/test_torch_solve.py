@@ -265,9 +265,11 @@ def test_device_cuda_without_gpu_raises():
 
 @pytest.mark.parametrize("case", ["shard"])
 def test_out_of_slice_raises(case):
+    """Sharding is ported (off, auto, dp, sp, tp run); a shard mode
+    lorads_tpu does not have raises."""
     problem = t_gen.maxcut(n=300, avg_degree=4, seed=3)
     params = LoradsParams(verbose=False, **{
-        "shard": dict(shard="dp"),
+        "shard": dict(shard="rows"),
     }[case])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="shard"):
         TorchSolver(problem, params, device="cpu")
