@@ -149,10 +149,13 @@ Phases, each reported on its own lines:
    ``save_solution``'s file, each certified within 1e-4 of the first
    solve, with walls and ALM inner counts; one solve inside
    ``utils.profiling.device_trace`` (its loops run eagerly under the
-   trace, ROADMAP §3 F4), the trace holding at least an event a launch
-   of its ALM phase's and its certificates' kernels (K2, K3, K9), and a
-   hand_multiblock solve
-   traced through its ADMM phase, the trace holding its ADMM's kernels;
+   trace, ROADMAP §3 F4; a later solve of the problem object, so its
+   construction comes from the memo and the trace starts with the ALM's
+   kernels), the trace holding at least an event a launch of its ALM
+   phase's and its certificates' kernels (K2, K3, K9) and a kernel event
+   for every launch it records, and a hand_multiblock solve traced
+   through its ADMM phase, the trace holding its ADMM's kernels (and
+   every launch's kernel event);
    ``fix_init_point`` on maxcut20000 (max_alm_iter=2: one nrm2U line
    per inner step, all finite) and its trace on the card against the
    CPU run in this process: maxcut300's first 2 values (after that step
@@ -188,11 +191,24 @@ Phases, each reported on its own lines:
    just before and read just after, held to REFERENCE_POBJ, each solve's
    wall beside the main path's (construction and the shard build apart);
    the kernels at those shapes against their
-   plain versions; on a one-rank NCCL group the building blocks against
+   plain versions, beside the library call on the four shards as one
+   block-diagonal CSR matrix; on a one-rank NCCL group the building blocks against
    their oracles and shard="auto" against the unsharded solve, with the
    collectives counted by site; whether an NCCL all_reduce captures
    into a plain graph and a WHILE body (a child process; the phase fails
-   unless both capture and replay bit for bit).
+   unless both capture and replay bit for bit);
+8. the memo phase (lines "memo ..."), with the launch counts reset just
+   before and read just after: maxcut20000 and matcomp2000 constructed
+   and solved twice on one problem object, the second construction
+   from the memo (the same presolve and device tensors) and its solve
+   bit for bit the first, with the construction seconds, walls and
+   device memory of each; matcomp2000's escalated auto solve from an
+   f32 start, then f32 solves of the same object (the evicted f32 data
+   held by an earlier solver, and rebuilt by a later construction), each
+   bit for bit a fresh object's; multiblock22 and multiblock_lp with
+   group_buckets=False (one B = 1 bucket a block) held to lorads_tpu's
+   ungrouped CPU f64 pObj (REFERENCE_UNGROUPED), beside the main path's
+   grouped solves.
 
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.  Any failed phase raises and exits
@@ -295,6 +311,13 @@ REFERENCE_SPLIT = {"maxcut20000x4": (-62097.25666, -62076.14471913608,
 # the CGNR refinement rejects its step (dinf 3.28e-04 before and after),
 # two level-2 reopts leave dinf at 2.58e-04, outside its band
 REFERENCE_CGNR = {"theta_gtoy60": ("primal_optimal", -24.214264131151737)}
+# lorads_tpu on the CPU at f64 with group_buckets=False (one B = 1
+# bucket a block; multiblock_lp with lp_gauss_seidel, as PARAMS):
+# status and pObj
+REFERENCE_UNGROUPED = {
+    "multiblock22": ("primal_dual_optimal", 106.14212291906651),
+    "multiblock_lp": ("primal_dual_optimal", 191.50495799143337),
+}
 # lorads_tpu on the CPU at f64 with dual_uv=True (multiblock_lp with
 # lp_gauss_seidel, as PARAMS): status and pObj
 REFERENCE_DUAL_UV = {
@@ -366,7 +389,19 @@ PATH_KERNELS = {
                           "wmul_csr", "sym_eig_small", "loop_cond"),
     "shard theta800": ("gather_segsum", "sym_eig_small", "loop_cond"),
     "shard blocks": ("gather_segsum", "uvt_split", "wmul_csr"),
+    # the memo phase: maxcut20000's and matcomp2000's repeat solves, the
+    # escalation and the ungrouped multi-block solves
+    "memo": ("cmul_csr", "uvt_split", "uvt_pair_split", "gather_segsum",
+             "wmul_csr", "adj_a_offdiag", "sym_eig_small", "loop_cond",
+             "lp_gs_sweep"),
+    "ungrouped multiblock22": ("gather_segsum", "loop_cond"),
+    "ungrouped multiblock_lp": ("gather_segsum", "lp_gs_sweep",
+                                "loop_cond"),
 }
+# the memo phase's f32 solves of matcomp2000: ADMM iterations at most
+# (its target lies below the f32 floor; the cap keeps the run short and
+# the same for every solve compared)
+F32_MEMO_ADMM = 300
 # the shard phase's layouts at full width, unplaced: (instance, layout,
 # shards)
 SHARD_LAYOUTS = (("maxcut20000", "sp", 4), ("matcomp2000", "sp", 4),
@@ -540,27 +575,49 @@ def _csr(rows, cols, vals, shape):
     return coo.to_sparse_csr()
 
 
-def _seg_csr(idx, val, bnd, ncols, alpha=1.0):
-    """K4's entry list (block 0) as the [S, ncols] CSR matrix whose row s
-    holds alpha * val at the columns idx of segment s, so that K4 is one
-    sparse product: out = base + M @ x (library timings only)."""
+def _blockdiag_csr(rows, cols, vals, n, extra=None):
+    """The B blocks' [B, K] entry lists (padding: value 0) as one
+    block-diagonal [B n, B n] CSR matrix, for the library timings at
+    B > 1; ``extra``: (rows, cols, vals) of the same blocks added (a
+    diagonal)."""
     import torch
-    b = bnd[0].long()
-    lo, hi = int(b[0]), int(b[-1])
-    rows = torch.repeat_interleave(
-        torch.arange(b.numel() - 1, device=b.device), b.diff())
-    return _csr(rows, idx[0, lo:hi], alpha * val[0, lo:hi],
-                (b.numel() - 1, ncols))
+    B = rows.shape[0]
+    off = (torch.arange(B, device=rows.device) * n)[:, None]
+    parts = [(rows, cols, vals)] + ([extra] if extra is not None else [])
+    return _csr(torch.cat([(r.long() + off).reshape(-1) for r, _, _ in
+                           parts]),
+                torch.cat([(c.long() + off).reshape(-1) for _, c, _ in
+                           parts]),
+                torch.cat([v.reshape(-1) for _, _, v in parts]), B * n)
+
+
+def _seg_csr(idx, val, bnd, ncols, alpha=1.0):
+    """K4's entry lists of its B blocks as one block-diagonal [B S, B
+    ncols] CSR matrix whose row b S + s holds alpha * val at the columns
+    idx of block b's segment s, so that K4 is one sparse product of the
+    flattened x: out = base + M @ x (library timings only)."""
+    import torch
+    B, S = bnd.shape[0], bnd.shape[1] - 1
+    rows, cols, vals = [], [], []
+    for b in range(B):
+        bb = bnd[b].long()
+        lo, hi = int(bb[0]), int(bb[-1])
+        rows.append(b * S + torch.repeat_interleave(
+            torch.arange(S, device=bb.device), bb.diff()))
+        cols.append(b * ncols + idx[b, lo:hi].long())
+        vals.append(alpha * val[b, lo:hi])
+    return _csr(torch.cat(rows), torch.cat(cols), torch.cat(vals),
+                (B * S, B * ncols))
 
 
 def _seg_library(M, x, base=None):
-    """The one-call counterpart of K4 on block 0: torch.sparse.mm, or
-    torch.addmm when there is a base."""
+    """The one-call counterpart of K4 over its blocks: torch.sparse.mm
+    of the flattened x, or torch.addmm with the flattened base."""
     import torch
-    xc = x[0].reshape(-1, 1)
+    xc = x.reshape(-1, 1)
     if base is None:
         return lambda: torch.sparse.mm(M, xc)
-    bc = base[0].reshape(-1, 1)
+    bc = base.reshape(-1, 1)
     return lambda: torch.addmm(bc, M, xc)
 
 
@@ -1412,14 +1469,11 @@ def multiblock_kernel_checks(rng, measure):
     B, nb, r, Ks, Ko = bk.B, bk.n, bp.rank, bk.Ks, bk.Ko
     print(f"batch-path shapes: B={B} n={nb} Ks={Ks} Ko={Ko} rank={r} "
           f"diag_ident={bk.diag_ident} glob_ident={bk.glob_ident}")
-    off = (torch.arange(B, device=dev) * nb)[:, None]
-    diag = torch.arange(B * nb, device=dev)
+    diag = torch.arange(nb, device=dev).expand(B, nb)
     X = rand(B, nb, r)
     args = (X, bk.c_diag, bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
-    C = _csr(torch.cat([(bk.sym_rows_rs + off).reshape(-1), diag]),
-             torch.cat([(bk.sym_cols_rs + off).reshape(-1), diag]),
-             torch.cat([bk.c_sym_rs.reshape(-1), bk.c_diag.reshape(-1)]),
-             B * nb)
+    C = _blockdiag_csr(bk.sym_rows_rs, bk.sym_cols_rs, bk.c_sym_rs, nb,
+                       (diag, diag, bk.c_diag))
     Xf = X.reshape(B * nb, r)
     measure("cmul_csr", f"f64 B={B} r={r} diag", "f64",
             lambda: kernels.cmul_csr(*args),
@@ -1431,9 +1485,8 @@ def multiblock_kernel_checks(rng, measure):
             flops=2 * B * (Ks + nb) * r,
             library=lambda: torch.sparse.mm(C, Xf))
     U, V = rand(B, nb, r), rand(B, nb, r)
-    Poff = _csr((bk.off_rows + off).reshape(-1),
-                (bk.off_cols + off).reshape(-1),
-                torch.ones(B * Ko, dtype=torch.float64, device=dev), B * nb)
+    Poff = _blockdiag_csr(bk.off_rows, bk.off_cols, torch.ones(
+        (B, Ko), dtype=torch.float64, device=dev), nb)
     kw = _tiles_kw(pat, bk, "off", kernels.uvt_split)
     for VV in (V, None):
         uvt_cases(measure, kernels, f"B={B} ", "f64", U, VV, bk.off_rows,
@@ -2702,10 +2755,16 @@ def _run_reads():
 
 
 # the main paths' walls by instance (solve_path), for the f32 phase's
-# lines, and the walls of their solve() calls alone, for the shard
-# phase's
+# lines, the walls of their solve() calls alone, for the shard phase's,
+# and their results, for the memo phase's grouped solves
 WALLS = {}
 SOLVE_WALLS = {}
+RESULTS = {}
+
+
+def _bucket_shapes(solver):
+    return [f"{bk.B}x{bk.n}{'d' if bk.dense else 's'}"
+            for bk in solver.pd.buckets]
 
 
 def solve_path(card, path, instances):
@@ -2728,6 +2787,7 @@ def solve_path(card, path, instances):
         syncs0 = tdev.HOST_SYNCS
         by0 = dict(tdev.HOST_SYNCS_BY)
         graphs0 = dict(kernels.GRAPHS)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         with _run_reads() as runs:
             solver = LoradsSolver(problem, LoradsParams(
@@ -2739,12 +2799,19 @@ def solve_path(card, path, instances):
         wall = time.time() - t0
         WALLS[name] = wall
         SOLVE_WALLS[name] = time.time() - t1
+        # each problem keeps its device data (the memo) while the path's
+        # list holds it
+        mem = (torch.cuda.memory_allocated() / 2 ** 20,
+               torch.cuda.max_memory_allocated() / 2 ** 20)
         launches = {k: kernels.LAUNCHES[k] - before[k]
                     for k in kernels.LAUNCHES}
         by = {k: tdev.HOST_SYNCS_BY[k] - by0[k] for k in by0
               if tdev.HOST_SYNCS_BY[k] > by0[k]}
         admm_reads = {k: n for k, n in solver.admm_reads_by.items() if n}
         graphs = {k: kernels.GRAPHS[k] - graphs0[k] for k in graphs0}
+        RESULTS[name] = dict(res=res, launches=launches, reads=by,
+                             wall=wall, cg=solver.admm_cg_total,
+                             buckets=_bucket_shapes(solver))
         ref = REFERENCE_POBJ[name]
         rel = abs(res.pobj - ref) / abs(ref)
         rep = getattr(solver, "spectral_repair_info", None)
@@ -2752,8 +2819,7 @@ def solve_path(card, path, instances):
                   f"{rep['rounds']} rounds, dinf {rep['dinf_before']:.3e} "
                   f"-> {rep['dinf_after']:.3e}, "
                   + ("accepted" if rep["accepted"] else "not accepted"))
-        shapes = [f"{bk.B}x{bk.n}{'d' if bk.dense else 's'}"
-                  for bk in solver.pd.buckets]
+        shapes = _bucket_shapes(solver)
         print(f"solve {name}: status {res.status.value} pObj "
               f"{res.pobj!r} (lorads_tpu CPU f64 {ref!r}, rel "
               f"{rel:.2e}) pinf {res.pinf_l1:.3e} gap {res.gap:.3e} "
@@ -2770,7 +2836,8 @@ def solve_path(card, path, instances):
               f"graphs captured "
               f"{graphs['captured']} replayed {graphs['replayed']} "
               f"(launches in replays {graphs['launches']}) launches "
-              f"{launches}  [{card}]")
+              f"{launches}; device memory allocated {mem[0]:.1f} MiB "
+              f"after, peak {mem[1]:.1f} MiB  [{card}]")
         if res.status is not SolverStatus.PRIMAL_DUAL_OPTIMAL:
             raise AssertionError(f"{name}: status {res.status.value}")
         # the ADMM chunks' CG runs inside their graphs, the ALM's inner
@@ -3039,6 +3106,231 @@ def f32_path(card):
     return counts
 
 
+def _data_tensors(tree, out=None):
+    """Every tensor of a ProblemData (its buckets, their tile schedules,
+    the LP block), in order."""
+    import torch
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (tuple, list)):
+        for t in tree:
+            _data_tensors(t, out)
+    elif hasattr(tree, "__dataclass_fields__"):
+        for f in tree.__dataclass_fields__:
+            _data_tensors(getattr(tree, f), out)
+    return out
+
+
+def _same_solve(a, sa, b, sb):
+    """Two solves (results a, b of solvers sa, sb) bit for bit: status,
+    ALM, ADMM and CG counts, pObj, R -> (equal, what differs)."""
+    import torch
+    diff = []
+    if a.status is not b.status:
+        diff.append("status")
+    if (a.alm_stats.outer_iter, a.alm_stats.inner_iter) != (
+            b.alm_stats.outer_iter, b.alm_stats.inner_iter):
+        diff.append("ALM")
+    if a.admm_stats.iter != b.admm_stats.iter:
+        diff.append("ADMM")
+    if sa.admm_cg_total != sb.admm_cg_total:
+        diff.append("CG")
+    if a.pobj != b.pobj:
+        diff.append(f"pObj {a.pobj!r} {b.pobj!r}")
+    if not all(x.shape == y.shape and torch.equal(x, y)
+               for x, y in zip(a.R.cones + (a.R.lp,),
+                               b.R.cones + (b.R.lp,))):
+        diff.append("R")
+    return not diff, diff
+
+
+def memo_path(card):
+    """The memo phase (lines "memo ..."), with the launch counts reset
+    just before and read just after.  (a) maxcut20000 and matcomp2000:
+    a construction and solve on a fresh problem object (cold), then a
+    second on the same object, which takes the presolve and the device
+    data from the memo (``s2.ps is s1.ps``, every tensor of its
+    ProblemData the first's); the construction seconds, solve walls and
+    ``torch.cuda.max_memory_allocated`` of each; the second solve held
+    bit for bit to the first, a solve on a fresh object (status, ALM,
+    ADMM and CG counts, pObj, R).  (b) matcomp2000 from an f32 start as
+    the f32 phase runs it (auto): an f32 solver built first holds the
+    f32 data; the auto solve escalates at ADMM entry (REFERENCE_F32) and
+    evicts them; then the holder and an f32 construction after the
+    escalation (which builds the f32 data again) solve, each bit for bit
+    a fresh object's f32 solve (ADMM capped at F32_MEMO_ADMM iterations:
+    at pure f32 its target lies below the f32 floor).  (c)
+    group_buckets=False on multiblock22 and multiblock_lp: one B = 1
+    bucket a block, primal_dual_optimal, pObj within POBJ_RTOL of
+    lorads_tpu's ungrouped CPU f64 pObj (REFERENCE_UNGROUPED), beside
+    the main path's grouped solve of the instance, with the bucket
+    shapes, launches by kernel, host reads by label and walls.  Returns
+    the launch counts."""
+    import torch
+
+    from lorads_torch import LoradsParams, LoradsSolver, SolverStatus
+    from lorads_torch import device as tdev
+    from lorads_torch.ops import kernels
+
+    MiB = 2 ** 20
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    tdev.reset_host_syncs()
+
+    # ---- (a) the second construction of one problem object
+    for name in ("maxcut20000", "matcomp2000"):
+        problem = INSTANCES[name]()
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            at0 = torch.cuda.memory_allocated() / MiB
+            t0 = time.time()
+            s = LoradsSolver(problem, LoradsParams(
+                verbose=False, **PARAMS.get(name, {})), device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.time()
+            pd = s.pd
+            res = s.solve()
+            torch.cuda.synchronize()
+            runs.append((s, pd, res, t1 - t0, time.time() - t1,
+                         (at0, torch.cuda.max_memory_allocated() / MiB)))
+        (s1, pd1, r1, c1, w1, m1), (s2, pd2, r2, c2, w2, m2) = runs
+        same_data = pd2 is pd1 and all(
+            a is b for a, b in zip(_data_tensors(pd2), _data_tensors(pd1)))
+        same, diff = _same_solve(r2, s2, r1, s1)
+        print(f"memo {name}: construction cold {c1:.4f} s, from the memo "
+              f"{c2:.4f} s; solve walls {w1:.4f} s, {w2:.4f} s; "
+              f"device memory allocated at the start / max_memory_allocated "
+              f"{m1[0]:.1f} / {m1[1]:.1f} MiB, {m2[0]:.1f} / {m2[1]:.1f} MiB "
+              f"(the second run's start holds the memo's data and the "
+              f"first solver's state); presolve "
+              f"reused {s2.ps is s1.ps}, device data reused {same_data}; "
+              f"the second solve bit for bit the first (a fresh object's) "
+              f"{same}{'' if same else f' {diff}'}: {r2.status.value} "
+              f"ALM {r2.alm_stats.outer_iter}/{r2.alm_stats.inner_iter} "
+              f"ADMM {r2.admm_stats.iter} CG {s2.admm_cg_total} pObj "
+              f"{r2.pobj!r}  [{card}]")
+        if s2.ps is not s1.ps or not same_data:
+            raise AssertionError(f"memo {name}: the second construction "
+                                 "did not reuse the memo")
+        if not same:
+            raise AssertionError(f"memo {name}: the second solve differs "
+                                 f"from the first in {diff}")
+        if r1.status is not SolverStatus.PRIMAL_DUAL_OPTIMAL:
+            raise AssertionError(f"memo {name}: {r1.status.value}")
+
+    # ---- (b) an escalated auto solve, then f32 solves of the object
+    name = "matcomp2000"
+    auto, st_ref, esc_ref, _ = REFERENCE_F32[name]
+    problem = INSTANCES[name]()
+    f32 = dict(verbose=False, dtype="f32", max_admm_iter=F32_MEMO_ADMM)
+    hold = LoradsSolver(problem, LoradsParams(**f32), device="cuda")
+    pd32 = hold.pd
+    t0 = time.time()
+    s = LoradsSolver(problem, LoradsParams(verbose=False, dtype="f32"),
+                     device="cuda")
+    s._auto_dtype = auto
+    res = s.solve()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    esc = [r for r, _ in s.escalations]
+    held, rtol = f32_band(name)
+    left = [str(k[0]) for k in s.ps._pd_cache]
+    t0 = time.time()
+    again = LoradsSolver(problem, LoradsParams(**f32), device="cuda")
+    torch.cuda.synchronize()
+    rebuild = time.time() - t0
+    rebuilt = again.ps is s.ps and again.pd is not pd32
+    fresh_s = LoradsSolver(INSTANCES[name](), LoradsParams(**f32),
+                           device="cuda")
+    fresh = fresh_s.solve()
+    got = {}
+    for label, sv in (("holder of the evicted data", hold),
+                      ("constructed after", again)):
+        r = sv.solve()
+        got[label] = _same_solve(r, sv, fresh, fresh_s)
+    torch.cuda.synchronize()
+    print(f"memo {name} escalation: auto from an f32 start: "
+          f"{res.status.value} escalations {esc} (lorads_tpu CPU: "
+          f"{st_ref}, {esc_ref}) pObj {res.pobj!r} (held within {rtol:.0e} "
+          f"of {held!r}) wall {wall:.3f} s; memo after it {left}; an f32 "
+          f"construction after it rebuilt the f32 data {rebuilt} in "
+          f"{rebuild:.3f} s; f32 solves (max_admm_iter {F32_MEMO_ADMM}) "
+          f"bit for bit a fresh object's ({fresh.status.value} ALM "
+          f"{fresh.alm_stats.inner_iter} ADMM {fresh.admm_stats.iter} pObj "
+          f"{fresh.pobj!r}): {got}  [{card}]")
+    if res.status.value != st_ref or esc != esc_ref:
+        raise AssertionError(f"memo {name}: {res.status.value} {esc}")
+    if not (math.isfinite(res.pobj)
+            and abs(res.pobj - held) <= rtol * abs(held)):
+        raise AssertionError(f"memo {name}: pObj {res.pobj!r}")
+    if left != ["torch.float64"] or not rebuilt:
+        raise AssertionError(f"memo {name}: memo {left}, rebuilt {rebuilt}")
+    for label, (same, diff) in got.items():
+        if not same:
+            raise AssertionError(f"memo {name}: the f32 solve of the "
+                                 f"{label} differs from a fresh one: {diff}")
+
+    # ---- (c) group_buckets=False
+    for name in ("multiblock22", "multiblock_lp"):
+        problem = INSTANCES[name]()
+        params = LoradsParams(verbose=False, **PARAMS.get(name, {}))
+        grouped = LoradsSolver(problem, params, device="cuda")
+        before = dict(kernels.LAUNCHES)
+        by0 = dict(tdev.HOST_SYNCS_BY)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        s = LoradsSolver(problem, params, group_buckets=False,
+                         device="cuda")
+        res = s.solve()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: kernels.LAUNCHES[k] - before[k]
+                    for k in kernels.LAUNCHES
+                    if kernels.LAUNCHES[k] > before[k]}
+        by = {k: tdev.HOST_SYNCS_BY[k] - by0[k] for k in by0
+              if tdev.HOST_SYNCS_BY[k] > by0[k]}
+        g = RESULTS[name]
+        st_ref, ref = REFERENCE_UNGROUPED[name]
+        rel = abs(res.pobj - ref) / abs(ref)
+        print(f"memo {name} ungrouped: buckets {_bucket_shapes(s)} "
+              f"(grouped {g['buckets']}; memo entries apart "
+              f"{s.ps is not grouped.ps}) status {res.status.value} pObj "
+              f"{res.pobj!r} (lorads_tpu CPU f64 ungrouped {st_ref}, "
+              f"{ref!r}, rel {rel:.2e}; grouped {g['res'].status.value} "
+              f"{g['res'].pobj!r}) wall {wall:.3f} s (grouped "
+              f"{g['wall']:.3f} s) ALM inner {res.alm_stats.inner_iter} "
+              f"ADMM {res.admm_stats.iter} CG {s.admm_cg_total} (grouped "
+              f"{g['res'].alm_stats.inner_iter}, {g['res'].admm_stats.iter},"
+              f" {g['cg']}); host reads {by} (grouped {g['reads']}); "
+              f"launches {launches} (grouped "
+              f"{ {k: n for k, n in g['launches'].items() if n} })  "
+              f"[{card}]")
+        if s.ps is grouped.ps or any(bk.B != 1 for bk in s.pd.buckets) \
+                or len(s.pd.buckets) != len(problem.blocks):
+            raise AssertionError(f"memo {name}: ungrouped buckets "
+                                 f"{_bucket_shapes(s)}")
+        for r in (res, g["res"]):
+            if r.status is not SolverStatus.PRIMAL_DUAL_OPTIMAL:
+                raise AssertionError(f"memo {name}: {r.status.value}")
+        if not (math.isfinite(res.pobj) and rel <= POBJ_RTOL):
+            raise AssertionError(f"memo {name} ungrouped: pObj "
+                                 f"{res.pobj} vs {ref}")
+        for k in PATH_KERNELS[f"ungrouped {name}"]:
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"memo {name} ungrouped never "
+                                     f"launched {k}")
+    counts = dict(kernels.LAUNCHES)
+    for k in PATH_KERNELS["memo"]:
+        if counts[k] <= 0:
+            raise AssertionError(f"the memo phase never launched {k}")
+    print(f"memo launches: { {k: n for k, n in counts.items() if n} }, "
+          f"host syncs {tdev.HOST_SYNCS}  [{card}]")
+    return counts
+
+
 def main_path(card):
     """Phase 4: the Max-Cut, matrix-completion, theta, multi-block / LP
     and batch paths, the CGNR refinement's path, then the probes' path
@@ -3065,16 +3357,14 @@ def main_path(card):
     return total
 
 
-def _shard_bucket(problem, layout, D, dtype=None):
-    """The instance's one bucket rebuilt as a shard layout of D shards on
-    the card: summed (sp) or rowshard (tp)."""
+def _shard_bucket(problem, plan, layout, D, dtype=None):
+    """The instance's one bucket (its block plan from the solver's
+    presolve) rebuilt as a shard layout of D shards on the card: summed
+    (sp) or rowshard (tp)."""
     import torch
 
-    from lorads_torch.config import LoradsParams
-    from lorads_torch.core.presolve import presolve
     from lorads_torch.parallel.pattern_sharded import build_pattern_shards
     from lorads_torch.parallel.row_sharded import build_rowshard_bucket
-    plan = presolve(problem, LoradsParams()).plans[0]
     dtype = dtype or torch.float64
     if layout == "sp":
         return build_pattern_shards(plan, problem.m, D, dtype, summed=True)
@@ -3086,7 +3376,10 @@ def shard_kernel_checks(measure, bks, rng):
     plain version (Measure): K2 and K3 (U is V) on maxcut20000's summed
     D = 4 shards, K3p, K3, K4 (A(.) and C + A^*(w)) and K5 on
     matcomp2000's, K4 on theta800's row slabs (A(.) over the [4, 200 *
-    800] slab, W onto its slots), each at B = 4."""
+    800] slab, W onto its slots), each at B = 4.  Library: the four
+    shards as one block-diagonal CSR matrix, one call (K2, K5:
+    torch.sparse.mm; K3: torch.sparse.sampled_addmm on the off pattern;
+    K4: its entry lists times the flattened x, or addmm with C)."""
     import torch
 
     from lorads_torch.ops import kernels
@@ -3102,10 +3395,14 @@ def shard_kernel_checks(measure, bks, rng):
     bk = bks["maxcut20000"]
     B, n, Ks, Ko = bk.B, bk.n, bk.Ks, bk.Ko
     r = 20
+    diag = torch.arange(n, device=dev).expand(B, n)
     for rr, wd in ((r, True), (1, False)):
         X = rand((B, n, rr))
         cd = bk.c_diag if wd else None
         args = (X, cd, bk.sym_cols_rs, bk.c_sym_rs, bk.bnd_sym_rows)
+        C = _blockdiag_csr(bk.sym_rows_rs, bk.sym_cols_rs, bk.c_sym_rs, n,
+                           (diag, diag, bk.c_diag) if wd else None)
+        Xf = X.reshape(B * n, rr)
         measure("cmul_csr", f"shard sp maxcut20000 B={B} f64 r={rr}"
                 + (" diag" if wd else " no-diag"), sfx,
                 lambda: kernels.cmul_csr(*args),
@@ -3115,11 +3412,17 @@ def shard_kernel_checks(measure, bks, rng):
                                        bk.c_sym_rs.abs(), bk.bnd_sym_rows),
                 nbytes=B * (2 * n * rr * s + Ks * (4 + s) + (n + 1) * 4
                             + (n * s if wd else 0)),
-                flops=B * (2 * Ks * rr + (2 * n * rr if wd else 0)))
+                flops=B * (2 * Ks * rr + (2 * n * rr if wd else 0)),
+                library=lambda: torch.sparse.mm(C, Xf))
+
+    def poff(bk):
+        return _blockdiag_csr(bk.off_rows, bk.off_cols, torch.ones(
+            bk.off_rows.shape, dtype=torch.float64, device=dev), bk.n)
     U = rand((B, n, r))
     uvt_cases(measure, kernels, f"shard sp maxcut20000 B={B} ", sfx, U,
               None, bk.off_rows, bk.off_cols,
-              _tiles_kw(pat, bk, "off", kernels.uvt_split), n, Ko, B=B)
+              _tiles_kw(pat, bk, "off", kernels.uvt_split), n, Ko,
+              poff(bk), B=B)
 
     bk = bks["matcomp2000"]
     B, n, Ks, Ko, m = bk.B, bk.n, bk.Ks, bk.Ko, bk.m_loc
@@ -3136,7 +3439,8 @@ def shard_kernel_checks(measure, bks, rng):
     V = rand((B, n, r))
     uvt_cases(measure, kernels, f"shard sp matcomp2000 B={B} ", sfx,
               rand((B, n, r)), V, *a,
-              _tiles_kw(pat, bk, "off", kernels.uvt_split), n, Ko, B=B)
+              _tiles_kw(pat, bk, "off", kernels.uvt_split), n, Ko,
+              poff(bk), B=B)
     o = rand((B, Ko))
     a4 = (o, bk.a_pos_o_cs, bk.a_val_o_cs, bk.bnd_a_con_o_cs)
     N = bk.a_pos_o_cs.shape[1]
@@ -3147,7 +3451,8 @@ def shard_kernel_checks(measure, bks, rng):
             kernels.gather_segsum_plain(o.abs(), a4[1], a4[2].abs(), a4[3],
                                         None, 2.0),
             nbytes=B * (N * (2 * s + 4) + (m + 1) * 4 + m * s),
-            flops=B * 3 * N, exact=True)
+            flops=B * 3 * N, exact=True,
+            library=_seg_library(_seg_csr(*a4[1:], Ko, alpha=2.0), o))
     w = rand((B, m))
     a4w = (w, bk.a_con_o_s, bk.a_val_o_s, bk.bnd_a_pos_o_s)
     measure("gather_segsum", f"shard sp matcomp2000 B={B} f64 A^*(w)+C "
@@ -3157,11 +3462,20 @@ def shard_kernel_checks(measure, bks, rng):
             kernels.gather_segsum_plain(w.abs(), a4w[1], a4w[2].abs(),
                                         a4w[3], bk.c_off.abs()),
             nbytes=B * (m * s + N * (4 + s) + (Ko + 1) * 4 + 2 * Ko * s),
-            flops=B * (2 * N + Ko))
+            flops=B * (2 * N + Ko),
+            library=_seg_library(_seg_csr(*a4w[1:], m), w, bk.c_off))
     W_d, W_o = rand((B, n)), rand((B, Ko))
     a5 = (bk.sym_slot_rs, bk.sym_cols_rs, bk.bnd_sym_rows)
+    slot = bk.sym_slot_rs.long()
+    diag = torch.arange(n, device=dev).expand(B, n)
+    Wc = _blockdiag_csr(
+        bk.sym_rows_rs, bk.sym_cols_rs,
+        torch.where(slot >= 0, torch.gather(W_o, 1, slot.clamp(min=0)),
+                    torch.zeros((), dtype=W_o.dtype, device=dev)), n,
+        (diag, diag, W_d))
     for rr in (r, 1):
         X = rand((B, n, rr))
+        Xf = X.reshape(B * n, rr)
         measure("wmul_csr", f"shard sp matcomp2000 B={B} f64 r={rr}", sfx,
                 lambda: kernels.wmul_csr(X, W_d, W_o, *a5,
                                          **_tiles_kw(pat, bk, "sym")),
@@ -3169,7 +3483,8 @@ def shard_kernel_checks(measure, bks, rng):
                 kernels.wmul_csr_plain(X.abs(), W_d.abs(), W_o.abs(), *a5),
                 nbytes=B * (2 * n * rr * s + (n + Ko) * s + Ks * 8
                             + (n + 1) * 4),
-                flops=B * 2 * (Ks + n) * rr)
+                flops=B * 2 * (Ks + n) * rr,
+                library=lambda: torch.sparse.mm(Wc, Xf))
 
     bk = bks["theta800"]
     B, n, nl, m = bk.B, bk.n, bk.n_loc, bk.m_loc
@@ -3183,7 +3498,8 @@ def shard_kernel_checks(measure, bks, rng):
             lambda: kernels.gather_segsum_plain(*a4),
             kernels.gather_segsum_plain(x.abs(), a4[1], a4[2].abs(), a4[3]),
             nbytes=B * (N * (2 * s + 4) + (m + 1) * 4 + m * s),
-            flops=B * 2 * N)
+            flops=B * 2 * N,
+            library=_seg_library(_seg_csr(*a4[1:], S), x))
     w = rand((B, m))
     base = bk.c_full.reshape(B, S)
     a4w = (w, bk.a_con2_s, bk.a_val2_s, bk.bnd_a_lin2)
@@ -3195,7 +3511,8 @@ def shard_kernel_checks(measure, bks, rng):
             kernels.gather_segsum_plain(w.abs(), a4w[1], a4w[2].abs(),
                                         a4w[3], base.abs()),
             nbytes=B * (m * s + N * (4 + s) + (S + 1) * 4 + 2 * S * s),
-            flops=B * (2 * N + S))
+            flops=B * (2 * N + S),
+            library=_seg_library(_seg_csr(*a4w[1:], m), w, base))
 
 
 _CAPTURE_PROBE = r"""
@@ -3337,7 +3654,7 @@ def shard_path(card, measure):
                                   device="cuda")
             torch.cuda.synchronize()
             t1 = time.time()
-            bk = _shard_bucket(problem, layout, D)
+            bk = _shard_bucket(problem, solver.ps.plans[0], layout, D)
             bks[name] = bk
             solver.pd = dataclasses.replace(solver.pd, buckets=(bk,))
             torch.cuda.synchronize()
@@ -3505,15 +3822,21 @@ def _phase_launches(attr):
 def _trace_holds(logdir, launches, what):
     """{group: (kernel events in the trace in ``logdir``, the group's
     ``launches``)} for each group a phase launched; raises unless some
-    group was launched and every such group's events reach its
-    launches."""
+    group was launched, every such group's events reach its launches and
+    every kernel launch in the trace has its kernel event."""
     import glob
     import re
 
+    from lorads_torch.utils.profiling import lost_kernels
+
     (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
     with open(path) as f:
-        names = [e.get("name", "") for e in json.load(f).get(
-            "traceEvents", []) if e.get("cat") == "kernel"]
+        events = json.load(f).get("traceEvents", [])
+    lost = lost_kernels(events)
+    if lost:
+        raise AssertionError(f"{what}: {len(lost)} kernel launches in the "
+                             f"trace have no kernel event: {lost[:3]}")
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     out = {}
     for group, (wrappers, rx) in TRACE_GROUPS.items():
         n = sum(launches.get(w, 0) for w in wrappers)
@@ -3700,7 +4023,8 @@ def extras_path(card):
               f"{alm_l['uvt_split']} launches, the certificates' K2 "
               f"{cert_l['cmul_csr']} and K9 {cert_l['sym_eig_small']} "
               f"(their Lanczos loops eager under the trace), kernel "
-              f"events against the launches by group {held}  [{card}]")
+              f"events against the launches by group {held}, every "
+              f"launch in the trace with its kernel event  [{card}]")
         if not (alm_l["cmul_csr"] > 0 and alm_l["uvt_split"] > 0):
             raise AssertionError(f"the traced ALM launched {alm_l}")
         if not (cert_l["cmul_csr"] > 0 and cert_l["sym_eig_small"] > 0):
@@ -3720,7 +4044,8 @@ def extras_path(card):
               f"ADMM {r6.admm_stats.iter} iterations, trace {size} B: "
               f"{n_kern} kernel events, {n_mine} of them the port's; the "
               f"ADMM phase's kernel events against its launches by group "
-              f"{held}  [{card}]")
+              f"{held}, every launch in the trace with its kernel event  "
+              f"[{card}]")
         if r6.admm_stats.iter <= 0:
             raise AssertionError("the traced hand_multiblock solve ran no "
                                  "ADMM iteration")
@@ -3888,6 +4213,8 @@ def main(argv=None) -> int:
     for k, n in f32_path(card).items():
         counts[k] += n
     for k, n in shard_path(card, measure).items():
+        counts[k] += n
+    for k, n in memo_path(card).items():
         counts[k] += n
 
     src = {"segment_sum": ("lorads_torch/csrc/segment_sum.cu",

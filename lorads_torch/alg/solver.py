@@ -30,6 +30,10 @@ tests do) escalates to f64 at lorads_tpu's hooks
 places buckets on the mesh of the ranks of the default process group
 (lorads_tpu's GSPMD placement as explicit collectives, parallel/comm.py;
 ``_maybe_shard``); with fewer than 2 ranks the solve runs unsharded.
+As in lorads_tpu, the presolve is memoized on the problem object and
+the device data on the presolve (``_presolved``, ``_problem_data``), so
+a repeat solve of one problem object skips both, and
+``group_buckets=False`` gives each block a bucket of its own.
 Initial factors and certificate start vectors come from the same
 ``np.random.default_rng`` stream, in the same order, as in lorads_tpu,
 so both packages start from the same point.
@@ -116,7 +120,7 @@ class LoradsSolver:
 
     def __init__(self, problem: SDPProblem,
                  params: Optional[LoradsParams] = None,
-                 device="cuda"):
+                 group_buckets: bool = True, device="cuda"):
         self.params = params or LoradsParams()
         _check_params(self.params)
         # the FIX_INI_POINT step trace (alm.TRACE_FIX_INI; solver.py:70);
@@ -131,7 +135,7 @@ class LoradsSolver:
         # (reason, seconds) of each escalation taken (maybe_escalate_f64)
         self.escalations = []
         dev.assert_full_precision()
-        self.ps: Presolved = presolve(problem, self.params)
+        self.ps: Presolved = self._presolved(problem, group_buckets)
         self.m = problem.m
         # the shard layouts, chosen from the presolve's plans before any
         # data reaches the device (_shard_layout, _maybe_shard)
@@ -205,14 +209,47 @@ class LoradsSolver:
                 [p.loc2glob for p in bp.plans])).size
             for bp in self.ps.buckets)
 
+    def _presolved(self, problem, group_buckets: bool) -> Presolved:
+        """The presolve of ``problem``, memoized on the problem object
+        (``problem._lorads_ps_cache``, lorads_tpu's attribute and key
+        fields, solver.py:71-92): repeat solves of one problem object skip the
+        presolve and, through the presolve's ``_pd_cache``, the device
+        data.  Keyed on every params field presolve reads; the key's
+        first part keeps this package's entries apart from lorads_tpu's
+        in the same dict.  ``delattr(problem, "_lorads_ps_cache")``
+        drops both memos; a problem that refuses the attribute solves
+        without them.  A problem object keeps its device data alive as
+        long as it lives, and longer: the problem and its presolve refer
+        to each other, so Python's cycle collector frees them."""
+        p = self.params
+        key = ("lorads_torch", p.times_log_rank, p.init_rho,
+               p.per_matrix_dense_threshold, p.dense_dim_threshold,
+               p.dense_threshold, group_buckets)
+        cache = getattr(problem, "_lorads_ps_cache", None)
+        if cache is None:
+            cache = {}
+            try:
+                problem._lorads_ps_cache = cache
+            except Exception:
+                pass
+        if key not in cache:
+            cache[key] = presolve(problem, p, group=group_buckets)
+        return cache[key]
+
     def _problem_data(self, dtype):
         """The ProblemData at ``dtype``, memoized per (presolve, dtype)
         (solver.py:174-186) and, in a sharded solve, per layout: a
-        sharded solve keeps only its placed data (_placed).  A solver's
-        presolve is its own, so the memo serves checkpoint loads
+        sharded solve adds only its placed data (_placed), and an
+        unsharded entry an earlier solve of the problem left stays
+        beside it.  The presolve is shared by every solver of one
+        problem object and presolve key (_presolved), so its entries
+        are too: nothing writes into them (scale_objective returns new
+        tensors).  The memo serves checkpoint loads
         (utils/checkpoint.py); an escalation finds no f64 entry and
         builds it from the presolve, never by widening the f32 cast (the
-        shard layouts too), and evicts the f32 entry."""
+        shard layouts too), and evicts the f32 entries: a solver that
+        still holds them goes on with its own reference, and a later f32
+        construction builds them again."""
         cache = self.ps.__dict__.setdefault("_pd_cache", {})
         key = (dtype, self.device)
         if self._layout is not None:

@@ -11,13 +11,26 @@ and the probe driver.
   (``graph_time_ms``), or, for a call a graph cannot hold because it
   reads the device from the host (``torch.segment_reduce``), its kernels'
   own time from ``torch.profiler`` (``profiler_time_ms``).
+* ``profiled``: ``torch.profiler.profile`` over a block whose every
+  kernel its trace must hold: with the CUDA activity, a warm-up step of
+  ``CUPTI_WARM_LAUNCHES`` launches, which the trace leaves out, comes
+  first.
 """
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 
 import torch
+
+# Of the first kernels launched after torch.profiler turns CUPTI on, a
+# trace may hold the launches but not the kernels: a few to some tens of
+# them, however long the profiler ran before they were launched
+# (python -m lorads_torch.probes.trace_start counts them).  The
+# profiler's warm-up step launches this many, so that the loss falls on
+# them.
+CUPTI_WARM_LAUNCHES = 1024
 
 
 def card_line() -> str:
@@ -71,13 +84,39 @@ def graph_time_ms(fn, reps=20):
     return t0.elapsed_time(t1) / reps
 
 
+@contextlib.contextmanager
+def profiled(activities, **kw):
+    """``torch.profiler.profile(activities=activities, **kw)`` over the
+    block; with the CUDA activity the profiler first runs a warm-up step
+    of ``CUPTI_WARM_LAUNCHES`` launches and host reads on the current
+    device, which its trace and its events leave out, so that they hold
+    every kernel the block launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    if ProfilerActivity.CUDA not in activities:
+        with profile(activities=activities, **kw) as prof:
+            yield prof
+        return
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 **kw) as prof:
+        x = torch.zeros(256, device="cuda")
+        for i in range(CUPTI_WARM_LAUNCHES // 2):
+            x.fill_(0.0)
+            x.add_(1.0)
+            if i % 32 == 0:
+                float(x.sum())
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
+
+
 def profiler_time_ms(fn, reps=20):
     """Device ms per call for a call a graph cannot hold: the kernels' and
     copies' own device time over ``reps`` calls, from ``torch.profiler``
     (no gaps between them); None if the profiler saw no device event."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled([ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()

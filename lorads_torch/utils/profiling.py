@@ -4,7 +4,8 @@ lorads_tpu/utils/profiling.py).
 ``PhaseTimers``, ``Stopwatch`` and ``CGStats`` are lorads_tpu's.
 ``device_trace`` runs ``torch.profiler`` (CPU and CUDA activities on the
 card, the CPU alone on the CPU) and writes a Chrome / TensorBoard trace
-(``*.pt.trace.json``) into its directory.  ``roofline`` and
+(``*.pt.trace.json``) into its directory; ``lost_kernels`` lists the
+launches such a trace holds no kernel event of.  ``roofline`` and
 ``format_roofline`` keep lorads_tpu's fields; ``chip_peaks`` gives the
 datasheet peaks of the NVIDIA H100 SXM 80GB beside the card's power
 limit, and raises for a device it has no datasheet for.  lorads_tpu's
@@ -60,23 +61,36 @@ def device_trace(logdir: Optional[str], device=None):
     """Trace what runs inside with ``torch.profiler`` and write the trace
     into ``logdir`` (viewable in TensorBoard's profiler plugin or
     chrome://tracing).  ``device``: "cuda" adds the CUDA activity (the
-    default when a GPU is present), "cpu" traces the CPU alone.  No-op
-    when logdir is None, so runs without a trace pay nothing."""
+    default when a GPU is present), "cpu" traces the CPU alone; with the
+    CUDA activity a warm-up step comes first (``timing.profiled``), so
+    that the trace holds the block's first kernels too.  No-op when
+    logdir is None, so runs without a trace pay nothing."""
     if logdir is None:
         yield
         return
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
+    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
+
+    from lorads_torch.timing import profiled
 
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(
-                     logdir, worker_name="lorads_torch")):
+    with profiled(activities, on_trace_ready=tensorboard_trace_handler(
+            logdir, worker_name="lorads_torch")):
         yield
+
+
+def lost_kernels(events) -> list:
+    """The kernel launches (``cudaLaunchKernel*`` runtime events) of a
+    trace's ``traceEvents`` that no kernel event shares a correlation id
+    with: kernels the trace did not record."""
+    ran = {e.get("args", {}).get("correlation") for e in events
+           if e.get("cat") == "kernel"}
+    return [e for e in events if e.get("cat") == "cuda_runtime"
+            and e.get("name", "").startswith("cudaLaunchKernel")
+            and e.get("args", {}).get("correlation") not in ran]
 
 
 @dataclasses.dataclass

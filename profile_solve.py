@@ -6,9 +6,14 @@
 For each named instance, in one warm process (one untimed solve first,
 so the kernels are built and loaded):
 
-* ``walls``: the wall seconds of that many solves, ``LoradsSolver(...)``
-  construction included, each ending in a device synchronise; with the
-  host syncs (``device.HOST_SYNCS``) of each, the last one's by label
+* ``walls``: the wall seconds of that many solves of one problem
+  object, ``LoradsSolver(...)`` construction included, each ending in a
+  device synchronise; ``init_s`` the construction's seconds of each and
+  ``from_memo`` whether its presolve and device data came from the
+  problem's memo (``problem._lorads_ps_cache``): the first is cold, the
+  others, like the ``phases`` and ``device`` solves after them, take
+  the memo; with the host syncs (``device.HOST_SYNCS``) of each, the
+  last one's by label
   (``device.HOST_SYNCS_BY``), its loop graphs captured and replayed
   (``kernels.GRAPHS``) and its captures with their seconds (warm-ups
   and captures, ``devloop.captures``, each between device
@@ -28,8 +33,9 @@ checkpoints at its phase boundaries (``checkpoint_path``), a solve
 resumed from that checkpoint (``LoradsSolver.load``) and one
 warm-started from the checkpointed solve's solution file
 (``save_solution``, ``set_initial_factors``): walls (construction, load
-or warm start included), ALM inner steps, ADMM iterations and host
-syncs of each.
+or warm start included), the construction's seconds and whether it came
+from the memo (only the first round's cold solve is built cold), ALM
+inner steps, ADMM iterations and host syncs of each.
 
 The instances are chip_smoke.py's main-path instances, solved with its
 options for each (``PARAMS``).  Run from the root of the repository;
@@ -77,13 +83,36 @@ def _captures():
             else contextlib.nullcontext([]))
 
 
+def _memo_ids(problem):
+    """The ids of the presolves and device data the problem's memo holds
+    (``problem._lorads_ps_cache``; none in a checkout without it)."""
+    ids = set()
+    for ps in getattr(problem, "_lorads_ps_cache", {}).values():
+        ids.add(id(ps))
+        ids.update(id(pd) for pd in getattr(ps, "_pd_cache", {}).values())
+    return ids
+
+
+def _construct(problem, params):
+    """LoradsSolver(problem, params) on the card -> (solver, its
+    construction seconds, whether its presolve and device data both came
+    from the problem's memo)."""
+    known = _memo_ids(problem)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    solver = LoradsSolver(problem, params, device="cuda")
+    torch.cuda.synchronize()
+    return (solver, time.time() - t0,
+            id(solver.ps) in known and id(solver.pd) in known)
+
+
 def _solve(problem, name=None):
     t0 = time.time()
     dev.reset_host_syncs()
     kernels.reset_launches()
     with _captures() as caps:
-        solver = LoradsSolver(problem, LoradsParams(
-            verbose=False, **PARAMS.get(name, {})), device="cuda")
+        solver, solver.init_s, solver.memo = _construct(
+            problem, LoradsParams(verbose=False, **PARAMS.get(name, {})))
         res = solver.solve()
         torch.cuda.synchronize()
     solver.syncs_by = {k: v for k, v in dev.HOST_SYNCS_BY.items() if v}
@@ -175,6 +204,8 @@ def profile_instance(name, walls):
     out.update(
         status=res.status.value, pobj=res.pobj, dinf=res.dinf_l1,
         walls=[w for _, _, w, _ in runs],
+        init_s=[sv.init_s for _, sv, _, _ in runs],
+        from_memo=[sv.memo for _, sv, _, _ in runs],
         host_syncs=[h for _, _, _, h in runs],
         alm_outer=res.alm_stats.outer_iter,
         alm_inner=res.alm_stats.inner_iter, admm=res.admm_stats.iter,
@@ -187,8 +218,8 @@ def profile_instance(name, walls):
                                 None))
     phases = {}
     with _timed(phases):
-        _, _, wall, _ = _solve(problem, name)
-    out["phases"] = dict(phases, wall=wall)
+        _, sv, wall, _ = _solve(problem, name)
+    out["phases"] = dict(phases, wall=wall, from_memo=sv.memo)
     out["device"] = _device_share(problem, name)
     return out
 
@@ -199,7 +230,9 @@ def resume_walls(name, walls):
     last ALM inner steps, ADMM iterations, host syncs and pObj."""
     problem = INSTANCES[name]()
     kinds = ("cold", "checkpointed", "resumed", "warm")
-    out = dict(instance=name, walls={k: [] for k in kinds})
+    out = dict(instance=name, walls={k: [] for k in kinds},
+               init_s={k: [] for k in kinds},
+               from_memo={k: [] for k in kinds})
     with tempfile.TemporaryDirectory() as tmp:
         ck, sol = os.path.join(tmp, "state.ckpt"), os.path.join(tmp,
                                                                  "sol.npz")
@@ -207,12 +240,12 @@ def resume_walls(name, walls):
             for kind in kinds:
                 extra = dict(checkpoint_path=ck) if kind == \
                     "checkpointed" else {}
-                torch.cuda.synchronize()
                 dev.reset_host_syncs()
                 t0 = time.time()
-                solver = LoradsSolver(problem, LoradsParams(
-                    verbose=False, **PARAMS.get(name, {}), **extra),
-                    device="cuda")
+                solver, init_s, memo = _construct(problem, LoradsParams(
+                    verbose=False, **PARAMS.get(name, {}), **extra))
+                out["init_s"][kind].append(init_s)
+                out["from_memo"][kind].append(memo)
                 if kind == "resumed":
                     solver.load(ck)
                 elif kind == "warm":

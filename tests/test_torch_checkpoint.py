@@ -285,6 +285,28 @@ def test_device_trace_on_the_cpu(tmp_path):
     assert len(files) == 1 and "aten::mm" in files[0].read_text()
 
 
+def test_lost_kernels_are_launches_without_a_kernel_event():
+    from lorads_torch.utils.profiling import lost_kernels
+
+    def ev(cat, name, corr):
+        return {"cat": cat, "name": name, "args": {"correlation": corr}}
+    events = [ev("cuda_runtime", "cudaLaunchKernel", 1),
+              ev("kernel", "k1", 1),
+              ev("cuda_runtime", "cudaLaunchKernel", 2),
+              ev("cuda_runtime", "cudaLaunchKernelExC", 3),
+              ev("cuda_runtime", "cudaMemcpyAsync", 4),
+              ev("cuda_runtime", "cudaGraphLaunch", 5),
+              ev("kernel", "k3", 3)]
+    assert lost_kernels(events) == [events[2]]
+    assert lost_kernels(events[:2]) == []
+
+
+def test_trace_start_probe_needs_a_card(monkeypatch):
+    from lorads_torch.probes import trace_start
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert trace_start.main(["--traces", "1"]) == 3
+
+
 def test_roofline_needs_a_card():
     from lorads_torch.utils import profiling
     with pytest.raises(ValueError, match="no datasheet"):

@@ -293,6 +293,9 @@ def test_alm_rho_factor_auto_counts_the_lp_block():
     assert ts.pd.buckets[0].diag_ident
     js = TpuSolver(problem, TpuParams(verbose=False))
     assert ts.params.alm_rho_factor == js.params.alm_rho_factor == 2.0
+    # a problem object of its own: the presolve and the device data of
+    # the first are memoized on that object (with its LP block)
+    problem = _maxcut_with_lp()
     problem.lp = None
     ts = TorchSolver(problem, TorchParams(verbose=False), device="cpu")
     assert ts.params.alm_rho_factor == 3.0

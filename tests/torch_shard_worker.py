@@ -147,7 +147,10 @@ def task_dp_admm(in_dir, mesh):
 
 
 def _solve(in_dir, name, mode):
-    s = _solver(in_dir, name, shard=mode)
+    return _solve_with(_solver(in_dir, name, shard=mode))
+
+
+def _solve_with(s):
     res = s.solve()
     out = dict(status=np.array(res.status.value),
                pobj=np.array(res.pobj), dual=res.dual,
@@ -172,6 +175,33 @@ def task_solve_dp(in_dir, mesh):
 def task_solve_dp2(in_dir, mesh):
     """dp with one block a rank: the block scan across the ranks."""
     return _solve(in_dir, "dp2", "dp")
+
+
+def task_memo_sp(in_dir, mesh):
+    """An unsharded solve of the sp instance, then a sharded one of the
+    same problem object: the sharded solver takes the unsharded one's
+    presolve from the memo and adds its placed data beside the unsharded
+    entry, which stays."""
+    from lorads_torch.alg.solver import LoradsSolver
+    from lorads_torch.config import LoradsParams
+    problem = load_problem(f"{in_dir}/sp.npz")
+
+    def solver(**kw):
+        return LoradsSolver(problem, LoradsParams(verbose=False, **kw),
+                            device="cpu")
+    base = solver()
+    res0 = base.solve()
+    s = solver(shard="sp")
+    out = _solve_with(s)
+    out.update(base_status=np.array(res0.status.value),
+               base_pobj=np.array(res0.pobj),
+               same_ps=np.array(s.ps is base.ps),
+               unsharded_kept=np.array(
+                   s.ps._pd_cache[(torch.float64, torch.device("cpu"))]
+                   is base.pd and s.pd is not base.pd),
+               memo=np.array(sorted(repr(k[0]) + str(len(k))
+                                    for k in s.ps._pd_cache)))
+    return out
 
 
 def task_sp_escalate(in_dir, mesh):
