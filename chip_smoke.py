@@ -48,9 +48,19 @@ Phases, each reported on its own lines:
    runs in a row of the ALM phase's outer loop (maxcut20000,
    matcomp2000, theta300) and of the ADMM chunk (theta800, multiblock22,
    multiblock_lp), launches equal, with the last replay's device ms;
-   loop_cond alone, with its floor (a WHILE node whose body is only the
-   set-condition kernel, and the same count of that kernel in a plain
-   graph, from csrc/floor.cu); the certificate's restarted Lanczos
+   loop_cond (csrc/graph_cond.cu, the head and the tail of each
+   conditional node) alone, a WHILE node of 1000 runs whose body is an
+   add and the tail, µs a run beside the loop decided by host reads; at
+   two real carried states (multiblock22's CG, maxcut20000's ALM inner
+   loop): µs a run, the bytes the tail copies a run, their bound,
+   torch._foreach_copy_ of the same leaves and the bodies' nodes; the
+   kernel's eager launch against its plain version at the microbench's
+   tail; its floor (a WHILE node whose body is the tail alone, and the
+   same launches in a plain graph); every program site
+   (lorads_torch.probes.loop_sites: each loop's exit test and each branch
+   predicate) at f64 and f32 on seeded states with NaN, ±inf, ties and
+   the caps, the kernel's decision, copies and counter against its plain
+   version bit for bit; the certificate's restarted Lanczos
    (alg/lanczos.py)
    as one device loop, three certificates in a row at each instance's
    solved dual on maxcut20000 and gset_torus10000 (K2 at r = 1),
@@ -82,7 +92,8 @@ Phases, each reported on its own lines:
    run asserted to read the host once (a Lanczos certificate of a
    bucket one ``lanczos`` read, an active set one ``repair`` read), the
    loop graphs captured and replayed and the kernel launches the replays
-   counted:
+   counted, and each path's conditional bodies' nodes by loop
+   (devloop.BODY_NODES):
    - Max-Cut (split, diag-identity): maxcut(n=300, deg 4, seed 3) (ALM
      + closed-form ADMM, exact-eigh certificate), maxcut n=20000 (deg 8,
      seed 7) and tests/fixtures/gset_torus10000.rudy (Lanczos
@@ -216,7 +227,8 @@ nonzero without that line.  Needs no network and no JAX.
 
 With --kernels-of DIR only phases 1-3 run, on the lorads_torch of the
 checkout at DIR (built into DIR/build), timed by this checkout's
-lorads_torch/timing.py, and K9 on its two seeded shapes; the last line is
+lorads_torch/timing.py, K9 on its two seeded shapes, and loop_cond's
+microbench and real-state runs (no floor); the last line is
 {"kernels_of": DIR, "cases": {kernel: [case, ...]}}.  Two checkouts
 compare on one card by running both in one call, in turns.
 --eig-inputs FILE: a whole run writes the K9 inputs the main paths gave
@@ -1314,6 +1326,14 @@ def theta_kernel_checks(rng, measure):
                 kernels.adj_a_dense_plain(X.abs(), bk.a2_full.abs(),
                                           W_d.abs()),
                 nbytes=3 * n * n * s + n * s, flops=n * n + n, exact=True)
+        # its case with no diagonal term, the single-entry plane, beside
+        # the one PyTorch call that computes it
+        measure("adj_a_dense", f"{sfx} n={n}, no diagonal", sfx,
+                lambda: kernels.adj_a_dense(X, bk.a2_full),
+                lambda: kernels.adj_a_dense_plain(X, bk.a2_full, None),
+                kernels.adj_a_dense_plain(X.abs(), bk.a2_full.abs(), None),
+                nbytes=3 * n * n * s, flops=n * n, exact=True,
+                library=lambda: torch.mul(bk.a2_full, X))
         # ---- K4: dense A(.) over the flat [1, n^2] view (layout (i)):
         # bit for bit on the single-entry constraints, the trace one
         # segment of n entries walked by a whole warp
@@ -1986,20 +2006,180 @@ def admm_chunk_checks(card):
     (the host reading every exit test): pack and state bit for bit, and
     the replays' launches, counted from their packs, equal to the eager
     runs' but for the nodes' own kernel; with the last replay's device
-    ms and the eager runs' wall ms.  Then loop_cond (csrc/graph_cond.cu)
-    alone: a WHILE node whose body adds one until the device's test
-    fails, against the same loop decided by host reads.  Returns
-    loop_cond's kernel entry."""
+    ms and the eager runs' wall ms."""
+    for name, steps in (("theta800", (10, 20, 40)), ("multiblock22", (1, 1, 2)),
+                        ("multiblock_lp", (1, 2, 2))):
+        admm_chunk_runs(card, name, steps)
+
+
+def _loop_name(loop):
+    k = loop.key
+    if isinstance(k, tuple) and k and isinstance(k[0], str):
+        return k[0]
+    return "repeat" if k is None else loop.label
+
+
+@contextlib.contextmanager
+def body_nodes():
+    """{loop name: [the node count of each conditional body captured]}
+    while the block runs, for the devloop of any checkout: libcuda's
+    count of the body graph's nodes (cuStreamGetCaptureInfo on the body's
+    stream before its closing call, cuGraphGetNodes after it).
+    A WHILE node is named by its loop's key (``repeat``: devloop.repeat),
+    an IF node by the loop whose step it is in, with ``/if``."""
+    import ctypes
+
     import torch
 
     from lorads_torch.alg import devloop
     from lorads_torch.ops import kernels
 
-    for name, steps in (("theta800", (10, 20, 40)), ("multiblock22", (1, 1, 2)),
-                        ("multiblock_lp", (1, 2, 2))):
-        admm_chunk_runs(card, name, steps)
+    cu = ctypes.CDLL("libcuda.so.1")
+    info = cu.cuStreamGetCaptureInfo_v2
+    info.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_ulonglong),
+                     ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    out, names = {}, []
+    saved = (devloop._while_node, devloop.branch, kernels.cond_end)
 
-    # loop_cond alone: a WHILE node of N runs against N host reads
+    def while_node(loop, *a, **k):
+        names.append(_loop_name(loop))
+        try:
+            return saved[0](loop, *a, **k)
+        finally:
+            names.pop()
+
+    def branch(*a, **k):
+        names.append((names[-1] if names else "") + "/if")
+        try:
+            return saved[1](*a, **k)
+        finally:
+            names.pop()
+
+    def cond_end(*a, **k):
+        child = next(x for x in list(a) + list(k.values())
+                     if isinstance(x, torch.cuda.Stream))
+        st, gid = ctypes.c_int(), ctypes.c_ulonglong()
+        graph, deps, nd = ctypes.c_void_p(), ctypes.c_void_p(), \
+            ctypes.c_size_t()
+        rc = info(child.cuda_stream, ctypes.byref(st), ctypes.byref(gid),
+                  ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(nd))
+        r = saved[2](*a, **k)
+        n = ctypes.c_size_t()
+        if rc == 0 and graph.value and cu.cuGraphGetNodes(
+                graph, None, ctypes.byref(n)) == 0:
+            out.setdefault(names[-1] if names else "?", []).append(n.value)
+        return r
+
+    devloop._while_node, devloop.branch, kernels.cond_end = (
+        while_node, branch, cond_end)
+    try:
+        yield out
+    finally:
+        devloop._while_node, devloop.branch, kernels.cond_end = saved
+
+
+def _nodes_line(nodes):
+    return {k: sorted(set(v)) for k, v in sorted(nodes.items())}
+
+
+def _state_bytes(leaves):
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _foreach_copy_ms(leaves):
+    """torch._foreach_copy_ of the leaves into buffers of their shapes: one
+    PyTorch call for the same copies (the port never calls it), device ms
+    a call (20 calls in a CUDA graph)."""
+    import torch
+    dst = [torch.empty_like(t) for t in leaves]
+    return timing().device_time_ms(lambda: torch._foreach_copy_(dst, leaves))
+
+
+def _while_run(card, label, loop, what, label_read, runs_at, parts=None):
+    """A real device loop replayed alone: µs a run of its body (three
+    replays between CUDA events, the median, over the runs the pack
+    reports at ``runs_at``), its state's bytes (the tail copies each leaf
+    the step makes anew: all of them here) and their bound, the library
+    copy of the same leaves and the body's nodes."""
+    import statistics
+
+    import torch
+
+    from lorads_torch.alg import devloop
+
+    leaves = devloop.flatten(loop.state)[0]
+    nbytes = _state_bytes(leaves)
+    with devloop.phase(), body_nodes() as nodes:
+        graph, load, _ = devloop.graph_chunk(loop)
+        ms, runs = [], None
+        for _ in range(3):
+            load()
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            graph.replay()
+            t1.record()
+            torch.cuda.synchronize()
+            runs = int(graph.read(label_read)[runs_at])
+            ms.append(t0.elapsed_time(t1))
+    us = statistics.median(ms) / max(runs, 1) * 1e3
+    bound_ms, _ = bound_of(2 * nbytes, 0, "f64")
+    lib = _foreach_copy_ms(leaves)
+    lib_ms = None if lib[0] is None else lib[0]
+    by = "" if parts is None else f" by part {parts(loop.state)}"
+    print(f"loop_cond {label}: {what}, {runs} runs a replay: "
+          f"{us:.3f} us a run on the device; {nbytes} bytes of state "
+          f"copied a run{by}, bound {bound_ms * 1e3:.4f} us (read and "
+          f"written over 3.35 TB/s); torch._foreach_copy_ of the same "
+          f"leaves {'none' if lib_ms is None else f'{lib_ms * 1e3:.3f} us'}"
+          f" a call; body nodes {_nodes_line(nodes)}  [{card}]")
+    return {"us_a_run": us, "runs": runs, "bytes": nbytes,
+            "bound_us": bound_ms * 1e3,
+            "library_us": None if lib_ms is None else lib_ms * 1e3,
+            "nodes": _nodes_line(nodes)}
+
+
+def _alm_inner_state_parts(st):
+    from lorads_torch.alg import devloop
+    names = ("R", "grad", "hist", "caches", "constr_sum", "cert", "pinf",
+             "it", "tau", "num_err", "tau_small")
+    out = {}
+    for name, part in zip(names, st):
+        if name == "hist":
+            for f in ("s", "y"):
+                out[f"hist.{f}"] = _state_bytes(devloop.flatten(
+                    getattr(part, f))[0])
+            out["hist (beta, head, n_valid)"] = _state_bytes(
+                [part.beta, part.head, part.n_valid])
+        else:
+            out[name] = _state_bytes(devloop.flatten(part)[0])
+    return out
+
+
+def loop_cond_checks(card, floor=True):
+    """loop_cond (csrc/graph_cond.cu) alone and at two real carried
+    states, on the devloop of the checkout imported (--kernels-of times a
+    parent's alike): a WHILE node of N runs whose step adds one (its body
+    the add and the node's closing work) against the same loop decided by
+    host reads, µs a run; multiblock22's CG (the mixed-precision CG's f32
+    inner loop on its bucket, as _devloop_cg builds it) and maxcut20000's
+    ALM inner loop from its first ALM phase's start (200 steps: no
+    tolerance stops it), each µs a run, the bytes of state its tail copies
+    a run and their bound, torch._foreach_copy_ of the same leaves, and
+    each body's nodes.  With ``floor`` (this checkout only): the kernel's
+    eager launch and its plain version at the microbench's tail, and the
+    floor (loop_cond_floor).  Returns loop_cond's kernel entry."""
+    import torch
+
+    from lorads_torch.alg import alm, devloop
+    from lorads_torch.ops import kernels
+
     n = 1000
     dev = torch.device("cuda")
     loop = devloop.Loop(
@@ -2008,7 +2188,7 @@ def admm_chunk_checks(card):
         inputs=(torch.full((), n, dtype=torch.int64, device=dev),),
         state=(torch.zeros((), dtype=torch.int64, device=dev),),
         K=None, label="other", running=lambda inp, st: st[0] < inp[0])
-    with devloop.phase():
+    with devloop.phase(), body_nodes() as nodes:
         graph, load, bufs = devloop.graph_chunk(loop)
         load()
         kernels.reset_launches()
@@ -2029,44 +2209,89 @@ def admm_chunk_checks(card):
         torch.cuda.synchronize()
         t = time.time()
         plain = devloop.eager_chunk(loop)
-        plain_ms = (time.time() - t) * 1e3 / n
+        host_ms = (time.time() - t) * 1e3 / n
     err = abs(float(got[0]) - float(plain[0]))
     if got != [float(n)] or err != 0.0 or launches != n + 1:
         raise AssertionError(f"loop_cond: {got} after {launches} launches "
                              f"(host loop {int(plain[0])})")
-    # a run reads the 1-byte test and reads and writes the 8-byte counter
-    bound_ms, bound_by = bound_of(17, 0, "f64")
-    print(f"loop_cond: a WHILE node of {n} runs (body: one add and the "
-          f"set-condition kernel) == the host-decided loop; "
+    # a run: the tail reads the new 8-byte count and the 8-byte cap, writes
+    # the count, reads and writes the 8-byte run counter
+    bound_ms, bound_by = bound_of(40, 0, "f64")
+    body = _nodes_line(nodes)
+    print(f"loop_cond: a WHILE node of {n} runs (body: the add and the "
+          f"node's closing work, {body} nodes) == the host-decided loop; "
           f"{g_ms * 1e3:.3f} us a run on the device, host-decided "
-          f"{plain_ms * 1e3:.3f} us a run (a read each); bound "
+          f"{host_ms * 1e3:.3f} us a run (a read each); bound "
           f"{bound_ms:.3e} ms ({bound_by})  [{card}]")
-    floor = loop_cond_floor(card, n, g_ms)
-    return {"max_abs_err": err, "ms": g_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            **floor}
+    out = {"max_abs_err": err, "ms": g_ms, "host_decided_ms": host_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "nodes": body}
+    # two real carried states
+    out["multiblock22 CG"] = _while_run(
+        card, "multiblock22 CG", _devloop_cg("multiblock22"),
+        "the f32 CG of its bucket", "cg", 0)
+    s, carry, fixed = _alm_solver("maxcut20000")
+    inner = alm.inner_loop(
+        s.pd, carry.R, carry.grad, carry.hist, carry.dual, carry.constr_sum,
+        carry.cert_val, carry.rho, 0.0, -1e30, 0.0, s.params.phase1_tol,
+        False, 200, check_pinf_conv=False)
+    out["maxcut20000 ALM inner"] = _while_run(
+        card, "maxcut20000 ALM inner", inner,
+        "its first phase's inner L-BFGS loop", "alm_inner", 3,
+        _alm_inner_state_parts)
+    del s
+    if not floor:
+        return out
+    # the kernel's eager launch against its plain version and the
+    # library's copy, at the microbench's tail
+    from lorads_torch.alg import looptest
+    cap = torch.full((), n, dtype=torch.int64, device=dev)
+    cnt = torch.zeros((), dtype=torch.int64, device=dev)
+    new, buf = cnt + 1, torch.empty_like(cnt)
+    ctr = torch.zeros(1, dtype=torch.int64, device=dev)
+    prog = looptest.record(loop.running, "loop_cond", ((cap,), (new,)), 1)
+    args = (prog, prog.leaves([new]), [(new, buf)], ctr[0])
+    d_k = kernels.loop_cond(*args)
+    d_p = kernels.loop_cond_plain(*args)
+    if not torch.equal(d_k, d_p) or int(ctr[0]) != 2:
+        raise AssertionError(f"loop_cond: eager {d_k} vs plain {d_p}")
+    cuda_time_ms, device_time_ms = (timing().cuda_time_ms,
+                                    timing().device_time_ms)
+    k_ms = cuda_time_ms(lambda: kernels.loop_cond(*args))
+    k_dev = device_time_ms(lambda: kernels.loop_cond(*args))[0]
+    p_ms = cuda_time_ms(lambda: kernels.loop_cond_plain(*args))
+    p_dev = device_time_ms(lambda: kernels.loop_cond_plain(*args))[0]
+    lib_dev = _foreach_copy_ms([new])[0]
+    print(f"loop_cond [the microbench's tail, eager]: decision, copy and "
+          f"count == plain; kernel {k_ms:.4f} ms dispatched, {k_dev:.4f} ms "
+          f"on the device; plain {p_ms:.4f} ms, {p_dev:.4f} ms; "
+          f"torch._foreach_copy_ of the leaf {lib_dev:.4f} ms on the "
+          f"device  [{card}]")
+    out.update(plain_ms=p_dev, library_ms=lib_dev, kernel_eager_ms=k_dev)
+    out.update(loop_cond_floor(card, n, g_ms))
+    return out
 
 
 def loop_cond_floor(card, n, body_ms):
-    """The floor under loop_cond's row, timed in this process beside
-    today's one-add body (``body_ms``, ms a run): a WHILE node whose body
-    is only the set-condition kernel (graph_cond.cu's, its condition the
-    second byte of the node's own run counter, started at 65536 - n, so
-    that the node runs n times), and the same count of that kernel
-    (csrc/floor.cu's copy) in a plain graph, inside an IF node's body that
-    runs once; each replayed between CUDA events, the median of 5 over
-    n.  The WHILE run is the least a loop_cond run can take; its excess
-    over the plain launch is the conditional relaunch."""
+    """The floor under loop_cond's row, timed in this process beside the
+    microbench's body (``body_ms``, ms a run): a WHILE node whose body is
+    only the node's tail launch (its test the second byte of its own run
+    counter, started at 65537 - n, so that the node runs n times), and
+    the same count of that launch in a plain CUDA graph; each replayed
+    between CUDA events, the median of 5 over n.  The WHILE run is the
+    least a loop_cond run can take; its excess over the plain launch is
+    the conditional relaunch."""
     import torch
 
-    from lorads_torch.ops import build, kernels
+    from lorads_torch.alg import looptest
+    from lorads_torch.ops import kernels
 
-    lib = build.load()
     dev = torch.device("cuda")
     ctr = torch.zeros(1, dtype=torch.int64, device=dev)
-    pred = ctr.view(torch.uint8)[1:2]        # bits 8-15 (little-endian)
-    one = torch.ones(1, dtype=torch.uint8, device=dev)
+    pred = ctr.view(torch.uint8)[1:2].view(torch.bool)   # bits 8-15
     ctr2 = torch.zeros(1, dtype=torch.int64, device=dev)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    prog = looptest.record(lambda p: p, "loop_cond floor", (pred,))
+    prog1 = looptest.record(lambda p: p, "loop_cond floor", (one,))
     child, side = torch.cuda.Stream(), torch.cuda.Stream()
 
     def capture(fill):
@@ -2082,17 +2307,12 @@ def loop_cond_floor(card, n, body_ms):
         return graph
 
     def while_only():
-        handle = kernels.cond_begin(True, pred, child)
-        kernels.cond_end(True, handle, pred, ctr, child)
+        handle = kernels.cond_begin(True, child, prog, [pred], [])
+        kernels.cond_end(handle, child, prog, [pred], [], ctr[0])
 
     def plain():
-        handle = kernels.cond_begin(False, one, child)
         for _ in range(n):
-            rc = lib.lt_cond_set(handle, one.data_ptr(), ctr2.data_ptr(),
-                                 child.cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"lt_cond_set: launch failed ({rc})")
-        kernels.cond_end(False, handle, None, None, child)
+            kernels.loop_cond(prog1, [one], [], ctr2[0])
 
     def timed(graph, reset):
         t0 = torch.cuda.Event(enable_timing=True)
@@ -2107,10 +2327,10 @@ def loop_cond_floor(card, n, body_ms):
             ms.append(t0.elapsed_time(t1) / n)
         return sorted(ms)[2]
 
-    start = 65536 - n
+    start = 65537 - n
     g_while, g_plain = capture(while_only), capture(plain)
     w_ms = timed(g_while, lambda: ctr.fill_(start))
-    if int(ctr) != 65536:
+    if int(ctr) != 65537:
         raise AssertionError(f"loop_cond floor: the WHILE node ran "
                              f"{int(ctr) - start} times, not {n}")
     p_ms = timed(g_plain, lambda: ctr2.zero_())
@@ -2118,14 +2338,38 @@ def loop_cond_floor(card, n, body_ms):
         raise AssertionError(f"loop_cond floor: {int(ctr2)} of {n} plain "
                              f"launches ran")
     print(f"loop_cond floor: a WHILE node of {n} runs, its body only the "
-          f"set-condition kernel: {w_ms * 1e3:.3f} us a run; that kernel "
+          f"node's tail launch: {w_ms * 1e3:.3f} us a run; that launch "
           f"{n} times in a plain graph: {p_ms * 1e3:.3f} us a launch; the "
-          f"conditional relaunch {(w_ms - p_ms) * 1e3:.3f} us a run; "
-          f"today's body (one add and the set-condition kernel) "
+          f"conditional relaunch {(w_ms - p_ms) * 1e3:.3f} us a run; the "
+          f"microbench's body (the add and the tail) "
           f"{body_ms * 1e3:.3f} us a run, {w_ms / body_ms:.2f} of it the "
           f"floor  [{card}]")
     return {"floor_ms": w_ms, "plain_launch_ms": p_ms,
             "relaunch_ms": w_ms - p_ms}
+
+
+def loop_cond_site_checks(card):
+    """Every program site (lorads_torch.probes.loop_sites: each loop's
+    exit test and each branch predicate, built as the solver builds them)
+    at f64 and f32 on seeded states with NaN, ±inf, ties at each
+    tolerance and the caps: the kernel's decision, its copies of the
+    state's leaves and its counter against loop_cond_plain on the same
+    tensors on the card, bit for bit."""
+    import numpy as np
+    import torch
+
+    from lorads_torch.probes import loop_sites
+
+    rng = np.random.default_rng(22)
+    lines = []
+    for dtype in (torch.float64, torch.float32):
+        for site in loop_sites.sites("cuda", dtype):
+            r = loop_sites.check(site, 32, rng)
+            lines.append(f"{site.name} {str(dtype)[6:]} ({r['ops']} ops, "
+                         f"{r['true']}/32 true, launch "
+                         f"{r['launch_ms']:.3f} ms)")
+    print(f"loop_cond sites: kernel == plain, bit for bit (decision, "
+          f"copies, counter): {'; '.join(lines)}  [{card}]")
 
 
 def alm_outer_checks(card, names=("maxcut20000", "matcomp2000", "theta300"),
@@ -2778,10 +3022,13 @@ def solve_path(card, path, instances):
     from lorads_torch.core.problem import split_objectives_factors
     from lorads_torch.ops import kernels
 
+    from lorads_torch.alg import devloop
+
     problems = [(name, make()) for name, make in instances]
     torch.cuda.synchronize()
     kernels.reset_launches()
     tdev.reset_host_syncs()
+    devloop.BODY_NODES.clear()
     for name, problem in problems:
         before = dict(kernels.LAUNCHES)
         syncs0 = tdev.HOST_SYNCS
@@ -2877,7 +3124,9 @@ def solve_path(card, path, instances):
     counts = dict(kernels.LAUNCHES)
     print(f"main path {path}: kernel launches {counts} (uvt_split with U "
           f"is V: {kernels.ONE_DOT_LAUNCHES['uvt_split']}), host syncs "
-          f"{tdev.HOST_SYNCS}")
+          f"{tdev.HOST_SYNCS}; conditional bodies' nodes by loop (each "
+          f"body ends in one loop_cond launch) "
+          f"{_nodes_line(devloop.BODY_NODES)}")
     for k in PATH_KERNELS[path]:
         if counts[k] <= 0:
             raise AssertionError(f"the {path} path never launched {k}")
@@ -3775,7 +4024,7 @@ def shard_path(card, measure):
 
 # the port's kernel functions, as a device trace names them
 PORT_KERNEL_RE = (r"\b(adj_a_dense|cmul_pairs|gather_cols|gather_cols_staged|"
-                  r"gather_flat|gather_rows|lp_gs|onehot_gather|"
+                  r"gather_flat|gather_rows|loop_cond|lp_gs|onehot_gather|"
                   r"onehot_scatter|scatter_add|sddmm_l2|sddmm_off|"
                   r"sddmm_staged|segment_sum|segsum|sym_eig|wmul_combine|"
                   r"wmul_rows|wmul_tiled|zero)_kernel\b")
@@ -3793,6 +4042,7 @@ TRACE_GROUPS = {
     "lp_gs": (("lp_gs_sweep",), r"\blp_gs_kernel\b"),
     "segment_sum": (("segment_sum",), r"\bsegment_sum_kernel\b"),
     "sym_eig": (("sym_eig_small",), r"\bsym_eig_kernel\b"),
+    "loop_cond": (("loop_cond",), r"\bloop_cond_kernel\b"),
 }
 
 
@@ -4193,13 +4443,16 @@ def main(argv=None) -> int:
             record = {k: v.cuda() for k, v in
                       torch.load(args.eig_inputs).items()}
         sym_eig_checks(measure, record)
+        results["loop_cond"] = [loop_cond_checks(card, floor=False)]
         print(f"card: {card}")
         print(json.dumps({"kernels_of": os.path.abspath(args.kernels_of),
                           "cases": results}))
         return 0
     devloop_checks(card)
     alm_outer_checks(card)
-    results["loop_cond"] = [admm_chunk_checks(card)]
+    admm_chunk_checks(card)
+    results["loop_cond"] = [loop_cond_checks(card)]
+    loop_cond_site_checks(card)
     record = {}
     cert_checks(card, record)
     repair_checks(card, record)

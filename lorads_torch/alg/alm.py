@@ -133,6 +133,12 @@ def ema_update(cur, old, n, value):
 # The inner L-BFGS loop.
 # ---------------------------------------------------------------------------
 
+def refresh_due(refresh_every: int):
+    """The cache refresh's predicate on the inner step count it (a branch
+    of the step: an IF node under capture)."""
+    return lambda it: it % refresh_every == refresh_every - 1
+
+
 def _inner_step(pd: ProblemData, check_pinf_conv: bool, refresh_every: int,
                 trace: bool = False):
     """The inner L-BFGS step and the loop's exit test
@@ -182,8 +188,8 @@ def _inner_step(pd: ProblemData, check_pinf_conv: bool, refresh_every: int,
             can = aop.gather_caches(pd, Rn)
             return can, aop.auv_cached(pd, Rn, can)
         if refresh is None:
-            can, total = devloop.branch(
-                it % refresh_every == refresh_every - 1, fresh, keep)
+            can, total = devloop.branch(refresh_due(refresh_every), (it,),
+                                        fresh, keep, "alm_refresh")
         else:
             can, total = fresh() if refresh else keep
         w = rho * (cs_inc - pd.rhs) - dual

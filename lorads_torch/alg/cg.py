@@ -47,6 +47,12 @@ def _bdot(x, y):
     return torch.sum(x * y, dim=(1, 2))
 
 
+def restart_due(k):
+    """The true-residual restart's predicate on the iteration count k (a
+    branch of the step: an IF node under capture)."""
+    return k % RESTART_FREQ == 0
+
+
 def _safe_div(num, den):
     """num / den where den != 0, else 0."""
     return torch.where(den != 0, num / torch.where(den == 0, 1.0, den),
@@ -104,8 +110,9 @@ def cg_loop(op: Callable, x0: torch.Tensor, b: torch.Tensor, tol,
         # true-residual restart (lorads_cgs.c:195-211); restart None: the
         # device decides (an IF node on k)
         if restart is None:
-            r_n = devloop.branch(k % RESTART_FREQ == 0,
-                                 lambda: b - fn(x_n, *operands), r_n)
+            r_n = devloop.branch(restart_due, (k,),
+                                 lambda: b - fn(x_n, *operands), r_n,
+                                 "cg_restart")
         elif restart:
             r_n = b - fn(x_n, *operands)
         qtr_new = _bdot(r_n, r_n)
@@ -155,20 +162,30 @@ def cg_solve_ir(op_hi: Callable[[torch.Tensor], torch.Tensor],
                 op_lo: Callable, x0: torch.Tensor, b: torch.Tensor, tol,
                 max_iter, inner_tol: float = 1e-5,
                 max_passes: int = 6) -> Tuple[torch.Tensor, int]:
-    """Mixed-precision CG by iterative refinement (cg.py:94-159): each
+    """Mixed-precision CG by iterative refinement (cg.py:94-159), run to
+    its exit (``ir_loop``).  Returns (x, total inner iterations); inside a
+    device-decided loop's step the count comes back as a 0-d int64
+    tensor."""
+    return _solve(ir_loop(op_hi, op_lo, x0, b, tol, max_iter, inner_tol,
+                          max_passes), 5)
+
+
+def ir_loop(op_hi: Callable[[torch.Tensor], torch.Tensor], op_lo: Callable,
+            x0: torch.Tensor, b: torch.Tensor, tol, max_iter,
+            inner_tol: float = 1e-5, max_passes: int = 6) -> devloop.Loop:
+    """cg_solve_ir's passes as a device-decided devloop.Loop: each
     pass solves op_lo(d) ~= r at float32 from zero (relative
     reduction ``inner_tol``; cg_solve, nested) sets x += d and
     recomputes r = b - op_hi(x) at the ambient float64.  Stops on the
     reference criterion ||r||_2 / ||b||_1 < tol of the true residual; a
     pass that worsens the residual is reverted, and one that does not
-    halve it marks the block done.  Returns (x, total inner
-    iterations).  The passes are a device-decided loop whose first pass
+    halve it marks the block done.  The state: (x, r, res, done, passes,
+    total inner iterations).  The first pass
     always runs: where every block is done from the start (lorads_tpu
     then runs no pass) it solves for a zero right-hand side (no inner
     iteration; x and the count stay).  ``op_hi`` and ``op_lo`` (and
     ``max_iter``, ``inner_tol``) are frozen into a graph: its key holds
-    them by identity.  Inside a device-decided loop's step the count
-    comes back as a 0-d int64 tensor."""
+    them by identity."""
     b_nrm1 = torch.sum(torch.abs(b), dim=(1, 2))
     safe_b1 = torch.where(b_nrm1 == 0, 1.0, b_nrm1)
     r = b - op_hi(x0)
@@ -192,11 +209,11 @@ def cg_solve_ir(op_hi: Callable[[torch.Tensor], torch.Tensor],
     key = ("cg_ir", devloop.ident(op_hi),
            op_lo.key if isinstance(op_lo, Bound) else devloop.ident(op_lo),
            max_iter, inner_tol, max_passes)
-    return _solve(devloop.Loop(
+    return devloop.Loop(
         key=key, step=step,
         pack=lambda inp, st: st[5].to(torch.float64).reshape(1),
         inputs=(b, safe_b1, tol), state=(x0, r, res, done, zero, zero),
-        K=None, label="cg_ir", running=running), 5)
+        K=None, label="cg_ir", running=running)
 
 
 def _ir_pass(op_hi, op_lo, b, safe_b1, tol, max_iter, inner_tol, x, r, res,

@@ -17,8 +17,10 @@ step: the CG restart, the ALM's cache refresh).  Inside another loop's
 step a loop runs through ``nest``; at the top through ``run``:
 
 * eagerly (CPU tensors, and CUDA tensors while torch.profiler runs; also
-  ``eager_chunk``), the host reads the exit test before every step
-  (label ``loop.label``) and the step is given ``kind(pos)``;
+  ``eager_chunk``), one ``kernels.loop_cond`` launch evaluates the exit
+  test before every step (the plain version on CPU tensors) and the host
+  reads its decision (label ``loop.label``); the step is given
+  ``kind(pos)``;
 * on CUDA tensors every run replays a graph, captured at a key's first
   run after a warm-up (``init`` and one step on a copy of the state,
   each nested loop one step, and the pack, no host read, the results
@@ -26,14 +28,22 @@ step a loop runs through ``nest``; at the top through ``run``:
   kernels are built and their attributes set outside the capture); the
   inputs and the initial state are copied into static buffers, the
   replay runs the loop to its exit, and the host reads the pack once;
-* under capture a loop becomes a WHILE node of the graph
-  (csrc/graph_cond.cu): its body, the step given the kind None (decide
-  on the device; a branch of the step takes ``branch``, an IF node), is
-  captured on a stream of its own nesting depth, its allocations routed
-  to that depth's pool, and the device re-evaluates the test after each
-  run of the body.  A body's launches are counted once per run of the
-  body: each body adds one to a device counter, and the counters ride at
-  the end of the top-level graph's pack.
+* under capture a loop becomes a WHILE node of the graph: its body, the
+  step given the kind None (decide on the device; a branch of the step
+  takes ``branch``, an IF node), is captured on a stream of its own
+  nesting depth, its allocations routed to that depth's pool.  Each node
+  has one loop_cond launch at its head and one at its tail
+  (csrc/graph_cond.cu): the head copies the entry state into the
+  loop-carried buffers and evaluates the exit test; the tail copies the
+  step's new leaves into them, evaluates the test on those leaves and
+  adds one to the body's run counter.  The test is ``running`` recorded
+  once as a program (``alg/looptest.py``); an operation it cannot
+  evaluate raises at capture, and so does a body whose copies exceed a
+  launch's table or a step that returns a leaf of another dtype, shape
+  or layout than its buffer (the copies move bytes; the eager path
+  raises on the same leaves).  A body's launches are counted once per
+  run of the body: the counters ride at the end of the top-level graph's
+  pack.  ``BODY_NODES`` keeps each body's node count by loop name.
 
 A sharded solve's steps issue NCCL collectives (parallel/comm.py); they
 are captured with the rest of a step, WHILE bodies included (an
@@ -72,6 +82,7 @@ from typing import Any, Callable
 import torch
 
 from lorads_torch import device as dev
+from lorads_torch.alg import looptest
 from lorads_torch.ops import kernels
 
 _LOOPS = {}        # full key -> _Buffers
@@ -83,6 +94,7 @@ _COUNTERS = None   # the capture's body counters: [tensor, {key: slot}, []]
 _DEPTH = 0         # conditional bodies being captured, one inside another
 MAX_BODIES = 64    # distinct body launch tallies in one graph
 MAX_DEPTH = 4      # nesting depth of conditional nodes
+BODY_NODES = {}    # loop name -> the node count of each body captured
 _IN_STEP = 0       # >0 while a device-decided loop's step runs
 _WARM = 0          # >0 during a device-decided key's warm-up
 _TIMES = None      # while ``timed`` runs: event pairs of the replays
@@ -207,7 +219,8 @@ class _Buffers:
     def __init__(self, in_layout, st_layout, inputs, state):
         self.in_layout, self.st_layout = in_layout, st_layout
         self.inputs = [t.clone() for t in inputs]
-        self.state = [t.clone() for t in state]
+        self.state = [t.clone(memory_format=torch.contiguous_format)
+                      for t in state]
         self.graph = None
 
     def load(self, inputs, state):
@@ -283,19 +296,31 @@ def tracing() -> bool:
             == torch._C._profiler.ActiveProfilerType.KINETO)
 
 
-class _Body:
-    """A conditional node's body being captured; a WHILE body sets
-    ``pred`` (its loop's exit test on the new state) before it ends."""
+def _name(loop: Loop) -> str:
+    """A loop's name in BODY_NODES and in errors: its key's first part
+    where that is a string, else its label."""
+    k = loop.key
+    return k[0] if isinstance(k, tuple) and k and isinstance(k[0], str) \
+        else loop.label
 
-    pred = None
+
+class _Body:
+    """A conditional node's body being captured; it ends with ``tail``:
+    (the test's slot tensors, the copies [(source, destination)])."""
+
+    tail = None
 
 
 @contextlib.contextmanager
-def _body(is_while: bool, pred: torch.Tensor):
+def _node(is_while: bool, name: str, prog, leaves, copies):
     """Capture a WHILE (IF) node's body: opened after what the current
-    stream has captured, its condition from the 0-d bool ``pred``; the
-    body's work is issued on this depth's stream, allocated from this
-    depth's pool, and its launches tallied under one counter."""
+    stream has captured by its head launch (``kernels.cond_begin``: the
+    ``copies``, then the condition from the test ``prog`` on ``leaves``);
+    the body's work is issued on this depth's stream, allocated from this
+    depth's pool, its launches tallied under one counter, and closed by
+    its tail launch (``kernels.cond_end``: the body's ``tail`` copies,
+    the counter and, for a WHILE node, the test again on the tail's
+    leaves).  The body's node count goes to BODY_NODES[name]."""
     global _DEPTH
     if _COUNTERS is None:
         raise RuntimeError("devloop: a conditional node outside a "
@@ -307,10 +332,8 @@ def _body(is_while: bool, pred: torch.Tensor):
     if slot[1] is None:
         slot[1] = torch.cuda.graph_pool_handle()
     stream, pool = slot
-    if pred.dtype != torch.bool:
-        raise TypeError(f"devloop: a condition of dtype {pred.dtype}")
     body = _Body()
-    handle = kernels.cond_begin(is_while, pred.contiguous(), stream)
+    handle = kernels.cond_begin(is_while, stream, prog, leaves, copies)
     device = torch.cuda.current_device()
     _DEPTH += 1
     try:
@@ -319,18 +342,21 @@ def _body(is_while: bool, pred: torch.Tensor):
             _BODY_USES.append(pool)
             try:
                 yield body
-                if is_while and body.pred is None:
-                    raise RuntimeError("devloop: a WHILE body without "
-                                       "its exit test")
-                pred_end = None if not is_while else body.pred.contiguous()
+                if body.tail is None:
+                    raise RuntimeError(f"devloop: the body of {name!r} "
+                                       "without its tail")
+                t_leaves, t_copies = body.tail
                 ctr = _counter(tally)
-                kernels.cond_end(is_while, handle, pred_end, ctr, stream)
+                nodes = kernels.cond_end(handle if is_while else 0, stream,
+                                         prog if is_while else None,
+                                         t_leaves, t_copies, ctr)
+                BODY_NODES.setdefault(name, []).append(nodes)
             except BaseException:
                 # end the body's capture (the graph is dropped), so that
                 # the capture of the whole graph can end and the thread
                 # leave capture mode
                 with contextlib.suppress(Exception):
-                    kernels.cond_end(is_while, handle, None, None, stream)
+                    kernels.cond_abort(stream)
                 raise
             finally:
                 torch._C._cuda_endAllocateToPool(device, pool)
@@ -340,7 +366,7 @@ def _body(is_while: bool, pred: torch.Tensor):
 
 def _counter(tally: dict) -> torch.Tensor:
     """The counter element of a body whose launches are ``tally`` (the
-    closing kernel included): bodies of equal tallies share one."""
+    closing launch included): bodies of equal tallies share one."""
     ctr, slots, tallies = _COUNTERS
     closed = dict(tally)
     closed[("launches", "loop_cond")] = closed.get(
@@ -356,44 +382,97 @@ def _counter(tally: dict) -> torch.Tensor:
     return ctr[i]
 
 
-def _assign(bufs, new) -> None:
-    """Copy the leaves ``new`` into the buffers ``bufs`` (a result that
-    aliases another buffer is read before any buffer is written)."""
+def _copies(bufs, new):
+    """(the copies [(source, destination)] that put the leaves ``new`` into
+    the buffers ``bufs``, the sources a launch reads: one a leaf): none
+    where a leaf is its buffer; a leaf that aliases another buffer is
+    cloned first, and the launch's test reads the clone too (the copies
+    run beside the test, so neither may read a buffer some copy
+    writes)."""
     ptrs = {b.data_ptr() for b in bufs}
-    new = [t if t is b or t.data_ptr() not in ptrs else t.clone()
-           for t, b in zip(new, bufs)]
+    out, srcs = [], []
     for b, t in zip(bufs, new):
         if t is not b:
-            b.copy_(t)
+            if t.data_ptr() in ptrs:
+                t = t.clone()
+            out.append((t, b))
+        srcs.append(t)
+    return out, srcs
+
+
+def _check_leaves(what: str, bufs, new, layout=None, new_layout=None):
+    """``new`` can replace ``bufs`` (the same layout; each leaf that is not
+    its buffer of its dtype and shape, and contiguous): a launch copies
+    bytes, so a step must return its state's leaves as they were made
+    (the eager path checks the same)."""
+    if new_layout != layout:
+        raise TypeError(f"devloop: {what} changed the state's layout")
+    for i, (b, t) in enumerate(zip(bufs, new)):
+        if t is not b and (t.dtype != b.dtype or t.shape != b.shape
+                           or not t.is_contiguous()):
+            raise TypeError(
+                f"devloop: {what}: leaf {i} is {t.dtype} {tuple(t.shape)}"
+                f"{'' if t.is_contiguous() else ' strided'}, its buffer "
+                f"{b.dtype} {tuple(b.shape)}")
+
+
+def _test(loop: Loop, inputs, state):
+    """The loop's exit test as a program (alg/looptest.py) whose state
+    slots are the leaves of ``state``."""
+    return looptest.record(loop.running, _name(loop), (inputs, state),
+                           state=1)
 
 
 def _eager_loop(loop: Loop, state):
-    """A device-decided loop run eagerly: the host reads the exit test
-    before each step (in a warm-up, one step and no read)."""
+    """A device-decided loop run eagerly: before each step one loop_cond
+    launch evaluates the exit test (the plain version on CPU tensors) and
+    the host reads its decision (in a warm-up, one step and no read)."""
     if _WARM:
         with _stepping():
             return loop.step(loop.inputs, state, loop.kind(0))
+    leaves, layout = flatten(state)
+    name = _name(loop)
+    for i, t in enumerate(leaves):
+        if not t.is_contiguous():
+            raise TypeError(f"devloop: the state of {name!r}: leaf {i} "
+                            f"{tuple(t.shape)} strided")
+    prog = _test(loop, loop.inputs, state)
     pos = 0
-    while dev.host_read(loop.running(loop.inputs, state), loop.label):
+    while dev.host_read(kernels.loop_cond(prog, prog.leaves(leaves)),
+                        loop.label):
         with _stepping():
             state = loop.step(loop.inputs, state, loop.kind(pos))
+        new, new_layout = flatten(state)
+        _check_leaves(f"the step of {name!r}", leaves, new, layout,
+                      new_layout)
+        leaves = new
         pos += 1
     return state
 
 
-def _while_node(loop: Loop, inputs, state):
+def _while_node(loop: Loop, inputs, state, into=None):
     """The loop from ``state`` as a WHILE node of the graph being
     captured, reading ``inputs`` (tensors the graph holds: its input
     buffers, or what the enclosing step computed) -> the loop-carried
-    buffers, which hold its final state after the node."""
+    buffers (``into``, or new ones), which hold its final state after the
+    node.  The head launch copies the state into them and tests it; the
+    tail launch copies the step's new leaves and tests them."""
     leaves, layout = flatten(state)
-    bufs = [t.clone() for t in leaves]
+    name = _name(loop)
+    prog = _test(loop, inputs, state)
+    bufs = into if into is not None else [
+        torch.empty_like(t, memory_format=torch.contiguous_format)
+        for t in leaves]
     st = unflatten(layout, bufs)
-    with _body(True, loop.running(inputs, st)) as body:
+    _check_leaves(f"the entry state of {name!r}", bufs, leaves)
+    head, srcs = _copies(bufs, leaves)
+    with _node(True, name, prog, prog.leaves(srcs), head) as body:
         with _stepping():
             new = loop.step(inputs, st, None)
-        _assign(bufs, flatten(new)[0])
-        body.pred = loop.running(inputs, st)
+        new, new_layout = flatten(new)
+        _check_leaves(f"the step of {name!r}", bufs, new, layout, new_layout)
+        tail, srcs = _copies(bufs, new)
+        body.tail = (prog.leaves(srcs), tail)
     return st
 
 
@@ -407,6 +486,11 @@ def nest(loop: Loop):
     return _eager_loop(loop, loop.state)
 
 
+def count_test(count: int) -> Callable:
+    """``repeat``'s exit test: the counter st[0] below ``count``."""
+    return lambda inp, st: st[0] < count
+
+
 def repeat(step: Callable, inputs, state, count: int):
     """``state = step(inputs, state, j)`` for j = 0 .. count - 1 inside a
     device-decided loop's step -> the final state; ``j`` is a 0-d int64
@@ -417,10 +501,11 @@ def repeat(step: Callable, inputs, state, count: int):
     leaves, _ = flatten(state)
     j = torch.zeros((), dtype=torch.int64, device=leaves[0].device)
     if _capturing(leaves[0]):
-        loop = Loop(key=None, pack=None, inputs=inputs, state=(j, state),
+        loop = Loop(key=("repeat",), pack=None, inputs=inputs,
+                    state=(j, state),
                     step=lambda inp, st, kind: (st[0] + 1,
                                                 step(inp, st[1], st[0])),
-                    running=lambda inp, st: st[0] < count)
+                    running=count_test(count))
         return _while_node(loop, inputs, loop.state)[1]
     for _ in range(min(count, 1) if _WARM else count):
         state = step(inputs, state, j)
@@ -428,15 +513,23 @@ def repeat(step: Callable, inputs, state, count: int):
     return state
 
 
-def branch(pred: torch.Tensor, fn: Callable, other):
-    """fn() where the 0-d bool ``pred`` holds, else ``other`` (a tree of
+def branch(test: Callable, args, fn: Callable, other, name: str = "branch"):
+    """fn() where ``test(*args)`` holds (a 0-d bool over the tensors of
+    ``args``, recorded as a loop_cond program), else ``other`` (a tree of
     tensors, as fn() gives), inside a step captured with the kind None:
-    an IF node whose body computes fn() into a copy of ``other``
-    (lorads_tpu's ``lax.cond``)."""
+    an IF node whose head copies ``other`` into the output buffers and
+    decides, and whose body computes fn() into them (lorads_tpu's
+    ``lax.cond``)."""
     leaves, layout = flatten(other)
-    out = [t.clone() for t in leaves]
-    with _body(False, pred):
-        _assign(out, flatten(fn())[0])
+    prog = looptest.record(test, name, args)
+    out = [torch.empty_like(t, memory_format=torch.contiguous_format)
+           for t in leaves]
+    _check_leaves(f"the other branch of {name!r}", out, leaves)
+    with _node(False, name, prog, prog.leaves(None),
+               _copies(out, leaves)[0]) as body:
+        res, res_layout = flatten(fn())
+        _check_leaves(f"the branch {name!r}", out, res, layout, res_layout)
+        body.tail = ([], _copies(out, res)[0])
     return unflatten(layout, out)
 
 
@@ -498,8 +591,7 @@ def _capture(bufs: _Buffers, loop: Loop) -> _Graph:
                          {}, tallies]
             if loop.init is not None:
                 state = loop.init(inputs, state)
-            state = _while_node(loop, inputs, state)
-            _assign(bufs.state, flatten(state)[0])
+            _while_node(loop, inputs, state, into=bufs.state)
             pack = loop.pack(inputs, bufs.tree("state"))
             n_pack = pack.numel()
             pack = torch.cat([pack, _COUNTERS[0][:len(tallies)]

@@ -92,7 +92,9 @@ def _min_ritz(matvec: Callable, ops, v: torch.Tensor, k: int):
     T = (torch.diag_embed(al) + torch.diag_embed(be, 1)
          + torch.diag_embed(be, -1))
     evals, evecs = kernels.sym_eig_small(T)
-    lam = evals[:, 0]
+    # the loop carries lam: a contiguous [B] (a column of evals is
+    # strided where B > 1)
+    lam = evals[:, 0].contiguous()
     s = evecs[:, :, 0]                              # [B, k]
     resid = betas[k - 1] * torch.abs(s[:, k - 1])   # [B]
     v_next = torch.einsum("kbn,bk->bn", Vs, s)

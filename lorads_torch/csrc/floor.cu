@@ -10,11 +10,10 @@
 //   the nanoseconds (%globaltimer) and cycles (clock64) they took: the
 //   latency of one dependent shared-memory step, from which K8c's
 //   dependent-step bound (n steps) is formed.
-// * lt_cond_set: one launch of the kernel that sets a conditional node's
-//   condition from a device boolean and counts (the same code as
-//   graph_cond.cu's), captured into a graph beside graph_cond.cu's nodes:
-//   a run of it in a plain graph, against a WHILE node whose body is that
-//   kernel alone, gives the floor under loop_cond (the node's relaunch).
+//
+// The floor under loop_cond (a WHILE node whose body is its tail launch
+// alone, against the same launches in a plain graph) is timed with
+// graph_cond.cu's own entry points (chip_smoke.py's `loop_cond floor:`).
 
 #include <cstdint>
 
@@ -25,13 +24,6 @@ namespace {
 constexpr int CHASE = 1024;
 
 __global__ void empty_kernel() {}
-
-__global__ void cond_set_kernel(cudaGraphConditionalHandle handle,
-                                const unsigned char* pred,
-                                unsigned long long* counter) {
-  if (counter != nullptr) *counter += 1;
-  cudaGraphSetConditional(handle, (pred != nullptr && *pred) ? 1u : 0u);
-}
 
 __device__ __forceinline__ uint64_t global_ns() {
   uint64_t t;
@@ -68,15 +60,5 @@ extern "C" int lt_empty(void* stream) {
 extern "C" int lt_smem_chase(int hops, void* out, void* stream) {
   smem_chase_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       hops, static_cast<long long*>(out));
-  return (int)cudaGetLastError();
-}
-
-// a launch of the set-condition kernel for `handle` (a conditional node of
-// the graph being captured on `stream`) from `pred`, counting in `counter`
-extern "C" int lt_cond_set(unsigned long long handle, const void* pred,
-                           void* counter, void* stream) {
-  cond_set_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      handle, static_cast<const unsigned char*>(pred),
-      static_cast<unsigned long long*>(counter));
   return (int)cudaGetLastError();
 }

@@ -57,14 +57,16 @@ _SIGNATURES = {
     # small symmetric eigensolver (csrc/sym_eig.cu), alg/lanczos.py and
     # alg/spectral_repair.py
     "lt_sym_eig": [_I, _VP, _VP, _VP, _VP, _I, _I, _VP],
-    # conditional graph nodes (csrc/graph_cond.cu), alg/devloop.py
+    # loop_cond, the conditional nodes' head and tail (csrc/graph_cond.cu),
+    # alg/devloop.py: (Desc*, ..., stream)
+    "lt_loop_cond": [_VP, _VP],
     "lt_cond_begin": [_I, _VP, _VP, ctypes.POINTER(ctypes.c_ulonglong),
                       _VP],
-    "lt_cond_end": [_I, ctypes.c_ulonglong, _VP, _VP, _VP],
+    "lt_cond_end": [_VP, _VP, ctypes.POINTER(ctypes.c_ulonglong)],
+    "lt_cond_abort": [_VP],
     # measuring instruments (csrc/floor.cu), read by chip_smoke.py
     "lt_empty": [_VP],
     "lt_smem_chase": [_I, _VP, _VP],
-    "lt_cond_set": [ctypes.c_ulonglong, _VP, _VP, _VP],
 }
 
 _LIB = None

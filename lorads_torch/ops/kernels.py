@@ -12,6 +12,7 @@
 | adj_a_dense    | csrc/adj_a_dense.cu    | a_adj_a_dense (K7a)                       |
 | lp_gs_sweep    | csrc/lp_gs.cu          | alg/admm.py: _update_lp_var_gs (K8c)      |
 | sym_eig_small  | csrc/sym_eig.cu        | alg/lanczos.py:117, spectral_repair.py:124: jnp.linalg.eigh (K9) |
+| loop_cond      | csrc/graph_cond.cu     | alg/{cg,alm,admm,lanczos,spectral_repair,dualrefine}.py: lax.while_loop's cond and carry, lax.cond's predicate |
 
 and the probes' kernels, whose wrappers live in ``lorads_torch/probes``
 (no solver module calls them; ``python -m lorads_torch.probes`` does):
@@ -30,14 +31,17 @@ K6 and K5 at r > 1 run over tile schedules of the static pattern
 rows in shared memory a tile at a time (csrc/tiles.cuh); K3, K3p and K6
 share one schedule of the off slots and one set of kernels
 (csrc/sddmm.cuh).
-csrc/graph_cond.cu opens the conditional nodes of devloop's device-decided
-loops (``alg/devloop.py``): its one-thread kernel, counted as
-``loop_cond``, sets a WHILE or IF node's condition from a device boolean
-(lorads_tpu's ``lax.while_loop`` cond and ``lax.cond`` predicate).
-csrc/floor.cu holds three measuring instruments that chip_smoke.py calls
-(an empty kernel, a chain of dependent shared-memory loads, one launch
-of the set-condition kernel); they have no wrapper here and no count in
-``LAUNCHES``.
+loop_cond (csrc/graph_cond.cu) is the head and the tail of each
+conditional node of devloop's device-decided loops (``alg/devloop.py``):
+one launch copies a table of leaves (the entry state into the
+loop-carried buffers, a step's new leaves, a branch's result), evaluates
+the loop's exit test or the branch's predicate, a program recorded from
+the loop's ``running`` (``alg/looptest.py``), adds one to the body's run
+counter and sets the node's condition (``cond_begin``, ``cond_end``);
+outside a capture (``loop_cond``) the host reads its decision byte.
+csrc/floor.cu holds two measuring instruments that chip_smoke.py calls
+(an empty kernel, a chain of dependent shared-memory loads); they have no
+wrapper here and no count in ``LAUNCHES``.
 
 Each wrapper checks its arguments, then takes the plain PyTorch version
 (written with ``index_select`` / ``index_add_``) for CPU tensors, and
@@ -58,7 +62,10 @@ its product and its diagonal sum separately, as its plain version
 does, so the two agree bit for bit.  K9's plain version is
 torch.linalg.eigh (a host-checked LAPACK or cuSOLVER call): the two
 agree to rounding in the eigenvalues and span the same eigenspaces, a
-vector's sign or a cluster's basis aside.  K8c's plain version sums each
+vector's sign or a cluster's basis aside.  loop_cond's plain version runs the
+recorded test op by op with the torch operations it was recorded from
+and copies with ``copy_``: the kernel rounds each operation as torch's
+CUDA kernel does, so the two decide alike bit for bit.  K8c's plain version sums each
 column's terms in the kernel's lane order (32 partial sums, then the
 shuffle tree), so the two agree bit for bit too; where a column's ids
 repeat, the kernel applies their deltas in order of k, as index_add_
@@ -68,9 +75,11 @@ does on CPU tensors.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 KERNEL_NAMES = ("segment_sum", "cmul_csr", "uvt_split", "uvt_pair_split",
@@ -131,17 +140,154 @@ def replayed(tally: dict, times: int = 1, replay: bool = True) -> None:
         GRAPHS["replayed"] += 1
 
 
-def cond_begin(is_while: bool, pred: torch.Tensor, child) -> int:
-    """Open a WHILE (or IF) node on the stream being captured, its
-    condition set from the 0-d bool ``pred``, and start capturing its body
-    on the stream ``child`` (csrc/graph_cond.cu) -> the node's handle."""
-    import ctypes
+# ---------------------------------------------------------------------------
+# loop_cond: the head and the tail of a conditional node (csrc/graph_cond.cu).
+# ---------------------------------------------------------------------------
 
+class _Desc(ctypes.Structure):
+    """graph_cond.cu's Desc: one launch's tables and sizes."""
+    _fields_ = [(f, ctypes.c_ulonglong) for f in (
+        "handle", "decision", "counter", "copies", "ops")] + [
+        (f, ctypes.c_uint) for f in (
+            "n_copies", "units", "n_ops", "result", "grid", "block", "smem",
+            "pad")]
+
+
+# graph_cond.cu's copy entries
+COPY_DTYPE = np.dtype([("src", "<u8"), ("dst", "<u8"), ("bytes", "<u4"),
+                       ("first", "<u4")])
+# the most entries a launch takes (graph_cond.cu's CAP_COPIES; its
+# parameters hold the table)
+LOOP_COND_MAX_COPIES = 1200
+# 16-byte units a copying thread takes before the grid grows, and the
+# most blocks a SM
+LOOP_COND_UNITS_A_THREAD, LOOP_COND_BLOCKS_A_SM = 4, 4
+
+
+def copy_table(copies):
+    """(entries as a COPY_DTYPE array, 16-byte units, bytes) of the copies
+    [(source, destination)]: each pair of one dtype and shape, both
+    contiguous, on one device; a unit is 16 bytes at the destination's
+    alignment where the two share it (a 16-byte copy), else 16 bytes from
+    the entry's start."""
+    table = np.zeros(len(copies), COPY_DTYPE)
+    units = nbytes = 0
+    for j, (src, dst) in enumerate(copies):
+        if (src.dtype != dst.dtype or src.shape != dst.shape
+                or not src.is_contiguous() or not dst.is_contiguous()
+                or src.device != dst.device):
+            raise ValueError(
+                f"loop_cond: a copy of {src.dtype} {tuple(src.shape)} into "
+                f"{dst.dtype} {tuple(dst.shape)} (both contiguous, one "
+                "dtype and shape)")
+        n = src.numel() * src.element_size()
+        s, d = src.data_ptr(), dst.data_ptr()
+        mis = s & 15 if (s ^ d) & 15 == 0 else 0
+        table[j] = (s, d, n, units)
+        units += -(-(mis + n) // 16) if n else 0
+        nbytes += n
+    return table, units, nbytes
+
+
+def _loop_cond_desc(prog, leaves, copies, counter, decision, device):
+    """The Desc of a launch, and the arrays it points to (kept alive by
+    the caller until the launch returns)."""
+    if len(copies) > LOOP_COND_MAX_COPIES:
+        raise ValueError(f"loop_cond: {len(copies)} copies (at most "
+                         f"{LOOP_COND_MAX_COPIES} a launch)")
+    ctab, units, _ = copy_table(copies)
+    d = _Desc(counter=_ptr(counter) or 0, decision=_ptr(decision) or 0,
+              n_copies=len(copies), units=units)
+    ops = None
+    if prog is not None:
+        ops, patch, n_vals, result = prog.table()
+        ops = ops.copy()
+        for i, slot in patch:
+            t = leaves[slot]
+            if t.device != device or not t.is_contiguous():
+                raise ValueError(f"loop_cond: the test of {prog.name!r} "
+                                 f"reads a tensor on {t.device} "
+                                 f"{'' if t.is_contiguous() else 'not '}"
+                                 "contiguous")
+            ops["k"][i] = t.data_ptr()
+        d.ops, d.n_ops, d.result = ops.ctypes.data, len(ops), result
+        d.smem = 8 * n_vals
+    d.copies = ctab.ctypes.data
+    if units:
+        threads = -(-units // LOOP_COND_UNITS_A_THREAD) + 32
+        d.block = 256
+        d.grid = max(1, min(-(-threads // 256),
+                            LOOP_COND_BLOCKS_A_SM * _sm_count(device)))
+    else:
+        d.block, d.grid = 32, 1
+    return d, (ctab, ops)
+
+
+def _loop_cond_args(prog, leaves, copies, counter):
+    """The device of a launch (checked: one device for every tensor)."""
+    ts = list(leaves) + [t for c in copies for t in c] + (
+        [] if counter is None else [counter])
+    if not ts:
+        raise ValueError("loop_cond: nothing to test, copy or count")
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"loop_cond: tensors on {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"loop_cond: device {dev}")
+    return dev
+
+
+def loop_cond_plain(prog, leaves, copies=(), counter=None):
+    """The plain version of loop_cond: the program ``prog`` (or None) on
+    the slot tensors ``leaves``, op by op with the torch operations it
+    was recorded from, then each copy (source, destination) by
+    ``copy_``, then one added to ``counter`` -> the decision (0-d bool),
+    or None without a program."""
+    decision = None if prog is None else prog.plain(leaves)
+    for src, dst in copies:
+        dst.copy_(src)
+    if counter is not None:
+        counter.add_(1)
+    return decision
+
+
+def loop_cond(prog, leaves, copies=(), counter=None):
+    """One launch of loop_cond outside a capture: the test ``prog`` (an
+    alg/looptest.py Program, or None) on the slot tensors ``leaves``, the
+    copies [(source, destination)] (sources never destinations) and one
+    added to ``counter`` (an int64 element, or None) -> the decision, a
+    0-d bool on the device (None without a program).  CPU tensors take
+    loop_cond_plain."""
+    dev = _loop_cond_args(prog, leaves, copies, counter)
+    if dev.type == "cpu":
+        return loop_cond_plain(prog, leaves, copies, counter)
+    decision = (None if prog is None else
+                torch.empty((), dtype=torch.bool, device=dev))
+    d, keep = _loop_cond_desc(prog, leaves, copies, counter, decision, dev)
+    from lorads_torch.ops import build
+    rc = build.load().lt_loop_cond(ctypes.byref(d),
+                                   torch.cuda.current_stream().cuda_stream)
+    del keep
+    if rc != 0:
+        raise RuntimeError(f"loop_cond: launch failed (cudaError {rc})")
+    _bump("launches", "loop_cond")
+    return decision
+
+
+def cond_begin(is_while: bool, child, prog, leaves, copies) -> int:
+    """Open a WHILE (or IF) node on the stream being captured: its head
+    launch (the copies [(source, destination)], then its condition set
+    from the test ``prog`` on ``leaves``) before it, and start capturing
+    its body on the stream ``child`` -> the node's handle."""
+    dev = _loop_cond_args(prog, leaves, copies, None)
+    d, keep = _loop_cond_desc(prog, leaves, copies, None, None, dev)
     from lorads_torch.ops import build
     handle = ctypes.c_ulonglong(0)
     rc = build.load().lt_cond_begin(
-        int(is_while), pred.data_ptr(), child.cuda_stream,
+        int(is_while), ctypes.byref(d), child.cuda_stream,
         ctypes.byref(handle), torch.cuda.current_stream().cuda_stream)
+    del keep
     if rc != 0:
         raise RuntimeError(f"loop_cond: opening a conditional node failed "
                            f"(cudaError {rc})")
@@ -149,19 +295,31 @@ def cond_begin(is_while: bool, pred: torch.Tensor, child) -> int:
     return handle.value
 
 
-def cond_end(is_while: bool, handle: int, pred, counter, child) -> None:
-    """End the body captured on ``child``: a WHILE node's body sets its
-    condition from ``pred`` (runs again while it holds; None: stops);
-    either adds one to ``counter`` (an int64 element, or None) each time
-    the body runs."""
+def cond_end(handle: int, child, prog, leaves, copies, counter) -> int:
+    """End the body captured on ``child`` with its tail launch: the copies,
+    one added to ``counter`` and, for a WHILE node (``handle``; 0 for an
+    IF node), its condition for the next run from ``prog`` on ``leaves``
+    -> the body's node count."""
+    dev = _loop_cond_args(prog, leaves, copies, counter)
+    d, keep = _loop_cond_desc(prog, leaves, copies, counter, None, dev)
+    d.handle = handle
     from lorads_torch.ops import build
-    rc = build.load().lt_cond_end(
-        int(is_while), handle, None if pred is None else pred.data_ptr(),
-        None if counter is None else counter.data_ptr(), child.cuda_stream)
+    nodes = ctypes.c_ulonglong(0)
+    rc = build.load().lt_cond_end(ctypes.byref(d), child.cuda_stream,
+                                  ctypes.byref(nodes))
+    del keep
     if rc != 0:
         raise RuntimeError(f"loop_cond: closing a conditional node failed "
                            f"(cudaError {rc})")
     _bump("launches", "loop_cond")
+    return nodes.value
+
+
+def cond_abort(child) -> None:
+    """End the body's capture on ``child`` with nothing launched (the
+    capture of a body that failed)."""
+    from lorads_torch.ops import build
+    build.load().lt_cond_abort(child.cuda_stream)
 
 
 def _check(name, floats, ints):

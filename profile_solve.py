@@ -24,6 +24,10 @@ so the kernels are built and loaded):
 * ``device``: for the ALM and the ADMM phases of one solve, the device
   time of their device-decided graphs' replays (CUDA events recorded by
   ``devloop.timed``) over the phases' wall, with the replays counted.
+* ``nodes``: the node count of each conditional body captured in the
+  ``phases`` solve, by loop (this checkout's ``chip_smoke.body_nodes``:
+  libcuda's count of each body graph, for either checkout), the
+  distinct counts of each loop.
 
 ``--root DIR`` profiles the lorads_torch of the checkout at DIR (built
 into DIR/build) with this script: two checkouts compare on one card by
@@ -74,6 +78,19 @@ def _import(root=None):
     from lorads_torch.config import LoradsParams
     from lorads_torch.ops import kernels
     from lorads_torch.timing import card_line
+
+
+def _body_nodes():
+    """This checkout's chip_smoke.body_nodes (loaded by its path: with
+    ``--root`` the module ``chip_smoke`` is the other checkout's)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "profile_solve_chip_smoke",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.body_nodes(), mod._nodes_line
 
 
 def _captures():
@@ -217,9 +234,11 @@ def profile_instance(name, walls):
         spectral_repair=getattr(runs[-1][1], "spectral_repair_info",
                                 None))
     phases = {}
-    with _timed(phases):
+    counter, line = _body_nodes()
+    with _timed(phases), counter as nodes:
         _, sv, wall, _ = _solve(problem, name)
     out["phases"] = dict(phases, wall=wall, from_memo=sv.memo)
+    out["nodes"] = line(nodes)
     out["device"] = _device_share(problem, name)
     return out
 

@@ -1182,7 +1182,7 @@ def test_host_read_inside_capture_raises():
                                         device="cuda"),
         inputs=(torch.ones(3, device="cuda"),),
         state=(torch.zeros(3, device="cuda"),), label="other",
-        running=lambda inp, st: st[0].sum() < 30)
+        running=lambda inp, st: torch.all(st[0] < 10.0))
     with devloop.phase():
         with pytest.raises(RuntimeError):
             devloop.run(loop)
@@ -1300,7 +1300,8 @@ def test_device_decided_graph_under_a_trace(acts):
     for g, e in zip(_flat(state), _flat(graph_state)):
         assert torch.equal(g, e)
     assert kernels.GRAPHS["captured"] == 0 and captured > 0
-    assert launches["loop_cond"] == 0
+    # the eager loop's exit tests: one loop_cond launch each
+    assert launches["loop_cond"] > 0
     # K6 (SDDMM kernels) and K5 launched eagerly, each an event
     assert launches["adj_a_offdiag"] > 0 and launches["wmul_csr"] > 0
     events = {e.key: e.count for e in prof.key_averages()
@@ -1352,7 +1353,8 @@ def test_graphed_admm_chunks_equal_eager(name):
     the pack and every state tensor bit for bit (both sides launch the
     same kernels on the same inputs in the same order), and a replay's
     launches, counted from its pack, equal to the eager run's but for
-    the conditional nodes' own kernel."""
+    loop_cond (the eager run's exit tests, the replay's heads and
+    tails)."""
     _need_cuda()
     from lorads_torch.alg import admm, devloop
     s, stats = _admm_solver(name)
@@ -1378,7 +1380,9 @@ def test_graphed_admm_chunks_equal_eager(name):
             for g, e in zip(devloop.flatten(got_state)[0],
                             devloop.flatten(eager)[0]):
                 assert torch.equal(g, e)
-            assert eager_launches.pop("loop_cond") == 0
+            # eagerly one launch an exit test, in a replay a head and a
+            # tail a node
+            assert eager_launches.pop("loop_cond") > 0
             assert replay_launches.pop("loop_cond") > 0
             if j:                    # the first also warms up
                 assert replay_launches == eager_launches
@@ -1814,3 +1818,99 @@ def test_one_rank_nccl_building_blocks():
                 float(aop.cert_value(s.pd, g0)), rel=1e-9)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# loop_cond (csrc/graph_cond.cu) against its plain version.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_loop_cond_sites_kernel_matches_plain(dtype):
+    """Every exit test and branch predicate of the port on seeded states
+    (NaN, ±inf, ties, caps): the kernel's decision, copies and counter
+    equal loop_cond_plain's on the same tensors, bit for bit."""
+    _need_cuda()
+    from lorads_torch.probes import loop_sites
+    rng = np.random.default_rng(7)
+    for site in loop_sites.sites("cuda", dtype):
+        loop_sites.check(site, 16, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 16, 33, 100003])
+def test_loop_cond_copies_any_alignment(n):
+    """Copies of every alignment and length (16-byte units, ragged ends,
+    sources and destinations of different alignments) and a count, as
+    copy_ makes them; nothing past a destination written."""
+    _need_cuda()
+    from lorads_torch.alg import looptest
+    g = torch.Generator(device="cuda").manual_seed(n)
+    srcs, dsts, pads = [], [], []
+    for dt, so, do in ((torch.float64, 0, 0), (torch.float32, 1, 0),
+                       (torch.float32, 1, 3), (torch.int32, 2, 2),
+                       (torch.bool, 3, 8), (torch.int64, 1, 1)):
+        base = torch.randint(0, 2, (n + 8,), device="cuda", generator=g
+                             ).to(dt)
+        srcs.append(base[so:so + n])
+        pad = torch.full((n + 16,), 5, dtype=dt, device="cuda")
+        dsts.append(pad[do:do + n])
+        pads.append((pad, pad.clone(), do))
+    k = torch.tensor(3, dtype=torch.int64, device="cuda")
+    prog = looptest.record(lambda st: st[0] < 4, "copies", ((k,),), 0)
+    ctr = torch.zeros(1, dtype=torch.int64, device="cuda")
+    before = kernels.LAUNCHES["loop_cond"]
+    d = kernels.loop_cond(prog, prog.leaves([k]), list(zip(srcs, dsts)),
+                          ctr[0])
+    assert kernels.LAUNCHES["loop_cond"] == before + 1
+    assert bool(d) and int(ctr[0]) == 1
+    for src, dst, (pad, was, do) in zip(srcs, dsts, pads):
+        assert torch.equal(src, dst)
+        assert torch.equal(pad[:do], was[:do])
+        assert torch.equal(pad[do + n:], was[do + n:])
+
+
+@pytest.mark.cuda
+def test_loop_cond_body_past_capacity_raises_at_capture():
+    """A WHILE body with more leaves than a launch copies raises at its
+    capture (no fallback), and the capture ends cleanly."""
+    _need_cuda()
+    from lorads_torch.alg import devloop
+    n = kernels.LOOP_COND_MAX_COPIES + 1
+    state = tuple(torch.zeros((), device="cuda") for _ in range(n))
+    loop = devloop.Loop(
+        key=("wide",), step=lambda inp, st, kind: tuple(x + 1 for x in st),
+        pack=lambda inp, st: st[0].to(torch.float64).reshape(1),
+        inputs=(), state=state, label="other",
+        running=lambda inp, st: st[0] < 3.0)
+    with devloop.phase():
+        with pytest.raises(ValueError, match="copies"):
+            devloop.run(loop)
+    assert not torch.cuda.is_current_stream_capturing()
+    with devloop.phase():
+        assert devloop.run(_count_loop(4))[1] == [4.0]
+
+
+@pytest.mark.cuda
+def test_while_node_test_reads_an_aliased_leaf():
+    """A step that hands an old leaf on as another (Lanczos' lam_prev =
+    lam): the tail copies it through a clone, and the tail's test reads
+    that clone, not the buffer another copy overwrites; the replay runs
+    as the eager loop does."""
+    _need_cuda()
+    from lorads_torch.alg import devloop
+    dev = torch.device("cuda")
+    loop = devloop.Loop(
+        key=("alias",), step=lambda inp, st, kind: (st[0] + 1.0, st[0]),
+        pack=lambda inp, st: torch.stack([st[0], st[1]]),
+        inputs=(), state=(torch.ones((), dtype=torch.float64, device=dev),
+                          torch.zeros((), dtype=torch.float64, device=dev)),
+        label="other",
+        running=lambda inp, st: (st[0] - st[1] >= 1.0) & (st[0] < 20.0))
+    with devloop.phase():
+        eager = devloop.eager_chunk(loop)
+        for _ in range(3):
+            st, out = devloop.run(loop)
+            assert out == [20.0, 19.0]
+            assert torch.equal(st[0], eager[0]) and torch.equal(st[1],
+                                                                eager[1])
